@@ -1,0 +1,90 @@
+// One PLF node for one alignment site, shared by both kernels.
+//
+// This is the golden model's arithmetic (plf_tpu/reference.py:81-99) in the
+// lane-major row order of the Pallas kernels (plf_tpu/ops/plf_pallas.py:93-119):
+//
+//   stage 1  ump[k*C+c]  = sum_a x[a*C+c] * Lc[k*C+c][a]   (a = 0..S-1 in order)
+//   stage 2  p           = ump_left * ump_right
+//   stage 3  x3[a*C+c]   = sum_k p[k*C+c] * Ec[a*C+c][k]   (k = 0..S-1 in order)
+//   stage 4  if every |x3| < 2^-32 and the site is a real one: x3 *= 2^32, flag 1
+//
+// Every product and every sum is a separately rounded fp32 operation
+// (__fmul_rn / __fadd_rn are never contracted into an FMA), so the result is
+// bit-identical to the golden model.  Subnormals are kept: the library is
+// built without -ftz / fast-math.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace plf {
+
+constexpr int S = 4;                                   // DNA states
+constexpr float MIN_LIKELIHOOD = 2.3283064365386963e-10f;  // 2^-32
+constexpr float TWO_TO_THE_32 = 4294967296.0f;
+
+// Constants hold one float4 per row: row r of an (S*C, S) lane-constant
+// matrix (plf_tpu_torch/ops/layout.py), i.e. its S = 4 columns.
+template <int C>
+__device__ __forceinline__ int plf_site(const float (&x1)[S * C],
+                                        const float (&x2)[S * C],
+                                        const float4* lc, const float4* rc,
+                                        const float4* ec, bool valid,
+                                        float (&x3)[S * C]) {
+  constexpr int R = S * C;
+  float p[R];
+#pragma unroll
+  for (int row = 0; row < R; ++row) {  // row = k*C + c
+    const int c = row % C;
+    const float4 l = lc[row];
+    const float4 r = rc[row];
+    float u1 = __fmul_rn(x1[0 * C + c], l.x);
+    float u2 = __fmul_rn(x2[0 * C + c], r.x);
+    u1 = __fadd_rn(u1, __fmul_rn(x1[1 * C + c], l.y));
+    u2 = __fadd_rn(u2, __fmul_rn(x2[1 * C + c], r.y));
+    u1 = __fadd_rn(u1, __fmul_rn(x1[2 * C + c], l.z));
+    u2 = __fadd_rn(u2, __fmul_rn(x2[2 * C + c], r.z));
+    u1 = __fadd_rn(u1, __fmul_rn(x1[3 * C + c], l.w));
+    u2 = __fadd_rn(u2, __fmul_rn(x2[3 * C + c], r.w));
+    p[row] = __fmul_rn(u1, u2);
+  }
+  bool small = true;
+#pragma unroll
+  for (int row = 0; row < R; ++row) {  // row = a*C + c
+    const int c = row % C;
+    const float4 e = ec[row];
+    float v = __fmul_rn(p[0 * C + c], e.x);
+    v = __fadd_rn(v, __fmul_rn(p[1 * C + c], e.y));
+    v = __fadd_rn(v, __fmul_rn(p[2 * C + c], e.z));
+    v = __fadd_rn(v, __fmul_rn(p[3 * C + c], e.w));
+    x3[row] = v;
+    small = small && (fabsf(v) < MIN_LIKELIHOOD);  // false for NaN, as all() is
+  }
+  const int flag = (small && valid) ? 1 : 0;
+  if (flag) {
+#pragma unroll
+    for (int row = 0; row < R; ++row) x3[row] = __fmul_rn(x3[row], TWO_TO_THE_32);
+  }
+  return flag;
+}
+
+}  // namespace plf
+
+// Name of a CUDA error code returned by a launch entry point.
+extern "C" const char* plf_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Instantiate F<C>(...) for the supported category counts (C = 5 comes from +I).
+#define PLF_DISPATCH_C(categories, ...) \
+  switch (categories) {                  \
+    case 1: { constexpr int C_ = 1; __VA_ARGS__; } break; \
+    case 2: { constexpr int C_ = 2; __VA_ARGS__; } break; \
+    case 3: { constexpr int C_ = 3; __VA_ARGS__; } break; \
+    case 4: { constexpr int C_ = 4; __VA_ARGS__; } break; \
+    case 5: { constexpr int C_ = 5; __VA_ARGS__; } break; \
+    case 6: { constexpr int C_ = 6; __VA_ARGS__; } break; \
+    case 7: { constexpr int C_ = 7; __VA_ARGS__; } break; \
+    case 8: { constexpr int C_ = 8; __VA_ARGS__; } break; \
+    default: return (int)cudaErrorInvalidValue;    \
+  }

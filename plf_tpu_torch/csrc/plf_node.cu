@@ -1,0 +1,66 @@
+// Kernel 1: the single-node PLF on lane-major CLVs.
+//
+// Replaces plf_tpu/ops/plf_pallas.py::_plf_kernel (the "vpu" form).
+//
+// Bound: device memory.  Per site it reads two CLVs of S*C floats, writes one
+// and writes one int32 flag: 3*16*4 + 4 = 196 bytes at S = C = 4, for about
+// 23 fp32 operations per CLV element, far below the card's balance point.
+// Design: one thread per site; a thread reads row r of its site at
+// x[r*n_pad + site], so the 32 threads of a warp read 128 contiguous bytes per
+// row and every load and store coalesces.  The three (S*C, S) constant
+// matrices are staged once per block in shared memory and read as one float4
+// per row.  No intermediate leaves the registers.
+//
+// In-place form: x3 may be the same buffer as x1 or x2 (the parent CLV written
+// over a dead child, plf_tpu/ops/plf_pallas.py:328-330).  That is safe because
+// each thread reads every row of its own site into registers before it writes
+// any row, and no thread touches another thread's site.  For the same reason
+// the pointers are not declared __restrict__.
+#include "plf_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+plf_node_kernel(const float* x1, const float* x2, const float* lc,
+                const float* rc, const float* ec, float* x3, int* sc, int n,
+                int n_pad) {
+  constexpr int R = plf::S * C;
+  __shared__ float4 s_lc[R], s_rc[R], s_ec[R];
+  for (int i = threadIdx.x; i < R; i += blockDim.x) {
+    s_lc[i] = reinterpret_cast<const float4*>(lc)[i];
+    s_rc[i] = reinterpret_cast<const float4*>(rc)[i];
+    s_ec[i] = reinterpret_cast<const float4*>(ec)[i];
+  }
+  __syncthreads();
+  const int site = blockIdx.x * blockDim.x + threadIdx.x;
+  if (site >= n_pad) return;
+  float a[R], b[R], out[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    a[r] = x1[(size_t)r * n_pad + site];
+    b[r] = x2[(size_t)r * n_pad + site];
+  }
+  const int flag = plf::plf_site<C>(a, b, s_lc, s_rc, s_ec, site < n, out);
+#pragma unroll
+  for (int r = 0; r < R; ++r) x3[(size_t)r * n_pad + site] = out[r];
+  sc[site] = flag;
+}
+
+}  // namespace
+
+// x1, x2, x3: (S*C, n_pad) fp32; lc, rc, ec: (S*C, S) fp32, 16-byte aligned;
+// sc: (n_pad,) int32.  Returns cudaGetLastError() after the launch.
+extern "C" int plf_node_launch(const float* x1, const float* x2,
+                               const float* lc, const float* rc,
+                               const float* ec, float* x3, int* sc, int n,
+                               int n_pad, int categories, void* stream) {
+  if (n_pad <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_pad + kThreads - 1) / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PLF_DISPATCH_C(categories, plf_node_kernel<C_><<<grid, kThreads, 0, st>>>(
+                                 x1, x2, lc, rc, ec, x3, sc, n, n_pad));
+  return (int)cudaGetLastError();
+}

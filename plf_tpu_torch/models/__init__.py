@@ -1,0 +1,5 @@
+from .substitution import (SubstitutionModel, jc69, hky85, gtr, random_gtr,
+                           discrete_gamma_rates, gamma_invariant_rates,
+                           branch_matrices)
+from .tree import Tree, TreeNode, parse_newick, random_tree
+from .phylo import PhyloModel, TreeLikelihoodResult

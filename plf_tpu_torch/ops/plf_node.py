@@ -1,0 +1,193 @@
+"""Kernel 1: the single-node PLF on lane-major CLVs.
+
+Replaces ``plf_tpu/ops/plf_pallas.py::_plf_kernel`` (launched by
+``plf_pallas_lane_major``, ``plf_pallas.py:273``), the bit-exact "vpu"
+form.  The kernel is ``csrc/plf_node.cu``: one thread per site, constants
+in shared memory, every intermediate in registers, uncontracted fp32 in
+the golden model's order.  What bounds it on the card is device memory:
+196 bytes per site at S = C = 4 (two child CLVs read, one parent CLV and
+one int32 flag written), against ~23 fp32 operations per CLV element.
+
+:func:`plf_node` dispatches on the device of its tensors: a CPU tensor
+takes the plain version :func:`plf_node_torch`, a CUDA tensor launches
+the kernel or raises.  ``plf_node.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
+from . import layout as L
+
+__all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
+           "node_plain"]
+
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+def _tile_rows(x, a: int, states: int, categories: int):
+    """Rows ``a*C .. a*C+C-1`` repeated ``S`` times -> ``(S*C, n)``."""
+    C = categories
+    return x[a * C:(a + 1) * C].repeat(states, 1)
+
+
+def node_plain(x1, x2, lc, rc, ec, valid, states: int, categories: int):
+    """One PLF node in plain torch, the kernel's op order.
+
+    ``x1``/``x2``: ``(S*C, n_pad)`` fp32; ``lc``/``rc``/``ec``: ``(S*C, S)``;
+    ``valid``: ``(n_pad,)`` bool (padding sites never rescale).  Each
+    product and sum is its own op, so nothing contracts into an FMA.
+    Returns ``(x3, mask)`` with ``mask`` ``(n_pad,)`` bool.
+    """
+    S, C = states, categories
+    ump1 = _tile_rows(x1, 0, S, C) * lc[:, 0:1]
+    ump2 = _tile_rows(x2, 0, S, C) * rc[:, 0:1]
+    for a in range(1, S):
+        ump1 = ump1 + _tile_rows(x1, a, S, C) * lc[:, a:a + 1]
+        ump2 = ump2 + _tile_rows(x2, a, S, C) * rc[:, a:a + 1]
+    p = ump1 * ump2
+    x3 = _tile_rows(p, 0, S, C) * ec[:, 0:1]
+    for k in range(1, S):
+        x3 = x3 + _tile_rows(p, k, S, C) * ec[:, k:k + 1]
+    mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=0) & valid
+    x3 = torch.where(mask, x3 * float(TWO_TO_THE_32), x3)
+    return x3, mask
+
+
+def _valid(n: int, n_pad: int, device):
+    return torch.arange(n_pad, device=device) < n
+
+
+def plf_node_torch(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
+                   categories: int = 4, out: Optional[torch.Tensor] = None):
+    """Plain version of kernel 1 (same arguments and results as
+    :func:`plf_node`), on the device of its inputs."""
+    x3, mask = node_plain(x1, x2, lc, rc, ec, _valid(n, x1.shape[-1],
+                                                      x1.device),
+                          states, categories)
+    if out is not None:
+        out.copy_(x3)
+        x3 = out
+    return x3, mask.to(torch.int32)[None, :]
+
+
+def _check(x1, x2, lc, rc, ec, out, states, categories):
+    rows = states * categories
+    if x1.dim() != 2 or x1.shape[0] != rows or x2.shape != x1.shape:
+        raise ValueError(f"x1/x2 must both be ({rows}, n_pad), got "
+                         f"{tuple(x1.shape)} and {tuple(x2.shape)}")
+    for name, t in (("lc", lc), ("rc", rc), ("ec", ec)):
+        if tuple(t.shape) != (rows, states):
+            raise ValueError(f"{name} must be ({rows}, {states}), got "
+                             f"{tuple(t.shape)}")
+    ts = [x1, x2, lc, rc, ec] + ([] if out is None else [out])
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("plf_node takes float32 tensors only")
+    if any(t.device != x1.device for t in ts):
+        raise ValueError("plf_node: all tensors must be on one device")
+    if out is not None and out.shape != x1.shape:
+        raise ValueError("out must have the shape of x1")
+    # In place is safe only over a whole child: a thread reads its site's
+    # rows of x1 and x2 before it writes the same site's rows of out.
+    for t in ([] if out is None else (x1, x2)):
+        if (out.untyped_storage().data_ptr()
+                == t.untyped_storage().data_ptr()
+                and out.data_ptr() != t.data_ptr()):
+            raise ValueError("out must be x1, x2, or share no memory "
+                             "with them")
+
+
+@functools.cache
+def _lib():
+    """Build (first use) and load csrc/plf_node.cu, with its C prototypes."""
+    from ._build import load_library
+    lib = load_library("plf_node")
+    lib.plf_node_launch.argtypes = [_c_void_p] * 7 + [
+        _c_int, _c_int, _c_int, _c_void_p]
+    lib.plf_node_launch.restype = _c_int
+    lib.plf_error_string.argtypes = [_c_int]
+    lib.plf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
+             categories: int = 4, out: Optional[torch.Tensor] = None):
+    """Fused PLF on lane-major operands.
+
+    Args:
+      x1, x2: ``(S*C, n_pad)`` fp32 lane-major child CLVs.
+      lc, rc: ``(S*C, S)`` branch constants
+        (:func:`layout.branch_to_lane_constants`).
+      ec: ``(S*C, S)`` eigenvector constants
+        (:func:`layout.ev_to_lane_constants`).
+      n: number of valid sites; sites ``>= n`` never set a scaler flag.
+      out: optional output buffer; passing ``x1`` or ``x2`` writes the
+        parent CLV in place over that (dead) child.
+
+    Returns:
+      ``(x3, scaler)``: ``(S*C, n_pad)`` fp32 and ``(1, n_pad)`` int32.
+    """
+    _check(x1, x2, lc, rc, ec, out, states, categories)
+    if x1.device.type == "cpu":
+        return plf_node_torch(x1, x2, lc, rc, ec, n, states=states,
+                              categories=categories, out=out)
+    if x1.device.type != "cuda":
+        raise ValueError(f"plf_node: no kernel for device {x1.device}")
+    if states != 4 or not 1 <= categories <= 8:
+        raise ValueError("the CUDA PLF kernel takes S = 4 and C in 1..8, "
+                         f"got S={states}, C={categories}")
+    ts = [x1, x2, lc, rc, ec] + ([] if out is None else [out])
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("plf_node: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (lc, rc, ec)):
+        raise ValueError("plf_node: lc/rc/ec must be 16-byte aligned")
+    n_pad = x1.shape[-1]
+    if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
+        raise ValueError(f"plf_node: bad n={n} for n_pad={n_pad}")
+    lib = _lib()
+    x3 = torch.empty_like(x1) if out is None else out
+    sc = torch.empty((1, n_pad), dtype=torch.int32, device=x1.device)
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = lib.plf_node_launch(
+            x1.data_ptr(), x2.data_ptr(), lc.data_ptr(), rc.data_ptr(),
+            ec.data_ptr(), x3.data_ptr(), sc.data_ptr(), int(n), n_pad,
+            categories, stream)
+    if err != 0:
+        raise RuntimeError(f"plf_node kernel launch failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    plf_node.launches += 1
+    return x3, sc
+
+
+plf_node.launches = 0
+
+
+def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,
+                        categories: int = 4, block_sites: int = 4096):
+    """Site-major convenience wrapper (counterpart of
+    ``plf_tpu/ops/plf_pallas.py::plf_pallas``): layout in, kernel 1,
+    layout out.  Returns ``(x3 (n, C, S), scaler_vector (n,) int32,
+    scaler_increment int64 scalar)``."""
+    S, C = states, categories
+    n = x1.reshape(-1, C, S).shape[0]
+    n2 = x2.reshape(-1, C, S).shape[0]
+    if n != n2:
+        raise ValueError(f"x1/x2 site count mismatch: {n} vs {n2}")
+    x1l = L.pad_to_multiple(L.to_lane_major(x1, S, C), block_sites)
+    x2l = L.pad_to_multiple(L.to_lane_major(x2, S, C), block_sites)
+    lc = L.branch_to_lane_constants(left, S, C)
+    rc = L.branch_to_lane_constants(right, S, C)
+    ec = L.ev_to_lane_constants(ev, S, C)
+    x3l, sc = plf_node(x1l.contiguous(), x2l.contiguous(), lc, rc, ec, n,
+                       states=S, categories=C)
+    x3 = L.from_lane_major(x3l, S, C, n=n)
+    sv = sc[0, :n]
+    si = (sv.to(torch.int64) * wgt.to(torch.int64)).sum()
+    return x3, sv, si
