@@ -1,24 +1,34 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels of ``plf_tpu_torch`` from ``plf_tpu_torch/csrc``
-(into ``build/plf_tpu_torch/``), holds each against the numpy golden
-model and its plain PyTorch version on the card, then runs the DNA
-whole-tree log-likelihood (``PhyloModel.log_likelihood``) at 160 taxa x
-2^20 site patterns, HKY85 + Gamma4, fp32, and checks it against the
-per-node path and a float64 brute force.  A last phase breaks one
-``log_likelihood()`` into its steps (host timers around synchronised
-steps), traces the fused and the per-node evaluation with
-``torch.profiler`` (device time, idle share, the top kernels) and times
-kernel 2 at the occupancy its arena allows and at lower ones.  Prints one
-line per phase, a JSON line with each kernel's launches, error and times,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+Builds the four CUDA kernels of ``plf_tpu_torch`` from
+``plf_tpu_torch/csrc`` (into ``build/plf_tpu_torch/``, one nvcc per
+source, all started together) and holds each against its plain PyTorch
+version on the card (kernel 1 also against the numpy golden model).  Then
+it drives the two main paths at 160 taxa x 2^20 site patterns, HKY85 +
+Gamma4, fp32:
+
+* serving: ``PhyloModel.log_likelihood`` (kernel 2; the per-node path,
+  kernel 1), checked against each other and a float64 brute force;
+* training: ``tree_loglik_fn`` value and gradient on the "tree" backend
+  (kernels 2 + 4) and the "kernel" backend (kernels 1 + 3, once per
+  node), checked against each other, the forward, and float64 central
+  differences of the brute force; then ``optimize_branch_lengths`` and
+  ``optimize_alpha``.
+
+A last phase breaks one ``log_likelihood()`` into its steps, traces the
+fused and the per-node evaluation with ``torch.profiler`` (device time,
+idle share, the top kernels) and times kernel 2 at the occupancy its
+arena allows and at lower ones.  Prints one line per phase, a JSON line
+with each kernel's launches, error and times, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device it fails at once and prints no result.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import subprocess
@@ -29,14 +39,21 @@ import numpy as np
 import torch
 
 from plf_tpu_torch import PLFConfig, PLFEngine
-from plf_tpu_torch.models import PhyloModel, hky85, random_tree
+from plf_tpu_torch.models import (PhyloModel, hky85, optimize_alpha,
+                                  optimize_branch_lengths, random_tree,
+                                  tree_loglik_fn)
 from plf_tpu_torch.ops import layout as L
-from plf_tpu_torch.ops._build import build_log
-from plf_tpu_torch.ops.plf_node import _lib as plf_node_lib
+from plf_tpu_torch.ops import plf_grad, plf_tree_grad
+from plf_tpu_torch.ops import plf_node as node_mod, plf_tree as tree_mod
+from plf_tpu_torch.ops._build import build_libraries, build_log
+from plf_tpu_torch.ops.plf_grad import (plf_node_bwd, plf_node_bwd_torch,
+                                        transpose_lane_constants)
 from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch
-from plf_tpu_torch.ops.plf_tree import _lib as plf_tree_lib
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_occupancy,
-                                        plf_tree_torch)
+                                        plf_tree_torch, reorder_schedule)
+from plf_tpu_torch.ops.plf_tree_grad import (compile_backward_schedule,
+                                             plf_tree_bwd,
+                                             plf_tree_bwd_torch)
 from plf_tpu_torch.reference import plf_reference
 
 N_TAXA = 160
@@ -44,7 +61,13 @@ TREE_SITES = 1 << 20          # site patterns of the whole-tree workload
 NODE_SITES_GOLDEN = (1 << 20) - 37   # kernel 1 vs the numpy golden model
 NODE_SITES_BIG = (1 << 24) - 123     # kernel 1 vs its plain version
 BRUTE_SITES = 1 << 16         # sub-alignment for the float64 brute force
+FD_SITES = 4096               # sub-alignment for the gradient's differences
 UNIT = 128                    # site padding unit
+#: Op-gradient site sums (kernels 3 and 4) against their plain versions:
+#: within this share of the largest magnitude of each (S*C, S) matrix.
+#: The sums run in another order (fp32, 10^3-10^6 terms), which moves them
+#: by ~1e-6 of that scale; the per-site outputs are held bit for bit.
+SUM_RTOL = 1e-4
 
 
 def check(cond, msg):
@@ -110,15 +133,19 @@ def device_phase():
 
 
 def build_phase():
-    for lib_name, loader in (("plf_node", plf_node_lib),
-                             ("plf_tree", plf_tree_lib)):
-        t0 = time.perf_counter()
-        loader()
-        dt = time.perf_counter() - t0
+    mods = {"plf_node": node_mod, "plf_tree": tree_mod,
+            "plf_node_bwd": plf_grad, "plf_tree_bwd": plf_tree_grad}
+    t0 = time.perf_counter()
+    build_libraries(list(mods))
+    phase("build", f"{len(mods)} libraries, one nvcc each in parallel: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib_name, mod in mods.items():
+        mod._lib()
         log = build_log(lib_name).read_text()
+        secs = re.search(r"^# ([0-9.]+) s", log, re.M).group(1)
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
-        phase("build", f"{lib_name}: {dt:.1f} s; {len(regs)} instances, "
+        phase("build", f"{lib_name}: nvcc {secs} s; {len(regs)} instances, "
               f"at most {max(regs)} registers per thread, {spills} bytes "
               f"of spills")
 
@@ -200,8 +227,71 @@ def kernel1_phase(dev):
           f"plain {ms_pb:.3f} ms")
     del a, b, c
     torch.cuda.empty_cache()
-    res.update(max_abs_err=max_err, ms_2p24=ms_kb, plain_ms_2p24=ms_pb)
+    res.update(max_abs_err=max_err, ms_2p24=ms_kb, plain_ms_2p24=ms_pb,
+               probe_gbs=probe_gbs)
     return res, (x1, x2, left, right, ev)
+
+
+def sums_err(got, want):
+    """Largest error of site sums (..., S*C, S) as a share of the largest
+    magnitude of each (S*C, S) matrix (floored at 1e-6 of the overall
+    largest, for matrices that are all but zero)."""
+    w = want.reshape(-1, *want.shape[-2:])
+    scale = w.abs().amax(dim=(1, 2), keepdim=True)
+    scale = torch.clamp_min(scale, 1e-6 * float(scale.max()))
+    return float(((got.reshape(w.shape) - w).abs() / scale).max())
+
+
+def kernel3_phase(dev, node_case, probe_gbs):
+    """Kernel 3 against its plain version: the forced-underflow node at
+    2^20 sites, random operands at 2^24."""
+    x1, x2, left, right, ev = node_case
+    n = NODE_SITES_GOLDEN
+    lane = lambda x: torch.as_tensor(
+        L.pad_to_multiple(L.to_lane_major(x), UNIT), device=dev).contiguous()
+    lc, rc, ec = lane_constants(left, right, ev, dev)
+    consts = [lc, rc] + [transpose_lane_constants(t) for t in (lc, rc, ec)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    res = {}
+
+    def against_plain(a, b, n, label):
+        _, sc = plf_node(a, b, lc, rc, ec, n)
+        g = torch.randn(a.shape, generator=gen, device=dev)
+        k1 = plf_node_bwd(a, b, g, sc, *consts, n)
+        k2 = plf_node_bwd(a, b, g, sc, *consts, n)
+        p = plf_node_bwd_torch(a, b, g, sc, *consts, n)
+        torch.cuda.synchronize()
+        check(torch.equal(k1[0], p[0]) and torch.equal(k1[1], p[1]),
+              f"kernel 3 gx1/gx2 != plain at {label}")
+        check(all(torch.equal(u, v) for u, v in zip(k1, k2)),
+              f"kernel 3 differs between two runs at {label}")
+        errs = [sums_err(k1[i], p[i]) for i in (2, 3, 4)]
+        check(max(errs) <= SUM_RTOL, f"kernel 3 op grads at {label}: "
+              f"{errs} of scale > {SUM_RTOL}")
+        abs_err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+        ms_k = cuda_ms(lambda: plf_node_bwd(a, b, g, sc, *consts, n), reps=20)
+        ms_p = cuda_ms(lambda: plf_node_bwd_torch(a, b, g, sc, *consts, n),
+                       reps=2, warmup=1)
+        n_pad = a.shape[1]
+        gbs = 324 * n_pad / (ms_k * 1e-3) / 1e9
+        phase("kernel3", f"{n} sites ({int(sc.sum())} rescued): gx1/gx2 == "
+              f"plain; gl/gr/ge within {max(errs):.2e} of scale of plain "
+              f"(max abs {abs_err:.3g}), bit-identical run to run; kernel "
+              f"{ms_k:.4f} ms ({gbs:.0f} GB/s at 324 B/site, "
+              f"{100 * gbs / probe_gbs:.1f}% of kernel 1's same-run probe "
+              f"at {probe_gbs:.0f} GB/s), plain {ms_p:.3f} ms")
+        return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=abs_err)
+
+    res["2p20"] = against_plain(lane(x1), lane(x2), n, "2^20")
+    nb = NODE_SITES_BIG
+    nb_pad = L.sites_padding(nb, UNIT)
+    a = torch.rand((16, nb_pad), generator=gen, device=dev)
+    b = torch.rand((16, nb_pad), generator=gen, device=dev)
+    a[:, 0::4] *= 1e-12
+    res["2p24"] = against_plain(a, b, nb, "2^24")
+    del a, b
+    torch.cuda.empty_cache()
+    return res
 
 
 def tree_workload(dev):
@@ -245,6 +335,169 @@ def kernel2_phase(pm):
           f"kernel {ms_k:.3f} ms ({1e3 / ms_k:.1f} tree evals/s), plain "
           f"{ms_p:.3f} ms")
     return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=max_err)
+
+
+def kernel4_phase(pm):
+    """Kernel 4 against its plain version at the tree workload, with the
+    site-likelihood cotangent of a real gradient step (w / lik)."""
+    cfg = pm.config
+    torch.cuda.reset_peak_memory_stats()
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    bsched = torch.as_tensor(np.stack(
+        compile_backward_schedule(sched, pm.tree.n_leaves)
+        + (np.array([e[5] for e in sched], np.int32),)), device=pm.device)
+    T = transpose_lane_constants
+    args = (pm.codes, bsched, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs), pm.ec,
+            T(pm.ec), pm.tip_table, pm.root_rows[0])
+    lik, _ = plf_tree(pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec,
+                      pm.tip_table, pm.root_rows[0], pm.n_sites,
+                      n_slots=pm.n_slots, root_slot=pm.root_slot)
+    glik = (pm.wgt_pad.to(torch.float32) / lik).contiguous()
+    n = pm.n_sites
+    k1 = plf_tree_bwd(*args, glik, n)
+    chunking = dict(plf_tree_bwd.last_scratch)
+    k2 = plf_tree_bwd(*args, glik, n)
+    budget = chunking["bytes"] // 4
+    k3 = plf_tree_bwd(*args, glik, n, max_scratch_bytes=budget)
+    small = dict(plf_tree_bwd.last_scratch)
+    p = plf_tree_bwd_torch(*args, glik, n)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(k1, k2)),
+          "kernel 4 differs between two runs")
+    errs = [max(sums_err(k[i], p[i]) for i in range(3))
+            for k in (k1, k3)]
+    errs_rr = [sums_err(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1))
+               for k in (k1, k3)]
+    check(max(errs + errs_rr) <= SUM_RTOL,
+          f"kernel 4 gradients vs plain: {errs} {errs_rr} of scale > "
+          f"{SUM_RTOL}")
+    check(small["chunks"] > 1, f"budget {budget} gave one chunk")
+    abs_err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+    ms_k = cuda_ms(lambda: plf_tree_bwd(*args, glik, n), reps=5, warmup=1)
+    ms_p = cuda_ms(lambda: plf_tree_bwd_torch(*args, glik, n), reps=1,
+                   warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase("kernel4", f"{len(sched)} nodes x {n} sites: gl/gr/gec/grr within "
+          f"{max(errs + errs_rr):.2e} of scale of plain (max abs "
+          f"{abs_err:.3g}), bit-identical run to run; {chunking['chunks']} "
+          f"chunk of {chunking['chunk_sites']} sites, "
+          f"{chunking['bytes'] / 1e9:.2f} GB scratch (and {small['chunks']} "
+          f"chunks of {small['chunk_sites']} sites under a "
+          f"{budget / 1e9:.2f} GB budget, within {errs[1]:.2e}); kernel "
+          f"{ms_k:.3f} ms, plain {ms_p:.3f} ms; peak {peak:.2f} GiB")
+    del k1, k2, k3, p
+    torch.cuda.empty_cache()
+    return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=abs_err, **chunking)
+
+
+def _grad_step(fn, t0, dev):
+    t = torch.tensor(t0, device=dev, requires_grad=True)
+    v = fn(t)
+    v.backward()
+    return float(v.detach()), t.grad
+
+
+def _reset_counts():
+    for f in (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd):
+        f.launches = 0
+
+
+def _counts():
+    return {f.__name__: f.launches
+            for f in (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd)}
+
+
+def train_phase(dev, tree, tips, pm):
+    """The training main path: tree_loglik_fn value and gradient on the
+    "tree" and "kernel" backends, checked against each other, the forward
+    and float64 differences of the brute force; then the fitters."""
+    E = len(pm.schedule)
+    ref = pm.log_likelihood().log_likelihood
+    out, launches = {}, {}
+    for backend in ("tree", "kernel"):
+        torch.cuda.reset_peak_memory_stats()
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+        _reset_counts()
+        v, g = _grad_step(fn, t0, dev)
+        counts = _counts()
+        want = ({"plf_tree": 1, "plf_tree_bwd": 1, "plf_node": 0,
+                 "plf_node_bwd": 0} if backend == "tree" else
+                {"plf_tree": 0, "plf_tree_bwd": 0, "plf_node": E,
+                 "plf_node_bwd": E})
+        check(counts == want, f"{backend} step launched {counts}, "
+              f"not {want}")
+        launches.update({k: c for k, c in counts.items() if c})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = _median_ms(lambda: _grad_step(fn, t0, dev), reps=3)
+        rel = abs(v - ref) / abs(ref)
+        check(rel < 1e-5, f"{backend} value {v} vs log_likelihood() {ref}")
+        out[backend] = (v, g.cpu().numpy(), ms)
+        phase("train", f"{backend}: value {v:.3f} (rel {rel:.2e} to "
+              f"log_likelihood()), one value+gradient step {ms:.2f} ms "
+              f"wall (median of 3), launches {counts}, peak {peak:.2f} GiB")
+        del fn, g
+        torch.cuda.empty_cache()
+    g_t, g_k = out["tree"][1], out["kernel"][1]
+    scale = float(np.abs(g_k).max())
+    err = float(np.max(np.abs(g_t - g_k) / (2e-4 * np.abs(g_k)
+                                            + 1e-4 * scale)))
+    check(err <= 1.0, f"tree vs kernel gradient: {err} of the bar")
+    fn_auto, _ = tree_loglik_fn(pm)
+    check(fn_auto.engine == ("tree" if pm.can_fuse() else "kernel"),
+          f"auto took {fn_auto.engine!r} on the card")
+    phase("train", f"tree vs kernel gradient within {err:.3f} of the "
+          f"rtol 2e-4 / atol 1e-4 x max|g| bar (max|g| {scale:.4g}); auto "
+          f"takes {fn_auto.engine!r}")
+
+    sub_tips = tips[:, :FD_SITES]
+    sub = PhyloModel(tree, hky85(2.0), sub_tips, alpha=0.5, device=dev)
+    fn, t0 = tree_loglik_fn(sub, backend="tree")
+    _, g = _grad_step(fn, t0, dev)
+    g = g.cpu().numpy()
+    h = 1e-4
+    fds = []
+    for i in (0, 1, tree.n_leaves):
+        ll = []
+        for d in (h, -h):
+            tr = copy.deepcopy(tree)
+            tr.nodes[i].length += d
+            ll.append(PhyloModel(tr, hky85(2.0), sub_tips, alpha=0.5)
+                      .log_likelihood_bruteforce())
+        fd = (ll[0] - ll[1]) / (2 * h)
+        fds.append(f"branch {i}: {g[i]:.6g} vs {fd:.6g}")
+        check(abs(g[i] - fd) <= 1e-3 * abs(fd),
+              f"tree gradient vs float64 differences, {fds[-1]}")
+    phase("train", f"{FD_SITES}-site sub-alignment, tree gradient vs float64 "
+          f"central differences (h {h}) of the brute force, within rel 1e-3: "
+          + "; ".join(fds))
+
+    for n_taxa, sites in ((160, 1 << 16), (20, 1 << 20)):
+        rng = np.random.default_rng(n_taxa)
+        other = PhyloModel(random_tree(n_taxa, seed=2), hky85(2.0),
+                           rng.integers(0, 4, size=(n_taxa, sites)),
+                           alpha=0.5, device=dev)
+        ms = {}
+        for backend in ("tree", "kernel"):
+            f, t0 = tree_loglik_fn(other, backend=backend)
+            _grad_step(f, t0, dev)
+            ms[backend] = _median_ms(lambda: _grad_step(f, t0, dev), reps=3)
+        phase("train", f"routing at {n_taxa} taxa x {sites} sites: one "
+              f"value+gradient step tree {ms['tree']:.2f} ms, kernel "
+              f"{ms['kernel']:.2f} ms (medians of 3); auto takes "
+              f"{tree_loglik_fn(other)[0].engine!r}")
+        del other, f
+        torch.cuda.empty_cache()
+
+    t_opt, ll0, ll1 = optimize_branch_lengths(pm, steps=5)
+    check(ll1 > ll0 and np.all(t_opt > 0),
+          f"optimize_branch_lengths: {ll0} -> {ll1}")
+    alpha, a0, a1 = optimize_alpha(pm, iters=8)
+    check(np.isfinite(alpha) and 0.02 <= alpha <= 100.0 and a1 >= a0,
+          f"optimize_alpha: {alpha} ({a0} -> {a1})")
+    phase("train", f"optimize_branch_lengths(steps=5): {ll0:.3f} -> "
+          f"{ll1:.3f}; optimize_alpha(iters=8): alpha {alpha:.4f}, "
+          f"{a0:.3f} -> {a1:.3f}")
+    return launches, {b: out[b][2] for b in out}
 
 
 def main_path_phase(dev, tree, tips, pm, node_case):
@@ -411,9 +664,14 @@ def main():
     dev = torch.device("cuda", 0)
     build_phase()
     k1, node_case = kernel1_phase(dev)
+    k3 = kernel3_phase(dev, node_case, k1["probe_gbs"])
     tree, tips, pm = tree_workload(dev)
     k2 = kernel2_phase(pm)
+    k4 = kernel4_phase(pm)
     launches = main_path_phase(dev, tree, tips, pm, node_case)
+    train_launches, _ = train_phase(dev, tree, tips, pm)
+    launches.update({k: train_launches[k]
+                     for k in ("plf_node_bwd", "plf_tree_bwd")})
     profile_phase(pm)
     kernels = [
         dict(name="plf_node", route="cuda",
@@ -426,7 +684,20 @@ def main():
              replaces="plf_tpu/ops/plf_tree_pallas.py:424",
              launches=launches["plf_tree"], max_abs_err=k2["max_abs_err"],
              ms=k2["ms"], plain_ms=k2["plain_ms"]),
+        dict(name="plf_node_bwd", route="cuda",
+             source="plf_tpu_torch/csrc/plf_node_bwd.cu",
+             replaces="plf_tpu/ops/plf_grad.py:120",
+             launches=launches["plf_node_bwd"],
+             max_abs_err=k3["2p20"]["max_abs_err"], ms=k3["2p20"]["ms"],
+             plain_ms=k3["2p20"]["plain_ms"]),
+        dict(name="plf_tree_bwd", route="cuda",
+             source="plf_tpu_torch/csrc/plf_tree_bwd.cu",
+             replaces="plf_tpu/ops/plf_tree_grad.py:110",
+             launches=launches["plf_tree_bwd"], max_abs_err=k4["max_abs_err"],
+             ms=k4["ms"], plain_ms=k4["plain_ms"]),
     ]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was not launched on its main path: {launches}")
     phase("peak", f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"device memory allocated at peak")
     print(json.dumps({"kernels": kernels}), flush=True)

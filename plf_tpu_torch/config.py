@@ -81,7 +81,7 @@ class PLFConfig:
             raise NotImplementedError(
                 f"kernel_variant {self.resolved_kernel_variant!r} needs the "
                 "MXU-form kernels, not ported yet (ROADMAP.md, Queue 2 "
-                "item 3)")
+                "item 1)")
 
     @property
     def elements_per_site(self) -> int:

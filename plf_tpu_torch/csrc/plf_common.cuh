@@ -68,6 +68,26 @@ __device__ __forceinline__ int plf_site(const float (&x1)[S * C],
   return flag;
 }
 
+// One stage alone: out[r] = sum_a x[a*C + r%C] * k[r][a], a = 0..S-1 in order,
+// as stage 1 and stage 3 of plf_site compute it.  With transposed constants
+// (kT[a*C+c][k] = k[k*C+c][a]) it is the adjoint of the same stage, which is
+// how the backward kernels apply S1^T and S3^T.
+template <int C>
+__device__ __forceinline__ void stage(const float (&x)[S * C], const float4* k,
+                                      float (&out)[S * C]) {
+  constexpr int R = S * C;
+#pragma unroll
+  for (int row = 0; row < R; ++row) {
+    const int c = row % C;
+    const float4 q = k[row];
+    float v = __fmul_rn(x[0 * C + c], q.x);
+    v = __fadd_rn(v, __fmul_rn(x[1 * C + c], q.y));
+    v = __fadd_rn(v, __fmul_rn(x[2 * C + c], q.z));
+    v = __fadd_rn(v, __fmul_rn(x[3 * C + c], q.w));
+    out[row] = v;
+  }
+}
+
 }  // namespace plf
 
 // Name of a CUDA error code returned by a launch entry point.

@@ -3,3 +3,5 @@ from .substitution import (SubstitutionModel, jc69, hky85, gtr, random_gtr,
                            branch_matrices)
 from .tree import Tree, TreeNode, parse_newick, random_tree
 from .phylo import PhyloModel, TreeLikelihoodResult
+from .optimize import (tree_loglik_fn, optimize_branch_lengths,
+                       optimize_alpha, optimize_pinv)

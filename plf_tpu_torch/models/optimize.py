@@ -1,0 +1,382 @@
+"""Differentiable tree likelihood and the fitters built on it.
+
+Counterpart of ``plf_tpu/models/optimize.py``: :func:`tree_loglik_fn`,
+:func:`optimize_branch_lengths`, :func:`optimize_alpha` and
+:func:`optimize_pinv`.  ``fit_model`` and ``fit_codon`` are not ported
+yet (ROADMAP.md, Queue 1).
+
+``tree_loglik_fn`` builds ``(branch_lengths[, rates[, weights]]) ->
+log-likelihood`` as a function of torch tensors whose gradient comes
+from ``.backward()``.  Its backends follow ``config.py``'s names:
+
+* ``"tree"`` (JAX ``"tree"``): kernel 2 forward and kernel 4 backward,
+  one launch each per evaluation (``ops/plf_tree_grad.py``); residuals
+  are the small operand arrays, the backward's checkpoint is scratch.
+* ``"kernel"`` (JAX ``"pallas"``): kernel 1 forward and kernel 3 backward
+  once per node (``ops/plf_grad.py``); every node keeps its two child
+  CLVs for the backward (~20 GB at 160 taxa x 2^20 sites).
+* ``"torch"`` (JAX ``"xla"``): the plain element-wise site-major
+  traversal under torch autograd, the CPU oracle.
+* ``"segmented"`` needs the segmented engine (not ported yet).
+
+``"auto"`` takes ``"torch"`` for a model on the CPU.  For a model on a
+CUDA device it takes ``"tree"`` whenever kernel 2 admits the tree
+(``PhyloModel.can_fuse``) and ``"kernel"`` otherwise.  The rule stands on
+both backends measured on an H100 (PERF.md, "Auto routing"): the tree
+backend's gradient step was the faster one at every shape measured (160
+taxa x 2^20 and 2^16 sites, 20 taxa x 2^20), and its checkpoint is
+chunked to fit the card at any site count, while the per-node residuals
+grow with sites x nodes.
+
+The branch lengths, rates and mixture weights enter through the per-edge
+lane-constant stacks and the root row vector, computed for all edges in
+one batched expression.  The differentiable value is finalised on the
+device in fp32 (log, weighted sum, rescale count, Lewis correction), as
+the JAX function does; ``PhyloModel.log_likelihood`` finalises on the
+host in fp64, so the two agree to fp32 rounding of the site sum.
+Underflow rescaling is kept: the 2^32 factors are constant almost
+everywhere, so gradients are exact wherever the likelihood is
+differentiable.
+
+Every returned function carries ``.variant`` (the kernel form, "vpu")
+and ``.engine`` (the backend that runs).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.plf_grad import make_plf_diff
+from ..ops.plf_tree import reorder_schedule, root_reduce
+from ..ops.plf_tree_grad import make_tree_diff
+from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
+from .phylo import LIK_FLOOR, LOG_MINLIK, PhyloModel
+
+__all__ = ["tree_loglik_fn", "optimize_branch_lengths", "optimize_alpha",
+           "optimize_pinv"]
+
+BACKENDS = ("auto", "tree", "kernel", "torch", "segmented")
+
+
+def _auto_backend(pm) -> str:
+    """The ``"auto"`` choice (module docstring): "torch" off the card,
+    else "tree" when kernel 2 takes the tree, else "kernel"."""
+    if pm.device.type != "cuda":
+        return "torch"
+    return "tree" if pm.can_fuse() else "kernel"
+
+
+def _f32(a, device):
+    """``a`` (array, list or tensor) as fp32 on ``device``; a tensor that
+    already is one is returned as it is, so its gradient flows."""
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def _lane_constants(t, r_vec, lam, u, S, C):
+    """Per-branch lane constants for a vector of lengths ``t`` (E,):
+    ``(E, S*C, S)`` with ``[e, k*C + c, a] = u[k, a] * exp(lam_a * t_e *
+    r_c)``, the JAX package's per-branch expression batched over all
+    branches."""
+    e = torch.exp(lam * t[:, None, None] * r_vec[None, :, None])  # [e, c, a]
+    b = u * e[:, :, None, :]                                       # [e,c,k,a]
+    return b.permute(0, 2, 1, 3).reshape(t.shape[0], S * C, S).contiguous()
+
+
+def _root_rows(pi_u, w_vec, S, C):
+    """``(S*C,)`` root row vector: row ``a*C + c`` is ``pi_u[a] * w[c]``."""
+    return pi_u.repeat_interleave(C) * w_vec.repeat(S)
+
+
+def _finalise(lik, sc_row, wpad, n, asc, d0, w_total):
+    """fp32 log-likelihood on the device from the site likelihoods
+    ``lik`` (n_pad,) and rescale counts ``sc_row`` (n_pad,), as the JAX
+    function finalises (``optimize.py:520-530``)."""
+    site_ll = torch.log(torch.clamp_min(lik[:n], LIK_FLOOR))
+    sc_f = sc_row.to(torch.float32)
+    ll = (site_ll * wpad[:n]).sum() + (sc_f * wpad).sum() * LOG_MINLIK
+    if asc:
+        log_pc = site_ll[d0:] + sc_f[d0:n] * LOG_MINLIK
+        ll = ll - w_total * torch.log1p(-torch.exp(log_pc).sum())
+    return ll
+
+
+def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
+                   with_weights: bool = False, backend: str = "auto"):
+    """Build ``(branch_lengths) -> log_likelihood`` (a 0-d fp32 tensor on
+    ``pm.device``, differentiable by ``.backward()``).
+
+    ``branch_lengths``: ``(n_nodes-1,)`` indexed by child node (every node
+    but the root owns the branch to its parent).  Returns ``(fn, t0)``
+    with ``t0`` the tree's current lengths (fp32 numpy).  With
+    ``with_rates`` the signature is ``(t_vec, rates)``: the ``(C,)``
+    category rates become an input; ``with_weights`` adds the ``(C,)``
+    mixture weights, ``(t_vec, rates, weights)`` (implies with_rates).
+    ``backend``: see the module docstring.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if backend == "segmented":
+        raise NotImplementedError(
+            "the segmented gradient backend needs the segmented engine "
+            "(_seg_fwd_kernel/_seg_bwd_kernel), not ported yet: ROADMAP.md,"
+            " Queue 2 items 2-3")
+    if backend == "auto":
+        backend = _auto_backend(pm)
+    build = {"torch": _core_torch, "kernel": _core_kernel,
+             "tree": _core_tree}[backend]
+    core = build(pm)
+    dev = pm.device
+    rates = _f32(pm.rates, dev)
+    cw = _f32(pm.rate_weights, dev)
+    if with_weights:
+        def fn(t_vec, r_vec, w_vec):
+            return core(_f32(t_vec, dev), _f32(r_vec, dev), _f32(w_vec, dev))
+    elif with_rates:
+        def fn(t_vec, r_vec):
+            return core(_f32(t_vec, dev), _f32(r_vec, dev), cw)
+    else:
+        def fn(t_vec):
+            return core(_f32(t_vec, dev), rates, cw)
+    fn.variant = pm.config.resolved_kernel_variant
+    fn.engine = backend
+    t0 = np.array([pm.tree.nodes[i].length
+                   for i in range(pm.tree.n_nodes - 1)], np.float32)
+    return fn, t0
+
+
+def _model_tensors(pm):
+    dev = pm.device
+    m = pm.model
+    return (_f32(m.u, dev), _f32(m.eigenvalues, dev),
+            _f32(m.root_vector, dev))
+
+
+def _core_torch(pm):
+    """Plain site-major traversal (the JAX "xla" backend, optimize.py:
+    137-216) under torch autograd."""
+    cfg = pm.config
+    S, C = cfg.states, cfg.categories
+    dev = pm.device
+    u, lam, pi_u = _model_tensors(pm)
+    ev = _f32(pm.model.plf_ev, dev)                        # [k, a]
+    n, n_leaves = pm.n_sites, pm.tree.n_leaves
+    codes = pm.codes[:, :n].long()
+    tbl = pm.tip_table[::C]                                # (S, n_codes)
+    wgt = _f32(pm.wgt, dev)
+    wgt_i = torch.as_tensor(pm.wgt, dtype=torch.int32, device=dev)
+    schedule = [(p, l, r) for (p, l, r, _, _) in pm.schedule]
+    asc, d0 = pm.ascertainment == "lewis", pm.n_sites_obs
+    w_total = float(np.sum(pm.wgt))
+
+    def plf_stage(x1, x2, left, right):
+        ump1 = torch.zeros_like(x1)
+        ump2 = torch.zeros_like(x2)
+        for a in range(S):
+            ump1 = ump1 + x1[:, :, a:a + 1] * left[None, :, :, a]
+            ump2 = ump2 + x2[:, :, a:a + 1] * right[None, :, :, a]
+        p = ump1 * ump2
+        x3 = torch.zeros_like(p)
+        for k in range(S):
+            x3 = x3 + p[:, :, k:k + 1] * ev[None, None, k, :]
+        mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=2).all(dim=1)
+        x3 = torch.where(mask[:, None, None], x3 * float(TWO_TO_THE_32), x3)
+        return x3, mask.to(torch.int32)
+
+    def core(t_vec, r_vec, w_vec):
+        # (C, S, S) factor per branch: u[k, a] * exp(lam_a * t * r_c)
+        e = torch.exp(lam * t_vec[:, None, None] * r_vec[None, :, None])
+        branch = u * e[:, :, None, :]
+        clvs, scaler_sites = {}, torch.zeros(n, dtype=torch.int32,
+                                             device=dev)
+        for parent, l, r in schedule:
+            for ch in (l, r):
+                if ch < n_leaves and ch not in clvs:
+                    clvs[ch] = tbl[:, codes[ch]].t()[:, None, :] \
+                        .expand(n, C, S)
+            x3, sv = plf_stage(clvs[l], clvs[r], branch[l], branch[r])
+            clvs[parent] = x3
+            scaler_sites = scaler_sites + sv
+        lik = (clvs[schedule[-1][0]] @ pi_u) @ w_vec
+        site_ll = torch.log(torch.clamp_min(lik, LIK_FLOOR))
+        scaler = (scaler_sites * wgt_i).sum().to(torch.float32)
+        ll = (site_ll * wgt).sum() + scaler * LOG_MINLIK
+        if asc:
+            log_pc = site_ll[d0:] + scaler_sites[d0:].to(torch.float32) \
+                * LOG_MINLIK
+            ll = ll - w_total * torch.log1p(-torch.exp(log_pc).sum())
+        return ll
+    return core
+
+
+def _core_kernel(pm):
+    """Kernel 1 forward + kernel 3 backward per node (the JAX "pallas"
+    backend, optimize.py:219-313)."""
+    cfg = pm.config
+    S, C = cfg.states, cfg.categories
+    u, lam, pi_u = _model_tensors(pm)
+    n, n_leaves = pm.n_sites, pm.tree.n_leaves
+    schedule = [(p, l, r) for (p, l, r, _, _) in pm.schedule]
+    root = pm.tree.root
+    wpad = pm.wgt_pad.to(torch.float32)
+    asc, d0 = pm.ascertainment == "lewis", pm.n_sites_obs
+    w_total = float(np.sum(pm.wgt))
+    pdiff = make_plf_diff(S, C)
+
+    def core(t_vec, r_vec, w_vec):
+        ops = _lane_constants(t_vec, r_vec, lam, u, S, C)  # by child node
+        clvs = {}
+        scaler_sites = torch.zeros(pm.n_pad, dtype=torch.int32,
+                                   device=pm.device)
+        for parent, l, r in schedule:
+            x1, x2 = [pm._expand_tip(ch) if ch < n_leaves else clvs.pop(ch)
+                      for ch in (l, r)]
+            x3, sc = pdiff(x1, x2, ops[l], ops[r], pm.ec, n)
+            clvs[parent] = x3
+            scaler_sites = scaler_sites + sc[0]
+        lik = root_reduce(_root_rows(pi_u, w_vec, S, C), clvs[root])
+        return _finalise(lik, scaler_sites, wpad, n, asc, d0, w_total)
+    return core
+
+
+def _core_tree(pm):
+    """Kernel 2 forward + kernel 4 backward (the JAX "tree" backend,
+    optimize.py:355-545), operators indexed by original edge."""
+    cfg = pm.config
+    S, C = cfg.states, cfg.categories
+    u, lam, pi_u = _model_tensors(pm)
+    n, n_leaves = pm.n_sites, pm.tree.n_leaves
+    tdiff = make_tree_diff(reorder_schedule(pm.schedule, n_leaves),
+                           n_leaves, states=S, categories=C)
+    child = torch.as_tensor([[e[1] for e in pm.schedule],
+                             [e[2] for e in pm.schedule]],
+                            dtype=torch.long, device=pm.device)
+    wpad = pm.wgt_pad.to(torch.float32)
+    asc, d0 = pm.ascertainment == "lewis", pm.n_sites_obs
+    w_total = float(np.sum(pm.wgt))
+
+    def core(t_vec, r_vec, w_vec):
+        ops = _lane_constants(t_vec[child.reshape(-1)], r_vec, lam, u, S, C)
+        lcs, rcs = ops.view(2, -1, S * C, S).unbind(0)
+        lik, sc = tdiff(pm.codes, lcs.contiguous(), rcs.contiguous(), pm.ec,
+                        pm.tip_table, _root_rows(pi_u, w_vec, S, C), n)
+        return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total)
+    return core
+
+
+def optimize_branch_lengths(pm: PhyloModel, steps: int = 100,
+                            learning_rate: float = 0.02,
+                            min_length: float = 1e-6, backend: str = "auto"
+                            ) -> Tuple[np.ndarray, float, float]:
+    """Maximise the tree likelihood over all branch lengths.
+
+    Adam (``torch.optim.Adam`` with optax's defaults: b1 0.9, b2 0.999,
+    eps 1e-8 added outside the square root) on log lengths, so lengths
+    stay positive.  On a CUDA model each step is one forward and one
+    backward through the kernels of ``backend`` (see :func:`tree_loglik_fn`).
+    Returns ``(optimised_lengths, ll_before, ll_after)``.
+    """
+    fn, t0 = tree_loglik_fn(pm, backend=backend)
+    dev = pm.device
+    t0_dev = torch.as_tensor(t0, device=dev)
+    with torch.no_grad():
+        ll0 = float(fn(t0_dev))
+    log_t = torch.log(torch.clamp_min(t0_dev, min_length)).requires_grad_()
+    opt = torch.optim.Adam([log_t], lr=learning_rate, betas=(0.9, 0.999),
+                           eps=1e-8)
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = -fn(torch.exp(log_t) + min_length)
+        loss.backward()
+        opt.step()
+    with torch.no_grad():
+        t_opt = torch.exp(log_t) + min_length
+        ll1 = float(fn(t_opt))
+    return t_opt.cpu().numpy(), ll0, ll1
+
+
+def _golden_section(f, lo: float, hi: float, iters: int = 30):
+    """Maximise a unimodal scalar function on [lo, hi]."""
+    invphi = (np.sqrt(5.0) - 1.0) / 2.0
+    a, b = lo, hi
+    c = b - invphi * (b - a)
+    d = a + invphi * (b - a)
+    fc, fd = f(c), f(d)
+    for _ in range(iters):
+        if fc > fd:
+            b, d, fd = d, c, fc
+            c = b - invphi * (b - a)
+            fc = f(c)
+        else:
+            a, c, fc = c, d, fd
+            d = a + invphi * (b - a)
+            fd = f(d)
+    x = (a + b) / 2.0
+    return x, f(x)
+
+
+def optimize_alpha(pm: PhyloModel, alpha_bounds=(0.02, 100.0),
+                   iters: int = 30, backend: str = "auto"
+                   ) -> Tuple[float, float, float]:
+    """Maximum-likelihood gamma shape at fixed tree and lengths:
+    golden-section search in log-alpha over one likelihood function of
+    the ``(C,)`` rate vector (the discretisation runs on the host).
+    Returns ``(alpha_hat, ll_before, ll_after)``; ``ll_before`` uses the
+    model's current rates."""
+    from .substitution import discrete_gamma_rates, gamma_invariant_rates
+
+    C = pm.config.categories
+    fn, t0 = tree_loglik_fn(pm, with_rates=True, backend=backend)
+
+    def ll_of_rates(r) -> float:
+        with torch.no_grad():
+            return float(fn(t0, np.asarray(r, np.float32)))
+
+    def ll_of_log_alpha(la: float) -> float:
+        alpha = float(np.exp(la))
+        # +I models carry the rate-0 category at index 0 and C-1 gamma
+        # categories (the mixture weights stay fixed).
+        if pm.p_inv is not None:
+            return ll_of_rates(gamma_invariant_rates(alpha, pm.p_inv,
+                                                     C - 1)[0])
+        return ll_of_rates(discrete_gamma_rates(alpha, C))
+
+    ll0 = ll_of_rates(pm.rates)
+    la, ll1 = _golden_section(ll_of_log_alpha, np.log(alpha_bounds[0]),
+                              np.log(alpha_bounds[1]), iters)
+    return float(np.exp(la)), ll0, ll1
+
+
+def optimize_pinv(pm: PhyloModel, alpha: Optional[float] = None,
+                  bounds=(1e-4, 0.99), iters: int = 30,
+                  backend: str = "auto") -> Tuple[float, float, float]:
+    """Maximum-likelihood proportion of invariant sites (+I / +I+G) by
+    golden-section search at fixed tree, lengths and gamma shape
+    ``alpha`` (default: the shape implied by ``pm.rates``).  ``pm`` must
+    have been built with ``p_inv``.  Returns ``(p_inv_hat, ll_before,
+    ll_after)``."""
+    if pm.p_inv is None:
+        raise ValueError("build the PhyloModel with p_inv to optimise it")
+    C = pm.config.categories            # includes the invariant category
+    fn, t0 = tree_loglik_fn(pm, with_weights=True, backend=backend)
+
+    def ll_at(rates, weights) -> float:
+        with torch.no_grad():
+            return float(fn(t0, np.asarray(rates, np.float32),
+                            np.asarray(weights, np.float32)))
+
+    ll0 = ll_at(pm.rates, pm.rate_weights)
+    if alpha is None:          # gamma rates at weight-free scale
+        base_g = np.asarray(pm.rates[1:]) * (1.0 - pm.p_inv)
+    else:
+        from .substitution import discrete_gamma_rates
+        base_g = discrete_gamma_rates(alpha, C - 1)
+
+    def ll_of(p: float) -> float:
+        weights = np.concatenate([[p], np.full(C - 1, (1.0 - p) / (C - 1))])
+        return ll_at(np.concatenate([[0.0], base_g / (1.0 - p)]), weights)
+
+    p_hat, ll1 = _golden_section(ll_of, bounds[0], bounds[1], iters)
+    return float(p_hat), ll0, ll1

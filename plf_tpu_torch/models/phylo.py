@@ -334,7 +334,7 @@ class PhyloModel(nn.Module):
         if method == "segmented":
             raise NotImplementedError(
                 "the segmented engine (_seg_fwd_kernel) is not ported yet: "
-                "ROADMAP.md, Queue 2 item 4")
+                "ROADMAP.md, Queue 2 item 2")
         if method == "fused" or (method == "auto" and not keep_root_clv
                                  and self.can_fuse()):
             return self.log_likelihood_fused()

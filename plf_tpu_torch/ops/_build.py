@@ -25,7 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "load_library", "build_log"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_libraries",
+           "load_library", "build_log"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plf_tpu_torch"
@@ -61,23 +62,46 @@ def build_log(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.log"
 
 
+def _library(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def build_libraries(names) -> None:
+    """Build every ``csrc/<name>.cu`` whose library is missing or stale,
+    one nvcc per source, all started together; raise with nvcc's output
+    if one fails (the others are stopped)."""
+    jobs = []
+    try:
+        for name in names:
+            so = _library(name)
+            if so.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            jobs.append((name, so, tmp, cmd, time.perf_counter(),
+                         subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True)))
+        for name, so, tmp, cmd, t0, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {name}.cu (exit "
+                    f"{proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            build_log(name).write_text(
+                f"{' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n{out}")
+            os.replace(tmp, so)
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its hash changed, then load it (once
     per process: the callers cache the handle)."""
-    so = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        build_log(name).write_text(
-            f"{' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n"
-            f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    build_libraries([name])
+    return ctypes.CDLL(str(_library(name)))

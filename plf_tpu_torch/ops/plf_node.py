@@ -25,7 +25,7 @@ from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from . import layout as L
 
 __all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
-           "node_plain"]
+           "node_plain", "stage"]
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -37,24 +37,28 @@ def _tile_rows(x, a: int, states: int, categories: int):
     return x[a * C:(a + 1) * C].repeat(states, 1)
 
 
+def stage(x, const, states: int, categories: int):
+    """One lane-major PLF stage: ``out[r] = sum_a x[a*C + r%C] * const[r, a]``
+    for ``a = 0..S-1`` in order, each product and sum its own op (nothing
+    contracts into an FMA).  The branch products, the EV projection and
+    (with transposed constants) their adjoints all have this shape."""
+    S, C = states, categories
+    out = _tile_rows(x, 0, S, C) * const[:, 0:1]
+    for a in range(1, S):
+        out = out + _tile_rows(x, a, S, C) * const[:, a:a + 1]
+    return out
+
+
 def node_plain(x1, x2, lc, rc, ec, valid, states: int, categories: int):
     """One PLF node in plain torch, the kernel's op order.
 
     ``x1``/``x2``: ``(S*C, n_pad)`` fp32; ``lc``/``rc``/``ec``: ``(S*C, S)``;
-    ``valid``: ``(n_pad,)`` bool (padding sites never rescale).  Each
-    product and sum is its own op, so nothing contracts into an FMA.
+    ``valid``: ``(n_pad,)`` bool (padding sites never rescale).
     Returns ``(x3, mask)`` with ``mask`` ``(n_pad,)`` bool.
     """
     S, C = states, categories
-    ump1 = _tile_rows(x1, 0, S, C) * lc[:, 0:1]
-    ump2 = _tile_rows(x2, 0, S, C) * rc[:, 0:1]
-    for a in range(1, S):
-        ump1 = ump1 + _tile_rows(x1, a, S, C) * lc[:, a:a + 1]
-        ump2 = ump2 + _tile_rows(x2, a, S, C) * rc[:, a:a + 1]
-    p = ump1 * ump2
-    x3 = _tile_rows(p, 0, S, C) * ec[:, 0:1]
-    for k in range(1, S):
-        x3 = x3 + _tile_rows(p, k, S, C) * ec[:, k:k + 1]
+    p = stage(x1, lc, S, C) * stage(x2, rc, S, C)
+    x3 = stage(p, ec, S, C)
     mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=0) & valid
     x3 = torch.where(mask, x3 * float(TWO_TO_THE_32), x3)
     return x3, mask

@@ -19,7 +19,10 @@ from plf_tpu_torch.models import PhyloModel, hky85, random_tree  # noqa: E402
 from plf_tpu_torch.ops import layout as L  # noqa: E402
 from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch  # noqa: E402
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_occupancy,  # noqa: E402
-                                        plf_tree_torch)
+                                        plf_tree_torch, reorder_schedule)
+from plf_tpu_torch.ops import plf_grad as G  # noqa: E402
+from plf_tpu_torch.ops import plf_tree_grad as TG  # noqa: E402
+from plf_tpu_torch.models import tree_loglik_fn  # noqa: E402
 from plf_tpu_torch.reference import plf_reference  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -157,3 +160,141 @@ def test_engine_verify_exact_on_card(cuda):
     assert out.x3.device.type == "cuda"
     ok, n_err, msgs = eng.verify(out, x1, x2, left, right, ev, exact=True)
     assert ok and n_err == 0, msgs
+
+
+# ------------------------------------------------------ backward kernels --
+
+def _sums_close(got, want, rtol=1e-4):
+    """Site sums in another order: within ``rtol`` of the largest
+    magnitude of each (S*C, S) matrix (fp32 sums of ~10^3-10^6 terms in a
+    different order differ by ~1e-6 of that scale)."""
+    w = want.reshape(-1, *want.shape[-2:])
+    scale = w.abs().amax(dim=(1, 2), keepdim=True)
+    scale = torch.clamp_min(scale, 1e-6 * float(scale.max()))
+    err = (got.reshape(w.shape) - w).abs() / scale
+    assert float(err.max()) <= rtol, float(err.max())
+
+
+@pytest.mark.parametrize("C", [4, 5])
+def test_kernel3_matches_plain(cuda, C):
+    n = 40 * 128 - 7
+    x1, x2, left, right, ev = _underflow_case(n, C, 13)
+    lane = lambda x: torch.as_tensor(
+        L.pad_to_multiple(L.to_lane_major(x, 4, C), 128),
+        device=cuda).contiguous()
+    lc, rc, ec = [torch.as_tensor(a, device=cuda) for a in (
+        L.branch_to_lane_constants(left, 4, C),
+        L.branch_to_lane_constants(right, 4, C),
+        L.ev_to_lane_constants(ev, 4, C))]
+    a, b = lane(x1), lane(x2)
+    _, sc = plf_node(a, b, lc, rc, ec, n, categories=C)
+    assert int(sc.sum()) > 0
+    g = torch.randn(a.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    consts = [lc, rc] + [G.transpose_lane_constants(t, 4, C)
+                         for t in (lc, rc, ec)]
+    before = G.plf_node_bwd.launches
+    k1 = G.plf_node_bwd(a, b, g, sc, *consts, n, categories=C)
+    k2 = G.plf_node_bwd(a, b, g, sc, *consts, n, categories=C)
+    assert G.plf_node_bwd.launches == before + 2
+    p = G.plf_node_bwd_torch(a, b, g, sc, *consts, n, categories=C)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], p[0]) and torch.equal(k1[1], p[1])
+    assert not k1[0][:, n:].any()
+    for i in range(5):
+        assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
+    for i in (2, 3, 4):
+        _sums_close(k1[i], p[i])
+
+
+@pytest.mark.parametrize("tip_dtype,extra", [("int32", {}), ("int8", {}),
+                                             ("int32", {"p_inv": 0.2})])
+def test_kernel4_matches_plain(cuda, tip_dtype, extra):
+    """Also at C = 5 (+I), whose kernel instance spills registers."""
+    pm = _model(cuda, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128),
+                **extra)
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    bsched = torch.as_tensor(np.stack(
+        TG.compile_backward_schedule(sched, pm.tree.n_leaves)
+        + (np.array([e[5] for e in sched], np.int32),)), device=cuda)
+    C = pm.config.categories
+    T = lambda t: G.transpose_lane_constants(t, 4, C)
+    args = (pm.codes, bsched, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs), pm.ec,
+            T(pm.ec), pm.tip_table, pm.root_rows[0])
+    glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
+                       .manual_seed(5), device=cuda)
+    before = TG.plf_tree_bwd.launches
+    k1 = TG.plf_tree_bwd(*args, glik, pm.n_sites, categories=C)
+    assert TG.plf_tree_bwd.last_scratch["chunks"] == 1
+    k2 = TG.plf_tree_bwd(*args, glik, pm.n_sites, categories=C)
+    # a budget of 7 tiles' checkpoint: several chunks, the last one short
+    per_tile = TG.tree_bwd_scratch_bytes(len(sched), pm.config.rows, 128)
+    k3 = TG.plf_tree_bwd(*args, glik, pm.n_sites, categories=C,
+                         max_scratch_bytes=7 * per_tile)
+    assert TG.plf_tree_bwd.last_scratch["chunks"] == -(-pm.n_pad // 896)
+    assert TG.plf_tree_bwd.launches == before + 3
+    p = TG.plf_tree_bwd_torch(*args, glik, pm.n_sites, categories=C)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
+    for k in (k1, k3):
+        for i in range(3):
+            _sums_close(k[i], p[i])
+        _sums_close(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1))
+
+
+def test_backward_wrappers_reject_what_they_cannot_run(cuda):
+    x = torch.rand(36, 256, device=cuda)
+    c = torch.rand(36, 4, device=cuda)
+    sc = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="C in 1..8"):
+        G.plf_node_bwd(x, x, x, sc, c, c, c, c, c, 200, categories=9)
+    y, d = x[:16, :200].contiguous(), c[:16]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        G.plf_node_bwd(y, y, y, sc[:, :200].contiguous(), d, d, d, d, d, 200)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.plf_node_bwd(x[:16], x[:16], x[:16], sc, d, d, d, d,
+                       torch.rand(4, 16, device=cuda).t(), 200)
+    with pytest.raises(ValueError, match="one device"):
+        G.plf_node_bwd(x[:16], x[:16], x[:16], sc.cpu(), d, d, d, d, d, 200)
+    pm = _model(cuda, n_leaves=6, n_sites=300)
+    E = len(pm.schedule)
+    bs = torch.zeros((3, E), dtype=torch.int32, device=cuda)
+    g = torch.zeros((1, pm.n_pad), device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        TG.plf_tree_bwd(pm.codes, bs, pm.lcs, pm.rcs, pm.lcs, pm.rcs, pm.ec,
+                        pm.ec, pm.tip_table, pm.root_rows[0], g.cpu(),
+                        pm.n_sites)
+    with pytest.raises(ValueError, match="one tile"):
+        TG.plf_tree_bwd(pm.codes, bs, pm.lcs, pm.rcs, pm.lcs, pm.rcs, pm.ec,
+                        pm.ec, pm.tip_table, pm.root_rows[0], g, pm.n_sites,
+                        max_scratch_bytes=1000)
+
+
+def test_tree_and_kernel_gradients_agree(cuda):
+    """On a 20-leaf tree: the "tree" backend (kernels 2 + 4) and the
+    "kernel" backend (kernels 1 + 3, once per node) give the same value
+    and gradient (rtol 2e-4, atol 1e-4 of the largest, the JAX package's
+    bar), and auto takes "tree" on the card."""
+    pm = _model(cuda, n_leaves=20, n_sites=5000)
+    E = len(pm.schedule)
+    out = {}
+    for backend in ("tree", "kernel", "auto"):
+        counts = (plf_tree.launches, TG.plf_tree_bwd.launches,
+                  plf_node.launches, G.plf_node_bwd.launches)
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+        t = torch.tensor(t0, device=cuda, requires_grad=True)
+        v = fn(t)
+        v.backward()
+        out[backend] = (float(v.detach()), t.grad.cpu().numpy())
+        runs = tuple(a - b for a, b in zip(
+            (plf_tree.launches, TG.plf_tree_bwd.launches, plf_node.launches,
+             G.plf_node_bwd.launches), counts))
+        assert runs == {"kernel": (0, 0, E, E)}.get(backend, (1, 1, 0, 0))
+        assert fn.engine == ("tree" if backend == "auto" else backend)
+    (v_t, g_t), (v_k, g_k) = out["tree"], out["kernel"]
+    assert v_t == pytest.approx(v_k, rel=1e-5)
+    assert v_t == pytest.approx(pm.log_likelihood().log_likelihood, rel=1e-5)
+    np.testing.assert_allclose(g_t, g_k, rtol=2e-4,
+                               atol=1e-4 * np.abs(g_k).max())
+    np.testing.assert_array_equal(out["auto"][1], g_t)

@@ -145,8 +145,8 @@ def test_build_flags_keep_golden_arithmetic():
     assert "-fmad=false" in flags and "sm_90a" in flags
     assert "fast_math" not in flags and "ftz=true" not in flags
     assert _build.BUILD_DIR == REPO / "build" / "plf_tpu_torch"
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"plf_node.cu",
-                                                           "plf_tree.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "plf_node.cu", "plf_tree.cu", "plf_node_bwd.cu", "plf_tree_bwd.cu"}
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
@@ -181,6 +181,8 @@ def test_port_never_imports_jax():
             "plf_tpu_torch.convert, plf_tpu_torch.models\n"
             "import plf_tpu_torch.ops.plf_node, plf_tpu_torch.ops.plf_tree, "
             "plf_tpu_torch.ops.plf_torch, plf_tpu_torch.ops._build\n"
+            "import plf_tpu_torch.ops.plf_grad, plf_tpu_torch.ops.plf_tree_grad, "
+            "plf_tpu_torch.models.optimize\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'plf_tpu.')) or m == 'plf_tpu']\n"
             "assert not bad, bad\n"
