@@ -2,12 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of ``plf_tpu_torch`` from
+Builds the six CUDA kernels of ``plf_tpu_torch`` from
 ``plf_tpu_torch/csrc`` (into ``build/plf_tpu_torch/``, one nvcc per
 source, all started together) and holds each against its plain PyTorch
-version on the card (kernel 1 also against the numpy golden model).  Then
-it drives the two main paths at 160 taxa x 2^20 site patterns, HKY85 +
-Gamma4, fp32:
+version on the card (kernels 1 and 1m also against the numpy golden
+model).  Then it drives the DNA main paths at 160 taxa x 2^20 site
+patterns, HKY85 + Gamma4, fp32:
 
 * serving: ``PhyloModel.log_likelihood`` (kernel 2; the per-node path,
   kernel 1), checked against each other and a float64 brute force;
@@ -15,14 +15,21 @@ Gamma4, fp32:
   (kernels 2 + 4) and the "kernel" backend (kernels 1 + 3, once per
   node), checked against each other, the forward, and float64 central
   differences of the brute force; then ``optimize_branch_lengths`` and
-  ``optimize_alpha``.
+  ``optimize_alpha``;
+
+and the protein serving path at 64 taxa x 131,072 sites, LG + Gamma4:
+``PhyloModel(...).log_likelihood()`` with the default config (on the card,
+"mxu_3x": kernel 2m; the per-node path, kernel 1m), checked against each
+other and a float64 brute force, and kernels 1m and 2m in each MXU variant
+against their plain versions.
 
 A last phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
 idle share, the top kernels) and times kernel 2 at the occupancy its
 arena allows and at lower ones.  Prints one line per phase, a JSON line
-with each kernel's launches, error and times, and last
-``{"ok": true, "device": {...}}``.  Any failure raises and exits
+with each kernel's launches, error, times and bound (the larger of its
+bytes over the card's memory rate and its operations over the peak rate
+of their type), and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device it fails at once and prints no result.
 """
 
@@ -39,18 +46,21 @@ import numpy as np
 import torch
 
 from plf_tpu_torch import PLFConfig, PLFEngine
-from plf_tpu_torch.models import (PhyloModel, hky85, optimize_alpha,
-                                  optimize_branch_lengths, random_tree,
-                                  tree_loglik_fn)
+from plf_tpu_torch.models import (PhyloModel, empirical_protein, hky85,
+                                  optimize_alpha, optimize_branch_lengths,
+                                  random_tree, tree_loglik_fn)
 from plf_tpu_torch.ops import layout as L
-from plf_tpu_torch.ops import plf_grad, plf_tree_grad
+from plf_tpu_torch.ops import plf_grad, plf_mxu, plf_tree_grad
 from plf_tpu_torch.ops import plf_node as node_mod, plf_tree as tree_mod
 from plf_tpu_torch.ops._build import build_libraries, build_log
 from plf_tpu_torch.ops.plf_grad import (plf_node_bwd, plf_node_bwd_torch,
                                         transpose_lane_constants)
+from plf_tpu_torch.ops.plf_mxu import plf_node_mxu, plf_node_mxu_torch
 from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch
-from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_occupancy,
-                                        plf_tree_torch, reorder_schedule)
+from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,
+                                        plf_tree_mxu_occupancy,
+                                        plf_tree_occupancy, plf_tree_torch,
+                                        reorder_schedule, TREE_MXU_SITES)
 from plf_tpu_torch.ops.plf_tree_grad import (compile_backward_schedule,
                                              plf_tree_bwd,
                                              plf_tree_bwd_torch)
@@ -68,6 +78,52 @@ UNIT = 128                    # site padding unit
 #: The sums run in another order (fp32, 10^3-10^6 terms), which moves them
 #: by ~1e-6 of that scale; the per-site outputs are held bit for bit.
 SUM_RTOL = 1e-4
+
+# The protein workload (benchmarks/protein4.py:36-40: 64 taxa x 131,072
+# sites, LG + Gamma4) and kernel 1m's shapes (r03_protein.csv: 2^21 sites).
+PROT_TAXA = 64
+PROT_SITES = 1 << 17
+PROT_BRUTE_SITES = 4096
+NODE_MXU_SITES = (1 << 21) - 77
+NODE_MXU_GOLDEN = 1 << 16     # kernel 1m's fp32 mode vs the golden model
+NODE_MXU_S61 = (1 << 18) - 5  # one S = 61 case at 244 rows
+MXU_VARIANTS = ("mxu", "mxu_3x", "mxu_bf16")
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
+# power limit): each kernel's bound is the larger of its bytes over the
+# memory rate and its operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12            # outside the tensor cores
+BF16_FLOPS = 989e12           # tensor cores: bf16 products, fp32 sums
+
+
+def bound(n_bytes, flops, rate):
+    """The least time the card could take: bytes each read or written
+    once over the memory rate, or operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def node_work(S, C, variant="vpu"):
+    """(flops, peak rate) of one PLF node at one site: three stages of
+    S*C rows x S multiply-adds (2 flops each) and the S*C products; the
+    bf16x3 mode does each product three times, in bf16."""
+    stages = 3 * 2 * S * S * C
+    if variant == "mxu_3x":
+        return 3 * stages, BF16_FLOPS
+    if variant == "mxu_bf16":
+        return stages, BF16_FLOPS
+    return stages + S * C, FP32_FLOPS
+
+
+def node_bwd_flops(S, C):
+    """flops of one node's VJP at one site: the two stage-1 products and
+    the stage-3 adjoint recomputed, the two stage-1 adjoints, three
+    elementwise products, and the three operator gradients (S*C x S
+    multiply-adds each)."""
+    return 5 * 2 * S * S * C + 3 * S * C + 3 * 2 * S * S * C
 
 
 def check(cond, msg):
@@ -110,10 +166,12 @@ def forced_underflow_case(rng, n, states=4, categories=4):
     return x1.reshape(n, C, S), x2.reshape(n, C, S), left, right, ev
 
 
-def lane_constants(left, right, ev, dev):
+def lane_constants(left, right, ev, dev, states=4, categories=4):
+    S, C = states, categories
     return [torch.as_tensor(a, device=dev) for a in (
-        L.branch_to_lane_constants(left), L.branch_to_lane_constants(right),
-        L.ev_to_lane_constants(ev))]
+        L.branch_to_lane_constants(left, S, C),
+        L.branch_to_lane_constants(right, S, C),
+        L.ev_to_lane_constants(ev, S, C))]
 
 
 def device_phase():
@@ -133,14 +191,15 @@ def device_phase():
 
 
 def build_phase():
-    mods = {"plf_node": node_mod, "plf_tree": tree_mod,
-            "plf_node_bwd": plf_grad, "plf_tree_bwd": plf_tree_grad}
+    mods = {"plf_node": node_mod._lib, "plf_tree": tree_mod._lib,
+            "plf_node_bwd": plf_grad._lib, "plf_tree_bwd": plf_tree_grad._lib,
+            "plf_node_mxu": plf_mxu._lib, "plf_tree_mxu": tree_mod._lib_mxu}
     t0 = time.perf_counter()
     build_libraries(list(mods))
     phase("build", f"{len(mods)} libraries, one nvcc each in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
-    for lib_name, mod in mods.items():
-        mod._lib()
+    for lib_name, load in mods.items():
+        load()
         log = build_log(lib_name).read_text()
         secs = re.search(r"^# ([0-9.]+) s", log, re.M).group(1)
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -397,14 +456,17 @@ def _grad_step(fn, t0, dev):
     return float(v.detach()), t.grad
 
 
+COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
+           plf_tree_mxu)
+
+
 def _reset_counts():
-    for f in (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd):
+    for f in COUNTED:
         f.launches = 0
 
 
 def _counts():
-    return {f.__name__: f.launches
-            for f in (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd)}
+    return {f.__name__: f.launches for f in COUNTED}
 
 
 def train_phase(dev, tree, tips, pm):
@@ -420,10 +482,9 @@ def train_phase(dev, tree, tips, pm):
         _reset_counts()
         v, g = _grad_step(fn, t0, dev)
         counts = _counts()
-        want = ({"plf_tree": 1, "plf_tree_bwd": 1, "plf_node": 0,
-                 "plf_node_bwd": 0} if backend == "tree" else
-                {"plf_tree": 0, "plf_tree_bwd": 0, "plf_node": E,
-                 "plf_node_bwd": E})
+        want = dict({k: 0 for k in counts},
+                    **({"plf_tree": 1, "plf_tree_bwd": 1} if backend == "tree"
+                       else {"plf_node": E, "plf_node_bwd": E}))
         check(counts == want, f"{backend} step launched {counts}, "
               f"not {want}")
         launches.update({k: c for k, c in counts.items() if c})
@@ -554,6 +615,255 @@ def main_path_phase(dev, tree, tips, pm, node_case):
     return launches
 
 
+# ----------------------------------------------------- the protein path --
+
+
+def _mxu_case(dev, n, S, C, seed):
+    """Random lane-major PLF inputs on the card, every 4th site of x1
+    scaled by 1e-16 (at S = 20 and 61 the sums grow past what 1e-12 of the
+    DNA generator would rescale), and random positive operators."""
+    rng = np.random.default_rng(seed)
+    left = rng.random((C, S, S), dtype=np.float32)
+    right = rng.random((C, S, S), dtype=np.float32)
+    ev = rng.random((S, S), dtype=np.float32)
+    n_pad = L.sites_padding(n, UNIT)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand((S * C, n_pad), generator=g, device=dev)
+    b = torch.rand((S * C, n_pad), generator=g, device=dev)
+    a[:, 0::4] *= 1e-16
+    a[:, n:] = 0.0
+    b[:, n:] = 0.0
+    return a, b, (left, right, ev), lane_constants(left, right, ev, dev, S, C)
+
+
+def kernel1m_phase(dev):
+    """Kernel 1m in each MXU variant at S = 20, C = 4 on 2^21 sites:
+    equal to its plain version (out of place and in place), fp32 mode also
+    to the golden model on a 65,536-site slice; timed against a same-run
+    2R+1W probe; then each variant at S = 61, C = 4 on 2^18 sites."""
+    S, C = 20, 4
+    n = NODE_MXU_SITES
+    a, b, ops, (lc, rc, ec) = _mxu_case(dev, n, S, C, 21)
+    n_pad = a.shape[1]
+    site_bytes = 3 * S * C * 4 + 4
+    c = torch.empty_like(a)
+    ms_probe = cuda_ms(lambda: torch.add(a, b, out=c), reps=20)
+    probe_gbs = 3 * a.numel() * 4 / (ms_probe * 1e-3) / 1e9
+    del c
+    res = {}
+    for variant in MXU_VARIANTS:
+        kw = dict(states=S, categories=C, variant=variant)
+        x3k, sck = plf_node_mxu(a, b, lc, rc, ec, n, **kw)
+        x3p, scp = plf_node_mxu_torch(a, b, lc, rc, ec, n, **kw)
+        torch.cuda.synchronize()
+        err = float((x3k - x3p).abs().max())
+        check(torch.equal(x3k, x3p) and torch.equal(sck, scp),
+              f"kernel 1m ({variant}) != plain version (max abs {err:g})")
+        n_flag = int(sck.sum())
+        check(n_flag > 0 and not sck[0, n:].any(),
+              f"kernel 1m ({variant}): {n_flag} flags, or a padding flag")
+        del x3p, scp
+        for which in (1, 2):
+            a2, b2 = a.clone(), b.clone()
+            dst = a2 if which == 1 else b2
+            x3i, sci = plf_node_mxu(a2, b2, lc, rc, ec, n, out=dst, **kw)
+            check(x3i.data_ptr() == dst.data_ptr() and torch.equal(x3i, x3k)
+                  and torch.equal(sci, sck),
+                  f"kernel 1m ({variant}) in place over x{which}")
+            del a2, b2, dst, x3i, sci
+        golden = ""
+        if variant == "mxu":
+            m = NODE_MXU_GOLDEN
+            site_major = lambda t: np.ascontiguousarray(
+                L.from_lane_major(t[:, :m].cpu().numpy(), S, C))
+            x3_ref, sv_ref, _ = plf_reference(
+                site_major(a), site_major(b), *ops, states=S, categories=C)
+            check(np.array_equal(site_major(x3k), x3_ref)
+                  and np.array_equal(sck[0, :m].cpu().numpy(),
+                                     sv_ref.astype(np.int32)),
+                  "kernel 1m (mxu) != golden model")
+            golden = f", == golden on {m} sites"
+        torch.cuda.empty_cache()
+        ms_k = cuda_ms(lambda: plf_node_mxu(a, b, lc, rc, ec, n, **kw),
+                       reps=10)
+        ms_p = cuda_ms(lambda: plf_node_mxu_torch(a, b, lc, rc, ec, n, **kw),
+                       reps=2, warmup=1)
+        gbs = site_bytes * n_pad / (ms_k * 1e-3) / 1e9
+        flops, rate = node_work(S, C, variant)
+        bd = bound(site_bytes * n_pad, flops * n_pad, rate)
+        phase("kernel1m", f"{variant}, S={S} C={C}, {n} sites: == plain out "
+              f"of place and in place ({n_flag} rescaled){golden}; kernel "
+              f"{ms_k:.4f} ms ({gbs:.0f} GB/s at {site_bytes} B/site, "
+              f"{100 * gbs / probe_gbs:.1f}% of a same-run 2R+1W probe at "
+              f"{probe_gbs:.0f} GB/s; bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']}), plain {ms_p:.3f} ms")
+        res[variant] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err, **bd)
+        del x3k, sck
+    del a, b
+    torch.cuda.empty_cache()
+
+    S = 61
+    a, b, _, (lc, rc, ec) = _mxu_case(dev, NODE_MXU_S61, S, C, 22)
+    for variant in MXU_VARIANTS:
+        kw = dict(states=S, categories=C, variant=variant)
+        x3k, sck = plf_node_mxu(a, b, lc, rc, ec, NODE_MXU_S61, **kw)
+        x3p, scp = plf_node_mxu_torch(a, b, lc, rc, ec, NODE_MXU_S61, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(x3k, x3p) and torch.equal(sck, scp)
+              and int(sck.sum()) > 0,
+              f"kernel 1m ({variant}) at S=61 != plain version")
+        ms_k = cuda_ms(lambda: plf_node_mxu(a, b, lc, rc, ec, NODE_MXU_S61,
+                                            **kw), reps=5)
+        phase("kernel1m", f"{variant}, S={S} C={C}, {NODE_MXU_S61} sites "
+              f"({S * C} rows): == plain ({int(sck.sum())} rescaled); "
+              f"kernel {ms_k:.4f} ms")
+    del a, b, x3k, x3p
+    torch.cuda.empty_cache()
+    return res
+
+
+def protein_workload(dev):
+    """64 taxa x 131,072 sites, LG + Gamma4 alpha=0.5, random codes (the
+    20 amino acids, gaps and the B/Z/J ambiguity codes).  The default
+    model is built as a user would, with no device and no config; the
+    "mxu" and "mxu_bf16" models beside it share its tips."""
+    tree = random_tree(PROT_TAXA, seed=1)
+    rng = np.random.default_rng(64)
+    p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
+    tips = rng.choice(np.arange(-1, 23, dtype=np.int8),
+                      size=(PROT_TAXA, PROT_SITES), p=p / p.sum())
+    lg = empirical_protein("lg")
+    t0 = time.perf_counter()
+    pm = PhyloModel(tree, lg, tips, alpha=0.5)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    check(pm.device.type == "cuda" and
+          pm.config.resolved_kernel_variant == "mxu_3x",
+          f"default protein model on {pm.device} under "
+          f"{pm.config.resolved_kernel_variant}")
+    models = {"mxu_3x": pm}
+    for v in ("mxu", "mxu_bf16"):
+        models[v] = PhyloModel(tree, lg, tips, alpha=0.5, device=dev,
+                               config=PLFConfig(states=20, kernel_variant=v))
+    phase("data", f"protein: {PROT_TAXA} taxa x {PROT_SITES} sites, LG+G4, "
+          f"{len(pm.schedule)} PLF nodes, {pm.n_slots} arena slots, "
+          f"{pm.tip_table.shape[1]} tip codes; default model on "
+          f"{pm.device} ({pm.config.resolved_kernel_variant}) built in "
+          f"{built:.1f} s")
+    return tree, tips, models
+
+
+def kernel2m_phase(models):
+    """Kernel 2m against its plain version on the protein workload, in
+    each MXU variant: site likelihoods and rescale counts equal."""
+    res = {}
+    for variant in MXU_VARIANTS:
+        pm = models[variant]
+        cfg = pm.config
+        S, C = cfg.states, cfg.categories
+        args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+                pm.root_rows[0], pm.n_sites)
+        kw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot, states=S,
+                  categories=C, variant=variant, planes=pm._planes())
+        lik_k, sc_k = plf_tree_mxu(*args, **kw)
+        lik_p, sc_p = plf_tree_torch(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((lik_k - lik_p).abs().max())
+        check(torch.equal(lik_k, lik_p) and torch.equal(sc_k, sc_p),
+              f"kernel 2m ({variant}) != plain version (max abs {err:g})")
+        ms_k = cuda_ms(lambda: plf_tree_mxu(*args, **kw), reps=5, warmup=1)
+        ms_p = cuda_ms(lambda: plf_tree_torch(*args, **kw), reps=1,
+                       warmup=0)
+        n_codes = pm.tip_table.shape[1]
+        blocks = plf_tree_mxu_occupancy(pm.codes.dtype, S, C, n_codes,
+                                        pm.n_slots, variant)
+        n_pad, E = pm.n_pad, len(pm.schedule)
+        flops, rate = node_work(S, C, variant)
+        bd = bound((pm.codes.element_size() * pm.tree.n_leaves + 8) * n_pad,
+                   E * flops * n_pad, rate)
+        phase("kernel2m", f"{variant}: {E} nodes x {pm.n_sites} sites: == "
+              f"plain (site likelihoods and {int(sc_k.sum())} rescales); "
+              f"{pm.n_slots} arena slots, tiles of {TREE_MXU_SITES} sites, "
+              f"{blocks} blocks of 128 threads per SM; kernel {ms_k:.3f} ms "
+              f"({1e3 / ms_k:.1f} tree evals/s; bound {bd['bound_ms']:.3f} "
+              f"ms by {bd['bound_by']}), plain {ms_p:.3f} ms")
+        res[variant] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err, **bd)
+    return res
+
+
+def protein_phase(tree, tips, models, dev):
+    """The protein main path: the default model's log_likelihood() runs
+    kernel 2m once and kernel 1m never; per-node runs kernel 1m once per
+    node; the two agree, and each variant stands against a float64 brute
+    force on a sub-alignment."""
+    pm = models["mxu_3x"]
+    E = len(pm.schedule)
+    n_eval = 5
+    _reset_counts()
+    walls = []
+    for _ in range(n_eval):
+        t0 = time.perf_counter()
+        fused = pm.log_likelihood()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    check(counts["plf_tree_mxu"] == n_eval
+          and sum(counts.values()) == n_eval,
+          f"log_likelihood() launched {counts}, not kernel 2m x {n_eval}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    pernode = pm.log_likelihood(method="per-node")
+    wall_pn = (time.perf_counter() - t0) * 1e3
+    counts_pn = _counts()
+    check(counts_pn["plf_node_mxu"] == E and sum(counts_pn.values()) == E,
+          f"per-node launched {counts_pn}, not kernel 1m x {E}")
+    launches = {"plf_tree_mxu": counts["plf_tree_mxu"],
+                "plf_node_mxu": counts_pn["plf_node_mxu"]}
+    rel = abs(fused.log_likelihood - pernode.log_likelihood) / abs(
+        pernode.log_likelihood)
+    check(np.isfinite(fused.log_likelihood)
+          and fused.scaler_total == pernode.scaler_total and rel < 1e-5,
+          f"mxu_3x fused {fused.log_likelihood} vs per-node "
+          f"{pernode.log_likelihood} (rel {rel}, scalers "
+          f"{fused.scaler_total}/{pernode.scaler_total})")
+    wall = float(np.median(walls))
+    phase("protein", f"log_likelihood() = {fused.log_likelihood:.6f} "
+          f"(mxu_3x, scaler total {fused.scaler_total}) via kernel 2m, "
+          f"{wall:.2f} ms/eval wall (median of {n_eval}); per-node via "
+          f"kernel 1m x {E} = {pernode.log_likelihood:.6f} (rel {rel:.2e}) "
+          f"in {wall_pn:.1f} ms")
+    mx = models["mxu"]
+    f32, pn32 = mx.log_likelihood(), mx.log_likelihood(method="per-node")
+    rel32 = abs(f32.log_likelihood - pn32.log_likelihood) / abs(
+        pn32.log_likelihood)
+    check(rel32 < 1e-12 and f32.scaler_total == pn32.scaler_total,
+          f"mxu fused {f32.log_likelihood} vs per-node "
+          f"{pn32.log_likelihood}")
+    b16 = models["mxu_bf16"].log_likelihood()
+    phase("protein", f"full alignment: mxu {f32.log_likelihood:.6f} "
+          f"(fused vs per-node rel {rel32:.2e}); mxu_3x drift from mxu "
+          f"{abs(fused.log_likelihood / f32.log_likelihood - 1):.2e}; "
+          f"mxu_bf16 {b16.log_likelihood:.6f}, drift "
+          f"{abs(b16.log_likelihood / f32.log_likelihood - 1):.2e}")
+
+    sub_tips = tips[:, :PROT_BRUTE_SITES]
+    lg = empirical_protein("lg")
+    bf, out = None, []
+    for variant, bar in (("mxu", 1e-5), ("mxu_3x", 1e-4), ("mxu_bf16", None)):
+        sub = PhyloModel(tree, lg, sub_tips, alpha=0.5, device=dev,
+                         config=PLFConfig(states=20, kernel_variant=variant))
+        if bf is None:
+            bf = sub.log_likelihood_bruteforce()
+        ll = sub.log_likelihood().log_likelihood
+        r = abs(ll - bf) / abs(bf)
+        check(bar is None or r < bar,
+              f"{variant} {ll} vs float64 brute force {bf}: rel {r}")
+        out.append(f"{variant} {ll:.6f} (rel {r:.2e}"
+                   + ("" if bar is None else f" < {bar:g}") + ")")
+    phase("protein", f"{PROT_BRUTE_SITES}-site sub-alignment vs float64 "
+          f"brute force {bf:.6f}: " + "; ".join(out))
+    return launches, wall
+
+
 def _median_ms(fn, reps=5):
     """Median host-clock time of ``fn`` in ms, the device synchronised
     before and after each run."""
@@ -673,28 +983,42 @@ def main():
     launches.update({k: train_launches[k]
                      for k in ("plf_node_bwd", "plf_tree_bwd")})
     profile_phase(pm)
+    k1m = kernel1m_phase(dev)
+    ptree, ptips, models = protein_workload(dev)
+    k2m = kernel2m_phase(models)
+    prot_launches, _ = protein_phase(ptree, ptips, models, dev)
+    launches.update(prot_launches)
+
+    # Bounds of the DNA kernels at the shapes their times were taken at:
+    # kernels 1 and 3 at 2^20 sites, kernels 2 and 4 at 160 taxa x 2^20.
+    S, C = 4, 4
+    E, n_tree = len(pm.schedule), pm.n_pad
+    n_node = L.sites_padding(NODE_SITES_GOLDEN, UNIT)
+    code_bytes = pm.codes.element_size() * pm.tree.n_leaves
+    fwd, _ = node_work(S, C)
+    k1.update(bound(196 * n_node, fwd * n_node, FP32_FLOPS))
+    k2.update(bound((code_bytes + 8) * n_tree, E * fwd * n_tree, FP32_FLOPS))
+    k3["2p20"].update(bound(324 * n_node, node_bwd_flops(S, C) * n_node,
+                            FP32_FLOPS))
+    k4.update(bound((code_bytes + 4) * n_tree,
+                    E * (fwd + node_bwd_flops(S, C)) * n_tree, FP32_FLOPS))
+    entry = lambda kname, src, replaces, r: dict(
+        name=kname, route="cuda", source=f"plf_tpu_torch/csrc/{src}",
+        replaces=replaces, launches=launches[kname],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
     kernels = [
-        dict(name="plf_node", route="cuda",
-             source="plf_tpu_torch/csrc/plf_node.cu",
-             replaces="plf_tpu/ops/plf_pallas.py:78",
-             launches=launches["plf_node"], max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"]),
-        dict(name="plf_tree", route="cuda",
-             source="plf_tpu_torch/csrc/plf_tree.cu",
-             replaces="plf_tpu/ops/plf_tree_pallas.py:424",
-             launches=launches["plf_tree"], max_abs_err=k2["max_abs_err"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"]),
-        dict(name="plf_node_bwd", route="cuda",
-             source="plf_tpu_torch/csrc/plf_node_bwd.cu",
-             replaces="plf_tpu/ops/plf_grad.py:120",
-             launches=launches["plf_node_bwd"],
-             max_abs_err=k3["2p20"]["max_abs_err"], ms=k3["2p20"]["ms"],
-             plain_ms=k3["2p20"]["plain_ms"]),
-        dict(name="plf_tree_bwd", route="cuda",
-             source="plf_tpu_torch/csrc/plf_tree_bwd.cu",
-             replaces="plf_tpu/ops/plf_tree_grad.py:110",
-             launches=launches["plf_tree_bwd"], max_abs_err=k4["max_abs_err"],
-             ms=k4["ms"], plain_ms=k4["plain_ms"]),
+        entry("plf_node", "plf_node.cu", "plf_tpu/ops/plf_pallas.py:78", k1),
+        entry("plf_tree", "plf_tree.cu",
+              "plf_tpu/ops/plf_tree_pallas.py:424", k2),
+        entry("plf_node_bwd", "plf_node_bwd.cu",
+              "plf_tpu/ops/plf_grad.py:120", k3["2p20"]),
+        entry("plf_tree_bwd", "plf_tree_bwd.cu",
+              "plf_tpu/ops/plf_tree_grad.py:110", k4),
+        entry("plf_node_mxu", "plf_node_mxu.cu",
+              "plf_tpu/ops/plf_pallas.py:233", k1m["mxu_3x"]),
+        entry("plf_tree_mxu", "plf_tree_mxu.cu",
+              "plf_tpu/ops/plf_tree_pallas.py:424", k2m["mxu_3x"]),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: {launches}")

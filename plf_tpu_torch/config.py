@@ -41,8 +41,9 @@ class PLFConfig:
     backend: Backend = Backend.KERNEL
     dtype: str = "float32"     # CLV storage; only float32 is ported
     tip_dtype: str = "int32"   # tip state-code storage: "int32" or "int8"
-    kernel_variant: str = "vpu"  # "vpu" (bit-exact elementwise) or "auto";
-                                 # the MXU forms are not ported yet
+    kernel_variant: str = "vpu"  # "vpu" (bit-exact elementwise), "mxu"
+                                 # (fp32), "mxu_3x" (bf16x3), "mxu_bf16"
+                                 # (1-pass bf16) or "auto"
 
     def __post_init__(self):
         if self.states < 2:
@@ -73,15 +74,10 @@ class PLFConfig:
 
     def check_ported(self) -> None:
         """Raise NotImplementedError for settings whose kernels are not
-        ported yet (ROADMAP.md, Queue 2)."""
+        ported yet (ROADMAP.md, Queue 1).  Every kernel variant runs."""
         if self.dtype != "float32":
             raise NotImplementedError(
                 "bfloat16 CLV storage is not ported yet (ROADMAP.md, Queue 1)")
-        if self.resolved_kernel_variant != "vpu":
-            raise NotImplementedError(
-                f"kernel_variant {self.resolved_kernel_variant!r} needs the "
-                "MXU-form kernels, not ported yet (ROADMAP.md, Queue 2 "
-                "item 1)")
 
     @property
     def elements_per_site(self) -> int:

@@ -53,9 +53,10 @@ def phylo_model(*, pi, eigenvalues, u, w, tip_states, rates,
                 newick: Optional[str] = None, wgt=None,
                 ascertainment: Optional[str] = None,
                 config: Optional[PLFConfig] = None,
-                device: Union[str, torch.device] = "cpu") -> PhyloModel:
+                device: Union[str, torch.device] = "cuda") -> PhyloModel:
     """A port PhyloModel from the JAX model's arrays (see the module
-    docstring); give the tree as ``nodes`` (+ ``root``) or ``newick``."""
+    docstring); give the tree as ``nodes`` (+ ``root``) or ``newick``.
+    It lives on the card unless ``device="cpu"``."""
     if (nodes is None) == (newick is None):
         raise ValueError("give the tree as nodes or as newick, not both")
     tree = (parse_newick(newick) if newick is not None

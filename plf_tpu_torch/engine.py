@@ -7,9 +7,12 @@ check.  Counterpart of ``plf_tpu/engine.py``.
                      float-equality criterion (``host_mem.cpp:403-442``)
 
 Inputs may be NumPy arrays or tensors; they are placed on the engine's
-``device``.  On a CUDA device ``Backend.KERNEL`` runs kernel 1, on the
-CPU its plain version; both keep the golden model's fp32 order, so
-``verify`` is exact by default.
+``device`` ("cuda" unless the caller asks for "cpu").  On a CUDA device
+``Backend.KERNEL`` runs kernel 1 ("vpu" at S = 4) or kernel 1m (every MXU
+variant, and "vpu" at other S), on the CPU their plain versions.  "vpu"
+and "mxu" keep the golden model's fp32 order, so ``verify`` is exact by
+default for them; "mxu_3x" and "mxu_bf16" carry their error classes
+(about 1e-5 and 1e-2 relative), which ``verify``'s bars do not admit.
 """
 
 from __future__ import annotations
@@ -43,12 +46,12 @@ class PLFEngine:
 
     Example::
 
-        eng = PLFEngine(PLFConfig(), device="cuda")
+        eng = PLFEngine(PLFConfig())            # on the card
         out = eng.plf(x1, x2, left, right, ev, wgt)
     """
 
     def __init__(self, config: Optional[PLFConfig] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         self.config = config or PLFConfig()
         self.device = torch.device(device)
 
@@ -132,7 +135,8 @@ class PLFEngine:
         cfg.check_ported()
         return PLFResult(*plf_node_site_major(
             x1, x2, left, right, ev, wgt, states=S, categories=C,
-            block_sites=cfg.block_sites))
+            block_sites=cfg.block_sites,
+            variant=cfg.resolved_kernel_variant))
 
     # -- multi-instance -------------------------------------------------------
 

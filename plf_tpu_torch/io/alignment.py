@@ -29,7 +29,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-__all__ = ["parse_fasta", "parse_phylip", "encode_dna",
+__all__ = ["parse_fasta", "parse_phylip", "encode_dna", "encode_protein",
            "compress_patterns", "AMBIGUITY",
            "tip_expansion_table", "map_tip_codes"]
 
@@ -139,6 +139,14 @@ def encode_dna(seqs: List[str]) -> np.ndarray:
     -> 4..13 (multi-hot tip CLVs); N and gaps -> GAP (-1)."""
     table = dict(DNA_CODE)
     table.update({c: 4 + i for i, (c, _m) in enumerate(DNA_AMBIGUITY)})
+    return _encode(seqs, table)
+
+
+def encode_protein(seqs: List[str]) -> np.ndarray:
+    """20 amino acids (ARNDCQEGHILKMFPSTWYV order) -> 0..19; B/Z/J ->
+    20..22 (multi-hot Asx/Glx/Xle); X and gaps -> GAP (-1)."""
+    table = dict(AA_CODE)
+    table.update({c: 20 + i for i, (c, _m) in enumerate(AA_AMBIGUITY)})
     return _encode(seqs, table)
 
 

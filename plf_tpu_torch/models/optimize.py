@@ -19,6 +19,12 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
   traversal under torch autograd, the CPU oracle.
 * ``"segmented"`` needs the segmented engine (not ported yet).
 
+A model of an MXU variant ("mxu", "mxu_3x"; protein models resolve
+"auto" to "mxu_3x") trains on ``"torch"`` only, asked for by name: the
+"kernel", "tree" and "auto" backends raise NotImplementedError until the
+MXU form of the tree backward kernel is ported, and "mxu_bf16" raises
+ValueError on every backend, as in the JAX package.
+
 ``"auto"`` takes ``"torch"`` for a model on the CPU.  For a model on a
 CUDA device it takes ``"tree"`` whenever kernel 2 admits the tree
 (``PhyloModel.can_fuse``) and ``"kernel"`` otherwise.  The rule stands on
@@ -38,7 +44,7 @@ Underflow rescaling is kept: the 2^32 factors are constant almost
 everywhere, so gradients are exact wherever the likelihood is
 differentiable.
 
-Every returned function carries ``.variant`` (the kernel form, "vpu")
+Every returned function carries ``.variant`` (the model's kernel form)
 and ``.engine`` (the backend that runs).
 """
 
@@ -50,6 +56,7 @@ import numpy as np
 import torch
 
 from ..ops.plf_grad import make_plf_diff
+from ..ops.plf_mxu import uses_mxu_kernels
 from ..ops.plf_tree import reorder_schedule, root_reduce
 from ..ops.plf_tree_grad import make_tree_diff
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
@@ -118,11 +125,29 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    variant = pm.config.resolved_kernel_variant
+    if variant == "mxu_bf16":
+        # 1-pass bf16 rounds near-underflow site likelihoods negative
+        # through deep trees (an 11.6% ll drift on the TPU at 64 taxa x
+        # 131,072 sites, benchmarks/results/r04_protein.csv): any fit
+        # through it fits noise.  The JAX package's guard, copied.
+        raise ValueError(
+            "kernel_variant='mxu_bf16' is a bandwidth mode for forward "
+            "streaming only; its likelihood drift makes optimisation "
+            "unsound -- use 'mxu_3x' (fp32-grade, ~half the MXU passes "
+            "of 'mxu') for training/fitting")
+    if uses_mxu_kernels(variant, pm.config.states) and backend != "torch":
+        raise NotImplementedError(
+            f"the {backend!r} gradient backend of kernel_variant "
+            f"{variant!r} at S={pm.config.states} needs the MXU form of the "
+            "tree backward kernel (_tree_bwd_kernel), not ported yet: "
+            "ROADMAP.md, Queue 2 item 1; backend='torch' runs the plain "
+            "autograd path")
     if backend == "segmented":
         raise NotImplementedError(
             "the segmented gradient backend needs the segmented engine "
             "(_seg_fwd_kernel/_seg_bwd_kernel), not ported yet: ROADMAP.md,"
-            " Queue 2 items 2-3")
+            " Queue 2 items 4-5")
     if backend == "auto":
         backend = _auto_backend(pm)
     build = {"torch": _core_torch, "kernel": _core_kernel,
@@ -140,7 +165,7 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
     else:
         def fn(t_vec):
             return core(_f32(t_vec, dev), rates, cw)
-    fn.variant = pm.config.resolved_kernel_variant
+    fn.variant = variant
     fn.engine = backend
     t0 = np.array([pm.tree.nodes[i].length
                    for i in range(pm.tree.n_nodes - 1)], np.float32)

@@ -13,9 +13,20 @@ schedule.  Two evaluation paths:
   the parent written in place over a dead internal child, and a final
   root reduction in kernel 2's op order (``ops/plf_tree.py::root_reduce``).
 
-``auto`` takes the fused path whenever the GPU capacity rule
-(``ops/plf_tree.py::tree_block_threads``) admits the tree.  The log and
-the sum over sites run on the host in float64.
+Those are the "vpu" kernels at S = 4.  Every other model -- the "mxu",
+"mxu_3x" and "mxu_bf16" variants, and "vpu" at S != 4 (protein: S = 20)
+-- runs kernel 2m fused and kernel 1m per node (``ops/plf_mxu.py``), with
+the JAX package's tip semantics: the fused path expands tips from a tip
+table rounded as the variant's tip product rounds it
+(``ops/plf_mxu.py::round_tip_table``), the per-node path exactly.
+
+Those kernels take their operators split once here, for the variant
+(``ops/plf_mxu.py::operator_planes``), not on every launch.
+
+``auto`` takes the fused path whenever the GPU capacity rule of the
+model's kernel (``ops/plf_tree.py::tree_block_threads`` or
+``tree_mxu_fits``) admits the tree.  The log and the sum over sites run
+on the host in float64.
 
 Log-likelihood:  ll = sum_s wgt_s * log( sum_c w_c rv . x_root[s,c,:] )
                      + scaler_total * log(2^-32)
@@ -33,10 +44,11 @@ from torch import nn
 from ..config import PLFConfig
 from ..io.alignment import AMBIGUITY, map_tip_codes, tip_expansion_table
 from ..ops import layout as L
+from ..ops.plf_mxu import operator_planes, round_tip_table, uses_mxu_kernels
 from ..ops.plf_node import plf_node
 from ..ops.plf_tree import (compile_register_schedule, plf_tree,
                             reorder_schedule, root_reduce,
-                            tree_block_threads)
+                            tree_block_threads, tree_mxu_fits)
 from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
 from .tree import Tree
@@ -64,8 +76,8 @@ class PhyloModel(nn.Module):
 
     Example::
 
-        model = PhyloModel(tree, hky85(2.0), tip_states, alpha=0.5,
-                           device="cuda")
+        model = PhyloModel(tree, empirical_protein("lg"), tip_states,
+                           alpha=0.5)          # on the card
         out = model.log_likelihood()
     """
 
@@ -78,7 +90,7 @@ class PhyloModel(nn.Module):
                  rate_weights: Optional[np.ndarray] = None,
                  rates: Optional[np.ndarray] = None,
                  share_device_from: Optional["PhyloModel"] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         """
         Args:
           tip_states: (n_leaves, n_sites) int array of observed states per
@@ -98,8 +110,9 @@ class PhyloModel(nn.Module):
             substitution model, rates and config whose device tensors
             (codes, weights, EV constants, tip table) and branch-operator
             cache are reused instead of rebuilt.
-          device: where the buffers live; "cuda" runs the CUDA kernels,
-            "cpu" their plain versions.
+          device: where the buffers live; "cuda" (the default) runs the
+            CUDA kernels, "cpu" their plain versions.  Without a card the
+            default fails here, at construction.
         """
         super().__init__()
         self.tree = tree
@@ -198,7 +211,8 @@ class PhyloModel(nn.Module):
             if donor.codes.device != device:
                 raise ValueError("share_device_from: donor lives on "
                                  f"{donor.codes.device}, not {device}")
-            for name in ("codes", "wgt_pad", "ec", "tip_table"):
+            for name in ("codes", "wgt_pad", "ec", "tip_table",
+                         "fused_tip_table"):
                 self.register_buffer(name, getattr(donor, name))
         else:
             # Tip-table columns: states, gap (S, also the padding code) and
@@ -221,6 +235,17 @@ class PhyloModel(nn.Module):
             self.register_buffer("tip_table", torch.as_tensor(
                 np.repeat(tbl, C, axis=0).astype(np.float32),
                 device=device))
+            # The fused path's tips: the table as the variant's tip
+            # product rounds it (the same tensor for "vpu" and "mxu").
+            self.register_buffer("fused_tip_table", round_tip_table(
+                self.tip_table, cfg.resolved_kernel_variant).contiguous())
+
+        # Kernels 1m and 2m take (hi, lo) operator planes: split once here.
+        mxu = uses_mxu_kernels(cfg.resolved_kernel_variant, S)
+        for name, k in (("lcs_planes", self.lcs), ("rcs_planes", self.rcs),
+                        ("ec_planes", self.ec)):
+            self.register_buffer(name, torch.stack(operator_planes(
+                k, cfg.resolved_kernel_variant)) if mxu else None)
 
         sched = reorder_schedule(self.schedule, tree.n_leaves)
         arrs, self.n_slots, self.root_slot = compile_register_schedule(
@@ -232,6 +257,17 @@ class PhyloModel(nn.Module):
     def device(self) -> torch.device:
         return self.codes.device
 
+    def _planes(self, e: Optional[int] = None):
+        """The operator planes of edge ``e`` (of every edge if None) for
+        the matrix-form kernels, or None for kernels 1 and 2."""
+        if self.ec_planes is None:
+            return None
+        lp, rp = self.lcs_planes, self.rcs_planes
+        if e is not None:
+            lp, rp = lp[:, e], rp[:, e]
+        return (lp[0], lp[1], rp[0], rp[1], self.ec_planes[0],
+                self.ec_planes[1])
+
     # -- per-node traversal (kernel 1) ---------------------------------------
 
     def _expand_tip(self, leaf: int) -> torch.Tensor:
@@ -240,7 +276,8 @@ class PhyloModel(nn.Module):
         return self.tip_table[:, self.codes[leaf].long()]
 
     def _traverse(self):
-        """Post-order traversal, one kernel-1 launch per internal node.
+        """Post-order traversal, one kernel-1 (or 1m) launch per internal
+        node.
         Leaf CLVs are expanded when first needed and dropped after use
         (each leaf is read once); the parent CLV is written in place over
         a dead internal child's buffer."""
@@ -250,13 +287,15 @@ class PhyloModel(nn.Module):
         clvs: Dict[int, torch.Tensor] = {}
         scaler_sites = torch.zeros(self.n_pad, dtype=torch.int32,
                                    device=self.device)
+        variant = cfg.resolved_kernel_variant
         for e, (parent, l, r, _, _) in enumerate(self.schedule):
             x1 = clvs.pop(l) if l >= n_leaves else self._expand_tip(l)
             x2 = clvs.pop(r) if r >= n_leaves else self._expand_tip(r)
             donate = x1 if l >= n_leaves else x2 if r >= n_leaves else None
             x3, sc = plf_node(x1, x2, self.lcs[e], self.rcs[e], self.ec,
                               self.n_sites, states=S, categories=C,
-                              out=donate)
+                              out=donate, variant=variant,
+                              planes=self._planes(e))
             scaler_sites += sc[0]
             clvs[parent] = x3
         x_root = clvs[self.tree.root]
@@ -302,19 +341,24 @@ class PhyloModel(nn.Module):
 
     def can_fuse(self) -> bool:
         """Whether the tree's register-machine arena fits one block's
-        shared memory (the GPU capacity rule, ops/plf_tree.py)."""
-        return tree_block_threads(self.n_slots, self.config.rows,
-                                  self.tip_table.shape[1],
-                                  self.config.states) is not None
+        shared memory (the capacity rule of the model's tree kernel,
+        ops/plf_tree.py)."""
+        cfg = self.config
+        n_codes = self.tip_table.shape[1]
+        if uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states):
+            return tree_mxu_fits(self.n_slots, cfg.rows, n_codes)
+        return tree_block_threads(self.n_slots, cfg.rows, n_codes,
+                                  cfg.states) is not None
 
     def log_likelihood_fused(self) -> TreeLikelihoodResult:
         """Whole-tree single-kernel evaluation."""
         cfg = self.config
         lik, sc = plf_tree(
             self.codes, self.sched, self.lcs, self.rcs, self.ec,
-            self.tip_table, self.root_rows[0], self.n_sites,
+            self.fused_tip_table, self.root_rows[0], self.n_sites,
             n_slots=self.n_slots, root_slot=self.root_slot,
-            states=cfg.states, categories=cfg.categories)
+            states=cfg.states, categories=cfg.categories,
+            variant=cfg.resolved_kernel_variant, planes=self._planes())
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 
@@ -334,7 +378,7 @@ class PhyloModel(nn.Module):
         if method == "segmented":
             raise NotImplementedError(
                 "the segmented engine (_seg_fwd_kernel) is not ported yet: "
-                "ROADMAP.md, Queue 2 item 2")
+                "ROADMAP.md, Queue 2 item 4")
         if method == "fused" or (method == "auto" and not keep_root_clv
                                  and self.can_fuse()):
             return self.log_likelihood_fused()

@@ -1,10 +1,11 @@
 """Substitution models: rate matrices, eigensystem, PLF branch matrices.
 
-The DNA part of ``plf_tpu/models/substitution.py``, copied (NumPy only):
-JC69, HKY85, GTR, random GTR-class models, the discrete Gamma and +I rate
-mixtures and the per-category branch matrices.  Protein (PAML empirical
-matrices) and codon (GY94) models are not ported yet (ROADMAP.md,
-Queue 1).
+The DNA and protein parts of ``plf_tpu/models/substitution.py``, copied
+(NumPy only): JC69, HKY85, GTR, random GTR-class models, the six PAML
+empirical amino-acid models (their ``.dat`` files are copied into
+``models/data/``), the discrete Gamma and +I rate mixtures and the
+per-category branch matrices.  Codon (GY94) models are not ported yet
+(ROADMAP.md, Queue 2 item 2).
 
 The PLF computes, per category ``c``:
 
@@ -20,13 +21,15 @@ root likelihood per site is ``(pi^T U) . x_root``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
 __all__ = ["SubstitutionModel", "jc69", "hky85", "gtr", "random_gtr",
-           "discrete_gamma_rates", "gamma_invariant_rates",
-           "branch_matrices"]
+           "AMINO_ACIDS", "parse_paml_matrix", "BUILTIN_PROTEIN_MODELS",
+           "empirical_protein", "discrete_gamma_rates",
+           "gamma_invariant_rates", "branch_matrices"]
 
 
 def _normalise_q(q: np.ndarray, pi: np.ndarray) -> np.ndarray:
@@ -119,6 +122,73 @@ def random_gtr(states: int = 4, seed: int = 0) -> SubstitutionModel:
     rates = rng.random(states * (states - 1) // 2) + 0.1
     pi = rng.random(states) + 0.1
     return gtr(rates, pi / pi.sum())
+
+
+AMINO_ACIDS = "ARNDCQEGHILKMFPSTWYV"  # PAML canonical order
+
+
+def parse_paml_matrix(text: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse a PAML ``.dat`` empirical amino-acid model file.
+
+    The standard distribution format of LG/WAG/JTT etc.: 190 lower-
+    triangular exchangeabilities (row i of 2..20 holds i-1 numbers),
+    followed by 20 equilibrium frequencies, free-form whitespace;
+    anything after the 210th number (comments, ancestral sequences) is
+    ignored.  Returns ``(exchangeabilities (20, 20) symmetric, pi (20,))``
+    in PAML amino-acid order ARNDCQEGHILKMFPSTWYV.
+    """
+    vals: list = []
+    for tok in text.replace(",", " ").split():
+        try:
+            vals.append(float(tok))
+        except ValueError:
+            break  # first non-numeric token ends the numeric block
+        if len(vals) == 210:
+            break
+    if len(vals) < 210:
+        raise ValueError(
+            f"PAML matrix needs 190 rates + 20 frequencies, got "
+            f"{len(vals)} numbers")
+    S = 20
+    R = np.zeros((S, S))
+    k = 0
+    for i in range(1, S):
+        for j in range(i):
+            R[i, j] = R[j, i] = vals[k]
+            k += 1
+    pi = np.asarray(vals[190:210], dtype=np.float64)
+    pi = pi / pi.sum()
+    return R, pi
+
+
+#: Empirical models shipped as PAML-format data files under models/data/
+#: (the JAX package's files, copied): lg.dat: Le & Gascuel (2008) MBE
+#: 25(7):1307-1320; wag.dat: Whelan & Goldman (2001) MBE 18(5):691-699;
+#: jtt.dat: Jones, Taylor & Thornton (1992) CABIOS 8:275-282; dayhoff.dat:
+#: Dayhoff, Schwartz & Orcutt (1978); mtrev.dat: Adachi & Hasegawa (1996)
+#: mtREV24; cprev.dat: Adachi et al. (2000) cpREV.
+BUILTIN_PROTEIN_MODELS = ("lg", "wag", "jtt", "dayhoff", "mtrev", "cprev")
+
+
+def empirical_protein(source: str,
+                      pi: Optional[np.ndarray] = None
+                      ) -> SubstitutionModel:
+    """Build a 20-state model from PAML ``.dat`` text, a file path, or a
+    built-in name ("lg", "wag", "jtt", "dayhoff", "mtrev", "cprev").
+    ``pi`` overrides the matrix's published equilibrium frequencies (the
+    "+F" convention)."""
+    text = source
+    if source.lower() in BUILTIN_PROTEIN_MODELS:
+        path = os.path.join(os.path.dirname(__file__), "data",
+                            f"{source.lower()}.dat")
+        with open(path) as f:
+            text = f.read()
+    elif "\n" not in source and os.path.exists(source):
+        with open(source) as f:
+            text = f.read()
+    R, pi_file = parse_paml_matrix(text)
+    iu = np.triu_indices(20, k=1)
+    return gtr(R[iu], pi_file if pi is None else np.asarray(pi))
 
 
 def discrete_gamma_rates(alpha: float, categories: int = 4) -> np.ndarray:

@@ -22,6 +22,7 @@ __all__ = [
     "cdiv", "pad_to_multiple", "sites_padding",
     "to_lane_major", "from_lane_major",
     "branch_to_lane_constants", "ev_to_lane_constants",
+    "branch_to_block_matrix", "ev_to_block_matrix",
 ]
 
 
@@ -92,3 +93,43 @@ def ev_to_lane_constants(ev, states: int = 4, categories: int = 4):
         return e.astype(np.float32)
     e = torch.repeat_interleave(ev.reshape(S, S).t(), C, dim=0)
     return e.to(torch.float32).contiguous()
+
+
+def _like(m: np.ndarray, x):
+    """``m`` as the kind of ``x`` (a NumPy array or a CPU tensor)."""
+    return m if isinstance(x, np.ndarray) else torch.as_tensor(m)
+
+
+def _as_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def branch_to_block_matrix(branch, states: int = 4, categories: int = 4):
+    """Branch matrix ``(C, S, S)`` ``[c, k, a]`` -> the ``(S*C, S*C)``
+    block operator of the JAX package's MXU kernels,
+    ``M[k*C + c, a*C + c] = branch[c, k, a]`` and zero across categories.
+    Its non-zero entries are exactly :func:`branch_to_lane_constants`'s
+    ``Lc[k*C + c, a]``, which is what the port's kernels take; this form
+    exchanges operators with the JAX package by value."""
+    S, C = states, categories
+    b = _as_numpy(branch).reshape(C, S, S)               # [c, k, a]
+    m = np.zeros((S * C, S * C), np.float32)
+    for c in range(C):
+        m[np.arange(S)[:, None] * C + c,
+          np.arange(S)[None, :] * C + c] = b[c]          # [k, a] block
+    return _like(m, branch)
+
+
+def ev_to_block_matrix(ev, states: int = 4, categories: int = 4):
+    """Eigenvector matrix ``(S, S)`` ``[k, a]`` -> the stage-3 block
+    operator ``M[a*C + c, k*C + c] = ev[k, a]``; its non-zero entries are
+    :func:`ev_to_lane_constants`'s ``Ec[a*C + c, k]``."""
+    S, C = states, categories
+    e = _as_numpy(ev).reshape(S, S)                      # [k, a]
+    m = np.zeros((S * C, S * C), np.float32)
+    for c in range(C):
+        m[np.arange(S)[:, None] * C + c,
+          np.arange(S)[None, :] * C + c] = e.T           # [a, k] block
+    return _like(m, ev)

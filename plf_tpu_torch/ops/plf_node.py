@@ -8,9 +8,11 @@ the golden model's order.  What bounds it on the card is device memory:
 196 bytes per site at S = C = 4 (two child CLVs read, one parent CLV and
 one int32 flag written), against ~23 fp32 operations per CLV element.
 
-:func:`plf_node` dispatches on the device of its tensors: a CPU tensor
-takes the plain version :func:`plf_node_torch`, a CUDA tensor launches
-the kernel or raises.  ``plf_node.launches`` counts kernel launches.
+:func:`plf_node` dispatches on the kernel variant first (any form but
+"vpu" at S = 4 goes to kernel 1m, ``ops/plf_mxu.py``), then on the device
+of its tensors: a CPU tensor takes the plain version
+:func:`plf_node_torch`, a CUDA tensor launches the kernel or raises.
+``plf_node.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from . import layout as L
 
 __all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
-           "node_plain", "stage"]
+           "node_plain", "stage", "SMEM_BLOCK_BYTES"]
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
+
+#: Shared memory one thread block may use on an H100 (227 KiB; the part
+#: above 48 KiB is opted into by the launchers).
+SMEM_BLOCK_BYTES = 232448
 
 
 def _tile_rows(x, a: int, states: int, categories: int):
@@ -121,7 +127,8 @@ def _lib():
 
 
 def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
-             categories: int = 4, out: Optional[torch.Tensor] = None):
+             categories: int = 4, out: Optional[torch.Tensor] = None,
+             variant: str = "vpu", planes=None):
     """Fused PLF on lane-major operands.
 
     Args:
@@ -133,10 +140,24 @@ def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
       n: number of valid sites; sites ``>= n`` never set a scaler flag.
       out: optional output buffer; passing ``x1`` or ``x2`` writes the
         parent CLV in place over that (dead) child.
+      variant: the kernel form, dispatched as ``plf_pallas_lane_major``
+        does (``plf_pallas.py:314-325``): "vpu" at S = 4 runs this kernel;
+        "mxu", "mxu_3x", "mxu_bf16", and "vpu" at S != 4, run kernel 1m
+        (:func:`plf_mxu.plf_node_mxu`), which takes the same lane
+        constants.
+      planes: kernel 1m only: ``lc``/``rc``/``ec`` already split for
+        ``variant`` (:func:`plf_mxu.node_planes`).
 
     Returns:
       ``(x3, scaler)``: ``(S*C, n_pad)`` fp32 and ``(1, n_pad)`` int32.
     """
+    from .plf_mxu import plf_node_mxu, uses_mxu_kernels
+    if uses_mxu_kernels(variant, states):
+        return plf_node_mxu(x1, x2, lc, rc, ec, n, states=states,
+                            categories=categories, out=out, variant=variant,
+                            planes=planes)
+    if planes is not None:
+        raise ValueError("plf_node: planes are for the matrix-form kernel")
     _check(x1, x2, lc, rc, ec, out, states, categories)
     if x1.device.type == "cpu":
         return plf_node_torch(x1, x2, lc, rc, ec, n, states=states,
@@ -174,11 +195,12 @@ plf_node.launches = 0
 
 
 def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,
-                        categories: int = 4, block_sites: int = 4096):
+                        categories: int = 4, block_sites: int = 4096,
+                        variant: str = "vpu"):
     """Site-major convenience wrapper (counterpart of
     ``plf_tpu/ops/plf_pallas.py::plf_pallas``): layout in, kernel 1,
-    layout out.  Returns ``(x3 (n, C, S), scaler_vector (n,) int32,
-    scaler_increment int64 scalar)``."""
+    layout out, in the form of ``variant``.  Returns ``(x3 (n, C, S),
+    scaler_vector (n,) int32, scaler_increment int64 scalar)``."""
     S, C = states, categories
     n = x1.reshape(-1, C, S).shape[0]
     n2 = x2.reshape(-1, C, S).shape[0]
@@ -190,7 +212,7 @@ def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,
     rc = L.branch_to_lane_constants(right, S, C)
     ec = L.ev_to_lane_constants(ev, S, C)
     x3l, sc = plf_node(x1l.contiguous(), x2l.contiguous(), lc, rc, ec, n,
-                       states=S, categories=C)
+                       states=S, categories=C, variant=variant)
     x3 = L.from_lane_major(x3l, S, C, n=n)
     sv = sc[0, :n]
     si = (sv.to(torch.int64) * wgt.to(torch.int64)).sum()

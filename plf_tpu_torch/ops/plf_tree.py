@@ -1,4 +1,5 @@
-"""Kernel 2: the whole-tree forward likelihood, and its host planners.
+"""Kernels 2 and 2m: the whole-tree forward likelihood, and its host
+planners.
 
 Replaces ``plf_tpu/ops/plf_tree_pallas.py::_tree_kernel`` (``:209``,
 schedule unrolled at trace time, used for <= 96 nodes) and
@@ -27,6 +28,17 @@ arena (plus the staged constants) must fit :data:`SMEM_BLOCK_BYTES`
 (:func:`tree_block_threads`); a tree that does not fit takes the
 per-node path.  At S = C = 4 that admits ``n_slots <= 28``; a random
 1000-taxon tree needs well under 16.
+
+Kernel 2m (``csrc/plf_tree_mxu.cu``) is the matrix ("MXU") form of the
+same two TPU kernels (``_plf_node_mxu`` per op, ``_expand_tip(dot=)`` per
+tip) for the "mxu", "mxu_3x" and "mxu_bf16" variants, and the "vpu"
+variant at S != 4.  :func:`plf_tree` dispatches to it.  A block of 128
+threads owns a tile of :data:`TREE_MXU_SITES` = 8 sites and all ``S*C``
+rows; its capacity rule (:func:`tree_mxu_fits`) admits a tree whose
+``n_slots + 3`` tiles fit shared memory; a tree that does not fit takes
+the per-node path.  At S = 20, C = 4 with all 24 tip codes that admits
+``n_slots <= 84``.  Narrow tiles leave room for more resident blocks
+(``PERF.md`` records 8-, 16- and 32-site tiles on the card).
 """
 
 from __future__ import annotations
@@ -39,16 +51,15 @@ import numpy as np
 import torch
 
 from . import layout as L
-from .plf_node import node_plain
+from .plf_mxu import MODES, node_mxu_plain, node_planes, uses_mxu_kernels
+from .plf_node import SMEM_BLOCK_BYTES
 
 __all__ = ["plf_tree", "plf_tree_torch", "plf_tree_occupancy", "root_reduce",
            "reorder_schedule", "schedule_depth", "compile_register_schedule",
            "pack_branch_constants", "tree_block_threads", "tree_smem_bytes",
-           "SMEM_BLOCK_BYTES", "TREE_THREADS"]
-
-#: Shared memory one thread block may use on an H100 (227 KiB; the part
-#: above 48 KiB is opted into by the launcher).
-SMEM_BLOCK_BYTES = 232448
+           "SMEM_BLOCK_BYTES", "TREE_THREADS", "plf_tree_mxu",
+           "plf_tree_mxu_occupancy", "tree_mxu_fits", "tree_mxu_smem_bytes",
+           "TREE_MXU_SITES"]
 
 #: Thread-block size of the tree kernel: four warps, which leaves room for
 #: several blocks per SM at the arena sizes of real trees.
@@ -72,6 +83,25 @@ def tree_block_threads(n_slots: int, rows: int, n_codes: int,
             <= SMEM_BLOCK_BYTES:
         return TREE_THREADS
     return None
+
+
+#: Sites per block of kernel 2m (``kSites`` in ``csrc/plf_tree_mxu.cu``).
+TREE_MXU_SITES = 8
+
+
+def tree_mxu_smem_bytes(n_slots: int, rows: int, n_codes: int) -> int:
+    """Dynamic shared memory of one kernel-2m block: the tip table and
+    root row vector, two int arrays of :data:`TREE_MXU_SITES`, and
+    ``n_slots + 3`` ``rows x TREE_MXU_SITES`` fp32 tiles (the arena, two
+    tip operands, the stage-2 products)."""
+    return 4 * (rows * n_codes + rows + 2 * TREE_MXU_SITES
+                + (n_slots + 3) * rows * TREE_MXU_SITES)
+
+
+def tree_mxu_fits(n_slots: int, rows: int, n_codes: int) -> bool:
+    """Whether a kernel-2m block fits :data:`SMEM_BLOCK_BYTES` (else the
+    tree does not fuse)."""
+    return tree_mxu_smem_bytes(n_slots, rows, n_codes) <= SMEM_BLOCK_BYTES
 
 
 # ---------------------------------------------------------------- planners --
@@ -202,11 +232,14 @@ def root_reduce(rr, x):
 
 def plf_tree_torch(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
                    n_slots: int, root_slot: int, states: int = 4,
-                   categories: int = 4):
-    """Plain version of kernel 2 (same arguments and results as
-    :func:`plf_tree`), on the device of its inputs, in the kernel's op
-    order: tips as table columns, :func:`node_plain` per op, a sequential
-    root reduction."""
+                   categories: int = 4, variant: str = "vpu", planes=None):
+    """Plain version of kernels 2 and 2m (same arguments and results as
+    :func:`plf_tree`), on the device of its inputs, in the kernels' op
+    order: tips as table columns, :func:`plf_mxu.node_mxu_plain` per op
+    (in fp32 mode it is :func:`plf_node.node_plain`), a sequential root
+    reduction."""
+    pl = None if planes is None else node_planes(lcs, rcs, ec, variant,
+                                                 planes)
     n_pad = codes.shape[-1]
     valid = torch.arange(n_pad, device=codes.device) < n
     lsrc, lflag, rsrc, rflag, oslot, eidx = sched.cpu().tolist()
@@ -219,9 +252,12 @@ def plf_tree_torch(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
 
     scaler = torch.zeros(n_pad, dtype=torch.int32, device=codes.device)
     for i in range(len(eidx)):
-        x3, mask = node_plain(operand(lsrc[i], lflag[i]),
-                              operand(rsrc[i], rflag[i]), lcs[eidx[i]],
-                              rcs[eidx[i]], ec, valid, states, categories)
+        e = eidx[i]
+        x3, mask = node_mxu_plain(
+            operand(lsrc[i], lflag[i]), operand(rsrc[i], rflag[i]), lcs[e],
+            rcs[e], ec, valid, states, categories, variant,
+            None if pl is None else (pl[0][e], pl[1][e], pl[2][e], pl[3][e],
+                                     pl[4], pl[5]))
         arena[oslot[i]] = x3
         scaler += mask.to(torch.int32)
     return root_reduce(rr, arena[root_slot])[None, :], scaler[None, :]
@@ -272,7 +308,8 @@ def _lib():
 
 
 def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
-             root_slot: int, states: int = 4, categories: int = 4):
+             root_slot: int, states: int = 4, categories: int = 4,
+             variant: str = "vpu", planes=None):
     """Fused whole-tree likelihood on register-machine arrays.
 
     Args:
@@ -285,10 +322,22 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
       ec: ``(S*C, S)`` eigenvector constants; ttab: ``(S*C, n_codes)`` tip
         table per lane-major row; rr: ``(S*C,)`` root row vector.
       n: valid site count.
+      variant: the kernel form; "vpu" at S = 4 runs kernel 2, anything
+        else kernel 2m (:func:`plf_tree_mxu`), whose tip table the caller
+        rounds (:func:`plf_mxu.round_tip_table`).
+      planes: kernel 2m only: ``lcs``/``rcs``/``ec`` already split for
+        ``variant`` (:func:`plf_mxu.node_planes`).
 
     Returns:
       ``(site_lik, scaler_counts)``: ``(1, n_pad)`` fp32 and int32.
     """
+    if uses_mxu_kernels(variant, states):
+        return plf_tree_mxu(codes, sched, lcs, rcs, ec, ttab, rr, n,
+                            n_slots=n_slots, root_slot=root_slot,
+                            states=states, categories=categories,
+                            variant=variant, planes=planes)
+    if planes is not None:
+        raise ValueError("plf_tree: planes are for the matrix-form kernel")
     _check(codes, sched, lcs, rcs, ec, ttab, rr, n_slots, root_slot,
            states, categories)
     if codes.device.type == "cpu":
@@ -349,5 +398,102 @@ def plf_tree_occupancy(code_dtype: torch.dtype, categories: int,
                                  TREE_THREADS, ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"plf_tree occupancy query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return blocks.value
+
+
+# ------------------------------------------------------------ kernel 2m --
+
+
+@functools.cache
+def _lib_mxu():
+    """Build (first use) and load csrc/plf_tree_mxu.cu, with its C
+    prototypes."""
+    from ._build import load_library
+    lib = load_library("plf_tree_mxu")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.plf_tree_mxu_launch.argtypes = [
+        vp, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
+        ci, ci, ci, ci, ci, vp]
+    lib.plf_tree_mxu_launch.restype = ci
+    lib.plf_tree_mxu_occupancy.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+    lib.plf_tree_mxu_occupancy.restype = ci
+    lib.plf_error_string.argtypes = [ci]
+    lib.plf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plf_tree_mxu(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
+                 n_slots: int, root_slot: int, states: int = 20,
+                 categories: int = 4, variant: str = "mxu_3x", planes=None):
+    """Kernel 2m: :func:`plf_tree` in the arithmetic of ``variant`` (any
+    key of :data:`plf_mxu.MODES`), at any S.  Same arguments and results
+    as :func:`plf_tree`; ``ttab`` is taken as given (an exact column
+    select), so the caller passes the variant's rounded tip table."""
+    if variant not in MODES:
+        raise ValueError(f"unknown kernel variant {variant!r}")
+    _check(codes, sched, lcs, rcs, ec, ttab, rr, n_slots, root_slot,
+           states, categories)
+    if codes.device.type == "cpu":
+        return plf_tree_torch(codes, sched, lcs, rcs, ec, ttab, rr, n,
+                              n_slots=n_slots, root_slot=root_slot,
+                              states=states, categories=categories,
+                              variant=variant, planes=planes)
+    if codes.device.type != "cuda":
+        raise ValueError(f"plf_tree_mxu: no kernel for device {codes.device}")
+    ts = (codes, sched, lcs, rcs, ec, ttab, rr)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("plf_tree_mxu: tensors must be contiguous")
+    rows = states * categories
+    n_codes = ttab.shape[1]
+    if not tree_mxu_fits(n_slots, rows, n_codes):
+        raise ValueError(
+            f"plf_tree_mxu: a {n_slots}-slot arena of {rows} rows does not "
+            f"fit {SMEM_BLOCK_BYTES} bytes of shared memory at "
+            f"{TREE_MXU_SITES} sites; use the per-node path")
+    n_pad = codes.shape[-1]
+    if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
+        raise ValueError(f"plf_tree_mxu: bad n={n} for n_pad={n_pad}")
+    planes = [p.contiguous()
+              for p in node_planes(lcs, rcs, ec, variant, planes)]
+    if states % 4 == 0 and any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("plf_tree_mxu: lcs/rcs/ec must be 16-byte aligned")
+    lib = _lib_mxu()
+    lik = torch.empty((1, n_pad), dtype=torch.float32, device=codes.device)
+    sc = torch.empty((1, n_pad), dtype=torch.int32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = lib.plf_tree_mxu_launch(
+            codes.data_ptr(), codes.element_size(), sched.data_ptr(),
+            lcs.shape[0], *(p.data_ptr() for p in planes), ttab.data_ptr(),
+            n_codes, rr.data_ptr(), n_slots, root_slot, lik.data_ptr(),
+            sc.data_ptr(), int(n), n_pad, states, categories,
+            MODES[variant], stream)
+    if err != 0:
+        raise RuntimeError(f"plf_tree_mxu kernel launch failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    plf_tree_mxu.launches += 1
+    return lik, sc
+
+
+plf_tree_mxu.launches = 0
+
+
+def plf_tree_mxu_occupancy(code_dtype: torch.dtype, states: int,
+                           categories: int, n_codes: int, n_slots: int,
+                           variant: str) -> int:
+    """Thread blocks of :func:`plf_tree_mxu` resident on one SM for this
+    tree shape, as the CUDA runtime computes it; builds the kernel on
+    first use and needs a CUDA device."""
+    code_bytes = {torch.int32: 4, torch.int8: 1}[code_dtype]
+    if not tree_mxu_fits(n_slots, states * categories, n_codes):
+        raise ValueError(f"a {n_slots}-slot arena does not fit")
+    lib = _lib_mxu()
+    blocks = ctypes.c_int(0)
+    err = lib.plf_tree_mxu_occupancy(code_bytes, states, categories, n_codes,
+                                     n_slots, MODES[variant],
+                                     ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"plf_tree_mxu occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     return blocks.value

@@ -15,11 +15,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from plf_tpu_torch import PLFConfig, PLFEngine  # noqa: E402
-from plf_tpu_torch.models import PhyloModel, hky85, random_tree  # noqa: E402
+from plf_tpu_torch.models import (PhyloModel, empirical_protein,  # noqa: E402
+                                  hky85, random_gtr, random_tree)
 from plf_tpu_torch.ops import layout as L  # noqa: E402
+from plf_tpu_torch.ops.plf_mxu import (plf_node_mxu,  # noqa: E402
+                                       plf_node_mxu_torch)
 from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch  # noqa: E402
-from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_occupancy,  # noqa: E402
-                                        plf_tree_torch, reorder_schedule)
+from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,  # noqa: E402
+                                        plf_tree_mxu_occupancy,
+                                        plf_tree_occupancy, plf_tree_torch,
+                                        reorder_schedule)
 from plf_tpu_torch.ops import plf_grad as G  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_grad as TG  # noqa: E402
 from plf_tpu_torch.models import tree_loglik_fn  # noqa: E402
@@ -298,3 +303,139 @@ def test_tree_and_kernel_gradients_agree(cuda):
     np.testing.assert_allclose(g_t, g_k, rtol=2e-4,
                                atol=1e-4 * np.abs(g_k).max())
     np.testing.assert_array_equal(out["auto"][1], g_t)
+
+
+# ------------------------------------------------- matrix-form kernels --
+
+MXU_VARIANTS = ["mxu", "mxu_3x", "mxu_bf16"]
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS)
+@pytest.mark.parametrize("S,C", [(20, 4), (20, 5), (61, 4)])
+def test_kernel1m_equals_plain(cuda, variant, S, C):
+    """Kernel 1m == its plain version bit for bit in every mode (same
+    products, same sums in the same order), out of place and in place;
+    "mxu" also == the golden model."""
+    n = 300 - 5
+    x1, x2, left, right, ev = _underflow_case_s(n, S, C, 17)
+    lane = lambda x: torch.as_tensor(
+        L.pad_to_multiple(L.to_lane_major(x, S, C), 128),
+        device=cuda).contiguous()
+    consts = [torch.as_tensor(a, device=cuda) for a in (
+        L.branch_to_lane_constants(left, S, C),
+        L.branch_to_lane_constants(right, S, C),
+        L.ev_to_lane_constants(ev, S, C))]
+    a, b = lane(x1), lane(x2)
+    kw = dict(states=S, categories=C, variant=variant)
+    before = plf_node_mxu.launches
+    x3, sc = plf_node(a, b, *consts, n, **kw)
+    assert plf_node_mxu.launches == before + 1
+    x3p, scp = plf_node_mxu_torch(a, b, *consts, n, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(x3, x3p) and torch.equal(sc, scp)
+    assert int(sc.sum()) > 0 and not sc[0, n:].any()
+    if variant == "mxu":
+        x3_ref, sv_ref, _ = plf_reference(x1, x2, left, right, ev, states=S,
+                                          categories=C)
+        np.testing.assert_array_equal(
+            L.from_lane_major(x3.cpu().numpy(), S, C, n=n), x3_ref)
+    for which in (0, 1):
+        ops = [a.clone(), b.clone()]
+        x3i, sci = plf_node_mxu(*ops, *consts, n, out=ops[which], **kw)
+        assert x3i.data_ptr() == ops[which].data_ptr()
+        assert torch.equal(x3i, x3p) and torch.equal(sci, scp)
+
+
+def _underflow_case_s(n, S, C, seed):
+    rng = np.random.default_rng(seed)
+    ev = rng.random((S, S), dtype=np.float32)
+    left = rng.random((C, S, S), dtype=np.float32)
+    right = rng.random((C, S, S), dtype=np.float32)
+    x1 = rng.random((n, C, S), dtype=np.float32)
+    x2 = rng.random((n, C, S), dtype=np.float32)
+    x1[0::4] *= np.float32(1e-16)   # small enough to rescale at S = 61
+    return x1, x2, left, right, ev
+
+
+def _protein_model(device, variant, n_leaves=24, n_sites=1000, states=20,
+                   p_inv=None, tip_dtype="int32"):
+    rng = np.random.default_rng(4)
+    tips = rng.integers(-1, states + 3, size=(n_leaves, n_sites))
+    model = (empirical_protein("lg") if states == 20
+             else random_gtr(states, seed=2))
+    return PhyloModel(random_tree(n_leaves, seed=4), model, tips, alpha=0.5,
+                      p_inv=p_inv,
+                      config=PLFConfig(states=states, block_sites=128,
+                                       kernel_variant=variant,
+                                       tip_dtype=tip_dtype),
+                      device=device)
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
+@pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
+                                          (20, {"tip_dtype": "int8"}),
+                                          (61, {})])
+def test_kernel2m_equals_plain(cuda, variant, states, extra):
+    """Kernel 2m == its plain version bit for bit (site likelihoods and
+    rescale counts) for every variant, with +I (C = 5), int8 tips and at
+    S = 61, with its operators split in the wrapper or by the model."""
+    pm = _protein_model(cuda, variant, states=states, n_leaves=12,
+                        n_sites=700, **extra)
+    args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites)
+    kwt = dict(n_slots=pm.n_slots, root_slot=pm.root_slot, states=states,
+               categories=pm.config.categories, variant=variant)
+    before = plf_tree_mxu.launches
+    lik, sc = plf_tree(*args, **kwt)
+    lik_m, sc_m = plf_tree(*args, **kwt, planes=pm._planes())
+    assert plf_tree_mxu.launches == before + 2
+    lik_p, sc_p = plf_tree_torch(*args, **kwt)
+    torch.cuda.synchronize()
+    assert torch.equal(lik, lik_p) and torch.equal(sc, sc_p)
+    assert torch.equal(lik_m, lik) and torch.equal(sc_m, sc)
+    assert int(sc.sum()) > 0
+
+
+def test_protein_on_card_takes_2m_and_1m(cuda):
+    """The default protein model (auto: mxu_3x) on the card: fused runs
+    kernel 2m once, per-node kernel 1m once per node; they agree, equal the
+    plain versions on the CPU bit for bit, and match the float64 brute
+    force."""
+    tips = np.random.default_rng(5).integers(-1, 23, size=(20, 2000))
+    pm = PhyloModel(random_tree(20, seed=5), empirical_protein("lg"), tips,
+                    alpha=0.5)
+    assert pm.device.type == "cuda"
+    assert pm.config.resolved_kernel_variant == "mxu_3x" and pm.can_fuse()
+    t0, n0 = plf_tree_mxu.launches, plf_node_mxu.launches
+    fused = pm.log_likelihood()
+    pernode = pm.log_likelihood(method="per-node")
+    assert plf_tree_mxu.launches == t0 + 1
+    assert plf_node_mxu.launches == n0 + len(pm.schedule)
+    assert fused.scaler_total == pernode.scaler_total
+    np.testing.assert_allclose(fused.site_log_likelihood,
+                               pernode.site_log_likelihood, rtol=1e-5)
+    cpu = PhyloModel(random_tree(20, seed=5), empirical_protein("lg"), tips,
+                     alpha=0.5, device="cpu")
+    np.testing.assert_array_equal(fused.site_log_likelihood,
+                                  cpu.log_likelihood().site_log_likelihood)
+    bf = pm.log_likelihood_bruteforce()
+    assert abs(fused.log_likelihood - bf) / abs(bf) < 1e-4
+
+
+def test_kernel2m_occupancy_and_rejections(cuda):
+    pm = _protein_model(cuda, "mxu_3x", n_leaves=12, n_sites=300)
+    n_codes = pm.tip_table.shape[1]
+    blocks = [plf_tree_mxu_occupancy(pm.codes.dtype, 20, 4, n_codes, s,
+                                     "mxu_3x") for s in (pm.n_slots, 18)]
+    assert blocks[0] >= blocks[1] >= 1
+    args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites)
+    with pytest.raises(ValueError, match="per-node"):
+        plf_tree_mxu(*args, n_slots=200, root_slot=0, variant="mxu_3x")
+    with pytest.raises(ValueError, match="variant"):
+        plf_tree_mxu(*args, n_slots=pm.n_slots, root_slot=pm.root_slot,
+                     variant="tf32")
+    x = torch.rand(80, 256, device=cuda)
+    c = torch.rand(80, 20, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        plf_node_mxu(x, x, c.cpu(), c, c, 200, variant="mxu")

@@ -58,8 +58,8 @@ def test_engine_matches_jax_engine_interpret():
     x1, x2, left, right, ev, wgt = _case(300, 4)
     ref = JEngine(JCfg(block_sites=BLOCK, interpret=True)).plf(
         x1, x2, left, right, ev, wgt)
-    out = PLFEngine(PLFConfig(block_sites=BLOCK)).plf(x1, x2, left, right,
-                                                      ev, wgt)
+    out = PLFEngine(PLFConfig(block_sites=BLOCK), device="cpu").plf(
+        x1, x2, left, right, ev, wgt)
     assert_clv_match(out.x3.numpy(), np.asarray(ref.x3), exact=False)
     np.testing.assert_array_equal(out.scaler_vector.numpy(),
                                   np.asarray(ref.scaler_vector))
@@ -68,7 +68,7 @@ def test_engine_matches_jax_engine_interpret():
 
 def test_verify_counts_errors():
     x1, x2, left, right, ev, wgt = _case(200, 5)
-    eng = PLFEngine(PLFConfig(block_sites=BLOCK))
+    eng = PLFEngine(PLFConfig(block_sites=BLOCK), device="cpu")
     out = eng.plf(x1, x2, left, right, ev)
     out.x3[3, 1, 2] += 1.0
     out.scaler_increment += 1
@@ -82,7 +82,8 @@ def test_plf_batch_matches_golden_and_jax():
     ni, n = 3, 260
     cases = [_case(n, 10 + i, weights=True) for i in range(ni)]
     stack = [np.stack([c[k] for c in cases]) for k in range(6)]
-    out = PLFEngine(PLFConfig(block_sites=BLOCK)).plf_batch(*stack)
+    out = PLFEngine(PLFConfig(block_sites=BLOCK), device="cpu").plf_batch(
+        *stack)
     assert out.x3.shape == (ni, n, 4, 4)
     for i, c in enumerate(cases):
         x3_ref, sv_ref, si_ref = plf_reference(*c)
@@ -99,21 +100,33 @@ def test_plf_batch_matches_golden_and_jax():
 @pytest.mark.parametrize("n", [1000, 4096, 100_000])
 def test_geometry_matches_jax(n):
     for block in (128, 4096):
-        got = PLFEngine(PLFConfig(block_sites=block)).geometry(n, 3)
+        eng = PLFEngine(PLFConfig(block_sites=block), device="cpu")
+        got = eng.geometry(n, 3)
         ref = JEngine(JCfg(block_sites=block)).geometry(n, 3)
         assert got == ref
-        got = PLFEngine(PLFConfig(block_sites=block)).geometry(n, 3, 9)
+        got = eng.geometry(n, 3, 9)
         ref = JEngine(JCfg(block_sites=block, instances=9)).geometry(n, 3)
         assert got == ref
-    text = PLFEngine(PLFConfig()).describe(n)
+    text = PLFEngine(PLFConfig(), device="cpu").describe(n)
     assert "padded sites" in text and str(n) in text
 
 
 def test_unported_engine_settings_raise():
+    """bf16 CLV storage still raises; every kernel variant now runs (the
+    MXU forms through kernel 1m's plain version here), "mxu" bit-equal to
+    the golden model."""
     x1, x2, left, right, ev, _ = _case(128, 6)
-    for cfg in (PLFConfig(dtype="bfloat16"), PLFConfig(kernel_variant="mxu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PLFEngine(cfg).plf(x1, x2, left, right, ev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PLFEngine(PLFConfig(dtype="bfloat16"), device="cpu").plf(
+            x1, x2, left, right, ev)
+    x3_ref, sv_ref, _ = plf_reference(x1, x2, left, right, ev)
+    for variant in ("mxu", "mxu_3x", "mxu_bf16"):
+        out = PLFEngine(PLFConfig(kernel_variant=variant),
+                        device="cpu").plf(x1, x2, left, right, ev)
+        np.testing.assert_array_equal(out.scaler_vector.numpy(), sv_ref)
+        rtol = {"mxu": 0.0, "mxu_3x": 1e-4, "mxu_bf16": 2e-2}[variant]
+        np.testing.assert_allclose(out.x3.numpy(), x3_ref, rtol=rtol,
+                                   atol=0)
 
 
 # ------------------------------------------------------------------ config --
@@ -146,7 +159,8 @@ def test_build_flags_keep_golden_arithmetic():
     assert "fast_math" not in flags and "ftz=true" not in flags
     assert _build.BUILD_DIR == REPO / "build" / "plf_tpu_torch"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "plf_node.cu", "plf_tree.cu", "plf_node_bwd.cu", "plf_tree_bwd.cu"}
+        "plf_node.cu", "plf_tree.cu", "plf_node_bwd.cu", "plf_tree_bwd.cu",
+        "plf_node_mxu.cu", "plf_tree_mxu.cu"}
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
@@ -182,7 +196,7 @@ def test_port_never_imports_jax():
             "import plf_tpu_torch.ops.plf_node, plf_tpu_torch.ops.plf_tree, "
             "plf_tpu_torch.ops.plf_torch, plf_tpu_torch.ops._build\n"
             "import plf_tpu_torch.ops.plf_grad, plf_tpu_torch.ops.plf_tree_grad, "
-            "plf_tpu_torch.models.optimize\n"
+            "plf_tpu_torch.models.optimize, plf_tpu_torch.ops.plf_mxu\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'plf_tpu.')) or m == 'plf_tpu']\n"
             "assert not bad, bad\n"

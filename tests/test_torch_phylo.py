@@ -105,8 +105,8 @@ def test_convert_from_newick_and_own_rates_equal():
     pt = convert.phylo_model(pi=m.pi, eigenvalues=m.eigenvalues, u=m.u,
                              w=m.w, newick=nwk, tip_states=tips,
                              rates=PhyloModel(parse_newick(nwk), m, tips,
-                                              alpha=0.5).rates)
-    own = TPM(parse_newick(nwk), thky(2.0), tips, alpha=0.5)
+                                              alpha=0.5).rates, device="cpu")
+    own = TPM(parse_newick(nwk), thky(2.0), tips, alpha=0.5, device="cpu")
     assert torch.equal(pt.lcs, own.lcs) and torch.equal(pt.rcs, own.rcs)
     assert pt.log_likelihood().log_likelihood == \
         own.log_likelihood().log_likelihood
@@ -150,7 +150,7 @@ def test_fused_and_per_node_agree_on_deep_underflow():
     for i in range(1, 24):
         nwk = f"({nwk},A{i}:0.1):0.1"
     pt = TPM(parse_newick(nwk + ";"), tjc(), _tips(24, 256, 5, iupac=False),
-             config=TCfg(block_sites=128))
+             config=TCfg(block_sites=128), device="cpu")
     fused = pt.log_likelihood(method="fused")
     pernode = pt.log_likelihood(method="per-node")
     assert fused.scaler_total == pernode.scaler_total > 0
@@ -233,6 +233,8 @@ def test_keep_root_clv_takes_per_node(spies):
 
 
 def test_unported_paths_raise():
+    """The segmented and sharded paths and bf16 CLV storage raise; the
+    MXU variants run (on the fused and per-node paths, which agree)."""
     pt = _port_of(_jax_model("gamma"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.log_likelihood(method="segmented")
@@ -241,35 +243,44 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError):
         pt.log_likelihood(method="bogus")
     pm = _jax_model("gamma")
-    for cfg in (TCfg(dtype="bfloat16"), TCfg(kernel_variant="mxu"),
-                TCfg(kernel_variant="mxu_3x")):
-        with pytest.raises(NotImplementedError):
-            convert.phylo_model(pi=pm.model.pi,
-                                eigenvalues=pm.model.eigenvalues,
-                                u=pm.model.u, w=pm.model.w, newick="(A,B);",
-                                tip_states=_tips(2, 10, 1), rates=[1.0],
-                                config=cfg)
+    port = lambda cfg: convert.phylo_model(
+        pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
+        w=pm.model.w, newick="((A,B),C);", tip_states=_tips(3, 10, 1),
+        rates=[1.0], config=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port(TCfg(dtype="bfloat16"))
+    for variant in ("mxu", "mxu_3x", "mxu_bf16"):
+        pv = port(TCfg(kernel_variant=variant))
+        fused = pv.log_likelihood(method="fused")
+        pernode = pv.log_likelihood(method="per-node")
+        assert np.isfinite(fused.log_likelihood)
+        assert fused.scaler_total == pernode.scaler_total
+        np.testing.assert_allclose(fused.site_log_likelihood,
+                                   pernode.site_log_likelihood, rtol=1e-6)
 
 
 # ------------------------------------------------------- module and state --
 
 def test_buffers_and_share_device_from():
     pt = _port_of(_jax_model("gamma"))
-    names = dict(pt.named_buffers())
+    names = dict(pt.named_buffers(remove_duplicate=False))
     assert set(names) == {"codes", "wgt_pad", "lcs", "rcs", "ec",
-                          "tip_table", "root_rows", "sched"}
+                          "tip_table", "fused_tip_table", "root_rows",
+                          "sched"}
     assert all(b.device.type == "cpu" for b in names.values())
     from plf_tpu_torch.models import PhyloModel as TPM
     from plf_tpu_torch.models import random_tree as trt
     other = TPM(trt(7, seed=99), pt.model, pt.tip_states[:, :],
-                rates=pt.rates, config=pt.config, share_device_from=pt)
-    for name in ("codes", "wgt_pad", "ec", "tip_table"):
+                rates=pt.rates, config=pt.config, share_device_from=pt,
+                device="cpu")
+    for name in ("codes", "wgt_pad", "ec", "tip_table", "fused_tip_table"):
         assert getattr(other, name) is getattr(pt, name)
     assert other._branch_cache is pt._branch_cache
     fresh = TPM(trt(7, seed=99), pt.model, pt.tip_states, rates=pt.rates,
-                config=pt.config)
+                config=pt.config, device="cpu")
     assert other.log_likelihood().log_likelihood == \
         fresh.log_likelihood().log_likelihood
     with pytest.raises(ValueError):
         TPM(trt(7, seed=99), pt.model, pt.tip_states[:, :-1],
-            rates=pt.rates, config=pt.config, share_device_from=pt)
+            rates=pt.rates, config=pt.config, share_device_from=pt,
+            device="cpu")
