@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels of ``plf_tpu_torch`` from
+Builds the seven CUDA kernels of ``plf_tpu_torch`` from
 ``plf_tpu_torch/csrc`` (into ``build/plf_tpu_torch/``, one nvcc per
 source, all started together) and holds each against its plain PyTorch
 version on the card (kernels 1 and 1m also against the numpy golden
@@ -21,7 +21,19 @@ and the protein serving path at 64 taxa x 131,072 sites, LG + Gamma4:
 ``PhyloModel(...).log_likelihood()`` with the default config (on the card,
 "mxu_3x": kernel 2m; the per-node path, kernel 1m), checked against each
 other and a float64 brute force, and kernels 1m and 2m in each MXU variant
-against their plain versions.
+against their plain versions.  Then the protein and codon training path:
+
+* kernel 4m (the checkpointed tree backward in the matrix forms) against
+  its plain version in each variant on the protein workload and at S=61;
+* protein training: ``tree_loglik_fn`` on the default protein model
+  (kernels 2m + 4m, one launch each per step), checked against
+  ``log_likelihood()``, the "mxu" model, float64 central differences of
+  the brute force and the "torch" backend; ``optimize_branch_lengths``
+  and ``optimize_alpha``;
+* codons at 32 taxa x 65,536 codons, GY94 + Gamma4: fused vs per-node,
+  one training step per variant, and ``fit_codon`` on a simulated
+  alignment, which must recover the omega and kappa it was simulated
+  under.
 
 A last phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
@@ -46,9 +58,12 @@ import numpy as np
 import torch
 
 from plf_tpu_torch import PLFConfig, PLFEngine
-from plf_tpu_torch.models import (PhyloModel, empirical_protein, hky85,
+from plf_tpu_torch.models import (PhyloModel, codon_gy94,
+                                  empirical_protein, fit_codon, hky85,
                                   optimize_alpha, optimize_branch_lengths,
-                                  random_tree, tree_loglik_fn)
+                                  random_tree, simulate_alignment,
+                                  tree_loglik_fn)
+from plf_tpu_torch.models.phylo import LIK_FLOOR
 from plf_tpu_torch.ops import layout as L
 from plf_tpu_torch.ops import plf_grad, plf_mxu, plf_tree_grad
 from plf_tpu_torch.ops import plf_node as node_mod, plf_tree as tree_mod
@@ -61,8 +76,10 @@ from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,
                                         plf_tree_mxu_occupancy,
                                         plf_tree_occupancy, plf_tree_torch,
                                         reorder_schedule, TREE_MXU_SITES)
-from plf_tpu_torch.ops.plf_tree_grad import (compile_backward_schedule,
+from plf_tpu_torch.ops.plf_tree_grad import (backward_schedule,
                                              plf_tree_bwd,
+                                             plf_tree_bwd_mxu,
+                                             plf_tree_bwd_mxu_torch,
                                              plf_tree_bwd_torch)
 from plf_tpu_torch.reference import plf_reference
 
@@ -88,6 +105,27 @@ NODE_MXU_SITES = (1 << 21) - 77
 NODE_MXU_GOLDEN = 1 << 16     # kernel 1m's fp32 mode vs the golden model
 NODE_MXU_S61 = (1 << 18) - 5  # one S = 61 case at 244 rows
 MXU_VARIANTS = ("mxu", "mxu_3x", "mxu_bf16")
+
+# The codon workload (benchmarks/r05_bwd2.py:103-116: 32 taxa x 65,536
+# codons, GY94 kappa=2 omega=0.3 + Gamma4 alpha=0.7, random codes), kernel
+# 4m's S = 61 shape, and fit_codon's simulated alignment (tests/
+# test_codon.py:93-121 at 32 taxa x 4,096 codons).
+CODON_TAXA = 32
+CODON_SITES = 1 << 16
+CODON_K4_SITES = 1 << 13
+CODON_BRUTE_SITES = 1024
+FIT_CODONS = 4096
+#: The JAX package's own distances on the first CODON_BRUTE_SITES codons of
+#: the random-codon workload, on the CPU (tests/test_torch_codon.py::
+#: test_random_codon_witness recomputes them): its "mxu" and "mxu_3x"
+#: log_likelihood() from the float64 brute force, its "mxu_3x" fused path
+#: from its per-node path, and its training function's value (backend
+#: "xla") from its "mxu" log_likelihood().  Random codons are improbable
+#: data whose eigen-coordinate sums cancel below fp32 rounding, so the
+#: reference lands this far from exact too; the card is held within twice
+#: these.
+JAX_RANDOM_CODONS = dict(bf_mxu=2.416e-3, bf_mxu_3x=7.013e-2,
+                         per_node_mxu_3x=2.654e-4, step=2.413e-3)
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # power limit): each kernel's bound is the larger of its bytes over the
@@ -124,6 +162,22 @@ def node_bwd_flops(S, C):
     elementwise products, and the three operator gradients (S*C x S
     multiply-adds each)."""
     return 5 * 2 * S * S * C + 3 * S * C + 3 * 2 * S * S * C
+
+
+def tree_bwd_work(S, C, E, variant="vpu"):
+    """(flops, peak rate) of the whole-tree VJP (kernels 4 and 4m) at one
+    site, counting what the function needs: the forward of every node;
+    per node the stage-3 adjoint g_p, the two products g_u1 and g_u2 and
+    the three operator gradients; and one adjoint stage per internal
+    child (E - 1 of them: a tip child needs none).  The kernels' second
+    computation of the stage-1 products in the reverse sweep is their own
+    choice, not counted.  In bf16x3 mode the stages and operator
+    gradients take three passes, the elementwise products one."""
+    fwd, rate = node_work(S, C, variant)
+    stage = 2 * S * S * C
+    passes = 3 if variant == "mxu_3x" else 1
+    return (E * (fwd + 4 * stage * passes + 2 * S * C)
+            + (E - 1) * stage * passes), rate
 
 
 def check(cond, msg):
@@ -193,7 +247,8 @@ def device_phase():
 def build_phase():
     mods = {"plf_node": node_mod._lib, "plf_tree": tree_mod._lib,
             "plf_node_bwd": plf_grad._lib, "plf_tree_bwd": plf_tree_grad._lib,
-            "plf_node_mxu": plf_mxu._lib, "plf_tree_mxu": tree_mod._lib_mxu}
+            "plf_node_mxu": plf_mxu._lib, "plf_tree_mxu": tree_mod._lib_mxu,
+            "plf_tree_bwd_mxu": plf_tree_grad._lib_mxu}
     t0 = time.perf_counter()
     build_libraries(list(mods))
     phase("build", f"{len(mods)} libraries, one nvcc each in parallel: "
@@ -396,15 +451,19 @@ def kernel2_phase(pm):
     return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=max_err)
 
 
+def model_bsched(pm):
+    """The (3, E) int32 schedule that kernels 4 and 4m take, on the card."""
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    return torch.as_tensor(backward_schedule(sched, pm.tree.n_leaves),
+                           device=pm.device)
+
+
 def kernel4_phase(pm):
     """Kernel 4 against its plain version at the tree workload, with the
     site-likelihood cotangent of a real gradient step (w / lik)."""
     cfg = pm.config
     torch.cuda.reset_peak_memory_stats()
-    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
-    bsched = torch.as_tensor(np.stack(
-        compile_backward_schedule(sched, pm.tree.n_leaves)
-        + (np.array([e[5] for e in sched], np.int32),)), device=pm.device)
+    bsched = model_bsched(pm)
     T = transpose_lane_constants
     args = (pm.codes, bsched, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs), pm.ec,
             T(pm.ec), pm.tip_table, pm.root_rows[0])
@@ -436,7 +495,7 @@ def kernel4_phase(pm):
     ms_p = cuda_ms(lambda: plf_tree_bwd_torch(*args, glik, n), reps=1,
                    warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    phase("kernel4", f"{len(sched)} nodes x {n} sites: gl/gr/gec/grr within "
+    phase("kernel4", f"{len(pm.schedule)} nodes x {n} sites: gl/gr/gec/grr within "
           f"{max(errs + errs_rr):.2e} of scale of plain (max abs "
           f"{abs_err:.3g}), bit-identical run to run; {chunking['chunks']} "
           f"chunk of {chunking['chunk_sites']} sites, "
@@ -457,7 +516,7 @@ def _grad_step(fn, t0, dev):
 
 
 COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
-           plf_tree_mxu)
+           plf_tree_mxu, plf_tree_bwd_mxu)
 
 
 def _reset_counts():
@@ -864,6 +923,358 @@ def protein_phase(tree, tips, models, dev):
     return launches, wall
 
 
+# ------------------------------------------- the training path, S != 4 --
+
+
+def timed(fn):
+    """``(fn(), device ms)`` by CUDA events around one run."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def step_cotangent(pm):
+    """The site-likelihood cotangent of a real value-and-gradient step:
+    w / lik where the likelihood clears the log's floor, else 0 (the
+    gradient of sum w * log(max(lik, floor)), as tree_loglik_fn takes it),
+    from the model's own kernel-2m forward."""
+    cfg = pm.config
+    lik, _ = plf_tree_mxu(
+        pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+        pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
+        root_slot=pm.root_slot, states=cfg.states,
+        categories=cfg.categories, variant=cfg.resolved_kernel_variant,
+        planes=pm._planes())
+    w = pm.wgt_pad.to(torch.float32)[None, :]
+    return torch.where(lik > LIK_FLOOR, w / lik, 0.0).contiguous()
+
+
+def tree_bwd_bound(pm, variant="vpu"):
+    """Kernel 4's or 4m's bound: the tip codes and the cotangent read once
+    against the whole-tree VJP's operations (tree_bwd_work) at the mode's
+    rate."""
+    flops, rate = tree_bwd_work(pm.config.states, pm.config.categories,
+                                len(pm.schedule), variant)
+    return bound((pm.codes.element_size() * pm.tree.n_leaves + 4) * pm.n_pad,
+                 flops * pm.n_pad, rate)
+
+
+def kernel4m_against_plain(pm, glik, label, chunks=False):
+    """Kernel 4m against its plain version on one model in its own
+    variant: bit-identical run to run, site sums within SUM_RTOL of scale
+    (with ``chunks``, also under a quarter of the one-chunk scratch)."""
+    cfg = pm.config
+    variant = cfg.resolved_kernel_variant
+    args = (pm.codes, model_bsched(pm), pm.lcs, pm.rcs, pm.ec,
+            pm.fused_tip_table, pm.root_rows[0], glik, pm.n_sites)
+    kw = dict(states=cfg.states, categories=cfg.categories, variant=variant,
+              planes=pm._planes())
+    torch.cuda.reset_peak_memory_stats()
+    k1 = plf_tree_bwd_mxu(*args, **kw)
+    chunking = dict(plf_tree_bwd_mxu.last_scratch)
+    k2 = plf_tree_bwd_mxu(*args, **kw)
+    ks, note = [k1], ""
+    if chunks:
+        budget = chunking["bytes"] // 4
+        ks.append(plf_tree_bwd_mxu(*args, max_scratch_bytes=budget, **kw))
+        small = dict(plf_tree_bwd_mxu.last_scratch)
+        check(small["chunks"] > 1, f"budget {budget} gave one chunk")
+        note = (f" and {small['chunks']} chunks of {small['chunk_sites']} "
+                f"sites under a {budget / 1e9:.2f} GB budget")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    p, plain_ms = timed(lambda: plf_tree_bwd_mxu_torch(*args, **kw))
+    check(all(torch.equal(u, v) for u, v in zip(k1, k2)),
+          f"kernel 4m ({label}) differs between two runs")
+    errs = [max([sums_err(k[i], p[i]) for i in range(3)]
+                + [sums_err(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1))])
+            for k in ks]
+    check(max(errs) <= SUM_RTOL, f"kernel 4m ({label}) vs plain: {errs} of "
+          f"scale > {SUM_RTOL}")
+    abs_err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+    del k1, k2, ks, p
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: plf_tree_bwd_mxu(*args, **kw), reps=3, warmup=1)
+    bd = tree_bwd_bound(pm, variant)
+    phase("kernel4m", f"{label}, {variant}: {len(pm.schedule)} nodes x "
+          f"{pm.n_sites} sites, S={cfg.states}: gl/gr/gec/grr within "
+          f"{max(errs):.2e} of scale of plain (max abs {abs_err:.3g}), "
+          f"bit-identical run to run; {chunking['chunks']} chunk of "
+          f"{chunking['chunk_sites']} sites, {chunking['blocks']} blocks, "
+          f"{chunking['bytes'] / 1e9:.2f} GB scratch{note}, accumulators "
+          f"in {'shared' if chunking['acc_shared'] else 'device'} memory; "
+          f"kernel {ms:.3f} ms (bound {bd['bound_ms']:.3f} ms by "
+          f"{bd['bound_by']}), plain {plain_ms:.1f} ms; peak {peak:.2f} GiB")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **bd)
+
+
+def random_codon_tips():
+    """The codon workload's tips: random sense codons with 2% gap codes."""
+    rng = np.random.default_rng(7)
+    tips = rng.integers(0, 61, size=(CODON_TAXA, CODON_SITES))
+    tips[rng.random(tips.shape) < 0.02] = 61
+    return tips
+
+
+def codon_workload(dev):
+    """32 taxa x 65,536 codons, GY94 kappa=2 omega=0.3 + Gamma4 alpha=0.7,
+    random sense codons with 2% gap codes; one model per variant."""
+    tree = random_tree(CODON_TAXA, seed=3)
+    tips = random_codon_tips()
+    gy = codon_gy94(kappa=2.0, omega=0.3)
+    t0 = time.perf_counter()
+    models = {v: PhyloModel(tree, gy, tips, alpha=0.7, device=dev,
+                            config=PLFConfig(states=61, kernel_variant=v))
+              for v in ("mxu", "mxu_3x")}
+    torch.cuda.synchronize()
+    pm = models["mxu"]
+    phase("data", f"codon: {CODON_TAXA} taxa x {CODON_SITES} codons, "
+          f"GY94+G4, {len(pm.schedule)} PLF nodes, {pm.n_slots} arena "
+          f"slots, {pm.tip_table.shape[1]} tip codes; two models built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return tree, tips, gy, models
+
+
+def kernel4m_phase(models, codon, dev):
+    """Kernel 4m against its plain version: each variant on the protein
+    workload with the default model's step cotangent ("mxu_3x" also in
+    several chunks), then "mxu" and "mxu_3x" at S = 61 on the first 8,192
+    codons of the codon workload."""
+    glik = step_cotangent(models["mxu_3x"])
+    res = {}
+    for variant in ("mxu_3x", "mxu", "mxu_bf16"):
+        res[variant] = kernel4m_against_plain(
+            models[variant], glik, "protein", chunks=variant == "mxu_3x")
+    tree, tips, gy, _ = codon
+    for variant in ("mxu", "mxu_3x"):
+        pm = PhyloModel(tree, gy, tips[:, :CODON_K4_SITES], alpha=0.7,
+                        device=dev,
+                        config=PLFConfig(states=61, kernel_variant=variant))
+        res[f"s61_{variant}"] = kernel4m_against_plain(
+            pm, step_cotangent(pm), "codon", chunks=variant == "mxu")
+        del pm
+    torch.cuda.empty_cache()
+    return res
+
+
+def _step_launches(fn, t0, dev):
+    """One value-and-gradient step and the kernel launches it made."""
+    _reset_counts()
+    v, g = _grad_step(fn, t0, dev)
+    return v, g, {k: c for k, c in _counts().items() if c}
+
+
+def _grad_bar(g, ref):
+    """|g - ref| against rtol 2e-4 + atol 1e-4 x max|ref| (1.0 = at the
+    bar), the JAX package's gradient tolerance."""
+    return float(np.max(np.abs(g - ref) / (2e-4 * np.abs(ref)
+                                           + 1e-4 * np.abs(ref).max())))
+
+
+def protein_train_phase(tree, tips, models, dev):
+    """The protein training main path on the default model: "tree" (kernel
+    2m once, kernel 4m once per step), checked against log_likelihood(),
+    the "mxu" model, float64 central differences and the "torch" backend;
+    then optimize_branch_lengths and optimize_alpha."""
+    out, launches = {}, None
+    want = {"plf_tree_mxu": 1, "plf_tree_bwd_mxu": 1}
+    for variant in ("mxu_3x", "mxu"):
+        pm = models[variant]
+        fn, t0 = tree_loglik_fn(pm)
+        check((fn.engine, fn.variant) == ("tree", variant),
+              f"auto took {fn.engine!r} / {fn.variant!r} for {variant}")
+        v, g, counts = _step_launches(fn, t0, dev)
+        check(counts == want, f"{variant} step launched {counts}, not {want}")
+        if launches is None:
+            launches = counts
+        ref = pm.log_likelihood().log_likelihood
+        rel = abs(v - ref) / abs(ref)
+        check(rel < 1e-5, f"{variant} value {v} vs log_likelihood() {ref}")
+        ms = _median_ms(lambda: _grad_step(fn, t0, dev), reps=3)
+        out[variant] = g.cpu().numpy()
+        phase("protein_train", f"{variant}: auto takes 'tree'; value {v:.3f} "
+              f"(rel {rel:.2e} to log_likelihood()), one value+gradient step "
+              f"{ms:.2f} ms wall (median of 3), launches {counts}")
+        out[f"{variant}_ms"] = ms
+    err = _grad_bar(out["mxu_3x"], out["mxu"])
+    phase("protein_train", f"mxu_3x gradient vs mxu: {err:.3f} of the rtol "
+          f"2e-4 / atol 1e-4 x max|g| bar (max|g| "
+          f"{np.abs(out['mxu']).max():.4g}; printed, not checked: the two "
+          f"variants differ in arithmetic)")
+
+    lg = empirical_protein("lg")
+    sub_tips = tips[:, :FD_SITES]
+    cfg = PLFConfig(states=20, kernel_variant="mxu")
+    sub = PhyloModel(tree, lg, sub_tips, alpha=0.5, device=dev, config=cfg)
+    grads = {}
+    for backend in ("tree", "torch"):
+        fn, t0 = tree_loglik_fn(sub, backend=backend)
+        grads[backend] = _grad_step(fn, t0, dev)[1].cpu().numpy()
+    g = grads["tree"]
+    err = _grad_bar(g, grads["torch"])
+    check(err <= 1.0, f"mxu tree vs torch gradient: {err} of the bar")
+    h = 1e-4
+    fds = []
+    for i in (0, 1, tree.n_leaves):
+        ll = []
+        for d in (h, -h):
+            tr = copy.deepcopy(tree)
+            tr.nodes[i].length += d
+            ll.append(PhyloModel(tr, lg, sub_tips, alpha=0.5, device=dev,
+                                 config=cfg).log_likelihood_bruteforce())
+        fd = (ll[0] - ll[1]) / (2 * h)
+        fds.append(f"branch {i}: {g[i]:.6g} vs {fd:.6g}")
+        check(abs(g[i] - fd) <= 1e-3 * abs(fd),
+              f"mxu tree gradient vs float64 differences, {fds[-1]}")
+    phase("protein_train", f"{FD_SITES}-site sub-alignment, mxu: tree vs "
+          f"torch gradient within {err:.3f} of the rtol 2e-4 / atol 1e-4 x "
+          f"max|g| bar; vs float64 central differences (h {h}) of the "
+          f"brute force within rel 1e-3: " + "; ".join(fds))
+
+    pm = models["mxu_3x"]
+    t_opt, ll0, ll1 = optimize_branch_lengths(pm, steps=5)
+    check(ll1 > ll0 and np.all(t_opt > 0),
+          f"optimize_branch_lengths: {ll0} -> {ll1}")
+    alpha, a0, a1 = optimize_alpha(pm, iters=8)
+    check(np.isfinite(alpha) and 0.02 <= alpha <= 100.0 and a1 >= a0,
+          f"optimize_alpha: {alpha} ({a0} -> {a1})")
+    phase("protein_train", f"mxu_3x optimize_branch_lengths(steps=5): "
+          f"{ll0:.3f} -> {ll1:.3f}; optimize_alpha(iters=8): alpha "
+          f"{alpha:.4f}, {a0:.3f} -> {a1:.3f}")
+    return launches, {v: out[f"{v}_ms"] for v in ("mxu_3x", "mxu")}
+
+
+def _fused_vs_per_node(pm):
+    """(fused result, its wall ms, rel distance from the per-node path,
+    whether the two rescale totals are equal)."""
+    t0 = time.perf_counter()
+    fused = pm.log_likelihood()
+    wall = (time.perf_counter() - t0) * 1e3
+    pernode = pm.log_likelihood(method="per-node")
+    rel = abs(fused.log_likelihood - pernode.log_likelihood) / abs(
+        pernode.log_likelihood)
+    return fused, wall, rel, fused.scaler_total == pernode.scaler_total
+
+
+def codon_phase(codon, dev):
+    """The codon paths on the random-codon workload, then on an alignment
+    simulated under GY94.  Random codons: fused vs per-node, one "tree"
+    step per variant (kernel 2m once, kernel 4m once) and its value, the
+    "mxu_3x" drift from "mxu" (printed); on the first 1,024 codons each
+    path equals the port's plain versions on the CPU site for site (which
+    equal the JAX package's in "mxu_3x", tests/test_torch_codon.py), and
+    the distances from the float64 brute force, which the JAX package
+    shows too, are held within twice its own (JAX_RANDOM_CODONS).
+    Simulated codons: fused vs per-node with equal rescale totals, the
+    brute force and one step's value in both variants, and fit_codon,
+    which must recover the omega and kappa it was simulated under."""
+    tree, tips, gy, models = codon
+    lls, want = {}, {"plf_tree_mxu": 1, "plf_tree_bwd_mxu": 1}
+    jx = JAX_RANDOM_CODONS
+    for variant in ("mxu", "mxu_3x"):
+        pm = models[variant]
+        fused, wall, rel, same_sc = _fused_vs_per_node(pm)
+        bar = 1e-12 if variant == "mxu" else 2 * jx["per_node_mxu_3x"]
+        check(np.isfinite(fused.log_likelihood) and rel < bar
+              and (variant != "mxu" or same_sc),
+              f"codon {variant} fused vs per-node: rel {rel}, equal "
+              f"rescale totals {same_sc}")
+        fn, t_0 = tree_loglik_fn(pm)
+        v, _, counts = _step_launches(fn, t_0, dev)
+        ref = fused.log_likelihood
+        rs = abs(v / ref - 1)
+        check(fn.engine == "tree" and counts == want
+              and rs < 2 * jx["step"],
+              f"codon {variant} step ({fn.engine}) launched {counts}, "
+              f"value rel {rs} to log_likelihood()")
+        ms = _median_ms(lambda: _grad_step(fn, t_0, dev), reps=3)
+        floored = int((fused.site_log_likelihood
+                       <= np.log(LIK_FLOOR) + 1e-6).sum())
+        lls[variant] = ref
+        phase("codon", f"random codons, {variant}: log_likelihood() "
+              f"{ref:.3f} in {wall:.2f} ms wall, {floored} sites at the "
+              f"log's floor; fused vs per-node rel {rel:.2e} < {bar:.3g} "
+              f"(equal rescale totals: {same_sc}); one 'tree' step "
+              f"{ms:.2f} ms wall (median of 3), value {v:.3f} (rel "
+              f"{rs:.2e} < {2 * jx['step']:.3g}), launches {counts}")
+    drift = abs(lls["mxu_3x"] / lls["mxu"] - 1)
+    sub_tips = tips[:, :CODON_BRUTE_SITES]
+    bf, out = None, []
+    for v in ("mxu", "mxu_3x"):
+        cfg = PLFConfig(states=61, kernel_variant=v)
+        res = {}
+        for where in (dev, "cpu"):
+            m = PhyloModel(tree, gy, sub_tips, alpha=0.7, device=where,
+                           config=cfg)
+            res[where] = [m.log_likelihood(method=k)
+                          for k in ("fused", "per-node")]
+        if bf is None:
+            bf = m.log_likelihood_bruteforce()
+        same = all(np.array_equal(a.site_log_likelihood, b.site_log_likelihood)
+                   and a.scaler_total == b.scaler_total
+                   for a, b in zip(res[dev], res["cpu"]))
+        r = abs(res[dev][0].log_likelihood - bf) / abs(bf)
+        bf_bar = 2 * jx[f"bf_{v}"]
+        check(same and r < bf_bar,
+              f"random codons, {CODON_BRUTE_SITES}-codon slice, {v}: card "
+              f"== CPU plain versions {same}; vs float64 brute force rel "
+              f"{r} (bar {bf_bar})")
+        out.append(f"{v} fused and per-node == CPU plain versions site for "
+                   f"site; vs brute force rel {r:.2e} < {bf_bar:.3g}")
+    phase("codon", f"random codons: mxu_3x drift from mxu {drift:.3e} "
+          f"(printed); {CODON_BRUTE_SITES}-codon slice, float64 brute force "
+          f"{bf:.3f}: " + "; ".join(out))
+
+    ftree = random_tree(CODON_TAXA, seed=5, mean_branch=0.2)
+    truth = codon_gy94(4.0, 0.2)
+    ftips = simulate_alignment(ftree, truth, FIT_CODONS, seed=3)
+    out = []
+    for v, bar, bf_bar in (("mxu", 1e-12, 1e-5), ("mxu_3x", 1e-5, 1e-4)):
+        cfg = PLFConfig(states=61, kernel_variant=v)
+        pm = PhyloModel(ftree, truth, ftips, device=dev, config=cfg)
+        fused, _, rel, same_sc = _fused_vs_per_node(pm)
+        fn, t_0 = tree_loglik_fn(pm)
+        step, _, counts = _step_launches(fn, t_0, dev)
+        rs = abs(step / fused.log_likelihood - 1)
+        brute = PhyloModel(ftree, truth, ftips[:, :CODON_BRUTE_SITES],
+                           device=dev, config=cfg)
+        if v == "mxu":
+            bf = brute.log_likelihood_bruteforce()
+        r = abs(brute.log_likelihood().log_likelihood - bf) / abs(bf)
+        check(rel < bar and same_sc and r < bf_bar and rs < 1e-5
+              and counts == want,
+              f"simulated codons, {v}: fused vs per-node rel {rel}, vs "
+              f"float64 brute force rel {r}, step value rel {rs}, step "
+              f"launches {counts}")
+        out.append(f"{v} fused {fused.log_likelihood:.3f} vs per-node rel "
+                   f"{rel:.2e} < {bar:g}, vs brute force rel {r:.2e} < "
+                   f"{bf_bar:g}, one step's value rel {rs:.2e} < 1e-5")
+    phase("codon", f"simulated codons ({CODON_TAXA} x {FIT_CODONS}, omega "
+          f"0.2, kappa 4; brute force on {CODON_BRUTE_SITES}): "
+          + "; ".join(out))
+    cfg = PLFConfig(states=61, kernel_variant="mxu")
+    t0 = time.perf_counter()
+    _, info = fit_codon(ftree, ftips, config=cfg, rounds=2, iters=8,
+                        length_steps=30)
+    wall = time.perf_counter() - t0
+    null = PhyloModel(info["tree"], codon_gy94(info["kappa"], 1.0,
+                                               info["pi"]),
+                      ftips, device=dev, config=cfg).log_likelihood()
+    check(0.08 < info["omega"] < 0.45 and 2.0 < info["kappa"] < 8.0,
+          f"fit_codon: omega {info['omega']}, kappa {info['kappa']}")
+    check(info["ll"] > null.log_likelihood,
+          f"fit_codon ll {info['ll']} <= omega=1 null {null.log_likelihood}")
+    phase("codon", f"fit_codon (mxu; rounds 2, iters 8, 30 length steps): "
+          f"omega {info['omega']:.4f}, kappa {info['kappa']:.3f}, ll "
+          f"{info['ll']:.3f} > omega=1 null {null.log_likelihood:.3f}; "
+          f"{wall:.1f} s wall")
+    return drift
+
+
 def _median_ms(fn, reps=5):
     """Median host-clock time of ``fn`` in ms, the device synchronised
     before and after each run."""
@@ -988,6 +1399,11 @@ def main():
     k2m = kernel2m_phase(models)
     prot_launches, _ = protein_phase(ptree, ptips, models, dev)
     launches.update(prot_launches)
+    codon = codon_workload(dev)
+    k4m = kernel4m_phase(models, codon, dev)
+    train_launches, _ = protein_train_phase(ptree, ptips, models, dev)
+    launches["plf_tree_bwd_mxu"] = train_launches["plf_tree_bwd_mxu"]
+    codon_phase(codon, dev)
 
     # Bounds of the DNA kernels at the shapes their times were taken at:
     # kernels 1 and 3 at 2^20 sites, kernels 2 and 4 at 160 taxa x 2^20.
@@ -1000,8 +1416,7 @@ def main():
     k2.update(bound((code_bytes + 8) * n_tree, E * fwd * n_tree, FP32_FLOPS))
     k3["2p20"].update(bound(324 * n_node, node_bwd_flops(S, C) * n_node,
                             FP32_FLOPS))
-    k4.update(bound((code_bytes + 4) * n_tree,
-                    E * (fwd + node_bwd_flops(S, C)) * n_tree, FP32_FLOPS))
+    k4.update(tree_bwd_bound(pm))
     entry = lambda kname, src, replaces, r: dict(
         name=kname, route="cuda", source=f"plf_tpu_torch/csrc/{src}",
         replaces=replaces, launches=launches[kname],
@@ -1019,6 +1434,8 @@ def main():
               "plf_tpu/ops/plf_pallas.py:233", k1m["mxu_3x"]),
         entry("plf_tree_mxu", "plf_tree_mxu.cu",
               "plf_tpu/ops/plf_tree_pallas.py:424", k2m["mxu_3x"]),
+        entry("plf_tree_bwd_mxu", "plf_tree_bwd_mxu.cu",
+              "plf_tpu/ops/plf_tree_grad.py:110", k4m["mxu_3x"]),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: {launches}")

@@ -1,79 +1,96 @@
 """Differentiable tree likelihood and the fitters built on it.
 
 Counterpart of ``plf_tpu/models/optimize.py``: :func:`tree_loglik_fn`,
-:func:`optimize_branch_lengths`, :func:`optimize_alpha` and
-:func:`optimize_pinv`.  ``fit_model`` and ``fit_codon`` are not ported
+:func:`optimize_branch_lengths`, :func:`optimize_alpha`,
+:func:`optimize_pinv` and :func:`fit_codon`.  ``fit_model`` is not ported
 yet (ROADMAP.md, Queue 1).
 
 ``tree_loglik_fn`` builds ``(branch_lengths[, rates[, weights]]) ->
 log-likelihood`` as a function of torch tensors whose gradient comes
 from ``.backward()``.  Its backends follow ``config.py``'s names:
 
-* ``"tree"`` (JAX ``"tree"``): kernel 2 forward and kernel 4 backward,
-  one launch each per evaluation (``ops/plf_tree_grad.py``); residuals
-  are the small operand arrays, the backward's checkpoint is scratch.
+* ``"tree"`` (JAX ``"tree"``): the whole-tree forward and the
+  checkpointed whole-tree backward, one launch each per evaluation
+  (``ops/plf_tree_grad.py``): kernels 2 + 4 for "vpu" at S = 4, kernels
+  2m + 4m in the model's arithmetic for every other model (the MXU
+  variants, and "vpu" at S != 4: protein and codon models).  Residuals
+  are the small operand arrays; the backward's checkpoint is scratch.
 * ``"kernel"`` (JAX ``"pallas"``): kernel 1 forward and kernel 3 backward
-  once per node (``ops/plf_grad.py``); every node keeps its two child
-  CLVs for the backward (~20 GB at 160 taxa x 2^20 sites).
+  once per node (``ops/plf_grad.py``), S = 4 only; every node keeps its
+  two child CLVs for the backward (~20 GB at 160 taxa x 2^20 sites).  A
+  model of an MXU variant runs it in "vpu" arithmetic, as JAX's "pallas"
+  path does.
 * ``"torch"`` (JAX ``"xla"``): the plain element-wise site-major
   traversal under torch autograd, the CPU oracle.
 * ``"segmented"`` needs the segmented engine (not ported yet).
 
-A model of an MXU variant ("mxu", "mxu_3x"; protein models resolve
-"auto" to "mxu_3x") trains on ``"torch"`` only, asked for by name: the
-"kernel", "tree" and "auto" backends raise NotImplementedError until the
-MXU form of the tree backward kernel is ported, and "mxu_bf16" raises
-ValueError on every backend, as in the JAX package.
-
 ``"auto"`` takes ``"torch"`` for a model on the CPU.  For a model on a
-CUDA device it takes ``"tree"`` whenever kernel 2 admits the tree
-(``PhyloModel.can_fuse``) and ``"kernel"`` otherwise.  The rule stands on
-both backends measured on an H100 (PERF.md, "Auto routing"): the tree
+CUDA device it takes ``"tree"`` whenever the forward kernel admits the
+tree (``PhyloModel.can_fuse``); otherwise ``"kernel"`` for "vpu" at S = 4
+and, for a model on kernels 2m/4m, NotImplementedError where the JAX
+package would take its segmented engine.  The rule stands on both
+backends measured on an H100 (PERF.md, "Auto routing"): the tree
 backend's gradient step was the faster one at every shape measured (160
 taxa x 2^20 and 2^16 sites, 20 taxa x 2^20), and its checkpoint is
 chunked to fit the card at any site count, while the per-node residuals
-grow with sites x nodes.
+grow with sites x nodes.  "mxu_bf16" raises ValueError on every backend,
+as in the JAX package.
 
 The branch lengths, rates and mixture weights enter through the per-edge
 lane-constant stacks and the root row vector, computed for all edges in
-one batched expression.  The differentiable value is finalised on the
-device in fp32 (log, weighted sum, rescale count, Lewis correction), as
-the JAX function does; ``PhyloModel.log_likelihood`` finalises on the
-host in fp64, so the two agree to fp32 rounding of the site sum.
-Underflow rescaling is kept: the 2^32 factors are constant almost
-everywhere, so gradients are exact wherever the likelihood is
-differentiable.
+one batched expression; a model on kernels 2m/4m splits the whole stack
+into its operator planes once per evaluation, on the device.  The
+differentiable value is finalised on the device in fp32 (log, weighted
+sum, rescale count, Lewis correction), as the JAX function does;
+``PhyloModel.log_likelihood`` finalises on the host in fp64, so the two
+agree to fp32 rounding of the site sum.  Underflow rescaling is kept: the
+2^32 factors are constant almost everywhere, so gradients are exact
+wherever the likelihood is differentiable.
 
-Every returned function carries ``.variant`` (the model's kernel form)
-and ``.engine`` (the backend that runs).
+Every returned function carries ``.variant`` (the arithmetic of the
+kernels that run: "vpu" on the "kernel" backend) and ``.engine`` (the
+backend that runs).
+
+:func:`fit_codon` fits the GY94 omega (dN/dS) and kappa on their profile
+likelihood, with branch lengths fitted through ``tree_loglik_fn``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops.plf_grad import make_plf_diff
-from ..ops.plf_mxu import uses_mxu_kernels
+from ..ops.plf_mxu import operator_planes, uses_mxu_kernels
 from ..ops.plf_tree import reorder_schedule, root_reduce
 from ..ops.plf_tree_grad import make_tree_diff
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .phylo import LIK_FLOOR, LOG_MINLIK, PhyloModel
 
 __all__ = ["tree_loglik_fn", "optimize_branch_lengths", "optimize_alpha",
-           "optimize_pinv"]
+           "optimize_pinv", "fit_codon"]
 
 BACKENDS = ("auto", "tree", "kernel", "torch", "segmented")
 
 
-def _auto_backend(pm) -> str:
+def _auto_backend(pm, matrix_form: bool = False) -> str:
     """The ``"auto"`` choice (module docstring): "torch" off the card,
-    else "tree" when kernel 2 takes the tree, else "kernel"."""
+    else "tree" when the forward kernel takes the tree, else "kernel" --
+    or, for a model on kernels 2m/4m (``matrix_form``), the segmented
+    engine, which is not ported."""
     if pm.device.type != "cuda":
         return "torch"
-    return "tree" if pm.can_fuse() else "kernel"
+    if pm.can_fuse():
+        return "tree"
+    if matrix_form:
+        raise NotImplementedError(
+            "the tree does not fit kernel 2m's shared-memory arena; the JAX "
+            "package would take its segmented engine (_seg_fwd_kernel/"
+            "_seg_bwd_kernel), not ported yet: ROADMAP.md, Queue 2 items "
+            "2-3")
+    return "kernel"
 
 
 def _f32(a, device):
@@ -136,20 +153,23 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
             "streaming only; its likelihood drift makes optimisation "
             "unsound -- use 'mxu_3x' (fp32-grade, ~half the MXU passes "
             "of 'mxu') for training/fitting")
-    if uses_mxu_kernels(variant, pm.config.states) and backend != "torch":
-        raise NotImplementedError(
-            f"the {backend!r} gradient backend of kernel_variant "
-            f"{variant!r} at S={pm.config.states} needs the MXU form of the "
-            "tree backward kernel (_tree_bwd_kernel), not ported yet: "
-            "ROADMAP.md, Queue 2 item 1; backend='torch' runs the plain "
-            "autograd path")
     if backend == "segmented":
         raise NotImplementedError(
             "the segmented gradient backend needs the segmented engine "
             "(_seg_fwd_kernel/_seg_bwd_kernel), not ported yet: ROADMAP.md,"
-            " Queue 2 items 4-5")
+            " Queue 2 items 2-3")
+    S = pm.config.states
+    matrix_form = uses_mxu_kernels(variant, S)
     if backend == "auto":
-        backend = _auto_backend(pm)
+        backend = _auto_backend(pm, matrix_form)
+    if backend == "kernel" and matrix_form:
+        if S != 4:
+            raise NotImplementedError(
+                f"the 'kernel' gradient backend at S={S} needs "
+                "_plf_bwd_kernel at S != 4 (kernel 3 is S = 4 only): "
+                "ROADMAP.md, Queue 2 item 4; backend='tree' or 'torch' "
+                "trains this model")
+        variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
     build = {"torch": _core_torch, "kernel": _core_kernel,
              "tree": _core_tree}[backend]
     core = build(pm)
@@ -267,14 +287,19 @@ def _core_kernel(pm):
 
 
 def _core_tree(pm):
-    """Kernel 2 forward + kernel 4 backward (the JAX "tree" backend,
-    optimize.py:355-545), operators indexed by original edge."""
+    """Kernel 2 forward + kernel 4 backward, or kernels 2m + 4m in the
+    model's arithmetic (the JAX "tree" backend, optimize.py:355-545),
+    operators indexed by original edge."""
     cfg = pm.config
     S, C = cfg.states, cfg.categories
+    variant = cfg.resolved_kernel_variant
+    matrix_form = uses_mxu_kernels(variant, S)
     u, lam, pi_u = _model_tensors(pm)
     n, n_leaves = pm.n_sites, pm.tree.n_leaves
+    E = len(pm.schedule)
     tdiff = make_tree_diff(reorder_schedule(pm.schedule, n_leaves),
-                           n_leaves, states=S, categories=C)
+                           n_leaves, states=S, categories=C,
+                           variant=variant if matrix_form else "vpu")
     child = torch.as_tensor([[e[1] for e in pm.schedule],
                              [e[2] for e in pm.schedule]],
                             dtype=torch.long, device=pm.device)
@@ -285,8 +310,16 @@ def _core_tree(pm):
     def core(t_vec, r_vec, w_vec):
         ops = _lane_constants(t_vec[child.reshape(-1)], r_vec, lam, u, S, C)
         lcs, rcs = ops.view(2, -1, S * C, S).unbind(0)
+        planes = None
+        if matrix_form:
+            # this step's lengths split once, the whole (2E, rows, S) stack
+            # at a time; the EV planes are the model's own
+            hi, lo = operator_planes(ops.detach(), variant)
+            planes = (hi[:E], lo[:E], hi[E:], lo[E:], pm.ec_planes[0],
+                      pm.ec_planes[1])
         lik, sc = tdiff(pm.codes, lcs.contiguous(), rcs.contiguous(), pm.ec,
-                        pm.tip_table, _root_rows(pi_u, w_vec, S, C), n)
+                        pm.fused_tip_table, _root_rows(pi_u, w_vec, S, C), n,
+                        planes=planes)
         return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total)
     return core
 
@@ -405,3 +438,98 @@ def optimize_pinv(pm: PhyloModel, alpha: Optional[float] = None,
 
     p_hat, ll1 = _golden_section(ll_of, bounds[0], bounds[1], iters)
     return float(p_hat), ll0, ll1
+
+
+# ---------------------------------------------------------------------------
+# Codon-model fitting: ML estimation of the GY94 omega (dN/dS) and kappa on
+# their 2-D profile likelihood (plf_tpu/models/optimize.py:889-982).
+# ---------------------------------------------------------------------------
+
+
+def fit_codon(tree, tip_states, wgt=None, alpha: Optional[float] = None,
+              config=None, pi: Optional[np.ndarray] = None,
+              kappa0: float = 2.0, omega0: float = 0.5,
+              kappa_bounds=(0.2, 40.0), omega_bounds=(1e-3, 10.0),
+              rounds: int = 3, iters: int = 10,
+              fit_lengths: bool = True, length_steps: int = 60,
+              fit_alpha: bool = False, verbose: bool = False,
+              device: Union[str, torch.device] = "cuda"):
+    """Maximum-likelihood GY94 fit: omega (dN/dS), kappa, F3x4
+    frequencies, branch lengths (and optionally the gamma shape).
+
+    ``tip_states``: ``(n_leaves, n_codons)`` codon state codes
+    (:func:`substitution.encode_codon_alignment`).  Frequencies default to
+    the F3x4 estimate from the data (:func:`substitution.f3x4_from_codes`).
+
+    Coordinate golden-section search on (log kappa, log omega): each
+    candidate rebuilds the 61-state eigensystem on the host and evaluates
+    one whole-tree likelihood (``PhyloModel.log_likelihood``: kernel 2m on
+    the card).  Branch lengths are fitted under the initial model and
+    re-fitted under the winner by :func:`optimize_branch_lengths` (on the
+    card kernels 2m + 4m per step; the default config resolves to
+    "mxu_3x" at S = 61).  The models live on ``device``.
+
+    Returns ``(model, info)`` with ``info`` a dict holding kappa, omega,
+    alpha, lengths (node-indexed vector), ll, pi and the fitted tree.
+    """
+    from ..config import PLFConfig
+    from .substitution import codon_gy94, f3x4_from_codes
+    from .tree import Tree, TreeNode
+
+    codes = np.asarray(tip_states)
+    if pi is None:
+        pi = f3x4_from_codes(codes, wgt)
+    cfg = config or PLFConfig(states=61, kernel_variant="auto",
+                              block_sites=1024)
+
+    def with_lengths(t: Tree, t_vec) -> Tree:
+        nodes = [TreeNode(n.index, n.name,
+                          float(t_vec[n.index]) if n.index < len(t_vec)
+                          else n.length, n.children)
+                 for n in t.nodes]
+        return Tree(nodes=nodes, root=t.root)
+
+    def model_at(k: float, w: float, t: Tree, a=None) -> PhyloModel:
+        return PhyloModel(t, codon_gy94(k, w, pi), codes, wgt=wgt,
+                          alpha=alpha_hat if a is None else a, config=cfg,
+                          device=device)
+
+    kappa, omega = float(kappa0), float(omega0)
+    alpha_hat = alpha
+
+    def ll_of(k: float, w: float, t: Tree) -> float:
+        return model_at(k, w, t).log_likelihood().log_likelihood
+
+    if fit_lengths:          # initial branch lengths under the start model
+        t_opt, _, _ = optimize_branch_lengths(model_at(kappa, omega, tree),
+                                              steps=length_steps)
+        tree = with_lengths(tree, t_opt)
+
+    for r in range(rounds):
+        lw, _ = _golden_section(
+            lambda x: ll_of(kappa, float(np.exp(x)), tree),
+            np.log(omega_bounds[0]), np.log(omega_bounds[1]), iters)
+        omega = float(np.exp(lw))
+        lk, _ = _golden_section(
+            lambda x: ll_of(float(np.exp(x)), omega, tree),
+            np.log(kappa_bounds[0]), np.log(kappa_bounds[1]), iters)
+        kappa = float(np.exp(lk))
+        if fit_alpha:
+            alpha_hat, _, _ = optimize_alpha(
+                model_at(kappa, omega, tree, alpha_hat or 0.5))
+        if verbose:
+            print(f"fit_codon round {r}: kappa={kappa:.3f} "
+                  f"omega={omega:.4f} alpha={alpha_hat}", flush=True)
+
+    model = codon_gy94(kappa, omega, pi)
+    if fit_lengths:
+        t_opt, _, ll = optimize_branch_lengths(model_at(kappa, omega, tree),
+                                               steps=length_steps // 2)
+        tree = with_lengths(tree, t_opt)
+    else:
+        t_opt = np.asarray([tree.nodes[i].length
+                            for i in range(tree.n_nodes - 1)])
+        ll = ll_of(kappa, omega, tree)
+    info = dict(kappa=kappa, omega=omega, alpha=alpha_hat,
+                lengths=np.asarray(t_opt), ll=float(ll), pi=pi, tree=tree)
+    return model, info

@@ -1,11 +1,11 @@
 """Substitution models: rate matrices, eigensystem, PLF branch matrices.
 
-The DNA and protein parts of ``plf_tpu/models/substitution.py``, copied
-(NumPy only): JC69, HKY85, GTR, random GTR-class models, the six PAML
-empirical amino-acid models (their ``.dat`` files are copied into
-``models/data/``), the discrete Gamma and +I rate mixtures and the
-per-category branch matrices.  Codon (GY94) models are not ported yet
-(ROADMAP.md, Queue 2 item 2).
+``plf_tpu/models/substitution.py``, copied (NumPy only): JC69, HKY85,
+GTR, random GTR-class models, the six PAML empirical amino-acid models
+(their ``.dat`` files are copied into ``models/data/``), the GY94 codon
+model over the 61 sense codons with its F3x4 frequencies and codon
+encoding, the discrete Gamma and +I rate mixtures and the per-category
+branch matrices.
 
 The PLF computes, per category ``c``:
 
@@ -28,8 +28,13 @@ import numpy as np
 
 __all__ = ["SubstitutionModel", "jc69", "hky85", "gtr", "random_gtr",
            "AMINO_ACIDS", "parse_paml_matrix", "BUILTIN_PROTEIN_MODELS",
-           "empirical_protein", "discrete_gamma_rates",
+           "empirical_protein", "GENETIC_CODE", "SENSE_CODONS",
+           "codon_gy94", "f3x4_frequencies", "f3x4_from_codes",
+           "encode_codon_alignment", "discrete_gamma_rates",
            "gamma_invariant_rates", "branch_matrices"]
+
+# ACGT index order for DNA convenience helpers.
+DNA_STATES = "ACGT"
 
 
 def _normalise_q(q: np.ndarray, pi: np.ndarray) -> np.ndarray:
@@ -189,6 +194,133 @@ def empirical_protein(source: str,
     R, pi_file = parse_paml_matrix(text)
     iu = np.triu_indices(20, k=1)
     return gtr(R[iu], pi_file if pi is None else np.asarray(pi))
+
+
+# ---------------------------------------------------------------------------
+# Codon models (61 sense codons, universal genetic code): 244 rows at C = 4,
+# served by the matrix-form kernels (2m forward, 4m backward).
+# ---------------------------------------------------------------------------
+
+# NCBI translation table 1, codon order TTT,TTC,TTA,TTG,TCT,... (bases in
+# T,C,A,G order, first position slowest).
+_CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+
+
+def _standard_code():
+    bases = "TCAG"
+    table = {}
+    i = 0
+    for b1 in bases:
+        for b2 in bases:
+            for b3 in bases:
+                table[b1 + b2 + b3] = _CODE_TCAG[i]
+                i += 1
+    return table
+
+
+GENETIC_CODE = _standard_code()
+#: The 61 sense codons in ACGT-lexicographic order — the codon-model
+#: state indexing used throughout.
+SENSE_CODONS = tuple(sorted(c for c, aa in GENETIC_CODE.items()
+                            if aa != "*"))
+
+_TRANSITIONS = {frozenset("AG"), frozenset("CT")}
+
+
+def codon_gy94(kappa: float = 2.0, omega: float = 1.0,
+               pi=None) -> SubstitutionModel:
+    """Goldman-Yang (1994) codon model over the 61 sense codons.
+
+    Instantaneous rate between codons differing at exactly one position:
+    ``pi_j * kappa^[transition] * omega^[nonsynonymous]``; zero for
+    multi-position changes.  Reversible (the kappa/omega factor is
+    symmetric), so it plugs into the same eigendecomposed PLF machinery
+    as the DNA/protein models.  ``pi``: (61,) codon frequencies (e.g.
+    from :func:`f3x4_frequencies`); uniform by default.
+    """
+    S = len(SENSE_CODONS)
+    if pi is None:
+        pi = np.full(S, 1.0 / S)
+    qsym = np.zeros((S, S))
+    for i in range(S):
+        ci = SENSE_CODONS[i]
+        for j in range(i + 1, S):
+            cj = SENSE_CODONS[j]
+            diff = [(a, b) for a, b in zip(ci, cj) if a != b]
+            if len(diff) != 1:
+                continue
+            rate = 1.0
+            if frozenset(diff[0]) in _TRANSITIONS:
+                rate *= kappa
+            if GENETIC_CODE[ci] != GENETIC_CODE[cj]:
+                rate *= omega
+            qsym[i, j] = qsym[j, i] = rate
+    return _make(qsym, pi)
+
+
+def f3x4_frequencies(pos_freqs: np.ndarray) -> np.ndarray:
+    """F3x4 codon frequencies from per-position nucleotide frequencies.
+
+    ``pos_freqs``: (3, 4) in ACGT order.  Stop codons are excluded and
+    the rest renormalised (the standard F3x4 estimator).
+    """
+    pos_freqs = np.asarray(pos_freqs, np.float64)
+    assert pos_freqs.shape == (3, 4)
+    nuc = {b: i for i, b in enumerate(DNA_STATES)}
+    pi = np.array([pos_freqs[0, nuc[c[0]]] * pos_freqs[1, nuc[c[1]]]
+                   * pos_freqs[2, nuc[c[2]]] for c in SENSE_CODONS])
+    return pi / pi.sum()
+
+
+def f3x4_from_codes(codes: np.ndarray,
+                    wgt: Optional[np.ndarray] = None) -> np.ndarray:
+    """F3x4 codon frequencies estimated from observed codon codes.
+
+    ``codes``: (n_leaves, n_sites) codon state codes (values >= 61 =
+    gap/ambiguous, ignored).  Decomposes each observed sense codon into
+    its three nucleotide positions, accumulates per-position ACGT
+    counts (optionally ``wgt``-weighted) and applies the standard F3x4
+    estimator (:func:`f3x4_frequencies`).  This is the data-driven
+    frequency step of the GY94 fitting workflow (codeml's F3x4).
+    """
+    codes = np.asarray(codes)
+    S = len(SENSE_CODONS)
+    nuc = {b: i for i, b in enumerate(DNA_STATES)}
+    # (61, 3) nucleotide index of each sense codon position
+    pos_idx = np.asarray([[nuc[c[p]] for p in range(3)]
+                          for c in SENSE_CODONS])
+    w = (np.ones(codes.shape[1]) if wgt is None
+         else np.asarray(wgt, np.float64))
+    counts = np.full((3, 4), 1e-6)
+    valid = (codes >= 0) & (codes < S)
+    for p in range(3):
+        nucs = np.where(valid, pos_idx[np.clip(codes, 0, S - 1), p], -1)
+        for b in range(4):
+            counts[p, b] += ((nucs == b) * w[None, :]).sum()
+    counts /= counts.sum(axis=1, keepdims=True)
+    return f3x4_frequencies(counts)
+
+
+def encode_codon_alignment(dna_states: np.ndarray) -> np.ndarray:
+    """(n_leaves, 3*n_codons) DNA state codes -> (n_leaves, n_codons)
+    codon state codes.
+
+    Any triplet containing a gap/ambiguous base (codes outside 0..3) or
+    forming a stop codon maps to the gap code 61 (fully ambiguous).
+    """
+    dna = np.asarray(dna_states)
+    L, n3 = dna.shape
+    if n3 % 3:
+        raise ValueError(f"DNA alignment length {n3} not a codon multiple")
+    idx_of = {c: i for i, c in enumerate(SENSE_CODONS)}
+    tri = dna.reshape(L, n3 // 3, 3)
+    out = np.full((L, n3 // 3), len(SENSE_CODONS), dtype=np.int32)
+    valid = ((tri >= 0) & (tri < 4)).all(axis=2)
+    li, si = np.nonzero(valid)
+    for l, s in zip(li, si):
+        codon = "".join(DNA_STATES[b] for b in tri[l, s])
+        out[l, s] = idx_of.get(codon, len(SENSE_CODONS))
+    return out
 
 
 def discrete_gamma_rates(alpha: float, categories: int = 4) -> np.ndarray:

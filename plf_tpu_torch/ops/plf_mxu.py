@@ -36,12 +36,14 @@ from typing import Optional
 import torch
 
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
+from .plf_grad import op_grad, transpose_lane_constants
 from .plf_node import SMEM_BLOCK_BYTES, _check, _valid, stage
 
 __all__ = ["MODES", "uses_mxu_kernels", "bf16_round", "bf16_split",
            "dot_bf16x3", "make_mxu_dots", "operator_planes", "node_planes",
-           "mxu_stage", "node_mxu_plain", "round_tip_table", "plf_node_mxu",
-           "plf_node_mxu_torch", "NODE_MXU_SITES"]
+           "transpose_planes", "mxu_op_grad", "mxu_stage", "node_mxu_plain",
+           "round_tip_table", "plf_node_mxu", "plf_node_mxu_torch",
+           "NODE_MXU_SITES"]
 
 #: Kernel arithmetic mode of each variant: 0 fp32, 1 bf16x3, 2 bf16.  "vpu"
 #: at S != 4 runs in fp32 mode, the same arithmetic as the golden model.
@@ -124,6 +126,41 @@ def operator_planes(k: torch.Tensor, variant: str):
         r = bf16_round(k)
         return r, r
     return k, k
+
+
+def transpose_planes(planes, states: int, categories: int):
+    """Adjoint-stage planes: :func:`plf_grad.transpose_lane_constants` of
+    each plane (one matrix or a stack).  The bf16 split and rounding act
+    element by element, so they commute with this relabelling:
+    ``operator_planes(transpose_lane_constants(k))`` equals the transposed
+    planes of ``k`` bit for bit, and the planes split once serve the
+    backward's transposed stages too."""
+    return tuple(transpose_lane_constants(p, states, categories)
+                 for p in planes)
+
+
+def mxu_op_grad(inp, gout, variant: str, states: int, categories: int):
+    """The ``(S*C, S)`` lane-constant operator gradient at the variant's
+    pass count: ``g[o*C+c, q] = sum_s inp[q*C+c, s] * gout[o*C+c, s]``.
+
+    These are the entries of the JAX package's ``(rows, rows)`` block
+    gradient ``gout @ inp.T`` (``make_mxu_bwd_ops``' ``dot_t_s``) that sit
+    on the lane-constant positions of ``layout.branch_to_block_matrix``;
+    the others never reach a branch length.  fp32 mode: the plain
+    products (:func:`plf_grad.op_grad`); bf16 mode: both operands rounded
+    to bf16; bf16x3 mode: three separate site sums ``hh = sum gh*ih``,
+    ``hl = sum gh*il``, ``lh = sum gl*ih`` combined as ``hh + (hl + lh)``
+    (``_dot_t_bf16x3``)."""
+    S, C = states, categories
+    mode = _mode(variant)
+    if mode == 0:
+        return op_grad(inp, gout, S, C)
+    if mode == 2:
+        return op_grad(bf16_round(inp), bf16_round(gout), S, C)
+    ih, il = (t.to(torch.float32) for t in bf16_split(inp))
+    gh, gl = (t.to(torch.float32) for t in bf16_split(gout))
+    return op_grad(ih, gh, S, C) + (op_grad(il, gh, S, C)
+                                    + op_grad(ih, gl, S, C))
 
 
 def node_planes(lc, rc, ec, variant: str, planes=None):

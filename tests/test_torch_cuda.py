@@ -15,8 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from plf_tpu_torch import PLFConfig, PLFEngine  # noqa: E402
-from plf_tpu_torch.models import (PhyloModel, empirical_protein,  # noqa: E402
-                                  hky85, random_gtr, random_tree)
+from plf_tpu_torch.models import (PhyloModel, codon_gy94,  # noqa: E402
+                                  empirical_protein, hky85, random_gtr,
+                                  random_tree, simulate_alignment)
 from plf_tpu_torch.ops import layout as L  # noqa: E402
 from plf_tpu_torch.ops.plf_mxu import (plf_node_mxu,  # noqa: E402
                                        plf_node_mxu_torch)
@@ -27,6 +28,7 @@ from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,  # noqa: E402
                                         reorder_schedule)
 from plf_tpu_torch.ops import plf_grad as G  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_grad as TG  # noqa: E402
+from plf_tpu_torch.models import optimize as TO  # noqa: E402
 from plf_tpu_torch.models import tree_loglik_fn  # noqa: E402
 from plf_tpu_torch.reference import plf_reference  # noqa: E402
 
@@ -219,9 +221,8 @@ def test_kernel4_matches_plain(cuda, tip_dtype, extra):
     pm = _model(cuda, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128),
                 **extra)
     sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
-    bsched = torch.as_tensor(np.stack(
-        TG.compile_backward_schedule(sched, pm.tree.n_leaves)
-        + (np.array([e[5] for e in sched], np.int32),)), device=cuda)
+    bsched = torch.as_tensor(
+        TG.backward_schedule(sched, pm.tree.n_leaves), device=cuda)
     C = pm.config.categories
     T = lambda t: G.transpose_lane_constants(t, 4, C)
     args = (pm.codes, bsched, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs), pm.ec,
@@ -439,3 +440,124 @@ def test_kernel2m_occupancy_and_rejections(cuda):
     c = torch.rand(80, 20, device=cuda)
     with pytest.raises(ValueError, match="one device"):
         plf_node_mxu(x, x, c.cpu(), c, c, 200, variant="mxu")
+
+
+# --------------------------------------------- kernel 4m (matrix forms) --
+
+def _bsched(pm):
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    return torch.as_tensor(TG.backward_schedule(sched, pm.tree.n_leaves),
+                           device=pm.device)
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
+@pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
+                                          (20, {"tip_dtype": "int8"}),
+                                          (61, {}), (61, {"p_inv": 0.2})])
+def test_kernel4m_matches_plain(cuda, variant, states, extra):
+    """Kernel 4m against its plain version in every mode, at S = 20 (C = 4,
+    C = 5 with +I, int8 tips: accumulators in shared memory) and S = 61
+    (C = 4 and 5: in device memory); one chunk and three under a budget of
+    two tiles' checkpoint; planes split by the wrapper or by the model,
+    bit-identical run to run; site sums within 1e-4 of each matrix's
+    scale."""
+    pm = _protein_model(cuda, variant, states=states, n_leaves=12,
+                        n_sites=700, **extra)
+    C = pm.config.categories
+    args = (pm.codes, _bsched(pm), pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0])
+    glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
+                       .manual_seed(6), device=cuda)
+    kw = dict(states=states, categories=C, variant=variant)
+    before = TG.plf_tree_bwd_mxu.launches
+    k1 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites, **kw)
+    last = TG.plf_tree_bwd_mxu.last_scratch
+    assert last["chunks"] == 1 and last["acc_shared"] == (states == 20)
+    k2 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites, planes=pm._planes(),
+                             **kw)
+    per_tile = TG.tree_bwd_scratch_bytes(len(pm.schedule), pm.config.rows,
+                                         128)
+    k3 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites,
+                             max_scratch_bytes=2 * per_tile, **kw)
+    assert TG.plf_tree_bwd_mxu.last_scratch["chunks"] == -(-pm.n_pad // 256)
+    assert TG.plf_tree_bwd_mxu.launches == before + 3
+    p = TG.plf_tree_bwd_mxu_torch(*args, glik, pm.n_sites, **kw)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
+    for k in (k1, k3):
+        for i in range(3):
+            _sums_close(k[i], p[i])
+        _sums_close(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1))
+
+
+def _counted():
+    return (plf_node, plf_tree, G.plf_node_bwd, TG.plf_tree_bwd,
+            plf_node_mxu, plf_tree_mxu, TG.plf_tree_bwd_mxu)
+
+
+def _card_lane_constants(cuda):
+    """The training function's lane constants computed on the card and
+    copied to the CPU (autograd flows through both copies): a CPU model's
+    step then runs on the card's exp, bit for bit."""
+    on_host = TO._lane_constants
+
+    def lane_constants(t, r_vec, lam, u, S, C):
+        return on_host(*(x.to(cuda) for x in (t, r_vec, lam, u)), S,
+                       C).cpu()
+    return lane_constants
+
+
+@pytest.mark.parametrize("states,variant", [(20, None), (20, "mxu"),
+                                            (61, "mxu"), (61, "mxu_3x")])
+def test_matrix_form_training_step(cuda, monkeypatch, states, variant):
+    """A protein (LG) or codon (GY94, simulated codons) model on the card:
+    auto takes "tree", and one value-and-gradient step launches kernel 2m
+    once, kernel 4m once and nothing else.  The value matches
+    log_likelihood() within rel 1e-5; the gradient matches the CPU twin's
+    and, in "mxu", the "torch" backend's on the card, both within rtol
+    2e-4 and 1e-4 of the largest entry.  The twin runs the plain versions
+    (the same per-site arithmetic, the site sums in another order) on the
+    lane constants the card computes: each device's exp may differ in the
+    last bit, and the bf16 hi/lo split of an operand is a step function of
+    it."""
+    tree = random_tree(16, seed=8, mean_branch=0.2)
+    if states == 20:
+        model = empirical_protein("lg")
+        tips = np.random.default_rng(8).integers(-1, 23, size=(16, 1500))
+    else:
+        model = codon_gy94(2.0, 0.3)
+        tips = simulate_alignment(tree, model, 1500, alpha=0.6, seed=8)
+    cfg = (None if variant is None
+           else PLFConfig(states=states, kernel_variant=variant))
+    pm = PhyloModel(tree, model, tips, alpha=0.6, config=cfg)
+    twin = PhyloModel(tree, model, tips, alpha=0.6, config=cfg, device="cpu")
+    assert pm.device.type == "cuda"
+    resolved = pm.config.resolved_kernel_variant
+    assert resolved == variant or (variant is None and resolved == "mxu_3x")
+    out = {}
+    for name, m, backend in (("card", pm, "auto"), ("cpu", twin, "tree"),
+                             ("torch", pm, "torch")):
+        if name == "torch" and resolved != "mxu":
+            continue
+        fn, t0 = tree_loglik_fn(m, backend=backend)
+        counts = [f.launches for f in _counted()]
+        t = torch.tensor(t0, device=m.device, requires_grad=True)
+        with monkeypatch.context() as mp:
+            if name == "cpu":
+                mp.setattr(TO, "_lane_constants", _card_lane_constants(cuda))
+            v = fn(t)
+        v.backward()
+        runs = [f.launches - c for f, c in zip(_counted(), counts)]
+        if name == "card":
+            assert (fn.engine, fn.variant) == ("tree", resolved)
+            assert runs == [0, 0, 0, 0, 0, 1, 1], runs
+        out[name] = (float(v.detach()), t.grad.cpu().numpy())
+    ll = pm.log_likelihood().log_likelihood
+    assert out["card"][0] == pytest.approx(ll, rel=1e-5)
+    g = out["card"][1]
+    for name in out.keys() - {"card"}:
+        g_o = out[name][1]
+        np.testing.assert_allclose(g, g_o, rtol=2e-4,
+                                   atol=1e-4 * np.abs(g_o).max(),
+                                   err_msg=name)

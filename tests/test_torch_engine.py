@@ -160,7 +160,7 @@ def test_build_flags_keep_golden_arithmetic():
     assert _build.BUILD_DIR == REPO / "build" / "plf_tpu_torch"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "plf_node.cu", "plf_tree.cu", "plf_node_bwd.cu", "plf_tree_bwd.cu",
-        "plf_node_mxu.cu", "plf_tree_mxu.cu"}
+        "plf_node_mxu.cu", "plf_tree_mxu.cu", "plf_tree_bwd_mxu.cu"}
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

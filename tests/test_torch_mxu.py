@@ -429,26 +429,31 @@ def test_operator_planes_split_once(variant, monkeypatch):
 @pytest.mark.parametrize("variant", VARIANTS + ("vpu",))
 def test_training_guards(variant):
     """Models on the matrix-form kernels (the MXU variants, and "vpu" at
-    S = 20) train on "torch" only, asked for by name; "kernel", "tree" and
-    "auto" raise NotImplementedError naming ROADMAP up front (no quiet
-    fallback); mxu_bf16 raises ValueError everywhere, as in JAX."""
+    S = 20) on the CPU: "auto" takes "torch"; "tree" runs kernels 2m + 4m
+    (their plain versions here) in the model's arithmetic; "kernel" and
+    "segmented" raise NotImplementedError naming ROADMAP up front (kernel 3
+    is S = 4 only; no quiet fallback); mxu_bf16 raises ValueError
+    everywhere, as in JAX.  Values within rel 1e-4 of log_likelihood()."""
     pt = _port_of(_jax_protein(variant, n_leaves=4, n_sites=128), variant)
     if variant == "mxu_bf16":
         for backend in ("torch", "kernel", "tree", "auto"):
             with pytest.raises(ValueError, match="mxu_bf16"):
                 tree_loglik_fn(pt, backend=backend)
         return
-    for backend in ("kernel", "tree", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tree_loglik_fn(pt, backend=backend)
-    fn, t0 = tree_loglik_fn(pt, backend="torch")
-    assert fn.engine == "torch" and fn.variant == variant
-    t = torch.tensor(t0, requires_grad=True)
-    v = fn(t)
-    v.backward()
-    assert torch.isfinite(t.grad).all()
-    assert float(v.detach()) == pytest.approx(pt.log_likelihood().log_likelihood,
-                                     rel=1e-4)
+    with pytest.raises(NotImplementedError, match="kernel 3 is S = 4 only"):
+        tree_loglik_fn(pt, backend="kernel")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tree_loglik_fn(pt, backend="segmented")
+    ll = pt.log_likelihood().log_likelihood
+    for backend, engine in (("auto", "torch"), ("torch", "torch"),
+                            ("tree", "tree")):
+        fn, t0 = tree_loglik_fn(pt, backend=backend)
+        assert (fn.engine, fn.variant) == (engine, variant)
+        t = torch.tensor(t0, requires_grad=True)
+        v = fn(t)
+        v.backward()
+        assert torch.isfinite(t.grad).all()
+        assert float(v.detach()) == pytest.approx(ll, rel=1e-4)
 
 
 def test_entry_points_default_to_the_card():

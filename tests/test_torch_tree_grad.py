@@ -51,9 +51,7 @@ def _port_inputs(pm, sched):
     t = lambda a: torch.as_tensor(np.array(a))
     C = pm.config.categories
     lcs, rcs, ec = t(pm._lcs_np), t(pm._rcs_np), t(pm._ec)
-    arrs, _, _ = TT.compile_register_schedule(sched, pm.tree.n_leaves)
-    bsched = torch.as_tensor(np.stack(
-        TG.compile_backward_schedule(sched, pm.tree.n_leaves) + (arrs[5],)))
+    bsched = torch.as_tensor(TG.backward_schedule(sched, pm.tree.n_leaves))
     return dict(codes=t(pm._codes), bsched=bsched, lcs=lcs, rcs=rcs,
                 lcsT=transpose_lane_constants(lcs, S, C),
                 rcsT=transpose_lane_constants(rcs, S, C), ec=ec,
