@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the seven CUDA kernels of ``plf_tpu_torch`` from
+Builds the nine CUDA kernels of ``plf_tpu_torch`` from
 ``plf_tpu_torch/csrc`` (into ``build/plf_tpu_torch/``, one nvcc per
 source, all started together) and holds each against its plain PyTorch
 version on the card (kernels 1 and 1m also against the numpy golden
@@ -34,6 +34,13 @@ against their plain versions.  Then the protein and codon training path:
   one training step per variant, and ``fit_codon`` on a simulated
   alignment, which must recover the omega and kappa it was simulated
   under.
+
+The segmented engine (DNA): kernel 7 against its plain version and kernel
+2 at 160 taxa x 2^20 and 512 x 262,144, kernel 8 against its plain
+version at 160 x 2^20, ``log_likelihood(method="segmented")`` (kernel 7
+once) and a "segmented" training step (kernels 7 + 8 once each) against
+"tree", timed, with both backends' checkpoints, at 160 x 2^20 and 256 x
+2^22 with int8 tips.
 
 A last phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
@@ -80,7 +87,13 @@ from plf_tpu_torch.ops.plf_tree_grad import (backward_schedule,
                                              plf_tree_bwd,
                                              plf_tree_bwd_mxu,
                                              plf_tree_bwd_mxu_torch,
-                                             plf_tree_bwd_torch)
+                                             plf_tree_bwd_torch,
+                                             tree_bwd_scratch_bytes)
+from plf_tpu_torch.ops import plf_tree_seg as seg_mod
+from plf_tpu_torch.ops.plf_tree_seg import (plf_tree_seg, plf_tree_seg_bwd,
+                                            plf_tree_seg_bwd_torch,
+                                            plf_tree_seg_torch,
+                                            segment_program)
 from plf_tpu_torch.reference import plf_reference
 
 N_TAXA = 160
@@ -115,17 +128,28 @@ CODON_SITES = 1 << 16
 CODON_K4_SITES = 1 << 13
 CODON_BRUTE_SITES = 1024
 FIT_CODONS = 4096
-#: The JAX package's own distances on the first CODON_BRUTE_SITES codons of
-#: the random-codon workload, on the CPU (tests/test_torch_codon.py::
-#: test_random_codon_witness recomputes them): its "mxu" and "mxu_3x"
-#: log_likelihood() from the float64 brute force, its "mxu_3x" fused path
-#: from its per-node path, and its training function's value (backend
-#: "xla") from its "mxu" log_likelihood().  Random codons are improbable
-#: data whose eigen-coordinate sums cancel below fp32 rounding, so the
-#: reference lands this far from exact too; the card is held within twice
-#: these.
-JAX_RANDOM_CODONS = dict(bf_mxu=2.416e-3, bf_mxu_3x=7.013e-2,
-                         per_node_mxu_3x=2.654e-4, step=2.413e-3)
+#: The port's own distances on the first CODON_BRUTE_SITES codons of the
+#: random-codon workload, from its plain versions on the CPU (elementwise
+#: fp32 in the kernels' order, so the same on every machine): its "mxu" and
+#: "mxu_3x" log_likelihood() from the float64 brute force, its "mxu_3x"
+#: fused path from its per-node path, and its "tree" training value from
+#: its "mxu" log_likelihood().  Random codons are improbable data whose
+#: eigen-coordinate sums cancel below fp32 rounding, so the JAX package
+#: lands this far from exact too, within a factor of two of these on every
+#: CPU tried (tests/test_torch_codon.py::test_random_codon_witness
+#: recomputes both); the card is held within twice these.
+RANDOM_CODON_DISTANCES = dict(bf_mxu=3.027e-3, bf_mxu_3x=7.013e-2,
+                              per_node_mxu_3x=2.654e-4, step=1.827e-3)
+
+# The segmented engine's shapes (benchmarks/seg_bench.py:8-12, :130): the
+# forward at 512 taxa x 262,144 sites, the gradient at 160 taxa x 2^20
+# (the tree workload) and at 256 taxa x 2^22 with int8 tips.
+SEG_FWD_TAXA, SEG_FWD_SITES = 512, 1 << 18
+SEG_BIG_TAXA, SEG_BIG_SITES = 256, 1 << 22
+#: Kernel 8's site sums against its plain version, and the "segmented"
+#: gradient against the "tree" one: within this share of scale.
+SEG_SUM_RTOL = 1e-6
+SEG_GRAD_RTOL = 3e-6
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # power limit): each kernel's bound is the larger of its bytes over the
@@ -248,7 +272,8 @@ def build_phase():
     mods = {"plf_node": node_mod._lib, "plf_tree": tree_mod._lib,
             "plf_node_bwd": plf_grad._lib, "plf_tree_bwd": plf_tree_grad._lib,
             "plf_node_mxu": plf_mxu._lib, "plf_tree_mxu": tree_mod._lib_mxu,
-            "plf_tree_bwd_mxu": plf_tree_grad._lib_mxu}
+            "plf_tree_bwd_mxu": plf_tree_grad._lib_mxu,
+            "plf_tree_seg": seg_mod._lib, "plf_tree_seg_bwd": seg_mod._lib_bwd}
     t0 = time.perf_counter()
     build_libraries(list(mods))
     phase("build", f"{len(mods)} libraries, one nvcc each in parallel: "
@@ -516,7 +541,7 @@ def _grad_step(fn, t0, dev):
 
 
 COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
-           plf_tree_mxu, plf_tree_bwd_mxu)
+           plf_tree_mxu, plf_tree_bwd_mxu, plf_tree_seg, plf_tree_seg_bwd)
 
 
 def _reset_counts():
@@ -1168,17 +1193,18 @@ def codon_phase(codon, dev):
     path equals the port's plain versions on the CPU site for site (which
     equal the JAX package's in "mxu_3x", tests/test_torch_codon.py), and
     the distances from the float64 brute force, which the JAX package
-    shows too, are held within twice its own (JAX_RANDOM_CODONS).
+    shows too, are held within twice the plain versions' own
+    (RANDOM_CODON_DISTANCES).
     Simulated codons: fused vs per-node with equal rescale totals, the
     brute force and one step's value in both variants, and fit_codon,
     which must recover the omega and kappa it was simulated under."""
     tree, tips, gy, models = codon
     lls, want = {}, {"plf_tree_mxu": 1, "plf_tree_bwd_mxu": 1}
-    jx = JAX_RANDOM_CODONS
+    dist = RANDOM_CODON_DISTANCES
     for variant in ("mxu", "mxu_3x"):
         pm = models[variant]
         fused, wall, rel, same_sc = _fused_vs_per_node(pm)
-        bar = 1e-12 if variant == "mxu" else 2 * jx["per_node_mxu_3x"]
+        bar = 1e-12 if variant == "mxu" else 2 * dist["per_node_mxu_3x"]
         check(np.isfinite(fused.log_likelihood) and rel < bar
               and (variant != "mxu" or same_sc),
               f"codon {variant} fused vs per-node: rel {rel}, equal "
@@ -1188,7 +1214,7 @@ def codon_phase(codon, dev):
         ref = fused.log_likelihood
         rs = abs(v / ref - 1)
         check(fn.engine == "tree" and counts == want
-              and rs < 2 * jx["step"],
+              and rs < 2 * dist["step"],
               f"codon {variant} step ({fn.engine}) launched {counts}, "
               f"value rel {rs} to log_likelihood()")
         ms = _median_ms(lambda: _grad_step(fn, t_0, dev), reps=3)
@@ -1200,7 +1226,7 @@ def codon_phase(codon, dev):
               f"log's floor; fused vs per-node rel {rel:.2e} < {bar:.3g} "
               f"(equal rescale totals: {same_sc}); one 'tree' step "
               f"{ms:.2f} ms wall (median of 3), value {v:.3f} (rel "
-              f"{rs:.2e} < {2 * jx['step']:.3g}), launches {counts}")
+              f"{rs:.2e} < {2 * dist['step']:.3g}), launches {counts}")
     drift = abs(lls["mxu_3x"] / lls["mxu"] - 1)
     sub_tips = tips[:, :CODON_BRUTE_SITES]
     bf, out = None, []
@@ -1218,7 +1244,7 @@ def codon_phase(codon, dev):
                    and a.scaler_total == b.scaler_total
                    for a, b in zip(res[dev], res["cpu"]))
         r = abs(res[dev][0].log_likelihood - bf) / abs(bf)
-        bf_bar = 2 * jx[f"bf_{v}"]
+        bf_bar = 2 * dist[f"bf_{v}"]
         check(same and r < bf_bar,
               f"random codons, {CODON_BRUTE_SITES}-codon slice, {v}: card "
               f"== CPU plain versions {same}; vs float64 brute force rel "
@@ -1273,6 +1299,297 @@ def codon_phase(codon, dev):
           f"{info['ll']:.3f} > omega=1 null {null.log_likelihood:.3f}; "
           f"{wall:.1f} s wall")
     return drift
+
+
+def seg_inputs(pm):
+    """The model's segment plan, kernel 7's program (cached on the model)
+    and kernel 8's, on the card."""
+    plan, prog, segs, n_slots = pm._segmented_inputs()
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    bprog, bsegs, _ = segment_program(plan, sched, reuse_slots=False)
+    bwd = tuple(torch.as_tensor(a, device=pm.device) for a in (bprog, bsegs))
+    return plan, (prog, segs, n_slots), bwd
+
+
+def seg_fwd_bound(pm, plan):
+    """Kernel 7's bound: the tip codes read, lik and sc and every boundary
+    CLV written once, against kernel 2's operations."""
+    S, C = pm.config.states, pm.config.categories
+    fwd, rate = node_work(S, C)
+    per_site = (pm.codes.element_size() * pm.tree.n_leaves + 8
+                + 4 * pm.config.rows * plan.n_boundaries)
+    return bound(per_site * pm.n_pad, len(pm.schedule) * fwd * pm.n_pad, rate)
+
+
+def seg_bwd_bound(pm, plan):
+    """Kernel 8's bound: the tip codes, the boundary CLVs and the
+    cotangent read once, against the whole-tree VJP's operations."""
+    flops, rate = tree_bwd_work(pm.config.states, pm.config.categories,
+                                len(pm.schedule))
+    per_site = (pm.codes.element_size() * pm.tree.n_leaves + 4
+                + 4 * pm.config.rows * plan.n_boundaries)
+    return bound(per_site * pm.n_pad, flops * pm.n_pad, rate)
+
+
+def _seg_args(pm, fwd):
+    prog, segs, n_slots = fwd
+    return ((pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+             pm.root_rows[0], pm.n_sites),
+            dict(n_boundaries=pm._segmented_inputs()[0].n_boundaries,
+                 n_slots=n_slots, categories=pm.config.categories))
+
+
+def kernel7_phase(dev, pm):
+    """Kernel 7 against its plain version (lik, sc and every boundary CLV)
+    and against kernel 2 (lik and sc) bit for bit, at 160 taxa x 2^20 (the
+    tree workload) and at 512 taxa x 262,144."""
+    rng = np.random.default_rng(SEG_FWD_TAXA)
+    wide = PhyloModel(random_tree(SEG_FWD_TAXA, seed=3), hky85(2.0),
+                      rng.integers(-1, 14, size=(SEG_FWD_TAXA, SEG_FWD_SITES)),
+                      alpha=0.5, device=dev)
+    res = None
+    for m in (pm, wide):
+        plan, fwd, _ = seg_inputs(m)
+        args, kw = _seg_args(m, fwd)
+        lik, sc, bbuf = plf_tree_seg(*args, **kw)
+        kargs = (m.codes, m.sched, m.lcs, m.rcs, m.ec, m.fused_tip_table,
+                 m.root_rows[0], m.n_sites)
+        kkw = dict(n_slots=m.n_slots, root_slot=m.root_slot)
+        ref = plf_tree(*kargs, **kkw)
+        plain, plain_ms = timed(lambda: plf_tree_seg_torch(*args, **kw))
+        check(torch.equal(lik, ref[0]) and torch.equal(sc, ref[1]),
+              f"kernel 7 != kernel 2 at {m.tree.n_leaves} taxa")
+        check(all(torch.equal(a, b) for a, b in zip((lik, sc, bbuf), plain)),
+              f"kernel 7 != its plain version at {m.tree.n_leaves} taxa")
+        del plain, bbuf
+        ms = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=5)
+        ms2 = cuda_ms(lambda: plf_tree(*kargs, **kkw), reps=5)
+        bd = seg_fwd_bound(m, plan)
+        gb = plan.n_boundaries * 4 * m.config.rows * m.n_pad / 1e9
+        phase("kernel7", f"{m.tree.n_leaves} taxa x {m.n_sites} sites: "
+              f"{len(plan.segments)} segments (at most {plan.seg_ops} ops), "
+              f"{plan.n_boundaries} boundaries ({gb:.3f} GB), {fwd[2]} arena "
+              f"slots; lik and sc == kernel 2 and lik, "
+              f"sc, boundaries == plain, bit for bit ({int(sc.sum())} "
+              f"rescales); kernel {ms:.3f} ms (kernel 2 {ms2:.3f} ms, bound "
+              f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}), plain "
+              f"{plain_ms:.1f} ms")
+        if res is None:
+            res = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, **bd)
+        del lik, sc
+    del wide
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel8_phase(pm):
+    """Kernel 8 against its plain version at the tree workload (160 taxa x
+    2^20), with a real step's cotangent: the boundary adjoints bit for
+    bit, the site sums within SEG_SUM_RTOL of scale, two runs
+    bit-identical; its time and checkpoint beside kernel 4's."""
+    plan, fwd, (bprog, bsegs) = seg_inputs(pm)
+    args, kw = _seg_args(pm, fwd)
+    lik, _, bbuf = plf_tree_seg(*args, **kw)
+    glik = (pm.wgt_pad.to(torch.float32) / lik).contiguous()
+    T = transpose_lane_constants
+    bargs = (pm.codes, bprog, bsegs, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs),
+             pm.ec, T(pm.ec), pm.fused_tip_table, pm.root_rows[0], glik, bbuf,
+             pm.n_sites)
+    gbufs = [torch.empty_like(bbuf) for _ in range(3)]
+    k1 = plf_tree_seg_bwd(*bargs, seg_ops=plan.seg_ops, gbuf=gbufs[0])
+    k2 = plf_tree_seg_bwd(*bargs, seg_ops=plan.seg_ops, gbuf=gbufs[1])
+    p, plain_ms = timed(lambda: plf_tree_seg_bwd_torch(*bargs, gbuf=gbufs[2]))
+    check(torch.equal(gbufs[0], gbufs[2]), "kernel 8 boundary adjoints != "
+          "plain")
+    check(torch.equal(gbufs[0], gbufs[1]) and all(
+        torch.equal(u, v) for u, v in zip(k1, k2)),
+        "kernel 8 differs between two runs")
+    errs = [sums_err(k1[i], p[i]) for i in range(3)] + [
+        sums_err(k1[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1))]
+    check(max(errs) <= SEG_SUM_RTOL, f"kernel 8 site sums vs plain: {errs} "
+          f"of scale > {SEG_SUM_RTOL}")
+    abs_err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+    del k1, k2, p, gbufs
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: plf_tree_seg_bwd(*bargs, seg_ops=plan.seg_ops),
+                 reps=3, warmup=1)
+    bd = seg_bwd_bound(pm, plan)
+    E, rows = len(pm.schedule), pm.config.rows
+    ck4 = tree_bwd_scratch_bytes(E, rows, pm.n_pad)
+    resident = seg_mod._resident_blocks(pm.device, pm.codes.element_size(),
+                                        pm.config.categories,
+                                        pm.fused_tip_table.shape[1],
+                                        plan.seg_ops)
+    sms = torch.cuda.get_device_properties(pm.device).multi_processor_count
+    phase("kernel8", f"{E} nodes x {pm.n_sites} sites, {len(plan.segments)} "
+          f"segments of at most {plan.seg_ops} ops: boundary adjoints == "
+          f"plain bit for bit, gl/gr/gec/grr within {max(errs):.2e} of scale "
+          f"(max abs {abs_err:.3g}), bit-identical run to run; "
+          f"{resident // sms} blocks of {seg_mod.SEG_SITES} threads per SM; "
+          f"device-memory checkpoint {bbuf.numel() * 4 / 1e9:.3f} GB "
+          f"({plan.n_boundaries} boundaries) against kernel 4's "
+          f"{ck4 / 1e9:.2f} GB; kernel {ms:.3f} ms (bound "
+          f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}), plain "
+          f"{plain_ms:.1f} ms")
+    del bbuf, lik
+    torch.cuda.empty_cache()
+    seg_cap_probe(pm, glik)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **bd)
+
+
+def seg_cap_probe(pm, glik):
+    """Kernels 7 and 8 on plans cut for 4, 6, 8 and 10 kernel-8 blocks per
+    SM (the capacity rule's SEG_BLOCKS_PER_SM; 8 is the library's): the
+    trade of segment size against occupancy the rule picks from."""
+    keep = seg_mod.SEG_BLOCKS_PER_SM
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    pos = [(p, l, r, 0.0, 0.0, i) for i, (p, l, r, *_x) in enumerate(sched)]
+    T = transpose_lane_constants
+    try:
+        for bpsm in (4, 6, 8, 10):
+            seg_mod.SEG_BLOCKS_PER_SM = bpsm
+            plan = seg_mod.plan_segments(pos, pm.tree.n_leaves,
+                                         rows=pm.config.rows,
+                                         n_codes=pm.fused_tip_table.shape[1])
+            progs = [segment_program(plan, sched, reuse_slots=r)
+                     for r in (True, False)]
+            (fp, fs, n_slots), (bp, bs, _) = [
+                (torch.as_tensor(a, device=pm.device),
+                 torch.as_tensor(b, device=pm.device), c) for a, b, c in progs]
+            args = (pm.codes, fp, fs, pm.lcs, pm.rcs, pm.ec,
+                    pm.fused_tip_table, pm.root_rows[0], pm.n_sites)
+            kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots)
+            _, _, bbuf = plf_tree_seg(*args, **kw)
+            bargs = (pm.codes, bp, bs, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs),
+                     pm.ec, T(pm.ec), pm.fused_tip_table, pm.root_rows[0],
+                     glik, bbuf, pm.n_sites)
+            ms7 = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=3)
+            ms8 = cuda_ms(lambda: plf_tree_seg_bwd(*bargs,
+                                                   seg_ops=plan.seg_ops),
+                          reps=3, warmup=1)
+            cap = seg_mod.seg_cap_ops(pm.config.rows,
+                                      pm.fused_tip_table.shape[1])
+            phase("kernel8", f"plan for {bpsm} blocks per SM: cap {cap} "
+                  f"ops, {len(plan.segments)} segments (at most "
+                  f"{plan.seg_ops} ops), {plan.n_boundaries} boundaries: "
+                  f"kernel 7 {ms7:.3f} ms, kernel 8 {ms8:.3f} ms")
+            del bbuf, bargs
+            torch.cuda.empty_cache()
+    finally:
+        seg_mod.SEG_BLOCKS_PER_SM = keep
+
+
+def _step_pair(pm, dev):
+    """One "tree" and one "segmented" value-and-gradient step on ``pm``:
+    the launches of each, their values and gradients, and their wall
+    times (median of 3 each, taken in turns: tree, segmented x 2, tree)."""
+    fns = {b: tree_loglik_fn(pm, backend=b) for b in ("tree", "segmented")}
+    out = {}
+    for b, (fn, t0) in fns.items():
+        v, g, counts = _step_launches(fn, t0, dev)
+        out[b] = dict(v=v, g=g.cpu().numpy(), counts=counts,
+                      engine=fn.engine, variant=fn.variant,
+                      scratch=dict(plf_tree_bwd.last_scratch or {}))
+    times = {b: [] for b in fns}
+    for b in ("tree", "segmented", "segmented", "tree"):
+        fn, t0 = fns[b]
+        times[b].append(_median_ms(lambda: _grad_step(fn, t0, dev), reps=3))
+    for b in fns:
+        out[b]["ms"] = times[b]
+    return out
+
+
+def segmented_phase(dev, pm):
+    """The segmented main paths: log_likelihood(method="segmented") with
+    exactly one kernel-7 launch, equal to the fused path site for site; a
+    "segmented" value-and-gradient step with exactly one launch each of
+    kernels 7 and 8, against the "tree" step (values rel 1e-6, gradients
+    within SEG_GRAD_RTOL of scale), with both step times and checkpoint
+    sizes, at 160 taxa x 2^20 and at 256 taxa x 2^22 with int8 tips; auto
+    takes "tree" at the first and "segmented" at the second, where kernel
+    4's checkpoint runs in chunks."""
+    fused = pm.log_likelihood()
+    _reset_counts()
+    t0 = time.perf_counter()
+    seg = pm.log_likelihood(method="segmented")
+    wall = (time.perf_counter() - t0) * 1e3
+    serve = {k: c for k, c in _counts().items() if c}
+    check(serve == {"plf_tree_seg": 1}, f"method='segmented' launched "
+          f"{serve}")
+    check(np.array_equal(seg.site_log_likelihood, fused.site_log_likelihood)
+          and seg.scaler_total == fused.scaler_total,
+          "segmented log_likelihood != fused")
+    phase("segmented", f"log_likelihood(method='segmented') = "
+          f"{seg.log_likelihood:.6f} == fused site for site, launches "
+          f"{serve}, {wall:.2f} ms wall")
+    launches = dict(serve)
+    rng = np.random.default_rng(SEG_BIG_TAXA)
+    p = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
+    for m in (pm, None):
+        if m is None:
+            t0 = time.perf_counter()
+            tips = rng.choice(np.arange(-1, 14, dtype=np.int8),
+                              size=(SEG_BIG_TAXA, SEG_BIG_SITES),
+                              p=p / p.sum())
+            m = PhyloModel(random_tree(SEG_BIG_TAXA, seed=4), hky85(2.0),
+                           tips, alpha=0.5, device=dev,
+                           config=PLFConfig(tip_dtype="int8"))
+            del tips
+            phase("segmented", f"{SEG_BIG_TAXA} taxa x {SEG_BIG_SITES} "
+                  f"patterns, int8 tips: model built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        res = _step_pair(m, dev)
+        want = {"tree": {"plf_tree": 1, "plf_tree_bwd": 1},
+                "segmented": {"plf_tree_seg": 1, "plf_tree_seg_bwd": 1}}
+        for b, r in res.items():
+            check(r["counts"] == want[b] and r["engine"] == b
+                  and r["variant"] == "vpu",
+                  f"{b} step launched {r['counts']} ({r['engine']})")
+        if m is pm:
+            launches["plf_tree_seg_bwd"] = res["segmented"]["counts"].get(
+                "plf_tree_seg_bwd", 0)
+        g_t, g_s = res["tree"]["g"], res["segmented"]["g"]
+        err = float(np.abs(g_s - g_t).max() / np.abs(g_t).max())
+        rel = abs(res["segmented"]["v"] / res["tree"]["v"] - 1)
+        check(rel < 1e-6 and err <= SEG_GRAD_RTOL,
+              f"segmented vs tree step at {m.tree.n_leaves} taxa: value rel "
+              f"{rel}, gradient {err} of scale")
+        plan = m._segmented_inputs()[0]
+        gb = plan.n_boundaries * 4 * m.config.rows * m.n_pad / 1e9
+        sc4 = res["tree"]["scratch"]
+        auto = tree_loglik_fn(m)[0].engine
+        check(auto == ("tree" if m is pm else "segmented"),
+              f"auto took {auto!r} at {m.tree.n_leaves} taxa")
+        phase("segmented", f"{m.tree.n_leaves} taxa x {m.n_sites} sites: one "
+              f"value+gradient step 'tree' {res['tree']['ms']} ms, "
+              f"'segmented' {res['segmented']['ms']} ms wall (medians of 3, "
+              f"in turns); launches {res['tree']['counts']} / "
+              f"{res['segmented']['counts']}; checkpoint: kernel 4 "
+              f"{sc4.get('bytes', 0) / 1e9:.2f} GB in {sc4.get('chunks')} "
+              f"chunk(s), kernel 8 {gb:.3f} GB ({plan.n_boundaries} "
+              f"boundaries, {len(plan.segments)} "
+              f"segments); value rel {rel:.2e}, gradient within {err:.2e} of "
+              f"scale (max|g| {np.abs(g_t).max():.4g}); auto takes {auto!r}")
+        if m is not pm:
+            plan_b, fwd, (bprog, bsegs) = seg_inputs(m)
+            args, kw = _seg_args(m, fwd)
+            lik, _, bbuf = plf_tree_seg(*args, **kw)
+            glik = (m.wgt_pad.to(torch.float32) / lik).contiguous()
+            T = transpose_lane_constants
+            bargs = (m.codes, bprog, bsegs, m.lcs, m.rcs, T(m.lcs), T(m.rcs),
+                     m.ec, T(m.ec), m.fused_tip_table, m.root_rows[0], glik,
+                     bbuf, m.n_sites)
+            ms7 = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=3)
+            ms8 = cuda_ms(lambda: plf_tree_seg_bwd(*bargs,
+                                                   seg_ops=plan_b.seg_ops),
+                          reps=3, warmup=1)
+            bd7, bd8 = seg_fwd_bound(m, plan_b), seg_bwd_bound(m, plan_b)
+            phase("segmented", f"{m.tree.n_leaves} taxa x {m.n_sites} sites: "
+                  f"kernel 7 {ms7:.3f} ms (bound {bd7['bound_ms']:.3f} ms), "
+                  f"kernel 8 {ms8:.3f} ms (bound {bd8['bound_ms']:.3f} ms)")
+            del lik, bbuf, glik, bargs, args, m
+            torch.cuda.empty_cache()
+    return launches
 
 
 def _median_ms(fn, reps=5):
@@ -1393,6 +1710,9 @@ def main():
     train_launches, _ = train_phase(dev, tree, tips, pm)
     launches.update({k: train_launches[k]
                      for k in ("plf_node_bwd", "plf_tree_bwd")})
+    k7 = kernel7_phase(dev, pm)
+    k8 = kernel8_phase(pm)
+    launches.update(segmented_phase(dev, pm))
     profile_phase(pm)
     k1m = kernel1m_phase(dev)
     ptree, ptips, models = protein_workload(dev)
@@ -1436,6 +1756,10 @@ def main():
               "plf_tpu/ops/plf_tree_pallas.py:424", k2m["mxu_3x"]),
         entry("plf_tree_bwd_mxu", "plf_tree_bwd_mxu.cu",
               "plf_tpu/ops/plf_tree_grad.py:110", k4m["mxu_3x"]),
+        entry("plf_tree_seg", "plf_tree_seg.cu",
+              "plf_tpu/ops/plf_tree_seg.py:383", k7),
+        entry("plf_tree_seg_bwd", "plf_tree_seg_bwd.cu",
+              "plf_tpu/ops/plf_tree_seg.py:843", k8),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: {launches}")

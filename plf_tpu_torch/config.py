@@ -77,7 +77,8 @@ class PLFConfig:
         ported yet (ROADMAP.md, Queue 1).  Every kernel variant runs."""
         if self.dtype != "float32":
             raise NotImplementedError(
-                "bfloat16 CLV storage is not ported yet (ROADMAP.md, Queue 1)")
+                "bfloat16 CLV storage (kernel 1, the segmented engine's "
+                "boundaries) is not ported yet (ROADMAP.md, Queue 1 item 7)")
 
     @property
     def elements_per_site(self) -> int:

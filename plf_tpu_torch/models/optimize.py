@@ -22,17 +22,26 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
   path does.
 * ``"torch"`` (JAX ``"xla"``): the plain element-wise site-major
   traversal under torch autograd, the CPU oracle.
-* ``"segmented"`` needs the segmented engine (not ported yet).
+* ``"segmented"`` (JAX ``"segmented"``): the segmented whole-tree forward
+  and backward, kernels 7 + 8, one launch each per evaluation
+  (``ops/plf_tree_seg.py``): the tree cut into subtrees whose roots pass
+  through a boundary buffer, the VJP's only device-memory checkpoint.
+  "vpu" at S = 4; a matrix-form model raises NotImplementedError (their
+  MXU forms are not ported yet, ROADMAP.md, Queue 2 items 2-3).
 
 ``"auto"`` takes ``"torch"`` for a model on the CPU.  For a model on a
 CUDA device it takes ``"tree"`` whenever the forward kernel admits the
-tree (``PhyloModel.can_fuse``); otherwise ``"kernel"`` for "vpu" at S = 4
-and, for a model on kernels 2m/4m, NotImplementedError where the JAX
-package would take its segmented engine.  The rule stands on both
-backends measured on an H100 (PERF.md, "Auto routing"): the tree
-backend's gradient step was the faster one at every shape measured (160
-taxa x 2^20 and 2^16 sites, 20 taxa x 2^20), and its checkpoint is
-chunked to fit the card at any site count, while the per-node residuals
+tree (``PhyloModel.can_fuse``), except for a "vpu" DNA model whose kernel-4
+checkpoint would have to be chunked (more than half the free device
+memory) while kernel 8's boundary buffers fit it: there it takes
+``"segmented"``.  Otherwise ``"kernel"`` for "vpu" at S = 4 and, for a
+model on kernels 2m/4m, NotImplementedError where the JAX package would
+take its segmented engine (whose MXU forms are not ported).  The rule
+stands on the backends measured on an H100 (PERF.md): the tree backend's
+step was the faster one at every shape where its checkpoint fits one
+chunk (160 taxa x 2^20 and 2^16 sites, 20 taxa x 2^20; "segmented" 6%
+slower at 160 x 2^20), "segmented" the faster one at 256 taxa x 2^22
+(int8 tips), where kernel 4 runs in three chunks; the per-node residuals
 grow with sites x nodes.  "mxu_bf16" raises ValueError on every backend,
 as in the JAX package.
 
@@ -65,7 +74,8 @@ import torch
 from ..ops.plf_grad import make_plf_diff
 from ..ops.plf_mxu import operator_planes, uses_mxu_kernels
 from ..ops.plf_tree import reorder_schedule, root_reduce
-from ..ops.plf_tree_grad import make_tree_diff
+from ..ops.plf_tree_grad import make_tree_diff, tree_bwd_scratch_bytes
+from ..ops.plf_tree_seg import make_tree_diff_segmented
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .phylo import LIK_FLOOR, LOG_MINLIK, PhyloModel
 
@@ -75,21 +85,46 @@ __all__ = ["tree_loglik_fn", "optimize_branch_lengths", "optimize_alpha",
 BACKENDS = ("auto", "tree", "kernel", "torch", "segmented")
 
 
+def _segmented_wins(pm, free: Optional[int] = None) -> bool:
+    """Whether a "vpu" DNA step on the card takes "segmented" over "tree":
+    where kernel 4's checkpoint (``E * (S*C*4 + 1)`` bytes per site) exceeds
+    half the ``free`` device memory, so it would run in chunks, and kernel
+    8's boundary buffers (the residual and its adjoints, ``2 *
+    n_boundaries * S*C * 4`` bytes per site) fit the free memory.  ``free``
+    defaults to the card's free memory plus the blocks PyTorch's caching
+    allocator holds unused (which a step can take), so the rule does not
+    depend on what earlier steps left cached."""
+    if not pm.can_segment():
+        return False
+    if free is None:
+        dev = pm.device
+        free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(
+            dev) - torch.cuda.memory_allocated(dev))
+    rows = pm.config.rows
+    if tree_bwd_scratch_bytes(len(pm.schedule), rows, pm.n_pad) <= free // 2:
+        return False
+    n_bnd = pm._segmented_inputs()[0].n_boundaries
+    return 2 * n_bnd * rows * 4 * pm.n_pad <= free
+
+
 def _auto_backend(pm, matrix_form: bool = False) -> str:
     """The ``"auto"`` choice (module docstring): "torch" off the card,
-    else "tree" when the forward kernel takes the tree, else "kernel" --
-    or, for a model on kernels 2m/4m (``matrix_form``), the segmented
-    engine, which is not ported."""
+    else "tree" when the forward kernel takes the tree ("segmented" where
+    :func:`_segmented_wins`), else "kernel" -- or, for a model on kernels
+    2m/4m (``matrix_form``), the segmented engine, whose MXU forms are not
+    ported."""
     if pm.device.type != "cuda":
         return "torch"
     if pm.can_fuse():
+        if not matrix_form and _segmented_wins(pm):
+            return "segmented"
         return "tree"
     if matrix_form:
         raise NotImplementedError(
             "the tree does not fit kernel 2m's shared-memory arena; the JAX "
-            "package would take its segmented engine (_seg_fwd_kernel/"
-            "_seg_bwd_kernel), not ported yet: ROADMAP.md, Queue 2 items "
-            "2-3")
+            "package would take its segmented engine, whose MXU forms "
+            "(kernels 7/8 in the matrix forms) are not ported yet: "
+            "ROADMAP.md, Queue 2 items 2-3")
     return "kernel"
 
 
@@ -153,15 +188,15 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
             "streaming only; its likelihood drift makes optimisation "
             "unsound -- use 'mxu_3x' (fp32-grade, ~half the MXU passes "
             "of 'mxu') for training/fitting")
-    if backend == "segmented":
-        raise NotImplementedError(
-            "the segmented gradient backend needs the segmented engine "
-            "(_seg_fwd_kernel/_seg_bwd_kernel), not ported yet: ROADMAP.md,"
-            " Queue 2 items 2-3")
     S = pm.config.states
     matrix_form = uses_mxu_kernels(variant, S)
     if backend == "auto":
         backend = _auto_backend(pm, matrix_form)
+    if backend == "segmented" and matrix_form:
+        raise NotImplementedError(
+            f"the segmented gradient backend runs kernels 7 + 8 in the vpu "
+            f"form at S = 4; their MXU forms (kernel variant {variant!r} at "
+            f"S={S}) are not ported yet: ROADMAP.md, Queue 2 items 2-3")
     if backend == "kernel" and matrix_form:
         if S != 4:
             raise NotImplementedError(
@@ -171,7 +206,7 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
                 "trains this model")
         variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
     build = {"torch": _core_torch, "kernel": _core_kernel,
-             "tree": _core_tree}[backend]
+             "tree": _core_tree, "segmented": _core_segmented}[backend]
     core = build(pm)
     dev = pm.device
     rates = _f32(pm.rates, dev)
@@ -286,10 +321,12 @@ def _core_kernel(pm):
     return core
 
 
-def _core_tree(pm):
+def _core_tree(pm, segmented: bool = False):
     """Kernel 2 forward + kernel 4 backward, or kernels 2m + 4m in the
-    model's arithmetic (the JAX "tree" backend, optimize.py:355-545),
-    operators indexed by original edge."""
+    model's arithmetic (the JAX "tree" backend, optimize.py:355-545), or
+    with ``segmented`` kernel 7 forward + kernel 8 backward (the JAX
+    "segmented" backend, optimize.py:446-451); operators indexed by
+    original edge."""
     cfg = pm.config
     S, C = cfg.states, cfg.categories
     variant = cfg.resolved_kernel_variant
@@ -297,9 +334,14 @@ def _core_tree(pm):
     u, lam, pi_u = _model_tensors(pm)
     n, n_leaves = pm.n_sites, pm.tree.n_leaves
     E = len(pm.schedule)
-    tdiff = make_tree_diff(reorder_schedule(pm.schedule, n_leaves),
-                           n_leaves, states=S, categories=C,
-                           variant=variant if matrix_form else "vpu")
+    sched = reorder_schedule(pm.schedule, n_leaves)
+    if segmented:
+        tdiff = make_tree_diff_segmented(sched, n_leaves, states=S,
+                                         categories=C,
+                                         n_codes=pm.tip_table.shape[1])
+    else:
+        tdiff = make_tree_diff(sched, n_leaves, states=S, categories=C,
+                               variant=variant if matrix_form else "vpu")
     child = torch.as_tensor([[e[1] for e in pm.schedule],
                              [e[2] for e in pm.schedule]],
                             dtype=torch.long, device=pm.device)
@@ -322,6 +364,10 @@ def _core_tree(pm):
                         planes=planes)
         return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total)
     return core
+
+
+def _core_segmented(pm):
+    return _core_tree(pm, segmented=True)
 
 
 def optimize_branch_lengths(pm: PhyloModel, steps: int = 100,

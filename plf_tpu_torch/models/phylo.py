@@ -23,10 +23,17 @@ table rounded as the variant's tip product rounds it
 Those kernels take their operators split once here, for the variant
 (``ops/plf_mxu.py::operator_planes``), not on every launch.
 
+A third path, **segmented** (``ops/plf_tree_seg.py``, kernel 7), cuts
+the tree into subtrees whose roots pass through a boundary buffer in
+device memory: the JAX package's route for trees too big for one arena.
+It runs the "vpu" form at S = 4; a matrix-form model raises
+NotImplementedError (ROADMAP.md, Queue 2 items 2-3).
+
 ``auto`` takes the fused path whenever the GPU capacity rule of the
 model's kernel (``ops/plf_tree.py::tree_block_threads`` or
-``tree_mxu_fits``) admits the tree.  The log and the sum over sites run
-on the host in float64.
+``tree_mxu_fits``) admits the tree, then the segmented path where it
+applies (:meth:`PhyloModel.can_segment`), then per-node.  The log and the
+sum over sites run on the host in float64.
 
 Log-likelihood:  ll = sum_s wgt_s * log( sum_c w_c rv . x_root[s,c,:] )
                      + scaler_total * log(2^-32)
@@ -49,6 +56,7 @@ from ..ops.plf_node import plf_node
 from ..ops.plf_tree import (compile_register_schedule, plf_tree,
                             reorder_schedule, root_reduce,
                             tree_block_threads, tree_mxu_fits)
+from ..ops.plf_tree_seg import plan_segments, plf_tree_seg, segment_program
 from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
 from .tree import Tree
@@ -252,6 +260,7 @@ class PhyloModel(nn.Module):
             sched, tree.n_leaves)
         self.register_buffer("sched", torch.as_tensor(np.stack(arrs),
                                                       device=device))
+        self._seg_cache = None
 
     @property
     def device(self) -> torch.device:
@@ -362,6 +371,54 @@ class PhyloModel(nn.Module):
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 
+    # -- segmented whole-tree kernel (kernel 7) ------------------------------
+
+    def can_segment(self) -> bool:
+        """Whether the segmented kernels take this model: the "vpu" form
+        at S = 4 (their matrix forms are not ported yet)."""
+        cfg = self.config
+        return not uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states)
+
+    def _segmented_inputs(self):
+        """``(plan, prog, segs, n_slots)`` for kernel 7, built once and
+        cached on the model: the plan of the reordered schedule
+        (:func:`ops.plf_tree_seg.plan_segments`, the JAX package's cut) and
+        its register-allocated program on the model's device."""
+        if self._seg_cache is None:
+            if not self.can_segment():
+                raise NotImplementedError(
+                    "the segmented engine runs the vpu form at S = 4; its "
+                    "matrix forms (kernel variant "
+                    f"{self.config.resolved_kernel_variant!r} at S="
+                    f"{self.config.states}) are not ported yet: ROADMAP.md, "
+                    "Queue 2 items 2-3")
+            n_leaves = self.tree.n_leaves
+            sched = reorder_schedule(self.schedule, n_leaves)
+            pos_sched = [(p, l, r, 0.0, 0.0, i)
+                         for i, (p, l, r, *_x) in enumerate(sched)]
+            plan = plan_segments(pos_sched, n_leaves, rows=self.config.rows,
+                                 n_codes=self.tip_table.shape[1])
+            prog, segs, n_slots = segment_program(plan, sched,
+                                                  reuse_slots=True)
+            self._seg_cache = (plan, torch.as_tensor(prog, device=self.device),
+                               torch.as_tensor(segs, device=self.device),
+                               n_slots)
+        return self._seg_cache
+
+    def log_likelihood_segmented(self) -> TreeLikelihoodResult:
+        """Segmented whole-tree evaluation (kernel 7, one launch): the
+        tree's subtrees in order, their roots through a boundary buffer.
+        Bit-equal to the fused and per-node paths."""
+        cfg = self.config
+        plan, prog, segs, n_slots = self._segmented_inputs()
+        lik, sc, _ = plf_tree_seg(
+            self.codes, prog, segs, self.lcs, self.rcs, self.ec,
+            self.fused_tip_table, self.root_rows[0], self.n_sites,
+            n_boundaries=plan.n_boundaries, n_slots=n_slots,
+            states=cfg.states, categories=cfg.categories)
+        return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
+                                 self._scaler_total(sc[0]))
+
     # -- evaluation ----------------------------------------------------------
 
     def log_likelihood(self, keep_root_clv: bool = False,
@@ -369,19 +426,19 @@ class PhyloModel(nn.Module):
         """Evaluate the tree log-likelihood.
 
         ``method``: "auto" takes the fused kernel when the tree fits the
-        GPU capacity rule and the per-node path otherwise; "fused" and
-        "per-node" force a path ("per-node" is needed to keep the root
-        CLV).  "segmented" needs the segmented engine, not ported yet.
+        GPU capacity rule, else the segmented kernel where it applies
+        (:meth:`can_segment`), else the per-node path; "fused",
+        "segmented" and "per-node" force a path ("per-node" is needed to
+        keep the root CLV; "segmented" raises NotImplementedError for a
+        matrix-form model).
         """
         if method not in ("auto", "fused", "per-node", "segmented"):
             raise ValueError(f"unknown method {method!r}")
-        if method == "segmented":
-            raise NotImplementedError(
-                "the segmented engine (_seg_fwd_kernel) is not ported yet: "
-                "ROADMAP.md, Queue 2 item 2")
-        if method == "fused" or (method == "auto" and not keep_root_clv
-                                 and self.can_fuse()):
+        auto = method == "auto" and not keep_root_clv
+        if method == "fused" or (auto and self.can_fuse()):
             return self.log_likelihood_fused()
+        if method == "segmented" or (auto and self.can_segment()):
+            return self.log_likelihood_segmented()
         lik, scaler_sites, x_root = self._traverse()
         res = self._finalise_ll(lik.cpu().numpy(),
                                 scaler_sites.cpu().numpy(),

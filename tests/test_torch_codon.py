@@ -199,17 +199,27 @@ def test_fit_codon_fits_lengths_through_tree_loglik_fn():
 
 
 def test_random_codon_witness():
-    """The JAX package on the first 1,024 codons of chip_smoke.py's
-    random-codon workload (32 taxa, GY94 kappa 2 omega 0.3 + G4 alpha 0.7),
-    the witness for the limits that script holds the card to.  In
-    "mxu_3x" the port's plain versions equal JAX's fused (interpret mode)
-    and per-node paths site for site, rescale counts included: bf16
-    products are exact in both, so JAX's own fused-vs-per-node distance is
-    the port's.  JAX's distances from the float64 brute force, fused vs
-    per-node and of its "xla" training value from its log_likelihood()
-    equal chip_smoke.JAX_RANDOM_CODONS within 5% (the XLA:CPU build's
-    fp32 rounding, amplified by the cancellation of random codons, is what
-    could move them).  Run with -s to print them."""
+    """The first 1,024 codons of chip_smoke.py's random-codon workload (32
+    taxa, GY94 kappa 2 omega 0.3 + G4 alpha 0.7): the witness for the
+    limits that script holds the card to, RANDOM_CODON_DISTANCES.
+
+    Random codons cancel their eigen-coordinate sums below fp32 (and far
+    below bf16x3's ~16-bit operands), so a site's value is a step function
+    of its fp32 rounding, and XLA:CPU's rounding differs from one CPU to
+    another: JAX's "mxu_3x" sites equal the port's plain versions on one
+    machine and sit up to 83 apart at 823 of 1,024 sites on another, and
+    its fused-vs-per-node distance moves from 2.65e-4 to 2.42e-4.  So:
+
+    * exact, and machine-independent (plain torch, elementwise fp32): the
+      port's "mxu" fused path equals its per-node path site for site,
+      rescale counts included, and the port's own distances equal
+      RANDOM_CODON_DISTANCES within rel 1e-3;
+    * across the packages, within the variant's class measured here: each
+      port total within twice JAX's own distance from the float64 brute
+      force in that variant, and JAX's distances within a factor of two of
+      RANDOM_CODON_DISTANCES (the reference lands in the same class).
+
+    Run with -s to print both packages' distances."""
     import chip_smoke as smoke
 
     tips = smoke.random_codon_tips()[:, :smoke.CODON_BRUTE_SITES]
@@ -218,27 +228,44 @@ def test_random_codon_witness():
     jm = {v: JPM(tree, gy, tips, alpha=0.7,
                  config=JCfg(states=S, kernel_variant=v))
           for v in ("mxu", "mxu_3x")}
-    bf = jm["mxu"].log_likelihood_bruteforce()
-    ll = {v: m.log_likelihood(method="fused") for v, m in jm.items()}
-    per_node = jm["mxu_3x"].log_likelihood(method="per-node")
-    fn, t0 = j_tree_loglik_fn(jm["mxu"], backend="xla")
-    step = float(fn(t0))
-    got = dict(
-        bf_mxu=abs(ll["mxu"].log_likelihood / bf - 1),
-        bf_mxu_3x=abs(ll["mxu_3x"].log_likelihood / bf - 1),
-        per_node_mxu_3x=abs(ll["mxu_3x"].log_likelihood
-                            / per_node.log_likelihood - 1),
-        step=abs(step / ll["mxu"].log_likelihood - 1))
-    print("JAX on the random-codon slice:",
-          {k: f"{x:.4g}" for k, x in got.items()})
-    pt = PhyloModel(random_tree(smoke.CODON_TAXA, seed=3),
-                    TS.codon_gy94(kappa=2.0, omega=0.3), tips, alpha=0.7,
-                    config=PLFConfig(states=S, kernel_variant="mxu_3x"),
-                    device="cpu")
-    for method, want in (("fused", ll["mxu_3x"]), ("per-node", per_node)):
-        res = pt.log_likelihood(method=method)
-        np.testing.assert_array_equal(res.site_log_likelihood,
-                                      want.site_log_likelihood)
-        assert res.scaler_total == want.scaler_total
-    for key, want in smoke.JAX_RANDOM_CODONS.items():
-        assert got[key] == pytest.approx(want, rel=0.05), key
+    pt = {v: PhyloModel(random_tree(smoke.CODON_TAXA, seed=3),
+                        TS.codon_gy94(kappa=2.0, omega=0.3), tips, alpha=0.7,
+                        config=PLFConfig(states=S, kernel_variant=v),
+                        device="cpu")
+          for v in ("mxu", "mxu_3x")}
+    bf = pt["mxu"].log_likelihood_bruteforce()
+    assert bf == pytest.approx(jm["mxu"].log_likelihood_bruteforce(),
+                               rel=1e-12)
+
+    def distances(m, step_fn):
+        ll = {v: m[v].log_likelihood(method="fused") for v in m}
+        per_node = m["mxu_3x"].log_likelihood(method="per-node")
+        fn, t0 = step_fn(m["mxu"])
+        with torch.no_grad():
+            step = float(fn(t0))
+        return ll, per_node, dict(
+            bf_mxu=abs(ll["mxu"].log_likelihood / bf - 1),
+            bf_mxu_3x=abs(ll["mxu_3x"].log_likelihood / bf - 1),
+            per_node_mxu_3x=abs(ll["mxu_3x"].log_likelihood
+                                / per_node.log_likelihood - 1),
+            step=abs(step / ll["mxu"].log_likelihood - 1))
+
+    ll_j, pn_j, got_j = distances(
+        jm, lambda m: j_tree_loglik_fn(m, backend="xla"))
+    ll_t, pn_t, got_t = distances(
+        pt, lambda m: tree_loglik_fn(m, backend="tree"))
+    for who, got in (("JAX", got_j), ("port", got_t)):
+        print(f"{who} on the random-codon slice:",
+              {k: f"{x:.4g}" for k, x in got.items()})
+    pn = pt["mxu"].log_likelihood(method="per-node")
+    np.testing.assert_array_equal(ll_t["mxu"].site_log_likelihood,
+                                  pn.site_log_likelihood)
+    assert ll_t["mxu"].scaler_total == pn.scaler_total
+    for key, want in smoke.RANDOM_CODON_DISTANCES.items():
+        assert got_t[key] == pytest.approx(want, rel=1e-3), key
+        assert want / 2 <= got_j[key] <= 2 * want, key
+    for v, a, b in (("mxu", ll_t["mxu"], ll_j["mxu"]),
+                    ("mxu_3x", ll_t["mxu_3x"], ll_j["mxu_3x"]),
+                    ("mxu_3x", pn_t, pn_j)):
+        assert abs(a.log_likelihood / b.log_likelihood - 1) \
+            <= 2 * got_j[f"bf_{v}"], v

@@ -28,6 +28,7 @@ from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,  # noqa: E402
                                         reorder_schedule)
 from plf_tpu_torch.ops import plf_grad as G  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_grad as TG  # noqa: E402
+from plf_tpu_torch.ops import plf_tree_seg as SG  # noqa: E402
 from plf_tpu_torch.models import optimize as TO  # noqa: E402
 from plf_tpu_torch.models import tree_loglik_fn  # noqa: E402
 from plf_tpu_torch.reference import plf_reference  # noqa: E402
@@ -561,3 +562,139 @@ def test_matrix_form_training_step(cuda, monkeypatch, states, variant):
         np.testing.assert_allclose(g, g_o, rtol=2e-4,
                                    atol=1e-4 * np.abs(g_o).max(),
                                    err_msg=name)
+
+
+# ------------------------------------------------- kernels 7 and 8 (segmented)
+
+
+def _seg_case(device, cap=None, n_leaves=60, n_sites=3000, **kw):
+    """A DNA model, its segment plan (``cap`` ops at most, the capacity
+    rule's cap when None) and both programs on the card."""
+    pm = _model(device, n_leaves=n_leaves, n_sites=n_sites, **kw)
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    pos = [(p, l, r, 0.0, 0.0, i) for i, (p, l, r, *_x) in enumerate(sched)]
+    plan = SG.plan_segments(pos, n_leaves, rows=pm.config.rows, cap_ops=cap,
+                            n_codes=pm.tip_table.shape[1])
+    progs = []
+    for reuse in (True, False):
+        prog, segs, n_slots = SG.segment_program(plan, sched,
+                                                 reuse_slots=reuse)
+        progs.append((torch.as_tensor(prog, device=device),
+                      torch.as_tensor(segs, device=device), n_slots))
+    return pm, plan, progs
+
+
+def _seg_fwd(pm, plan, fwd, fn=SG.plf_tree_seg):
+    prog, segs, n_slots = fwd
+    return fn(pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+              pm.root_rows[0], pm.n_sites, n_boundaries=plan.n_boundaries,
+              n_slots=n_slots, categories=pm.config.categories)
+
+
+@pytest.mark.parametrize("tip_dtype,cap,extra", [
+    ("int32", None, {}), ("int8", None, {}), ("int32", 4, {}),
+    ("int32", None, {"p_inv": 0.2})])
+def test_kernel7_equals_kernel2_and_plain(cuda, tip_dtype, cap, extra):
+    """lik and sc equal kernel 2's bit for bit, and lik, sc and every
+    boundary CLV equal the plain version's."""
+    pm, plan, (fwd, _) = _seg_case(
+        cuda, cap, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128),
+        **extra)
+    assert len(plan.segments) > 1
+    before = SG.plf_tree_seg.launches
+    lik, sc, bbuf = _seg_fwd(pm, plan, fwd)
+    assert SG.plf_tree_seg.launches == before + 1
+    ref = plf_tree(pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+                   pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
+                   root_slot=pm.root_slot, categories=pm.config.categories)
+    plain = _seg_fwd(pm, plan, fwd, SG.plf_tree_seg_torch)
+    torch.cuda.synchronize()
+    assert torch.equal(lik, ref[0]) and torch.equal(sc, ref[1])
+    for a, b in zip((lik, sc, bbuf), plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tip_dtype,cap,extra", [
+    ("int32", None, {}), ("int8", 6, {}), ("int32", None, {"p_inv": 0.2})])
+def test_kernel8_matches_plain(cuda, tip_dtype, cap, extra):
+    """The boundary adjoints equal the plain version's bit for bit, the
+    site sums agree within 1e-6 of each matrix's scale (another summation
+    order, the blocks' rows added in fp64), and two runs are
+    bit-identical."""
+    pm, plan, (fwd, (prog, segs, _)) = _seg_case(
+        cuda, cap, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128),
+        **extra)
+    C = pm.config.categories
+    T = lambda t: G.transpose_lane_constants(t, 4, C)
+    _, _, bbuf = _seg_fwd(pm, plan, fwd)
+    glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
+                       .manual_seed(5), device=cuda)
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs), pm.ec,
+            T(pm.ec), pm.tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
+    before = SG.plf_tree_seg_bwd.launches
+    gbufs = [torch.full_like(bbuf, float("nan")) for _ in range(3)]
+    k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, categories=C,
+                             gbuf=gbufs[0])
+    k2 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, categories=C,
+                             gbuf=gbufs[1])
+    assert SG.plf_tree_seg_bwd.launches == before + 2
+    p = SG.plf_tree_seg_bwd_torch(*args, categories=C, gbuf=gbufs[2])
+    torch.cuda.synchronize()
+    assert torch.equal(gbufs[0], gbufs[2]) and torch.equal(gbufs[0],
+                                                           gbufs[1])
+    for i in range(4):
+        assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
+    for i in range(3):
+        _sums_close(k1[i], p[i], rtol=1e-6)
+    _sums_close(k1[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1), rtol=1e-6)
+
+
+def test_segmented_paths_on_the_card(cuda):
+    """log_likelihood(method="segmented") launches kernel 7 once and
+    equals the fused path site for site; a "segmented" value-and-gradient
+    step launches kernels 7 and 8 once each and nothing else, and agrees
+    with the "tree" step (value rel 1e-6, gradient rtol 2e-4 / atol 1e-4
+    of the largest)."""
+    pm = _model(cuda, n_leaves=60, n_sites=5000)
+    k7 = SG.plf_tree_seg.launches
+    seg = pm.log_likelihood(method="segmented")
+    assert SG.plf_tree_seg.launches == k7 + 1
+    fused = pm.log_likelihood(method="fused")
+    np.testing.assert_array_equal(seg.site_log_likelihood,
+                                  fused.site_log_likelihood)
+    assert seg.scaler_total == fused.scaler_total
+    out = {}
+    wrappers = (SG.plf_tree_seg, SG.plf_tree_seg_bwd, plf_tree,
+                TG.plf_tree_bwd, plf_node, G.plf_node_bwd)
+    for backend in ("segmented", "tree"):
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+        counts = [f.launches for f in wrappers]
+        t = torch.tensor(t0, device=cuda, requires_grad=True)
+        v = fn(t)
+        v.backward()
+        runs = [f.launches - c for f, c in zip(wrappers, counts)]
+        assert runs == ([1, 1, 0, 0, 0, 0] if backend == "segmented"
+                        else [0, 0, 1, 1, 0, 0]), runs
+        assert (fn.engine, fn.variant) == (backend, "vpu")
+        out[backend] = (float(v.detach()), t.grad.cpu().numpy())
+    assert out["segmented"][0] == pytest.approx(out["tree"][0], rel=1e-6)
+    g = out["tree"][1]
+    np.testing.assert_allclose(out["segmented"][1], g, rtol=2e-4,
+                               atol=1e-4 * np.abs(g).max())
+
+
+def test_segmented_wrappers_reject_what_they_cannot_run(cuda):
+    pm, plan, (fwd, (prog, segs, _)) = _seg_case(cuda, n_sites=300)
+    lik, sc, bbuf = _seg_fwd(pm, plan, fwd)
+    g = torch.zeros((1, pm.n_pad), device=cuda)
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.lcs, pm.rcs, pm.ec,
+            pm.ec, pm.tip_table, pm.root_rows[0])
+    with pytest.raises(ValueError, match="does not fit"):
+        SG.plf_tree_seg_bwd(*args, g, bbuf, pm.n_sites, seg_ops=64)
+    with pytest.raises(ValueError, match="glik"):
+        SG.plf_tree_seg_bwd(*args, g.cpu(), bbuf, pm.n_sites,
+                            seg_ops=plan.seg_ops)
+    with pytest.raises(ValueError, match="does not fit"):
+        SG.plf_tree_seg(pm.codes, *fwd[:2], pm.lcs, pm.rcs, pm.ec,
+                        pm.tip_table, pm.root_rows[0], pm.n_sites,
+                        n_boundaries=plan.n_boundaries, n_slots=40)

@@ -185,13 +185,17 @@ def test_optimize_pinv_matches_jax():
 
 
 class _Stand:
-    """What the auto rule reads of a PhyloModel."""
+    """What the auto rule reads of a PhyloModel (a matrix-form model, or
+    one the segmented kernels do not take)."""
 
     def __init__(self, device, fits):
         self.device, self._fits = torch.device(device), fits
 
     def can_fuse(self):
         return self._fits
+
+    def can_segment(self):
+        return False
 
 
 def test_backend_routing():
@@ -205,7 +209,7 @@ def test_backend_routing():
         for backend in PAIRS:
             fn, _ = TO.tree_loglik_fn(pt, backend=backend, **kw)
             assert (fn.variant, fn.engine) == ("vpu", backend)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TO.tree_loglik_fn(pt, backend="segmented")
+    fn, _ = TO.tree_loglik_fn(pt, backend="segmented")
+    assert (fn.variant, fn.engine) == ("vpu", "segmented")
     with pytest.raises(ValueError, match="unknown backend"):
         TO.tree_loglik_fn(pt, backend="pallas")

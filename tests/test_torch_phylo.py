@@ -213,12 +213,21 @@ def test_auto_takes_the_fused_kernel(spies):
 
 
 def test_auto_falls_back_to_per_node_past_capacity(spies, monkeypatch):
+    """Past kernel 2's capacity auto takes the segmented kernel (7), which
+    takes a DNA "vpu" model, and the per-node path where that does not
+    apply either."""
     tree_spy, node_spy = spies
+    seg_spy = _Spy(TP.plf_tree_seg)
+    monkeypatch.setattr(TP, "plf_tree_seg", seg_spy)
     pt = _port_of(_jax_model("gamma"))
     monkeypatch.setattr(TP, "tree_block_threads", lambda *a: None)
-    assert not pt.can_fuse()
+    assert not pt.can_fuse() and pt.can_segment()
     pt.log_likelihood()
-    assert (tree_spy.calls, node_spy.calls) == (0, len(pt.schedule))
+    assert (tree_spy.calls, seg_spy.calls, node_spy.calls) == (0, 1, 0)
+    monkeypatch.setattr(TP.PhyloModel, "can_segment", lambda self: False)
+    pt.log_likelihood()
+    assert (tree_spy.calls, seg_spy.calls, node_spy.calls) == (
+        0, 1, len(pt.schedule))
 
 
 def test_keep_root_clv_takes_per_node(spies):
@@ -233,11 +242,10 @@ def test_keep_root_clv_takes_per_node(spies):
 
 
 def test_unported_paths_raise():
-    """The segmented and sharded paths and bf16 CLV storage raise; the
-    MXU variants run (on the fused and per-node paths, which agree)."""
+    """The sharded path, bf16 CLV storage and the segmented path of an
+    MXU variant raise; the MXU variants run (on the fused and per-node
+    paths, which agree)."""
     pt = _port_of(_jax_model("gamma"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.log_likelihood(method="segmented")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.log_likelihood_sharded()
     with pytest.raises(ValueError):
@@ -257,6 +265,8 @@ def test_unported_paths_raise():
         assert fused.scaler_total == pernode.scaler_total
         np.testing.assert_allclose(fused.site_log_likelihood,
                                    pernode.site_log_likelihood, rtol=1e-6)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pv.log_likelihood(method="segmented")
 
 
 # ------------------------------------------------------- module and state --
