@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine CUDA kernels of ``plf_tpu_torch`` from
+Builds the eleven CUDA kernels of ``plf_tpu_torch`` from
 ``plf_tpu_torch/csrc`` (into ``build/plf_tpu_torch/``, one nvcc per
 source, all started together) and holds each against its plain PyTorch
 version on the card (kernels 1 and 1m also against the numpy golden
@@ -42,7 +42,16 @@ once) and a "segmented" training step (kernels 7 + 8 once each) against
 "tree", timed, with both backends' checkpoints, at 160 x 2^20 and 256 x
 2^22 with int8 tips.
 
-A last phase breaks one ``log_likelihood()`` into its steps, traces the
+The segmented engine's matrix forms (protein and codon): kernel 7m
+against kernel 2m and its plain version in each variant at 64 taxa x
+131,072 sites and at S = 61, kernel 8m against its plain version (and on
+plans cut at three caps), ``log_likelihood(method="segmented")`` (kernel
+7m once), "segmented" training steps (kernels 7m + 8m once each) against
+"tree" at 64 x 131,072 and at 1,024 x 131,072 with int8 tips, where
+kernel 4m's checkpoint runs in chunks, with the auto rule's choice there,
+and a ``Backend.TORCH`` model on the card against the kernel path.
+
+A profile phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
 idle share, the top kernels) and times kernel 2 at the occupancy its
 arena allows and at lower ones.  Prints one line per phase, a JSON line
@@ -65,6 +74,7 @@ import numpy as np
 import torch
 
 from plf_tpu_torch import PLFConfig, PLFEngine
+from plf_tpu_torch.config import Backend
 from plf_tpu_torch.models import (PhyloModel, codon_gy94,
                                   empirical_protein, fit_codon, hky85,
                                   optimize_alpha, optimize_branch_lengths,
@@ -91,7 +101,9 @@ from plf_tpu_torch.ops.plf_tree_grad import (backward_schedule,
                                              tree_bwd_scratch_bytes)
 from plf_tpu_torch.ops import plf_tree_seg as seg_mod
 from plf_tpu_torch.ops.plf_tree_seg import (plf_tree_seg, plf_tree_seg_bwd,
+                                            plf_tree_seg_bwd_mxu,
                                             plf_tree_seg_bwd_torch,
+                                            plf_tree_seg_mxu,
                                             plf_tree_seg_torch,
                                             segment_program)
 from plf_tpu_torch.reference import plf_reference
@@ -150,6 +162,14 @@ SEG_BIG_TAXA, SEG_BIG_SITES = 256, 1 << 22
 #: gradient against the "tree" one: within this share of scale.
 SEG_SUM_RTOL = 1e-6
 SEG_GRAD_RTOL = 3e-6
+#: The matrix forms (kernels 7m, 8m): kernel 8m's site sums against its
+#: plain version, and a protein "segmented" step's gradient against the
+#: "tree" step's, within these shares of scale; the big-tree protein step
+#: at BIG_PROT_TAXA x PROT_SITES, where kernel 4m's checkpoint (43.0 GB)
+#: runs in chunks.
+SEG_MXU_SUM_RTOL = 3e-6
+SEG_MXU_GRAD_RTOL = 1e-5
+BIG_PROT_TAXA = 1024
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 # power limit): each kernel's bound is the larger of its bytes over the
@@ -273,7 +293,9 @@ def build_phase():
             "plf_node_bwd": plf_grad._lib, "plf_tree_bwd": plf_tree_grad._lib,
             "plf_node_mxu": plf_mxu._lib, "plf_tree_mxu": tree_mod._lib_mxu,
             "plf_tree_bwd_mxu": plf_tree_grad._lib_mxu,
-            "plf_tree_seg": seg_mod._lib, "plf_tree_seg_bwd": seg_mod._lib_bwd}
+            "plf_tree_seg": seg_mod._lib, "plf_tree_seg_bwd": seg_mod._lib_bwd,
+            "plf_tree_seg_mxu": seg_mod._lib_mxu,
+            "plf_tree_seg_bwd_mxu": seg_mod._lib_bwd_mxu}
     t0 = time.perf_counter()
     build_libraries(list(mods))
     phase("build", f"{len(mods)} libraries, one nvcc each in parallel: "
@@ -541,7 +563,8 @@ def _grad_step(fn, t0, dev):
 
 
 COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
-           plf_tree_mxu, plf_tree_bwd_mxu, plf_tree_seg, plf_tree_seg_bwd)
+           plf_tree_mxu, plf_tree_bwd_mxu, plf_tree_seg, plf_tree_seg_bwd,
+           plf_tree_seg_mxu, plf_tree_seg_bwd_mxu)
 
 
 def _reset_counts():
@@ -1312,20 +1335,23 @@ def seg_inputs(pm):
 
 
 def seg_fwd_bound(pm, plan):
-    """Kernel 7's bound: the tip codes read, lik and sc and every boundary
-    CLV written once, against kernel 2's operations."""
+    """Kernel 7's (7m's) bound: the tip codes read, lik and sc and every
+    boundary CLV written once, against kernel 2's (2m's) operations in the
+    model's arithmetic."""
     S, C = pm.config.states, pm.config.categories
-    fwd, rate = node_work(S, C)
+    fwd, rate = node_work(S, C, pm.config.resolved_kernel_variant)
     per_site = (pm.codes.element_size() * pm.tree.n_leaves + 8
                 + 4 * pm.config.rows * plan.n_boundaries)
     return bound(per_site * pm.n_pad, len(pm.schedule) * fwd * pm.n_pad, rate)
 
 
 def seg_bwd_bound(pm, plan):
-    """Kernel 8's bound: the tip codes, the boundary CLVs and the
-    cotangent read once, against the whole-tree VJP's operations."""
+    """Kernel 8's (8m's) bound: the tip codes, the boundary CLVs and the
+    cotangent read once, against the whole-tree VJP's operations in the
+    model's arithmetic."""
     flops, rate = tree_bwd_work(pm.config.states, pm.config.categories,
-                                len(pm.schedule))
+                                len(pm.schedule),
+                                pm.config.resolved_kernel_variant)
     per_site = (pm.codes.element_size() * pm.tree.n_leaves + 4
                 + 4 * pm.config.rows * plan.n_boundaries)
     return bound(per_site * pm.n_pad, flops * pm.n_pad, rate)
@@ -1391,10 +1417,8 @@ def kernel8_phase(pm):
     args, kw = _seg_args(pm, fwd)
     lik, _, bbuf = plf_tree_seg(*args, **kw)
     glik = (pm.wgt_pad.to(torch.float32) / lik).contiguous()
-    T = transpose_lane_constants
-    bargs = (pm.codes, bprog, bsegs, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs),
-             pm.ec, T(pm.ec), pm.fused_tip_table, pm.root_rows[0], glik, bbuf,
-             pm.n_sites)
+    bargs = (pm.codes, bprog, bsegs, pm.lcs, pm.rcs, pm.ec,
+             pm.fused_tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
     gbufs = [torch.empty_like(bbuf) for _ in range(3)]
     k1 = plf_tree_seg_bwd(*bargs, seg_ops=plan.seg_ops, gbuf=gbufs[0])
     k2 = plf_tree_seg_bwd(*bargs, seg_ops=plan.seg_ops, gbuf=gbufs[1])
@@ -1444,7 +1468,6 @@ def seg_cap_probe(pm, glik):
     keep = seg_mod.SEG_BLOCKS_PER_SM
     sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
     pos = [(p, l, r, 0.0, 0.0, i) for i, (p, l, r, *_x) in enumerate(sched)]
-    T = transpose_lane_constants
     try:
         for bpsm in (4, 6, 8, 10):
             seg_mod.SEG_BLOCKS_PER_SM = bpsm
@@ -1460,9 +1483,9 @@ def seg_cap_probe(pm, glik):
                     pm.fused_tip_table, pm.root_rows[0], pm.n_sites)
             kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots)
             _, _, bbuf = plf_tree_seg(*args, **kw)
-            bargs = (pm.codes, bp, bs, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs),
-                     pm.ec, T(pm.ec), pm.fused_tip_table, pm.root_rows[0],
-                     glik, bbuf, pm.n_sites)
+            bargs = (pm.codes, bp, bs, pm.lcs, pm.rcs, pm.ec,
+                     pm.fused_tip_table, pm.root_rows[0], glik, bbuf,
+                     pm.n_sites)
             ms7 = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=3)
             ms8 = cuda_ms(lambda: plf_tree_seg_bwd(*bargs,
                                                    seg_ops=plan.seg_ops),
@@ -1479,21 +1502,29 @@ def seg_cap_probe(pm, glik):
         seg_mod.SEG_BLOCKS_PER_SM = keep
 
 
-def _step_pair(pm, dev):
+def _step_pair(pm, dev, reps=3):
     """One "tree" and one "segmented" value-and-gradient step on ``pm``:
-    the launches of each, their values and gradients, and their wall
-    times (median of 3 each, taken in turns: tree, segmented x 2, tree)."""
+    the launches of each, their values, gradients and the last launch's
+    chunking of each backward that keeps a device-memory checkpoint
+    (kernel 4 or 4m; kernel 8m), and their wall times (medians of
+    ``reps``, in turns: tree, segmented x 2, tree)."""
     fns = {b: tree_loglik_fn(pm, backend=b) for b in ("tree", "segmented")}
+    mxu = plf_mxu.uses_mxu_kernels(pm.config.resolved_kernel_variant,
+                                   pm.config.states)
+    ckpt = {"tree": plf_tree_bwd_mxu if mxu else plf_tree_bwd,
+            "segmented": plf_tree_seg_bwd_mxu if mxu else None}
     out = {}
     for b, (fn, t0) in fns.items():
         v, g, counts = _step_launches(fn, t0, dev)
         out[b] = dict(v=v, g=g.cpu().numpy(), counts=counts,
                       engine=fn.engine, variant=fn.variant,
-                      scratch=dict(plf_tree_bwd.last_scratch or {}))
+                      scratch=dict(getattr(ckpt[b], "last_scratch",
+                                           None) or {}))
     times = {b: [] for b in fns}
     for b in ("tree", "segmented", "segmented", "tree"):
         fn, t0 = fns[b]
-        times[b].append(_median_ms(lambda: _grad_step(fn, t0, dev), reps=3))
+        times[b].append(_median_ms(lambda: _grad_step(fn, t0, dev),
+                                   reps=reps))
     for b in fns:
         out[b]["ms"] = times[b]
     return out
@@ -1575,10 +1606,9 @@ def segmented_phase(dev, pm):
             args, kw = _seg_args(m, fwd)
             lik, _, bbuf = plf_tree_seg(*args, **kw)
             glik = (m.wgt_pad.to(torch.float32) / lik).contiguous()
-            T = transpose_lane_constants
-            bargs = (m.codes, bprog, bsegs, m.lcs, m.rcs, T(m.lcs), T(m.rcs),
-                     m.ec, T(m.ec), m.fused_tip_table, m.root_rows[0], glik,
-                     bbuf, m.n_sites)
+            bargs = (m.codes, bprog, bsegs, m.lcs, m.rcs, m.ec,
+                     m.fused_tip_table, m.root_rows[0], glik, bbuf,
+                     m.n_sites)
             ms7 = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=3)
             ms8 = cuda_ms(lambda: plf_tree_seg_bwd(*bargs,
                                                    seg_ops=plan_b.seg_ops),
@@ -1589,6 +1619,331 @@ def segmented_phase(dev, pm):
                   f"kernel 8 {ms8:.3f} ms (bound {bd8['bound_ms']:.3f} ms)")
             del lik, bbuf, glik, bargs, args, m
             torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------ the segmented engine's matrix forms --
+
+
+def _seg_mxu_args(pm, plan, fwd):
+    """Kernel 7m's arguments on a model's plan (its program ``fwd`` =
+    (prog, segs, n_slots))."""
+    cfg = pm.config
+    prog, segs, n_slots = fwd
+    return ((pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+             pm.root_rows[0], pm.n_sites),
+            dict(n_boundaries=plan.n_boundaries, n_slots=n_slots,
+                 states=cfg.states, categories=cfg.categories,
+                 variant=cfg.resolved_kernel_variant, planes=pm._planes()))
+
+
+def kernel7m_against(pm, label, plain=True):
+    """Kernel 7m on the model's own plan against kernel 2m (lik and sc)
+    and, with ``plain``, its plain version (lik, sc and every boundary
+    CLV), bit for bit; its time beside kernel 2m's."""
+    cfg = pm.config
+    plan, fwd, _ = seg_inputs(pm)
+    args, kw = _seg_mxu_args(pm, plan, fwd)
+    lik, sc, bbuf = plf_tree_seg_mxu(*args, **kw)
+    kargs = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+             pm.root_rows[0], pm.n_sites)
+    kkw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot, states=cfg.states,
+               categories=cfg.categories,
+               variant=cfg.resolved_kernel_variant, planes=pm._planes())
+    ref = plf_tree_mxu(*kargs, **kkw)
+    check(torch.equal(lik, ref[0]) and torch.equal(sc, ref[1]),
+          f"kernel 7m != kernel 2m ({label}, {kw['variant']})")
+    plain_ms, note = None, ""
+    if plain:
+        want, plain_ms = timed(lambda: plf_tree_seg_torch(*args, **kw))
+        check(all(torch.equal(a, b) for a, b in zip((lik, sc, bbuf), want)),
+              f"kernel 7m != its plain version ({label}, {kw['variant']})")
+        note = f", lik, sc and {plan.n_boundaries} boundaries == plain"
+        del want
+    del bbuf
+    ms = cuda_ms(lambda: plf_tree_seg_mxu(*args, **kw), reps=3, warmup=1)
+    ms2 = cuda_ms(lambda: plf_tree_mxu(*kargs, **kkw), reps=3, warmup=1)
+    bd = seg_fwd_bound(pm, plan)
+    phase("kernel7m", f"{label}, {kw['variant']}: {pm.tree.n_leaves} taxa x "
+          f"{pm.n_sites} sites, S={cfg.states}: {len(plan.segments)} "
+          f"segments (at most {plan.seg_ops} ops), {fwd[2]} arena slots; "
+          f"lik and sc == kernel 2m{note}, bit for bit ({int(sc.sum())} "
+          f"rescales); kernel {ms:.3f} ms (kernel 2m {ms2:.3f} ms; bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']})"
+          + ("" if plain_ms is None else f", plain {plain_ms:.1f} ms"))
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, **bd)
+
+
+def kernel7m_phase(models, codon, dev):
+    """Kernel 7m == kernel 2m == its plain version, bit for bit, on the
+    protein workload in each variant, and at S = 61: on the codon
+    workload against kernel 2m, on its first 8,192 codons against the
+    plain version too."""
+    res = {v: kernel7m_against(models[v], "protein")
+           for v in ("mxu_3x", "mxu", "mxu_bf16")}
+    tree, tips, gy, cmodels = codon
+    for v in ("mxu", "mxu_3x"):
+        kernel7m_against(cmodels[v], "codon", plain=False)
+        pm = PhyloModel(tree, gy, tips[:, :CODON_K4_SITES], alpha=0.7,
+                        device=dev, config=PLFConfig(states=61,
+                                                     kernel_variant=v))
+        kernel7m_against(pm, "codon")
+        del pm
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel8m_against(pm, glik, label, chunks=False):
+    """Kernel 8m against its plain version on the model's own plan:
+    boundary adjoints bit for bit, site sums within SEG_MXU_SUM_RTOL of
+    scale (with ``chunks`` also under a quarter of the one-chunk
+    checkpoint), bit-identical run to run; its time and memory beside
+    kernel 4m's."""
+    cfg = pm.config
+    plan, fwd, (bprog, bsegs) = seg_inputs(pm)
+    args, kw = _seg_mxu_args(pm, plan, fwd)
+    _, _, bbuf = plf_tree_seg_mxu(*args, **kw)
+    bargs = (pm.codes, bprog, bsegs, pm.lcs, pm.rcs, pm.ec,
+             pm.fused_tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
+    bkw = dict(states=cfg.states, categories=cfg.categories,
+               variant=kw["variant"], planes=kw["planes"])
+    gbufs = [torch.empty_like(bbuf) for _ in range(3)]
+    k1 = plf_tree_seg_bwd_mxu(*bargs, seg_ops=plan.seg_ops, gbuf=gbufs[0],
+                              **bkw)
+    chunking = dict(plf_tree_seg_bwd_mxu.last_scratch)
+    k2 = plf_tree_seg_bwd_mxu(*bargs, seg_ops=plan.seg_ops, gbuf=gbufs[1],
+                              **bkw)
+    ks, note = [k1], ""
+    if chunks:
+        budget = chunking["bytes"] // 4
+        ks.append(plf_tree_seg_bwd_mxu(*bargs, seg_ops=plan.seg_ops,
+                                       max_scratch_bytes=budget, **bkw))
+        small = dict(plf_tree_seg_bwd_mxu.last_scratch)
+        check(small["chunks"] > 1, f"budget {budget} gave one chunk")
+        note = (f" and in {small['chunks']} chunks of "
+                f"{small['chunk_sites']} sites")
+    p, plain_ms = timed(lambda: plf_tree_seg_bwd_torch(*bargs, gbuf=gbufs[2],
+                                                       **bkw))
+    check(torch.equal(gbufs[0], gbufs[2]),
+          f"kernel 8m ({label}) boundary adjoints != plain")
+    check(torch.equal(gbufs[0], gbufs[1]) and all(
+        torch.equal(u, v) for u, v in zip(k1, k2)),
+        f"kernel 8m ({label}) differs between two runs")
+    errs = [max([sums_err(k[i], p[i]) for i in range(3)]
+                + [sums_err(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1))])
+            for k in ks]
+    check(max(errs) <= SEG_MXU_SUM_RTOL, f"kernel 8m ({label}) site sums vs "
+          f"plain: {errs} of scale > {SEG_MXU_SUM_RTOL}")
+    abs_err = max(float((u - v).abs().max()) for u, v in zip(k1, p))
+    del k1, k2, ks, p, gbufs
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: plf_tree_seg_bwd_mxu(*bargs, seg_ops=plan.seg_ops,
+                                              **bkw), reps=3, warmup=1)
+    bd = seg_bwd_bound(pm, plan)
+    ck4 = tree_bwd_scratch_bytes(len(pm.schedule), cfg.rows, pm.n_pad)
+    phase("kernel8m", f"{label}, {kw['variant']}: {len(pm.schedule)} nodes x "
+          f"{pm.n_sites} sites, S={cfg.states}, {len(plan.segments)} "
+          f"segments of at most {plan.seg_ops} ops: boundary adjoints == "
+          f"plain bit for bit, gl/gr/gec/grr within {max(errs):.2e} of scale "
+          f"(max abs {abs_err:.3g}){note}, bit-identical run to run; "
+          f"{chunking['blocks']} blocks, accumulators in "
+          f"{'shared' if chunking['acc_shared'] else 'device'} memory; "
+          f"device memory: op checkpoint {chunking['bytes'] / 1e9:.3f} GB, "
+          f"boundaries and adjoints {2 * bbuf.numel() * 4 / 1e9:.3f} GB "
+          f"({plan.n_boundaries} boundaries) against kernel 4m's "
+          f"{ck4 / 1e9:.2f} GB; kernel {ms:.3f} ms (bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}), plain "
+          f"{plain_ms:.1f} ms")
+    del bbuf, bargs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **bd)
+
+
+def kernel8m_phase(models, codon, dev):
+    """Kernel 8m against its plain version: each variant on the protein
+    workload with the default model's step cotangent ("mxu_3x" also in
+    several chunks), then "mxu" and "mxu_3x" at S = 61 on the first 8,192
+    codons of the codon workload; then kernels 7m and 8m on plans cut at
+    three caps."""
+    glik = step_cotangent(models["mxu_3x"])
+    res = {}
+    for variant in ("mxu_3x", "mxu", "mxu_bf16"):
+        res[variant] = kernel8m_against(models[variant], glik, "protein",
+                                        chunks=variant == "mxu_3x")
+    tree, tips, gy, _ = codon
+    for variant in ("mxu", "mxu_3x"):
+        pm = PhyloModel(tree, gy, tips[:, :CODON_K4_SITES], alpha=0.7,
+                        device=dev,
+                        config=PLFConfig(states=61, kernel_variant=variant))
+        kernel8m_against(pm, step_cotangent(pm), "codon")
+        del pm
+    torch.cuda.empty_cache()
+    mxu_cap_probe(models["mxu_3x"], glik)
+    return res
+
+
+def mxu_cap_probe(pm, glik):
+    """Kernels 7m and 8m on plans cut at the matrix forms' rule's cap, half
+    of it and twice it (seg_mxu_cap_ops): the device memory each needs
+    per site against their times."""
+    cfg = pm.config
+    sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
+    pos = [(p, l, r, 0.0, 0.0, i) for i, (p, l, r, *_x) in enumerate(sched)]
+    n_codes = pm.tip_table.shape[1]
+    rule = seg_mod.seg_mxu_cap_ops(pos, pm.tree.n_leaves, rows=cfg.rows,
+                                   n_codes=n_codes)
+    for cap in (max(2, rule // 2), rule, 2 * rule):
+        plan = seg_mod.plan_segments(pos, pm.tree.n_leaves, rows=cfg.rows,
+                                     cap_ops=cap, n_codes=n_codes,
+                                     matrix_form=True)
+        progs = [segment_program(plan, sched, reuse_slots=r)
+                 for r in (True, False)]
+        (fp, fs, n_slots), (bp, bs, _) = [
+            (torch.as_tensor(a, device=pm.device),
+             torch.as_tensor(b, device=pm.device), c) for a, b, c in progs]
+        args, kw = _seg_mxu_args(pm, plan, (fp, fs, n_slots))
+        _, _, bbuf = plf_tree_seg_mxu(*args, **kw)
+        bargs = (pm.codes, bp, bs, pm.lcs, pm.rcs, pm.ec,
+                 pm.fused_tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
+        bkw = dict(seg_ops=plan.seg_ops, states=cfg.states,
+                   categories=cfg.categories, variant=kw["variant"],
+                   planes=kw["planes"])
+        ms7 = cuda_ms(lambda: plf_tree_seg_mxu(*args, **kw), reps=3)
+        ms8 = cuda_ms(lambda: plf_tree_seg_bwd_mxu(*bargs, **bkw), reps=2,
+                      warmup=1)
+        per_site = seg_mod.seg_mxu_site_bytes(plan, cfg.rows)
+        phase("kernel8m", f"cap {cap} ops{' (the rule)' if cap == rule else ''}"
+              f": {len(plan.segments)} segments (at most {plan.seg_ops} ops), "
+              f"{plan.n_boundaries} boundaries, {per_site} bytes per site "
+              f"({per_site * pm.n_pad / 1e9:.3f} GB): kernel 7m {ms7:.3f} "
+              f"ms, kernel 8m {ms8:.3f} ms")
+        del bbuf, bargs
+        torch.cuda.empty_cache()
+
+
+def _check_step_pair(pm, res, label):
+    """The launches of each step, the two values equal (kernel 7m ==
+    kernel 2m), the gradients within SEG_MXU_GRAD_RTOL of scale; returns
+    the gradient's distance and the pair's line."""
+    variant = pm.config.resolved_kernel_variant
+    want = {"tree": {"plf_tree_mxu": 1, "plf_tree_bwd_mxu": 1},
+            "segmented": {"plf_tree_seg_mxu": 1, "plf_tree_seg_bwd_mxu": 1}}
+    for b, r in res.items():
+        check(r["counts"] == want[b] and r["engine"] == b
+              and r["variant"] == variant,
+              f"{label}: {b} step launched {r['counts']} ({r['engine']})")
+    g_t, g_s = res["tree"]["g"], res["segmented"]["g"]
+    err = float(np.abs(g_s - g_t).max() / np.abs(g_t).max())
+    check(res["segmented"]["v"] == res["tree"]["v"]
+          and err <= SEG_MXU_GRAD_RTOL,
+          f"{label}: segmented vs tree step values {res['segmented']['v']} "
+          f"/ {res['tree']['v']}, gradient {err} of scale")
+    plan = pm._segmented_inputs()[0]
+    sc4, sc8 = res["tree"]["scratch"], res["segmented"]["scratch"]
+    bnd = 2 * plan.n_boundaries * 4 * pm.config.rows * pm.n_pad
+    return (f"{label}, {variant}: one value+gradient step 'tree' "
+            f"{res['tree']['ms']} ms, 'segmented' {res['segmented']['ms']} "
+            f"ms wall (in turns); launches {res['tree']['counts']} / "
+            f"{res['segmented']['counts']}; device memory: kernel 4m "
+            f"{sc4['bytes'] / 1e9:.2f} GB in {sc4['chunks']} chunk(s), "
+            f"kernel 8m {sc8['bytes'] / 1e9:.3f} GB in {sc8['chunks']} "
+            f"chunk(s) + {bnd / 1e9:.3f} GB of boundaries and adjoints "
+            f"({plan.n_boundaries} boundaries, {len(plan.segments)} "
+            f"segments); values equal, gradient within {err:.2e} of scale "
+            f"(max|g| {np.abs(g_t).max():.4g})")
+
+
+def protein_segmented_phase(models, dev):
+    """The protein segmented main paths: log_likelihood(method=
+    "segmented") with exactly one kernel-7m launch, equal to the fused path
+    site for site; a "segmented" value-and-gradient step with exactly one
+    launch each of kernels 7m and 8m against the "tree" step (value equal,
+    gradient within SEG_MXU_GRAD_RTOL of scale), "mxu_3x" and "mxu", at 64
+    taxa x 131,072 sites, then the step pair at 1,024 taxa x 131,072 with
+    int8 tips, where kernel 4m's checkpoint runs in chunks, timed with
+    both backends' memory, "mxu_3x" and "mxu", and the auto rule's choice
+    there ("segmented" in bf16x3, "tree" in fp32: _segmented_wins); last
+    a Backend.TORCH model on the card against the kernel path."""
+    pm = models["mxu_3x"]
+    fused = pm.log_likelihood()
+    _reset_counts()
+    t0 = time.perf_counter()
+    seg = pm.log_likelihood(method="segmented")
+    wall = (time.perf_counter() - t0) * 1e3
+    serve = {k: c for k, c in _counts().items() if c}
+    check(serve == {"plf_tree_seg_mxu": 1}, f"method='segmented' launched "
+          f"{serve}")
+    check(np.array_equal(seg.site_log_likelihood, fused.site_log_likelihood)
+          and seg.scaler_total == fused.scaler_total,
+          "protein segmented log_likelihood != fused")
+    phase("protein_segmented", f"log_likelihood(method='segmented') = "
+          f"{seg.log_likelihood:.6f} (mxu_3x) == fused site for site, "
+          f"launches {serve}, {wall:.2f} ms wall")
+    launches = dict(serve)
+    for variant in ("mxu_3x", "mxu"):
+        m = models[variant]
+        res = _step_pair(m, dev)
+        if variant == "mxu_3x":
+            launches["plf_tree_seg_bwd_mxu"] = res["segmented"]["counts"].get(
+                "plf_tree_seg_bwd_mxu", 0)
+        phase("protein_segmented", _check_step_pair(
+            m, res, f"{m.tree.n_leaves} taxa x {m.n_sites} sites")
+              + "; medians of 3")
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(BIG_PROT_TAXA)
+    p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
+    tips = rng.choice(np.arange(-1, 23, dtype=np.int8),
+                      size=(BIG_PROT_TAXA, PROT_SITES), p=p / p.sum())
+    for variant, rule in (("mxu_3x", "segmented"), ("mxu", "tree")):
+        t0 = time.perf_counter()
+        big = PhyloModel(random_tree(BIG_PROT_TAXA, seed=1),
+                         empirical_protein("lg"), tips, alpha=0.5,
+                         device=dev,
+                         config=PLFConfig(states=20, kernel_variant=variant,
+                                          tip_dtype="int8"))
+        torch.cuda.synchronize()
+        ck4 = tree_bwd_scratch_bytes(len(big.schedule), big.config.rows,
+                                     big.n_pad)
+        phase("protein_segmented", f"{BIG_PROT_TAXA} taxa x {PROT_SITES} "
+              f"sites, LG+G4, {variant}, int8 tips: model built in "
+              f"{time.perf_counter() - t0:.1f} s; kernel 4m's checkpoint "
+              f"{ck4 / 1e9:.1f} GB")
+        res = _step_pair(big, dev, reps=1)
+        line = _check_step_pair(big, res, f"{BIG_PROT_TAXA} taxa x "
+                                f"{big.n_sites} sites")
+        auto = tree_loglik_fn(big)[0].engine
+        check(auto == rule, f"auto took {auto!r} for {variant} at "
+              f"{BIG_PROT_TAXA} taxa, not {rule!r}")
+        phase("protein_segmented", line + f"; one step per turn; auto "
+              f"takes {auto!r}")
+        del big, res
+        torch.cuda.empty_cache()
+    del tips
+
+    tree = pm.tree
+    ref = models["mxu"]
+    torch_pm = PhyloModel(tree, ref.model, ref.tip_states, alpha=0.5,
+                          device=dev, config=PLFConfig(
+                              states=20, kernel_variant="mxu",
+                              backend=Backend.TORCH))
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = torch_pm.log_likelihood()
+    wall = (time.perf_counter() - t0) * 1e3
+    ran = {k: c for k, c in _counts().items() if c}
+    want = ref.log_likelihood()
+    rel = abs(out.log_likelihood / want.log_likelihood - 1)
+    check(not ran and not torch_pm.can_fuse() and not torch_pm.can_segment()
+          and rel < 1e-5 and out.scaler_total == want.scaler_total,
+          f"Backend.TORCH on the card: launches {ran}, rel {rel} to the "
+          f"kernel path, rescale totals {out.scaler_total} / "
+          f"{want.scaler_total}")
+    phase("protein_segmented", f"Backend.TORCH model on the card: "
+          f"log_likelihood() {out.log_likelihood:.6f} by the plain "
+          f"site-major path, no kernel launched, rel {rel:.2e} to the "
+          f"kernel path ('mxu'), {wall:.1f} ms wall")
+    del torch_pm
     return launches
 
 
@@ -1724,6 +2079,9 @@ def main():
     train_launches, _ = protein_train_phase(ptree, ptips, models, dev)
     launches["plf_tree_bwd_mxu"] = train_launches["plf_tree_bwd_mxu"]
     codon_phase(codon, dev)
+    k7m = kernel7m_phase(models, codon, dev)
+    k8m = kernel8m_phase(models, codon, dev)
+    launches.update(protein_segmented_phase(models, dev))
 
     # Bounds of the DNA kernels at the shapes their times were taken at:
     # kernels 1 and 3 at 2^20 sites, kernels 2 and 4 at 160 taxa x 2^20.
@@ -1760,6 +2118,10 @@ def main():
               "plf_tpu/ops/plf_tree_seg.py:383", k7),
         entry("plf_tree_seg_bwd", "plf_tree_seg_bwd.cu",
               "plf_tpu/ops/plf_tree_seg.py:843", k8),
+        entry("plf_tree_seg_mxu", "plf_tree_seg_mxu.cu",
+              "plf_tpu/ops/plf_tree_seg.py:383", k7m["mxu_3x"]),
+        entry("plf_tree_seg_bwd_mxu", "plf_tree_seg_bwd_mxu.cu",
+              "plf_tpu/ops/plf_tree_seg.py:843", k8m["mxu_3x"]),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: {launches}")

@@ -91,4 +91,22 @@ inline int colsum(const float* part, int rows, int cols, float* out,
   return (int)cudaGetLastError();
 }
 
+// The same pass accumulated in fp64 and rounded once (the segmented
+// kernels' second pass: their rows are a wave of blocks' sums).
+static __global__ void colsum64_kernel(const float* part, int rows, int cols,
+                                       float* out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  double acc = 0.0;
+  for (int b = 0; b < rows; ++b) acc += (double)part[(size_t)b * cols + c];
+  out[c] = (float)acc;
+}
+
+inline int colsum64(const float* part, int rows, int cols, float* out,
+                    cudaStream_t st) {
+  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
+  colsum64_kernel<<<(cols + 255) / 256, 256, 0, st>>>(part, rows, cols, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace plf

@@ -25,7 +25,10 @@
 // in[q*C+c][s] * gout[o*C+c][s] for (in, gout) = (x1, g_u1) -> gl[e],
 // (x2, g_u2) -> gr[e], (p, g_y) -> gec, in the mode's arithmetic
 // (tile_dot): fp32 products; bf16-rounded operands; or the bf16x3 split with
-// hh + (hl + lh), combined per tile of sites.  The split is a pure function
+// hh + (hl + lh), combined per tile of sites.  The reverse sweep's device
+// code (tile_dot, sweep_products, sweep_sums, adjoint_to, flush_edge) and
+// the accumulators' placement (bwd_plan) live in plf_mxu_bwd.cuh, shared
+// with kernel 8m.  The split is a pure function
 // of a value, so splitting an operand where it is read gives the values
 // make_mxu_bwd_ops splits once; the kernel spends the ALU work to keep one
 // tile per operand instead of three.
@@ -71,48 +74,12 @@
 // operations per site and node at S = 20, C = 4 (forward recompute, three
 // stages and two adjoint stages, three operator gradients), three times the
 // products in bf16x3 mode.
-#include "plf_grad.cuh"
-#include "plf_mxu.cuh"
+#include "plf_mxu_bwd.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSites = 8;  // TS
-constexpr int KB = plf_mxu::KB;
-
-// One tile row (kSites = 8 floats, 32-byte aligned) as two float4 loads.
-__device__ __forceinline__ void load_row(const float* p, float (&v)[kSites]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// sum over the tile's sites of in[s] * go[s] in the arithmetic of MODE.
-template <int MODE>
-__device__ __forceinline__ float tile_dot(const float* in_row,
-                                          const float* go_row) {
-  using plf_mxu::bf16r;
-  float in[kSites], go[kSites];
-  load_row(in_row, in);
-  load_row(go_row, go);
-  float hh = -0.0f, hl = -0.0f, lh = -0.0f;  // -0 + x == x
-#pragma unroll
-  for (int s = 0; s < kSites; ++s) {
-    if constexpr (MODE == plf_mxu::MODE_F32) {
-      hh = __fadd_rn(hh, __fmul_rn(in[s], go[s]));
-    } else if constexpr (MODE == plf_mxu::MODE_BF16) {
-      hh = __fadd_rn(hh, __fmul_rn(bf16r(in[s]), bf16r(go[s])));
-    } else {
-      const float ih = bf16r(in[s]), il = bf16r(__fsub_rn(in[s], ih));
-      const float gh = bf16r(go[s]), gl = bf16r(__fsub_rn(go[s], gh));
-      hh = __fadd_rn(hh, __fmul_rn(gh, ih));
-      hl = __fadd_rn(hl, __fmul_rn(gh, il));
-      lh = __fadd_rn(lh, __fmul_rn(gl, ih));
-    }
-  }
-  return MODE == plf_mxu::MODE_BF16X3 ? __fadd_rn(hh, __fadd_rn(hl, lh)) : hh;
-}
+constexpr int kThreads = plf_mxu::kBwdThreads;
+constexpr int kSites = plf_mxu::kBwdSites;  // TS
 
 template <int MODE, int V, typename CodeT>
 __global__ void __launch_bounds__(kThreads)
@@ -157,29 +124,17 @@ plf_tree_bwd_mxu_kernel(const CodeT* __restrict__ codes, int n_leaves,
   const size_t slot_stride = (size_t)R * chunk;
   const size_t cols = (size_t)2 * E * RS + RS + R;
   float* part = partial + blockIdx.x * cols;
-  const int s = tid % kSites;
-  const int nj = kThreads / kSites;
-  const int jobs = C * ((S + KB - 1) / KB);
 
   // Operand `pos` of the tile at chunk offset local0 into a shared tile: a
-  // tip's table columns (a code outside the table gives zeros) or a
-  // checkpointed slot.
+  // tip's table columns or a checkpointed slot.
   auto load = [&](int pos, int local0, float* dst) {
-    if (pos < n_leaves) {
-      const CodeT* crow = codes + (size_t)pos * n_pad + site0 + local0;
-      for (int i = tid; i < tile; i += kThreads) {
-        const int code = (int)crow[i % kSites];
-        const bool ok = code >= 0 && code < ncols;
-        const float v = __ldg(ttab + (size_t)(i / kSites) * ncols +
-                              (ok ? code : 0));
-        dst[i] = ok ? v : 0.0f;
-      }
-    } else {
-      const float* src =
-          scratch + (size_t)(pos - n_leaves) * slot_stride + local0;
-      for (int i = tid; i < tile; i += kThreads)
-        dst[i] = src[(size_t)(i / kSites) * chunk + i % kSites];
-    }
+    if (pos < n_leaves)
+      plf_mxu::expand_tip(codes + (size_t)pos * n_pad + site0 + local0, ttab,
+                          ncols, tile, dst);
+    else
+      plf_mxu::load_tile(
+          scratch + (size_t)(pos - n_leaves) * slot_stride + local0, chunk,
+          tile, dst);
   };
 
   // ---- phase 1: forward recompute, every internal CLV checkpointed ----
@@ -193,16 +148,10 @@ plf_tree_bwd_mxu_kernel(const CodeT* __restrict__ codes, int n_leaves,
       const size_t e = (size_t)__ldg(eidx + i) * RS;
       plf_mxu::node_tile<MODE, V>(tA, tB, tP, tA, lh + e, ll + e, rh + e,
                                   rl + e, eh, el, S, C, kSites, s_big);
-      float* dst = scratch + (size_t)i * slot_stride + local0;
-      for (int j = tid; j < tile; j += kThreads) {
-        const int ss = j % kSites;
-        const bool resc = !s_big[ss] && site0 + local0 + ss < n;
-        dst[(size_t)(j / kSites) * chunk + ss] =
-            resc ? __fmul_rn(tA[j], plf::TWO_TO_THE_32) : tA[j];
-      }
-      if (tid < kSites)
-        flags[(size_t)i * chunk + local0 + tid] =
-            (!s_big[tid] && site0 + local0 + tid < n) ? 1 : 0;
+      plf_mxu::checkpoint_tile(tA, s_big,
+                               scratch + (size_t)i * slot_stride + local0,
+                               chunk, flags + (size_t)i * chunk + local0,
+                               n - (site0 + local0), tile);
       __syncthreads();
     }
   }
@@ -216,16 +165,9 @@ plf_tree_bwd_mxu_kernel(const CodeT* __restrict__ codes, int n_leaves,
       s_g[tid] = site < n ? glik[site] : 0.0f;
     }
     __syncthreads();
-    for (int r = tid; r < R; r += kThreads) {
-      const float* x = tA + r * kSites;
-      float v = __fmul_rn(x[0], s_g[0]);
-      for (int k = 1; k < kSites; ++k) v = __fadd_rn(v, __fmul_rn(x[k], s_g[k]));
-      s_grr[r] = __fadd_rn(s_grr[r], v);
-    }
-    float* dst = scratch + (size_t)(E - 1) * slot_stride + local0;
-    for (int j = tid; j < tile; j += kThreads)
-      dst[(size_t)(j / kSites) * chunk + j % kSites] =
-          __fmul_rn(__ldg(rr + j / kSites), s_g[j % kSites]);
+    plf_mxu::seed_root(tA, s_g, s_grr, rr,
+                       scratch + (size_t)(E - 1) * slot_stride + local0, chunk,
+                       R);
     __syncthreads();
   }
 
@@ -238,128 +180,30 @@ plf_tree_bwd_mxu_kernel(const CodeT* __restrict__ codes, int n_leaves,
       const int local0 = t * kSites;
       load(lp, local0, tA);
       load(rp, local0, tB);
-      const float* adj = scratch + (size_t)i * slot_stride + local0;
-      const unsigned char* fl = flags + (size_t)i * chunk + local0;
-      for (int j = tid; j < tile; j += kThreads) {
-        const int ss = j % kSites;
-        tG[j] = __fmul_rn(adj[(size_t)(j / kSites) * chunk + ss],
-                          fl[ss] ? plf::TWO_TO_THE_32 : 1.0f);
-      }
+      plf_mxu::load_adjoint(scratch + (size_t)i * slot_stride + local0, chunk,
+                            flags + (size_t)i * chunk + local0, tile, tG);
       __syncthreads();
-      for (int jb = tid / kSites; jb < jobs; jb += nj) {
-        const int c = jb % C, o0 = (jb / C) * KB;
-        float u1[KB], u2[KB], gp[KB];
-        plf_mxu::stage_block<MODE, V>(tA, kSites, s, lh + e, ll + e, S, C, c,
-                                      o0, u1);
-        plf_mxu::stage_block<MODE, V>(tB, kSites, s, rh + e, rl + e, S, C, c,
-                                      o0, u2);
-        plf_mxu::stage_block<MODE, V>(tG, kSites, s, eTh, eTl, S, C, c, o0,
-                                      gp);
-#pragma unroll
-        for (int k = 0; k < KB; ++k) {
-          if (o0 + k < S) {
-            const int idx = ((o0 + k) * C + c) * kSites + s;
-            tU1[idx] = __fmul_rn(gp[k], u2[k]);
-            tU2[idx] = __fmul_rn(gp[k], u1[k]);
-            tP[idx] = __fmul_rn(u1[k], u2[k]);
-          }
-        }
-      }
-      __syncthreads();
-      // Entry ent = m*RS + q*R + r: r fastest (see the header).
-      for (int ent = tid; ent < 3 * RS; ent += kThreads) {
-        const int m = ent / RS, rem = ent - m * RS;
-        const int q = rem / R, r = rem - q * R;
-        const float* in = (m == 0 ? tA : m == 1 ? tB : tP) +
-                          (q * C + r % C) * kSites;
-        const float* go = (m == 0 ? tU1 : m == 1 ? tU2 : tG) + r * kSites;
-        acc[ent] = __fadd_rn(acc[ent], tile_dot<MODE>(in, go));
-      }
-      if (lp >= n_leaves || rp >= n_leaves) {
-        for (int jb = tid / kSites; jb < jobs; jb += nj) {
-          const int c = jb % C, o0 = (jb / C) * KB;
-          float o[KB];
-          for (int side = 0; side < 2; ++side) {
-            const int pos = side ? rp : lp;
-            if (pos < n_leaves) continue;
-            plf_mxu::stage_block<MODE, V>(side ? tU2 : tU1, kSites, s,
-                                          (side ? rTh : lTh) + e,
-                                          (side ? rTl : lTl) + e, S, C, c, o0,
-                                          o);
-            float* dst = scratch + (size_t)(pos - n_leaves) * slot_stride +
-                         local0 + s;
-#pragma unroll
-            for (int k = 0; k < KB; ++k)
-              if (o0 + k < S) dst[(size_t)((o0 + k) * C + c) * chunk] = o[k];
-          }
-        }
-      }
+      plf_mxu::sweep_products<MODE, V>(tA, tB, tG, tU1, tU2, tP, lh + e,
+                                       ll + e, rh + e, rl + e, eTh, eTl, S,
+                                       C);
+      plf_mxu::sweep_sums<MODE>(tA, tB, tP, tU1, tU2, tG, acc, S, C);
+      auto slot = [&](int pos) -> float* {
+        return pos < n_leaves ? nullptr
+                              : scratch + (size_t)(pos - n_leaves) * slot_stride +
+                                    local0;
+      };
+      plf_mxu::adjoint_to<MODE, V>(tU1, tU2, lTh + e, lTl + e, rTh + e,
+                                   rTl + e, slot(lp), chunk, slot(rp), chunk,
+                                   S, C);
       __syncthreads();
     }
-    // gl[e] and gr[e] are complete for this block's sites: write them once,
-    // in output order (j = m*RS + r*S + q, coalesced); this edge's gec share
-    // goes into the block's running gec.  The tile loop's last barrier
-    // orders these reads after every sum, and the next edge's first one
-    // the zeroing before its sums.
-    for (int j = tid; j < 3 * RS; j += kThreads) {
-      const int m = j / RS, rem = j - m * RS;
-      const int r = rem / S, q = rem - r * S;
-      const int ent = m * RS + q * R + r;
-      float* d = m < 2 ? part + (size_t)m * E * RS + (size_t)eo * RS + rem
-                       : part + (size_t)2 * E * RS + rem;
-      const bool init = !accumulate && (m < 2 || i == E - 1);
-      *d = init ? acc[ent] : __fadd_rn(*d, acc[ent]);
-      acc[ent] = 0.0f;
-    }
+    plf_mxu::flush_edge(acc, part, E, S, C, eo, !accumulate,
+                        !accumulate && i == E - 1);
   }
   for (int r = tid; r < R; r += kThreads) {
     float* d = part + (size_t)2 * E * RS + RS + r;
     *d = accumulate ? __fadd_rn(*d, s_grr[r]) : s_grr[r];
   }
-}
-
-// Dynamic shared memory of one block.
-size_t smem_bytes(int R, int S, bool acc_shared) {
-  return sizeof(float) * ((size_t)6 * R * kSites + 2 * kSites + R +
-                          (acc_shared ? (size_t)3 * R * S : 0));
-}
-
-template <int MODE, int V, typename CodeT>
-cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(plf_tree_bwd_mxu_kernel<MODE, V, CodeT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-template <int MODE, int V, typename CodeT>
-cudaError_t occupancy(int R, int S, bool acc_shared, int* blocks) {
-  const size_t smem = smem_bytes(R, S, acc_shared);
-  cudaError_t err = prepare<MODE, V, CodeT>(smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, plf_tree_bwd_mxu_kernel<MODE, V, CodeT>, kThreads, smem);
-}
-
-// The accumulators' place and the resident blocks per SM that follow: in
-// shared memory when two blocks with them fit an SM, else in device memory.
-template <int MODE, int V, typename CodeT>
-int plan(int R, int S, int* acc_shared, int* blocks) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  *acc_shared = 0;
-  if (smem_bytes(R, S, true) <= (size_t)optin) {
-    err = occupancy<MODE, V, CodeT>(R, S, true, blocks);
-    if (err != cudaSuccess) return (int)err;
-    if (*blocks >= 2) {
-      *acc_shared = 1;
-      return 0;
-    }
-  }
-  return (int)occupancy<MODE, V, CodeT>(R, S, false, blocks);
 }
 
 template <int MODE, int V, typename CodeT>
@@ -370,10 +214,11 @@ int launch(const void* codes, int n_leaves, const int* bsched, int n_edges,
            float* acc_global, int accumulate, int n_blocks,
            int tiles_per_block, int n, int n_pad, int S, int C,
            cudaStream_t st) {
-  const size_t smem = smem_bytes(S * C, S, acc_global == nullptr);
-  cudaError_t err = prepare<MODE, V, CodeT>(smem);
+  auto kern = plf_tree_bwd_mxu_kernel<MODE, V, CodeT>;
+  const size_t smem = plf_mxu::bwd_smem_bytes(S * C, S, acc_global == nullptr);
+  cudaError_t err = plf_mxu::bwd_prepare(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  plf_tree_bwd_mxu_kernel<MODE, V, CodeT><<<n_blocks, kThreads, smem, st>>>(
+  kern<<<n_blocks, kThreads, smem, st>>>(
       static_cast<const CodeT*>(codes), n_leaves, bsched, n_edges, pl[0],
       pl[1], pl[2], pl[3], pl[4], pl[5], pl[6], pl[7], pl[8], pl[9], pl[10],
       pl[11], ttab, ncols, rr, glik, scratch, flags, site0, chunk, partial,
@@ -440,12 +285,14 @@ extern "C" int plf_tree_bwd_mxu_plan(int code_bytes, int states,
   const int R = states * categories;
   if (code_bytes == 4) {
     PLF_MXU_DISPATCH(mode, states,
-                     return plan<M_, V_, int32_t>(R, states, acc_shared,
-                                                  blocks));
+                     return plf_mxu::bwd_plan(
+                         plf_tree_bwd_mxu_kernel<M_, V_, int32_t>, R, states,
+                         acc_shared, blocks));
   } else if (code_bytes == 1) {
     PLF_MXU_DISPATCH(mode, states,
-                     return plan<M_, V_, int8_t>(R, states, acc_shared,
-                                                 blocks));
+                     return plf_mxu::bwd_plan(
+                         plf_tree_bwd_mxu_kernel<M_, V_, int8_t>, R, states,
+                         acc_shared, blocks));
   }
   return (int)cudaErrorInvalidValue;
 }

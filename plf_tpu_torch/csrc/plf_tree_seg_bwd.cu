@@ -357,27 +357,9 @@ extern "C" int plf_tree_seg_bwd_occupancy(int code_bytes, int categories,
   return (int)cudaErrorInvalidValue;
 }
 
-namespace {
-
-// out[c] = sum over rows b of partial[b][c], in row order, accumulated in fp64
-// and rounded once: the rows are a wave of blocks' sums (~500 at 2^20 sites).
-__global__ void colsum64_kernel(const float* part, int rows, int cols,
-                                float* out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  double acc = 0.0;
-  for (int b = 0; b < rows; ++b) acc += (double)part[(size_t)b * cols + c];
-  out[c] = (float)acc;
-}
-
-}  // namespace
-
 // The fixed-order second pass over the blocks' rows.
 extern "C" int plf_tree_seg_bwd_reduce(const float* partial, int rows, int cols,
                                        float* out, void* stream) {
-  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  colsum64_kernel<<<(cols + 255) / 256, 256, 0,
-                    static_cast<cudaStream_t>(stream)>>>(partial, rows, cols,
-                                                         out);
-  return (int)cudaGetLastError();
+  return plf::colsum64(partial, rows, cols, out,
+                       static_cast<cudaStream_t>(stream));
 }

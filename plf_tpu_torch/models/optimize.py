@@ -23,27 +23,29 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
 * ``"torch"`` (JAX ``"xla"``): the plain element-wise site-major
   traversal under torch autograd, the CPU oracle.
 * ``"segmented"`` (JAX ``"segmented"``): the segmented whole-tree forward
-  and backward, kernels 7 + 8, one launch each per evaluation
-  (``ops/plf_tree_seg.py``): the tree cut into subtrees whose roots pass
-  through a boundary buffer, the VJP's only device-memory checkpoint.
-  "vpu" at S = 4; a matrix-form model raises NotImplementedError (their
-  MXU forms are not ported yet, ROADMAP.md, Queue 2 items 2-3).
+  and backward, one launch each per evaluation (``ops/plf_tree_seg.py``):
+  kernels 7 + 8 for "vpu" at S = 4, kernels 7m + 8m in the model's
+  arithmetic for every other model; the tree cut into subtrees whose
+  roots pass through a boundary buffer, the VJP's only checkpoint kept
+  across segments.
 
-``"auto"`` takes ``"torch"`` for a model on the CPU.  For a model on a
-CUDA device it takes ``"tree"`` whenever the forward kernel admits the
-tree (``PhyloModel.can_fuse``), except for a "vpu" DNA model whose kernel-4
-checkpoint would have to be chunked (more than half the free device
-memory) while kernel 8's boundary buffers fit it: there it takes
-``"segmented"``.  Otherwise ``"kernel"`` for "vpu" at S = 4 and, for a
-model on kernels 2m/4m, NotImplementedError where the JAX package would
-take its segmented engine (whose MXU forms are not ported).  The rule
-stands on the backends measured on an H100 (PERF.md): the tree backend's
-step was the faster one at every shape where its checkpoint fits one
-chunk (160 taxa x 2^20 and 2^16 sites, 20 taxa x 2^20; "segmented" 6%
-slower at 160 x 2^20), "segmented" the faster one at 256 taxa x 2^22
-(int8 tips), where kernel 4 runs in three chunks; the per-node residuals
-grow with sites x nodes.  "mxu_bf16" raises ValueError on every backend,
-as in the JAX package.
+``"auto"`` takes ``"torch"`` for a model on the CPU, and for a model
+whose config chose ``Backend.TORCH``.  For a model on a CUDA device it
+takes ``"tree"`` whenever the forward kernel admits the tree
+(``PhyloModel.can_fuse``), except where kernel 4's (4m's) checkpoint would
+have to be chunked (more than half the free device memory) while the
+segmented backward's boundary buffers fit it, for a "vpu" DNA model or an
+"mxu_3x" one: there it takes ``"segmented"``.  Past the forward kernel's capacity it takes
+``"kernel"`` for "vpu" at S = 4 and ``"segmented"`` for a model on the
+matrix-form kernels, as the JAX package does.  The rule stands on the
+backends measured on an H100 (PERF.md): the tree backend's step was the
+faster one at every shape where its checkpoint fits one chunk (160 taxa x
+2^20 and 2^16 sites, 20 taxa x 2^20; "segmented" 6% slower at 160 x
+2^20), "segmented" the faster one at 256 taxa x 2^22 (int8 tips), where
+kernel 4 runs in three chunks; at 1,024 protein taxa x 131,072 sites,
+where kernel 4m runs in two, "segmented" won in bf16x3 ("mxu_3x") and
+lost in fp32 ("mxu"); the per-node residuals grow with sites x nodes.  "mxu_bf16" raises ValueError on every backend, as in the JAX
+package.
 
 The branch lengths, rates and mixture weights enter through the per-edge
 lane-constant stacks and the root row vector, computed for all edges in
@@ -72,9 +74,10 @@ import numpy as np
 import torch
 
 from ..ops.plf_grad import make_plf_diff
-from ..ops.plf_mxu import operator_planes, uses_mxu_kernels
+from ..ops.plf_mxu import MODES, operator_planes, uses_mxu_kernels
 from ..ops.plf_tree import reorder_schedule, root_reduce
 from ..ops.plf_tree_grad import make_tree_diff, tree_bwd_scratch_bytes
+from ..config import Backend
 from ..ops.plf_tree_seg import make_tree_diff_segmented
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .phylo import LIK_FLOOR, LOG_MINLIK, PhyloModel
@@ -86,15 +89,24 @@ BACKENDS = ("auto", "tree", "kernel", "torch", "segmented")
 
 
 def _segmented_wins(pm, free: Optional[int] = None) -> bool:
-    """Whether a "vpu" DNA step on the card takes "segmented" over "tree":
-    where kernel 4's checkpoint (``E * (S*C*4 + 1)`` bytes per site) exceeds
-    half the ``free`` device memory, so it would run in chunks, and kernel
-    8's boundary buffers (the residual and its adjoints, ``2 *
-    n_boundaries * S*C * 4`` bytes per site) fit the free memory.  ``free``
-    defaults to the card's free memory plus the blocks PyTorch's caching
-    allocator holds unused (which a step can take), so the rule does not
-    depend on what earlier steps left cached."""
+    """Whether a step on the card takes "segmented" over "tree": for
+    kernel 8 ("vpu" at S = 4) and kernel 8m's bf16x3 mode ("mxu_3x"),
+    where kernel 4's (4m's) checkpoint (``E * (S*C*4 + 1)`` bytes per site)
+    exceeds half the ``free`` device memory, so it would run in chunks, and
+    the segmented backward's boundary buffers (the residual and its
+    adjoints, ``2 * n_boundaries * S*C * 4`` bytes per site) fit the free
+    memory (kernel 8m's own op checkpoint is chunked as kernel 4m's is).
+    A matrix-form model in fp32 ("mxu", "vpu" at S != 4) keeps "tree": at
+    1,024 protein taxa x 131,072 sites, with kernel 4m's checkpoint in two
+    chunks, "segmented" won by 7% in "mxu_3x" and lost by 19% in "mxu"
+    (PERF.md).  ``free`` defaults to the card's free memory plus the
+    blocks PyTorch's caching allocator holds unused (which a step can
+    take), so the rule does not depend on what earlier steps left
+    cached."""
     if not pm.can_segment():
+        return False
+    variant, S = pm.config.resolved_kernel_variant, pm.config.states
+    if uses_mxu_kernels(variant, S) and MODES[variant] != MODES["mxu_3x"]:
         return False
     if free is None:
         dev = pm.device
@@ -108,24 +120,17 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
 
 
 def _auto_backend(pm, matrix_form: bool = False) -> str:
-    """The ``"auto"`` choice (module docstring): "torch" off the card,
-    else "tree" when the forward kernel takes the tree ("segmented" where
-    :func:`_segmented_wins`), else "kernel" -- or, for a model on kernels
-    2m/4m (``matrix_form``), the segmented engine, whose MXU forms are not
-    ported."""
+    """The ``"auto"`` choice (module docstring) for a model on the card
+    or not: "torch" off the card, else "tree" when the forward kernel
+    takes the tree ("segmented" where :func:`_segmented_wins`), else
+    "kernel" -- or, for a model on the matrix-form kernels
+    (``matrix_form``), "segmented" (kernels 7m + 8m), as the JAX package
+    takes its segmented engine past the fused kernel's arena."""
     if pm.device.type != "cuda":
         return "torch"
     if pm.can_fuse():
-        if not matrix_form and _segmented_wins(pm):
-            return "segmented"
-        return "tree"
-    if matrix_form:
-        raise NotImplementedError(
-            "the tree does not fit kernel 2m's shared-memory arena; the JAX "
-            "package would take its segmented engine, whose MXU forms "
-            "(kernels 7/8 in the matrix forms) are not ported yet: "
-            "ROADMAP.md, Queue 2 items 2-3")
-    return "kernel"
+        return "segmented" if _segmented_wins(pm) else "tree"
+    return "segmented" if matrix_form else "kernel"
 
 
 def _f32(a, device):
@@ -191,12 +196,8 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
     S = pm.config.states
     matrix_form = uses_mxu_kernels(variant, S)
     if backend == "auto":
-        backend = _auto_backend(pm, matrix_form)
-    if backend == "segmented" and matrix_form:
-        raise NotImplementedError(
-            f"the segmented gradient backend runs kernels 7 + 8 in the vpu "
-            f"form at S = 4; their MXU forms (kernel variant {variant!r} at "
-            f"S={S}) are not ported yet: ROADMAP.md, Queue 2 items 2-3")
+        backend = ("torch" if pm.config.backend is Backend.TORCH
+                   else _auto_backend(pm, matrix_form))
     if backend == "kernel" and matrix_form:
         if S != 4:
             raise NotImplementedError(
@@ -324,9 +325,8 @@ def _core_kernel(pm):
 def _core_tree(pm, segmented: bool = False):
     """Kernel 2 forward + kernel 4 backward, or kernels 2m + 4m in the
     model's arithmetic (the JAX "tree" backend, optimize.py:355-545), or
-    with ``segmented`` kernel 7 forward + kernel 8 backward (the JAX
-    "segmented" backend, optimize.py:446-451); operators indexed by
-    original edge."""
+    with ``segmented`` kernels 7 + 8 (7m + 8m) (the JAX "segmented"
+    backend, optimize.py:446-451); operators indexed by original edge."""
     cfg = pm.config
     S, C = cfg.states, cfg.categories
     variant = cfg.resolved_kernel_variant
@@ -335,13 +335,15 @@ def _core_tree(pm, segmented: bool = False):
     n, n_leaves = pm.n_sites, pm.tree.n_leaves
     E = len(pm.schedule)
     sched = reorder_schedule(pm.schedule, n_leaves)
+    kernel_variant = variant if matrix_form else "vpu"
     if segmented:
         tdiff = make_tree_diff_segmented(sched, n_leaves, states=S,
                                          categories=C,
-                                         n_codes=pm.tip_table.shape[1])
+                                         n_codes=pm.tip_table.shape[1],
+                                         variant=kernel_variant)
     else:
         tdiff = make_tree_diff(sched, n_leaves, states=S, categories=C,
-                               variant=variant if matrix_form else "vpu")
+                               variant=kernel_variant)
     child = torch.as_tensor([[e[1] for e in pm.schedule],
                              [e[2] for e in pm.schedule]],
                             dtype=torch.long, device=pm.device)

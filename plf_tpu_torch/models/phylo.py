@@ -23,17 +23,23 @@ table rounded as the variant's tip product rounds it
 Those kernels take their operators split once here, for the variant
 (``ops/plf_mxu.py::operator_planes``), not on every launch.
 
-A third path, **segmented** (``ops/plf_tree_seg.py``, kernel 7), cuts
-the tree into subtrees whose roots pass through a boundary buffer in
-device memory: the JAX package's route for trees too big for one arena.
-It runs the "vpu" form at S = 4; a matrix-form model raises
-NotImplementedError (ROADMAP.md, Queue 2 items 2-3).
+A third path, **segmented** (``ops/plf_tree_seg.py``: kernel 7, or 7m
+for a matrix-form model), cuts the tree into subtrees whose roots pass
+through a boundary buffer in device memory: the JAX package's route for
+trees too big for one arena.
 
 ``auto`` takes the fused path whenever the GPU capacity rule of the
 model's kernel (``ops/plf_tree.py::tree_block_threads`` or
-``tree_mxu_fits``) admits the tree, then the segmented path where it
-applies (:meth:`PhyloModel.can_segment`), then per-node.  The log and the
-sum over sites run on the host in float64.
+``tree_mxu_fits``) admits the tree, then the segmented path
+(:meth:`PhyloModel.can_segment`), then per-node.  The log and the sum
+over sites run on the host in float64.
+
+``config.backend`` is the user's choice of compute path, as in the JAX
+package: ``Backend.KERNEL`` (the default) runs the routes above;
+``Backend.TORCH`` runs the plain site-major PLF of ``ops/plf_torch.py``
+node by node (``can_fuse`` and ``can_segment`` are False and no kernel
+wrapper is called), on whatever device the model lives, the card
+included.
 
 Log-likelihood:  ll = sum_s wgt_s * log( sum_c w_c rv . x_root[s,c,:] )
                      + scaler_total * log(2^-32)
@@ -48,11 +54,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import PLFConfig
+from ..config import Backend, PLFConfig
 from ..io.alignment import AMBIGUITY, map_tip_codes, tip_expansion_table
 from ..ops import layout as L
 from ..ops.plf_mxu import operator_planes, round_tip_table, uses_mxu_kernels
 from ..ops.plf_node import plf_node
+from ..ops.plf_torch import plf_torch
 from ..ops.plf_tree import (compile_register_schedule, plf_tree,
                             reorder_schedule, root_reduce,
                             tree_block_threads, tree_mxu_fits)
@@ -248,7 +255,8 @@ class PhyloModel(nn.Module):
             self.register_buffer("fused_tip_table", round_tip_table(
                 self.tip_table, cfg.resolved_kernel_variant).contiguous())
 
-        # Kernels 1m and 2m take (hi, lo) operator planes: split once here.
+        # Kernels 1m, 2m and 7m take (hi, lo) operator planes: split once
+        # here.
         mxu = uses_mxu_kernels(cfg.resolved_kernel_variant, S)
         for name, k in (("lcs_planes", self.lcs), ("rcs_planes", self.rcs),
                         ("ec_planes", self.ec)):
@@ -286,11 +294,13 @@ class PhyloModel(nn.Module):
 
     def _traverse(self):
         """Post-order traversal, one kernel-1 (or 1m) launch per internal
-        node.
+        node (the plain site-major PLF under ``Backend.TORCH``).
         Leaf CLVs are expanded when first needed and dropped after use
         (each leaf is read once); the parent CLV is written in place over
         a dead internal child's buffer."""
         cfg = self.config
+        if cfg.backend is Backend.TORCH:
+            return self._traverse_torch()
         S, C = cfg.states, cfg.categories
         n_leaves = self.tree.n_leaves
         clvs: Dict[int, torch.Tensor] = {}
@@ -310,6 +320,35 @@ class PhyloModel(nn.Module):
         x_root = clvs[self.tree.root]
         lik = root_reduce(self.root_rows[0], x_root)
         return lik, scaler_sites, x_root
+
+    def _traverse_torch(self):
+        """The per-node traversal of ``Backend.TORCH``: the plain
+        site-major PLF (``ops/plf_torch.py``, the JAX package's ``plf_xla``
+        path, ``plf_tpu/models/phylo.py:373-382``) on ``(n_pad, C, S)``
+        CLVs and the lane constants unpacked per edge; the root CLV goes
+        back to the lane-major layout for the sequential root reduction."""
+        cfg = self.config
+        S, C = cfg.states, cfg.categories
+        n_leaves = self.tree.n_leaves
+        wgt = self.wgt_pad.to(torch.int32)
+        # lane constants (rows, S) -> [c, k, a] branches; EV [a*C+c, k] ->
+        # [k, a] (plf_tpu/models/phylo.py::_unlane_branch, _unlane_ev)
+        branch = lambda k: k.reshape(S, C, S).permute(1, 0, 2)
+        ev = self.ec.reshape(S, C, S)[:, 0, :].t()
+        site_major = lambda leaf: L.from_lane_major(self._expand_tip(leaf),
+                                                    S, C)
+        clvs: Dict[int, torch.Tensor] = {}
+        scaler_sites = torch.zeros(self.n_pad, dtype=torch.int32,
+                                   device=self.device)
+        for e, (parent, l, r, _, _) in enumerate(self.schedule):
+            x1 = clvs.pop(l) if l >= n_leaves else site_major(l)
+            x2 = clvs.pop(r) if r >= n_leaves else site_major(r)
+            clvs[parent], sv, _ = plf_torch(
+                x1, x2, branch(self.lcs[e]), branch(self.rcs[e]), ev, wgt,
+                states=S, categories=C)
+            scaler_sites += sv
+        x_root = L.to_lane_major(clvs[self.tree.root], S, C).contiguous()
+        return root_reduce(self.root_rows[0], x_root), scaler_sites, x_root
 
     def _scaler_total(self, scaler_sites: torch.Tensor) -> int:
         """wgt-weighted rescale count, summed in int64."""
@@ -351,16 +390,24 @@ class PhyloModel(nn.Module):
     def can_fuse(self) -> bool:
         """Whether the tree's register-machine arena fits one block's
         shared memory (the capacity rule of the model's tree kernel,
-        ops/plf_tree.py)."""
+        ops/plf_tree.py); False under ``Backend.TORCH``."""
         cfg = self.config
+        if cfg.backend is Backend.TORCH:
+            return False
         n_codes = self.tip_table.shape[1]
         if uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states):
             return tree_mxu_fits(self.n_slots, cfg.rows, n_codes)
         return tree_block_threads(self.n_slots, cfg.rows, n_codes,
                                   cfg.states) is not None
 
+    def _kernel_path(self, name: str):
+        if self.config.backend is Backend.TORCH:
+            raise ValueError(f"the {name} path runs a CUDA kernel; this "
+                             f"model's config chose Backend.TORCH")
+
     def log_likelihood_fused(self) -> TreeLikelihoodResult:
         """Whole-tree single-kernel evaluation."""
+        self._kernel_path("fused")
         cfg = self.config
         lik, sc = plf_tree(
             self.codes, self.sched, self.lcs, self.rcs, self.ec,
@@ -371,33 +418,32 @@ class PhyloModel(nn.Module):
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 
-    # -- segmented whole-tree kernel (kernel 7) ------------------------------
+    # -- segmented whole-tree kernel (kernel 7 or 7m) -----------------------
 
     def can_segment(self) -> bool:
-        """Whether the segmented kernels take this model: the "vpu" form
-        at S = 4 (their matrix forms are not ported yet)."""
-        cfg = self.config
-        return not uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states)
+        """Whether the segmented kernels take this model: every kernel
+        variant (kernel 7 for "vpu" at S = 4, kernel 7m for the rest), but
+        not under ``Backend.TORCH``."""
+        return self.config.backend is not Backend.TORCH
 
     def _segmented_inputs(self):
-        """``(plan, prog, segs, n_slots)`` for kernel 7, built once and
-        cached on the model: the plan of the reordered schedule
-        (:func:`ops.plf_tree_seg.plan_segments`, the JAX package's cut) and
-        its register-allocated program on the model's device."""
+        """``(plan, prog, segs, n_slots)`` for kernel 7 (7m), built once
+        and cached on the model: the plan of the reordered schedule
+        (:func:`ops.plf_tree_seg.plan_segments`, the JAX package's cut, at
+        the cap of the capacity rule of the kernels that run) and its
+        register-allocated program on the model's device."""
         if self._seg_cache is None:
-            if not self.can_segment():
-                raise NotImplementedError(
-                    "the segmented engine runs the vpu form at S = 4; its "
-                    "matrix forms (kernel variant "
-                    f"{self.config.resolved_kernel_variant!r} at S="
-                    f"{self.config.states}) are not ported yet: ROADMAP.md, "
-                    "Queue 2 items 2-3")
+            self._kernel_path("segmented")
+            cfg = self.config
             n_leaves = self.tree.n_leaves
             sched = reorder_schedule(self.schedule, n_leaves)
             pos_sched = [(p, l, r, 0.0, 0.0, i)
                          for i, (p, l, r, *_x) in enumerate(sched)]
-            plan = plan_segments(pos_sched, n_leaves, rows=self.config.rows,
-                                 n_codes=self.tip_table.shape[1])
+            plan = plan_segments(
+                pos_sched, n_leaves, rows=cfg.rows,
+                n_codes=self.tip_table.shape[1],
+                matrix_form=uses_mxu_kernels(cfg.resolved_kernel_variant,
+                                             cfg.states))
             prog, segs, n_slots = segment_program(plan, sched,
                                                   reuse_slots=True)
             self._seg_cache = (plan, torch.as_tensor(prog, device=self.device),
@@ -406,16 +452,18 @@ class PhyloModel(nn.Module):
         return self._seg_cache
 
     def log_likelihood_segmented(self) -> TreeLikelihoodResult:
-        """Segmented whole-tree evaluation (kernel 7, one launch): the
-        tree's subtrees in order, their roots through a boundary buffer.
-        Bit-equal to the fused and per-node paths."""
+        """Segmented whole-tree evaluation (kernel 7 or 7m, one launch):
+        the tree's subtrees in order, their roots through a boundary
+        buffer.  Bit-equal to the fused path (and, in the "vpu" form, to
+        the per-node path)."""
         cfg = self.config
         plan, prog, segs, n_slots = self._segmented_inputs()
         lik, sc, _ = plf_tree_seg(
             self.codes, prog, segs, self.lcs, self.rcs, self.ec,
             self.fused_tip_table, self.root_rows[0], self.n_sites,
             n_boundaries=plan.n_boundaries, n_slots=n_slots,
-            states=cfg.states, categories=cfg.categories)
+            states=cfg.states, categories=cfg.categories,
+            variant=cfg.resolved_kernel_variant, planes=self._planes())
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 
@@ -429,8 +477,8 @@ class PhyloModel(nn.Module):
         GPU capacity rule, else the segmented kernel where it applies
         (:meth:`can_segment`), else the per-node path; "fused",
         "segmented" and "per-node" force a path ("per-node" is needed to
-        keep the root CLV; "segmented" raises NotImplementedError for a
-        matrix-form model).
+        keep the root CLV).  Under ``Backend.TORCH`` "auto" is the plain
+        per-node path, and "fused" and "segmented" raise ValueError.
         """
         if method not in ("auto", "fused", "per-node", "segmented"):
             raise ValueError(f"unknown method {method!r}")

@@ -625,12 +625,11 @@ def test_kernel8_matches_plain(cuda, tip_dtype, cap, extra):
         cuda, cap, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128),
         **extra)
     C = pm.config.categories
-    T = lambda t: G.transpose_lane_constants(t, 4, C)
     _, _, bbuf = _seg_fwd(pm, plan, fwd)
     glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
                        .manual_seed(5), device=cuda)
-    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, T(pm.lcs), T(pm.rcs), pm.ec,
-            T(pm.ec), pm.tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+            pm.root_rows[0], glik, bbuf, pm.n_sites)
     before = SG.plf_tree_seg_bwd.launches
     gbufs = [torch.full_like(bbuf, float("nan")) for _ in range(3)]
     k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, categories=C,
@@ -687,8 +686,8 @@ def test_segmented_wrappers_reject_what_they_cannot_run(cuda):
     pm, plan, (fwd, (prog, segs, _)) = _seg_case(cuda, n_sites=300)
     lik, sc, bbuf = _seg_fwd(pm, plan, fwd)
     g = torch.zeros((1, pm.n_pad), device=cuda)
-    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.lcs, pm.rcs, pm.ec,
-            pm.ec, pm.tip_table, pm.root_rows[0])
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+            pm.root_rows[0])
     with pytest.raises(ValueError, match="does not fit"):
         SG.plf_tree_seg_bwd(*args, g, bbuf, pm.n_sites, seg_ops=64)
     with pytest.raises(ValueError, match="glik"):
@@ -698,3 +697,230 @@ def test_segmented_wrappers_reject_what_they_cannot_run(cuda):
         SG.plf_tree_seg(pm.codes, *fwd[:2], pm.lcs, pm.rcs, pm.ec,
                         pm.tip_table, pm.root_rows[0], pm.n_sites,
                         n_boundaries=plan.n_boundaries, n_slots=40)
+
+
+# ----------------------------------------------- kernels 7m and 8m (segmented)
+
+
+def _seg_mxu_case(device, variant, states=20, cap=4, n_leaves=12,
+                  n_sites=700, **extra):
+    """A protein or S = 61 model, its matrix-form segment plan (``cap`` ops
+    at most) and both programs on the card."""
+    pm = _protein_model(device, variant, states=states, n_leaves=n_leaves,
+                        n_sites=n_sites, **extra)
+    sched = reorder_schedule(pm.schedule, n_leaves)
+    pos = [(p, l, r, 0.0, 0.0, i) for i, (p, l, r, *_x) in enumerate(sched)]
+    plan = SG.plan_segments(pos, n_leaves, rows=pm.config.rows, cap_ops=cap,
+                            n_codes=pm.tip_table.shape[1], matrix_form=True)
+    assert len(plan.segments) > 1
+    progs = []
+    for reuse in (True, False):
+        prog, segs, n_slots = SG.segment_program(plan, sched,
+                                                 reuse_slots=reuse)
+        progs.append((torch.as_tensor(prog, device=device),
+                      torch.as_tensor(segs, device=device), n_slots))
+    return pm, plan, progs
+
+
+def _seg_mxu_args(pm, prog, segs, ttab=None, codes=None):
+    return (pm.codes if codes is None else codes, prog, segs, pm.lcs, pm.rcs,
+            pm.ec, pm.fused_tip_table if ttab is None else ttab,
+            pm.root_rows[0])
+
+
+def _forced_underflow(pm):
+    """The reference generator's forced-underflow pattern on the tips
+    (tests/conftest.py:122-136 scales x1 of every 4th site by 1e-12): the
+    tip table gains S columns, 1e-12 times the state columns, and the
+    first leaf's code at every 4th site moves to them."""
+    S = pm.config.states
+    ttab = pm.fused_tip_table
+    ttab = torch.cat([ttab, ttab[:, :S] * 1e-12], dim=1).contiguous()
+    codes = pm.codes.clone()
+    codes[0, 0::4] = (ttab.shape[1] - S
+                      + (codes[0, 0::4].long() % S)).to(codes.dtype)
+    return ttab, codes
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
+@pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
+                                          (20, {"tip_dtype": "int8"}),
+                                          (61, {}), (20, {"underflow": 1})])
+def test_kernel7m_equals_kernel2m_and_plain(cuda, variant, states, extra):
+    """Kernel 7m's lik and sc equal kernel 2m's bit for bit, and its lik,
+    sc and every boundary CLV equal its plain version's, in every mode, at
+    S = 20 (C = 4, C = 5 with +I, int8 tips, and the forced-underflow tips)
+    and S = 61; its operators split by the wrapper or by the model."""
+    underflow = extra.pop("underflow", 0)
+    pm, plan, (fwd, _) = _seg_mxu_case(cuda, variant, states=states, **extra)
+    prog, segs, n_slots = fwd
+    ttab, codes = _forced_underflow(pm) if underflow else (None, None)
+    args = _seg_mxu_args(pm, prog, segs, ttab, codes)
+    S, C = states, pm.config.categories
+    kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots, states=S,
+              categories=C, variant=variant)
+    before = SG.plf_tree_seg_mxu.launches
+    lik, sc, bbuf = SG.plf_tree_seg(*args, pm.n_sites, **kw)
+    lik_m, sc_m, bbuf_m = SG.plf_tree_seg(*args, pm.n_sites,
+                                          planes=pm._planes(), **kw)
+    assert SG.plf_tree_seg_mxu.launches == before + 2
+    ref = plf_tree(args[0], pm.sched, *args[3:], pm.n_sites,
+                   n_slots=pm.n_slots, root_slot=pm.root_slot, states=S,
+                   categories=C, variant=variant)
+    plain = SG.plf_tree_seg_torch(*args, pm.n_sites, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lik, ref[0]) and torch.equal(sc, ref[1])
+    for a, b, m in zip((lik, sc, bbuf), plain, (lik_m, sc_m, bbuf_m)):
+        assert torch.equal(a, b) and torch.equal(a, m)
+    assert int(sc.sum()) > 0
+    if underflow:
+        assert int(sc[0, 0::4].sum()) > int(sc[0, 1::4].sum())
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
+@pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
+                                          (20, {"tip_dtype": "int8"}),
+                                          (61, {}), (61, {"p_inv": 0.2}),
+                                          (20, {"underflow": 1})])
+def test_kernel8m_matches_plain(cuda, variant, states, extra):
+    """Kernel 8m against its plain version in every mode, at S = 20
+    (accumulators in shared memory) and S = 61 (in device memory), with
+    the forced-underflow tips too: the boundary adjoints equal the plain
+    version's bit for bit; the site sums within 3e-6 of each matrix's
+    scale (another summation order, the blocks' rows added in fp64), in
+    one chunk and in chunks of two tiles' checkpoint; planes split by the
+    wrapper or by the model; two runs bit-identical."""
+    underflow = extra.pop("underflow", 0)
+    pm, plan, (fwd, (prog, segs, _)) = _seg_mxu_case(cuda, variant,
+                                                     states=states, **extra)
+    S, C = states, pm.config.categories
+    ttab, codes = _forced_underflow(pm) if underflow else (None, None)
+    _, sc, bbuf = SG.plf_tree_seg(*_seg_mxu_args(pm, *fwd[:2], ttab, codes),
+                                  pm.n_sites, n_boundaries=plan.n_boundaries,
+                                  n_slots=fwd[2], states=S, categories=C,
+                                  variant=variant)
+    if underflow:
+        assert int(sc[0, 0::4].sum()) > int(sc[0, 1::4].sum())
+    glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
+                       .manual_seed(7), device=cuda)
+    args = _seg_mxu_args(pm, prog, segs, ttab, codes) + (glik, bbuf,
+                                                         pm.n_sites)
+    kw = dict(states=S, categories=C, variant=variant)
+    gbufs = [torch.full_like(bbuf, float("nan")) for _ in range(4)]
+    before = SG.plf_tree_seg_bwd_mxu.launches
+    k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[0], **kw)
+    last = SG.plf_tree_seg_bwd_mxu.last_scratch
+    assert last["chunks"] == 1 and last["acc_shared"] == (states == 20)
+    k2 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[1],
+                             planes=pm._planes(), **kw)
+    per_tile = TG.tree_bwd_scratch_bytes(plan.seg_ops, pm.config.rows, 128)
+    k3 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[2],
+                             max_scratch_bytes=2 * per_tile, **kw)
+    assert SG.plf_tree_seg_bwd_mxu.last_scratch["chunks"] == \
+        -(-pm.n_pad // 256)
+    assert SG.plf_tree_seg_bwd_mxu.launches == before + 3
+    p = SG.plf_tree_seg_bwd_torch(*args, gbuf=gbufs[3], **kw)
+    torch.cuda.synchronize()
+    for g in gbufs[:3]:
+        assert torch.equal(g, gbufs[3])
+    for i in range(4):
+        assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
+    for k in (k1, k3):
+        for i in range(3):
+            _sums_close(k[i], p[i], rtol=3e-6)
+        _sums_close(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1),
+                    rtol=3e-6)
+
+
+@pytest.mark.parametrize("states,variant", [(20, None), (20, "mxu"),
+                                            (61, "mxu_3x")])
+def test_segmented_matrix_form_paths_on_the_card(cuda, states, variant):
+    """A protein or codon model on the card: log_likelihood(method=
+    "segmented") launches kernel 7m once and equals the fused path site
+    for site; a "segmented" value-and-gradient step launches kernels 7m
+    and 8m once each and nothing else, its value equals the "tree"
+    step's (kernel 7m == kernel 2m) and its gradient is within 1e-5 of
+    the largest entry of the "tree" gradient."""
+    tree = random_tree(40, seed=8, mean_branch=0.2)
+    if states == 20:
+        model = empirical_protein("lg")
+        tips = np.random.default_rng(8).integers(-1, 23, size=(40, 1500))
+    else:
+        model = codon_gy94(2.0, 0.3)
+        tips = simulate_alignment(tree, model, 1000, alpha=0.6, seed=8)
+    cfg = (None if variant is None
+           else PLFConfig(states=states, kernel_variant=variant))
+    pm = PhyloModel(tree, model, tips, alpha=0.6, config=cfg)
+    assert pm.can_segment()
+    assert len(pm._segmented_inputs()[0].segments) > 1
+    k7 = SG.plf_tree_seg_mxu.launches
+    seg = pm.log_likelihood(method="segmented")
+    assert SG.plf_tree_seg_mxu.launches == k7 + 1
+    fused = pm.log_likelihood(method="fused")
+    np.testing.assert_array_equal(seg.site_log_likelihood,
+                                  fused.site_log_likelihood)
+    assert seg.scaler_total == fused.scaler_total
+    wrappers = _counted() + (SG.plf_tree_seg, SG.plf_tree_seg_bwd,
+                             SG.plf_tree_seg_mxu, SG.plf_tree_seg_bwd_mxu)
+    out = {}
+    for backend in ("segmented", "tree"):
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+        counts = [f.launches for f in wrappers]
+        t = torch.tensor(t0, device=cuda, requires_grad=True)
+        v = fn(t)
+        v.backward()
+        runs = [f.launches - c for f, c in zip(wrappers, counts)]
+        assert runs == ([0] * 9 + [1, 1] if backend == "segmented"
+                        else [0] * 5 + [1, 1] + [0] * 4), runs
+        assert fn.engine == backend
+        out[backend] = (float(v.detach()), t.grad.cpu().numpy())
+    assert out["segmented"][0] == out["tree"][0]
+    g = out["tree"][1]
+    np.testing.assert_allclose(out["segmented"][1], g, rtol=0,
+                               atol=1e-5 * np.abs(g).max())
+
+
+def test_backend_torch_on_the_card(cuda):
+    """A Backend.TORCH protein model on the card runs the plain site-major
+    path (no kernel launched) and equals the kernel path within 1e-5
+    relative."""
+    from plf_tpu_torch.config import Backend
+    tips = np.random.default_rng(9).integers(-1, 23, size=(12, 800))
+    kw = dict(alpha=0.5)
+    pm = PhyloModel(random_tree(12, seed=9), empirical_protein("lg"), tips,
+                    config=PLFConfig(states=20, kernel_variant="mxu",
+                                     backend=Backend.TORCH), **kw)
+    ref = PhyloModel(random_tree(12, seed=9), empirical_protein("lg"), tips,
+                     config=PLFConfig(states=20, kernel_variant="mxu"), **kw)
+    assert not pm.can_fuse() and not pm.can_segment()
+    wrappers = _counted() + (SG.plf_tree_seg, SG.plf_tree_seg_bwd,
+                             SG.plf_tree_seg_mxu, SG.plf_tree_seg_bwd_mxu)
+    counts = [f.launches for f in wrappers]
+    out = pm.log_likelihood()
+    fn, t0 = tree_loglik_fn(pm)
+    assert fn.engine == "torch"
+    assert [f.launches for f in wrappers] == counts
+    want = ref.log_likelihood()
+    assert out.scaler_total == want.scaler_total
+    assert out.log_likelihood == pytest.approx(want.log_likelihood, rel=1e-5)
+
+
+def test_segmented_mxu_wrappers_reject_what_they_cannot_run(cuda):
+    pm, plan, (fwd, (prog, segs, _)) = _seg_mxu_case(cuda, "mxu_3x",
+                                                     n_sites=300)
+    args = _seg_mxu_args(pm, *fwd[:2])
+    kw = dict(states=20, categories=4, variant="mxu_3x")
+    with pytest.raises(ValueError, match="does not fit"):
+        SG.plf_tree_seg(*args, pm.n_sites, n_boundaries=plan.n_boundaries,
+                        n_slots=200, **kw)
+    _, _, bbuf = SG.plf_tree_seg(*args, pm.n_sites,
+                                 n_boundaries=plan.n_boundaries,
+                                 n_slots=fwd[2], **kw)
+    g = torch.zeros((1, pm.n_pad), device=cuda)
+    bargs = _seg_mxu_args(pm, prog, segs)
+    with pytest.raises(ValueError, match="glik"):
+        SG.plf_tree_seg_bwd(*bargs, g.cpu(), bbuf, pm.n_sites,
+                            seg_ops=plan.seg_ops, **kw)
+    with pytest.raises(ValueError, match="bbuf"):
+        SG.plf_tree_seg_bwd(*bargs, g, bbuf[:, :, :128], pm.n_sites,
+                            seg_ops=plan.seg_ops, **kw)

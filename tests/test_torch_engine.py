@@ -161,7 +161,8 @@ def test_build_flags_keep_golden_arithmetic():
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "plf_node.cu", "plf_tree.cu", "plf_node_bwd.cu", "plf_tree_bwd.cu",
         "plf_node_mxu.cu", "plf_tree_mxu.cu", "plf_tree_bwd_mxu.cu",
-        "plf_tree_seg.cu", "plf_tree_seg_bwd.cu"}
+        "plf_tree_seg.cu", "plf_tree_seg_bwd.cu", "plf_tree_seg_mxu.cu",
+        "plf_tree_seg_bwd_mxu.cu"}
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

@@ -42,6 +42,7 @@ from plf_tpu_torch.models import phylo as TP  # noqa: E402
 from plf_tpu_torch.ops import layout as L  # noqa: E402
 from plf_tpu_torch.ops import plf_mxu as M  # noqa: E402
 from plf_tpu_torch.ops.plf_node import plf_node  # noqa: E402
+from plf_tpu_torch.ops.plf_tree_seg import plf_tree_seg  # noqa: E402
 from tests.conftest import make_random_case  # noqa: E402
 
 S = 20
@@ -363,7 +364,8 @@ def test_tip_rounding_asymmetry(variant, monkeypatch):
 def test_kernel2m_capacity_rule(monkeypatch):
     """Kernel 2m's rule: an arena of n_slots 8-site tiles plus three work
     tiles fits one block's shared memory; past it the model takes the
-    per-node path."""
+    segmented path (kernel 7m, as the JAX package takes its segmented
+    engine), and the per-node path where that does not apply either."""
     from plf_tpu_torch.ops import plf_tree as TT
     assert TT.TREE_MXU_SITES == 8
     assert TT.tree_mxu_fits(4, 80, 24) and TT.tree_mxu_fits(84, 80, 24)
@@ -374,13 +376,18 @@ def test_kernel2m_capacity_rule(monkeypatch):
     assert not M.uses_mxu_kernels("vpu", 4)
     pt = _port_of(_jax_protein("mxu_3x"), "mxu_3x")
     assert pt.can_fuse()
-    calls = []
+    calls, seg_calls = [], []
     monkeypatch.setattr(TP, "tree_mxu_fits", lambda *a: False)
     monkeypatch.setattr(TP, "plf_node", lambda *a, **k: calls.append(1)
                         or plf_node(*a, **k))
-    assert not pt.can_fuse()
+    monkeypatch.setattr(TP, "plf_tree_seg", lambda *a, **k: seg_calls.append(
+        1) or plf_tree_seg(*a, **k))
+    assert not pt.can_fuse() and pt.can_segment()
     pt.log_likelihood()
-    assert len(calls) == len(pt.schedule)
+    assert (len(seg_calls), len(calls)) == (1, 0)
+    monkeypatch.setattr(TP.PhyloModel, "can_segment", lambda self: False)
+    pt.log_likelihood()
+    assert (len(seg_calls), len(calls)) == (1, len(pt.schedule))
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -430,10 +437,11 @@ def test_operator_planes_split_once(variant, monkeypatch):
 def test_training_guards(variant):
     """Models on the matrix-form kernels (the MXU variants, and "vpu" at
     S = 20) on the CPU: "auto" takes "torch"; "tree" runs kernels 2m + 4m
-    (their plain versions here) in the model's arithmetic; "kernel" and
-    "segmented" raise NotImplementedError naming ROADMAP up front (kernel 3
-    is S = 4 only; no quiet fallback); mxu_bf16 raises ValueError
-    everywhere, as in JAX.  Values within rel 1e-4 of log_likelihood()."""
+    and "segmented" kernels 7m + 8m (their plain versions here) in the
+    model's arithmetic; "kernel" raises NotImplementedError naming ROADMAP
+    up front (kernel 3 is S = 4 only; no quiet fallback); mxu_bf16 raises
+    ValueError everywhere, as in JAX.  Values within rel 1e-4 of
+    log_likelihood()."""
     pt = _port_of(_jax_protein(variant, n_leaves=4, n_sites=128), variant)
     if variant == "mxu_bf16":
         for backend in ("torch", "kernel", "tree", "auto"):
@@ -442,11 +450,9 @@ def test_training_guards(variant):
         return
     with pytest.raises(NotImplementedError, match="kernel 3 is S = 4 only"):
         tree_loglik_fn(pt, backend="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tree_loglik_fn(pt, backend="segmented")
     ll = pt.log_likelihood().log_likelihood
     for backend, engine in (("auto", "torch"), ("torch", "torch"),
-                            ("tree", "tree")):
+                            ("tree", "tree"), ("segmented", "segmented")):
         fn, t0 = tree_loglik_fn(pt, backend=backend)
         assert (fn.engine, fn.variant) == (engine, variant)
         t = torch.tensor(t0, requires_grad=True)

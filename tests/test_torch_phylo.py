@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 from plf_tpu.config import Backend, PLFConfig  # noqa: E402
 from plf_tpu.models import PhyloModel, hky85, jc69, random_tree  # noqa: E402
 from plf_tpu_torch import convert  # noqa: E402
+from plf_tpu_torch.config import Backend as TBackend  # noqa: E402
 from plf_tpu_torch.config import PLFConfig as TCfg  # noqa: E402
 from plf_tpu_torch.models import phylo as TP  # noqa: E402
 from plf_tpu_torch.ops.plf_tree import root_reduce  # noqa: E402
@@ -43,7 +44,7 @@ def _jax_model(variant, n_leaves=7, n_sites=256, seed=12, backend=None,
                       _tips(n_leaves, n_sites, seed), config=cfg, **kw)
 
 
-def _port_of(pm, device="cpu", **kw):
+def _port_of(pm, device="cpu", backend=TBackend.KERNEL, **kw):
     """The port's model of a JAX PhyloModel, through convert.py."""
     n_obs = pm.n_sites_obs
     return convert.phylo_model(
@@ -55,7 +56,7 @@ def _port_of(pm, device="cpu", **kw):
         tip_states=pm.tip_states[:, :n_obs], wgt=pm.wgt[:n_obs],
         ascertainment=pm.ascertainment,
         config=TCfg(block_sites=pm.config.block_sites,
-                    tip_dtype=pm.config.tip_dtype),
+                    tip_dtype=pm.config.tip_dtype, backend=backend),
         device=device, **kw)
 
 
@@ -242,9 +243,9 @@ def test_keep_root_clv_takes_per_node(spies):
 
 
 def test_unported_paths_raise():
-    """The sharded path, bf16 CLV storage and the segmented path of an
-    MXU variant raise; the MXU variants run (on the fused and per-node
-    paths, which agree)."""
+    """The sharded path and bf16 CLV storage raise; the MXU variants run
+    on the fused and per-node paths, which agree, and on the segmented
+    path, which equals the fused one site for site."""
     pt = _port_of(_jax_model("gamma"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.log_likelihood_sharded()
@@ -265,8 +266,42 @@ def test_unported_paths_raise():
         assert fused.scaler_total == pernode.scaler_total
         np.testing.assert_allclose(fused.site_log_likelihood,
                                    pernode.site_log_likelihood, rtol=1e-6)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pv.log_likelihood(method="segmented")
+        seg = pv.log_likelihood(method="segmented")
+        np.testing.assert_array_equal(seg.site_log_likelihood,
+                                      fused.site_log_likelihood)
+
+
+@pytest.mark.parametrize("variant", ["gamma", "lewis", "pinv", "int8"])
+def test_backend_torch_runs_the_plain_path(variant, monkeypatch):
+    """PLFConfig(backend=Backend.TORCH) is the user's choice of the plain
+    path, as Backend.XLA is in the JAX package (plf_tpu/models/
+    phylo.py:445-446, :550, :332): can_fuse and can_segment are False,
+    log_likelihood() runs ops/plf_torch.py node by node and no kernel
+    wrapper is reached (plf_tree, plf_tree_seg and plf_node raise here);
+    "fused" and "segmented" refuse.  Against the JAX Backend.XLA model:
+    equal rescale counts site by site, site log-likelihoods within 5e-5
+    and the total within 5e-5 relative."""
+    def refuse(*a, **k):
+        raise AssertionError("a kernel wrapper was called")
+
+    for name in ("plf_tree", "plf_tree_seg", "plf_node"):
+        monkeypatch.setattr(TP, name, refuse)
+    pm = _jax_model(variant, backend=Backend.XLA)
+    assert not pm.can_fuse() and not pm.can_segment()
+    pt = _port_of(pm, backend=TBackend.TORCH)
+    assert not pt.can_fuse() and not pt.can_segment()
+    ref = pm.log_likelihood()
+    out = pt.log_likelihood()
+    assert out.scaler_total == ref.scaler_total
+    np.testing.assert_array_equal(out.scaler_sites, ref.scaler_sites)
+    np.testing.assert_allclose(out.site_log_likelihood,
+                               ref.site_log_likelihood, rtol=0, atol=5e-5)
+    assert out.log_likelihood == pytest.approx(ref.log_likelihood, rel=5e-5)
+    kept = pt.log_likelihood(keep_root_clv=True)
+    assert kept.root_clv.shape == (pt.config.rows, pt.n_pad)
+    for method in ("fused", "segmented"):
+        with pytest.raises(ValueError, match="Backend.TORCH"):
+            pt.log_likelihood(method=method)
 
 
 # ------------------------------------------------------- module and state --

@@ -327,7 +327,8 @@ def test_tree_loglik_fn_tree_matches_jax(variant, states):
 
 
 class _Stand:
-    """What the auto rule reads of a PhyloModel."""
+    """What the auto rule reads of a PhyloModel (one whose checkpoint the
+    segmented rule never chunks)."""
 
     def __init__(self, device, fits):
         self.device, self._fits = torch.device(device), fits
@@ -335,24 +336,27 @@ class _Stand:
     def can_fuse(self):
         return self._fits
 
+    def can_segment(self):
+        return False
+
 
 def test_routing_of_matrix_form_models():
     """auto: "torch" off the card; on the card "tree" when kernel 2m takes
-    the tree, else NotImplementedError naming ROADMAP's segmented engine
-    (a "vpu" DNA model keeps "kernel").  "kernel" at S != 4 raises, on an
-    MXU variant at S = 4 it runs kernels 1 + 3 and reports "vpu"."""
+    the tree, else "segmented" (kernels 7m + 8m, as the JAX package takes
+    its segmented engine; a "vpu" DNA model keeps "kernel").  "kernel" at
+    S != 4 raises, on an MXU variant at S = 4 it runs kernels 1 + 3 and
+    reports "vpu"; "segmented" runs at S = 20."""
     assert TO._auto_backend(_Stand("cpu", False), True) == "torch"
     assert TO._auto_backend(_Stand("cuda", True), True) == "tree"
     assert TO._auto_backend(_Stand("cuda", False), False) == "kernel"
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 2"):
-        TO._auto_backend(_Stand("cuda", False), True)
+    assert TO._auto_backend(_Stand("cuda", False), True) == "segmented"
     pt = _port_of(_jax_protein("mxu", n_leaves=4, n=128), 20, "mxu")
     fn, _ = TO.tree_loglik_fn(pt)
     assert (fn.engine, fn.variant) == ("torch", "mxu")
     with pytest.raises(NotImplementedError, match="kernel 3 is S = 4 only"):
         TO.tree_loglik_fn(pt, backend="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TO.tree_loglik_fn(pt, backend="segmented")
+    fn, _ = TO.tree_loglik_fn(pt, backend="segmented")
+    assert (fn.engine, fn.variant) == ("segmented", "mxu")
     dna = JPM(jrt(5, seed=2), JS.hky85(2.0),
               np.random.default_rng(2).integers(0, 4, size=(5, 128)),
               alpha=0.5, config=JCfg(block_sites=128, kernel_variant="mxu"))

@@ -25,7 +25,6 @@ from plf_tpu_torch.config import PLFConfig  # noqa: E402
 from plf_tpu_torch.models import optimize as TO  # noqa: E402
 from plf_tpu_torch.ops import plf_tree as TT  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_seg as SG  # noqa: E402
-from plf_tpu_torch.ops.plf_grad import transpose_lane_constants  # noqa: E402
 
 ROWS = 16
 
@@ -258,10 +257,8 @@ def test_plain_backward_matches_jax_vjp(name):
     assert len(plan.segments) == len(f.plan.segments) >= 2
     _, bbuf = _forward(pt, plan, sched)[1:]
     _, (prog, segs, _) = _programs(plan, sched)
-    T = lambda x: transpose_lane_constants(x, 4, 4)
-    args = (pt.codes, prog, segs, pt.lcs, pt.rcs, T(pt.lcs), T(pt.rcs), pt.ec,
-            T(pt.ec), pt.fused_tip_table, pt.root_rows[0],
-            torch.as_tensor(glik), bbuf, n)
+    args = (pt.codes, prog, segs, pt.lcs, pt.rcs, pt.ec, pt.fused_tip_table,
+            pt.root_rows[0], torch.as_tensor(glik), bbuf, n)
     got = SG.plf_tree_seg_bwd_torch(*args)
     eidx = np.asarray([e[5] for e in sched])
     pairs = (("gl", got[0].numpy()[eidx], want[0]),
@@ -313,33 +310,54 @@ def test_tree_loglik_fn_segmented_matches_jax():
 
 
 def test_matrix_form_and_bf16_guards():
-    """The segmented engine runs the vpu form at S = 4: a matrix-form
-    model raises NotImplementedError naming ROADMAP for method="segmented"
-    and backend="segmented", auto serving takes per-node past kernel 2m's
-    capacity, and bf16 CLV storage raises at construction."""
+    """The segmented engine takes a matrix-form model ("mxu" at S = 4
+    here): can_segment is True, method="segmented" equals the fused path
+    site for site and backend="segmented" trains (kernels 7m + 8m, plain,
+    on the CPU), its value equal to the "tree" backend's;
+    make_tree_diff_segmented takes S = 20.  bf16 CLV storage still raises
+    NotImplementedError naming ROADMAP at construction, and "mxu_bf16"
+    still refuses every gradient backend."""
     pm = _jax_model(jrt(5, seed=2), 128, seed=2, variant="mxu")
     pt = _port_of(pm)
-    assert not pt.can_segment()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 2"):
-        pt.log_likelihood(method="segmented")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 2"):
-        TO.tree_loglik_fn(pt, backend="segmented")
+    assert pt.can_segment()
+    seg = pt.log_likelihood(method="segmented")
+    np.testing.assert_array_equal(
+        seg.site_log_likelihood,
+        pt.log_likelihood(method="fused").site_log_likelihood)
+    values = {}
+    for backend in ("segmented", "tree"):
+        fn, t0 = TO.tree_loglik_fn(pt, backend=backend)
+        assert (fn.engine, fn.variant) == (backend, "mxu")
+        with torch.no_grad():
+            values[backend] = float(fn(t0))
+    assert values["segmented"] == values["tree"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         convert.phylo_model(
             pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
             w=pm.model.w, newick="((A,B),C);",
             tip_states=np.zeros((3, 10), np.int32), rates=[1.0],
             config=PLFConfig(dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="vpu form at S = 4"):
-        SG.make_tree_diff_segmented(_schedules(pm)[0], 5, states=20)
+    bf16 = convert.phylo_model(
+        pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
+        w=pm.model.w, newick="((A,B),C);",
+        tip_states=np.zeros((3, 10), np.int32), rates=[1.0],
+        config=PLFConfig(kernel_variant="mxu_bf16"), device="cpu")
+    with pytest.raises(ValueError, match="mxu_bf16"):
+        TO.tree_loglik_fn(bf16, backend="segmented")
+    fn = SG.make_tree_diff_segmented(_schedules(pm)[0], 5, states=20,
+                                     variant="mxu_3x")
+    assert fn.plan.n_edges == 4
 
 
 def test_auto_takes_segmented_where_kernel4_would_chunk():
-    """The card's auto rule for a "vpu" DNA model, on the free device
-    memory it is given: "tree" while kernel 4's checkpoint fits half of it
-    (kernel 4's budget), "segmented" where it would be chunked and kernel
-    8's boundary buffers fit, "tree" again where they do not; never
-    "segmented" for a matrix-form model."""
+    """The card's auto rule, on the free device memory it is given: "tree"
+    while kernel 4's checkpoint fits half of it (kernel 4's budget),
+    "segmented" where it would be chunked and kernel 8's boundary buffers
+    fit, "tree" again where they do not; the same boundaries for an
+    "mxu_3x" model, between kernel 4m's checkpoint and the boundary
+    buffers of kernels 7m and 8m; never for a matrix-form model in fp32
+    ("mxu"), whose "tree" step was the faster one where kernel 4m chunks
+    (PERF.md)."""
     pt = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2))
     plan = pt._segmented_inputs()[0]
     ck4 = len(pt.schedule) * (pt.config.rows * 4 + 1) * pt.n_pad
@@ -349,5 +367,15 @@ def test_auto_takes_segmented_where_kernel4_would_chunk():
     assert TO._segmented_wins(pt, free=2 * ck4 - 2)
     assert TO._segmented_wins(pt, free=bufs)
     assert not TO._segmented_wins(pt, free=bufs - 1)
-    mxu = _port_of(_jax_model(jrt(5, seed=2), 128, seed=2, variant="mxu"))
-    assert not TO._segmented_wins(mxu, free=1)
+    mxu_3x = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2,
+                                 variant="mxu_3x"))
+    plan = mxu_3x._segmented_inputs()[0]
+    assert plan.n_boundaries > 0
+    ck4 = len(mxu_3x.schedule) * (mxu_3x.config.rows * 4 + 1) * mxu_3x.n_pad
+    bufs = 2 * plan.n_boundaries * mxu_3x.config.rows * 4 * mxu_3x.n_pad
+    assert not TO._segmented_wins(mxu_3x, free=2 * ck4)
+    assert TO._segmented_wins(mxu_3x, free=2 * ck4 - 2)
+    assert TO._segmented_wins(mxu_3x, free=bufs)
+    assert not TO._segmented_wins(mxu_3x, free=bufs - 1)
+    mxu = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2, variant="mxu"))
+    assert not TO._segmented_wins(mxu, free=bufs)
