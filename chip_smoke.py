@@ -51,6 +51,14 @@ plans cut at three caps), ``log_likelihood(method="segmented")`` (kernel
 kernel 4m's checkpoint runs in chunks, with the auto rule's choice there,
 and a ``Backend.TORCH`` model on the card against the kernel path.
 
+bf16 CLV storage (``PLFConfig(dtype="bfloat16")``, phase ``bf16``): each
+bf16 storage form through its main path (``PLFEngine.plf`` for kernels 1
+and 1m; ``log_likelihood(method="segmented")`` and a "segmented" step for
+kernels 7 + 8 at 160 x 2^20 and 7m + 8m at 64 x 131,072) and against its
+plain version bit for bit (kernel 1 at 2^24 sites, 1m at 2^21, S = 61 at
+8,192 codons), its results against the fp32 model's within the JAX
+package's bf16 classes, timed beside its fp32 form.
+
 A profile phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
 idle share, the top kernels) and times kernel 2 at the occupancy its
@@ -64,11 +72,13 @@ non-zero; without a CUDA device it fails at once and prints no result.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -84,7 +94,8 @@ from plf_tpu_torch.models.phylo import LIK_FLOOR
 from plf_tpu_torch.ops import layout as L
 from plf_tpu_torch.ops import plf_grad, plf_mxu, plf_tree_grad
 from plf_tpu_torch.ops import plf_node as node_mod, plf_tree as tree_mod
-from plf_tpu_torch.ops._build import build_libraries, build_log
+from plf_tpu_torch.ops._build import (build_libraries, build_log,
+                                      storage_library)
 from plf_tpu_torch.ops.plf_grad import (plf_node_bwd, plf_node_bwd_torch,
                                         transpose_lane_constants)
 from plf_tpu_torch.ops.plf_mxu import plf_node_mxu, plf_node_mxu_torch
@@ -288,6 +299,12 @@ def device_phase():
     return name
 
 
+#: The kernels with a bf16 CLV storage form, each built into a second
+#: library of its own (plf_tpu_torch/ops/_build.py).
+BF16_STORAGE = ("plf_node", "plf_node_mxu", "plf_tree_seg",
+                "plf_tree_seg_bwd", "plf_tree_seg_mxu", "plf_tree_seg_bwd_mxu")
+
+
 def build_phase():
     mods = {"plf_node": node_mod._lib, "plf_tree": tree_mod._lib,
             "plf_node_bwd": plf_grad._lib, "plf_tree_bwd": plf_tree_grad._lib,
@@ -296,6 +313,9 @@ def build_phase():
             "plf_tree_seg": seg_mod._lib, "plf_tree_seg_bwd": seg_mod._lib_bwd,
             "plf_tree_seg_mxu": seg_mod._lib_mxu,
             "plf_tree_seg_bwd_mxu": seg_mod._lib_bwd_mxu}
+    for name in BF16_STORAGE:
+        mods[storage_library(name, True)] = functools.partial(mods[name],
+                                                              True)
     t0 = time.perf_counter()
     build_libraries(list(mods))
     phase("build", f"{len(mods)} libraries, one nvcc each in parallel: "
@@ -567,13 +587,25 @@ COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
            plf_tree_seg_mxu, plf_tree_seg_bwd_mxu)
 
 
+#: The wrappers with a bf16 CLV storage form, which count its launches in
+#: ``bf16_launches`` too.
+BF16_COUNTED = (plf_node, plf_node_mxu, plf_tree_seg, plf_tree_seg_bwd,
+                plf_tree_seg_mxu, plf_tree_seg_bwd_mxu)
+
+
 def _reset_counts():
     for f in COUNTED:
         f.launches = 0
+    for f in BF16_COUNTED:
+        f.bf16_launches = 0
 
 
 def _counts():
     return {f.__name__: f.launches for f in COUNTED}
+
+
+def _bf16_counts():
+    return {f.__name__: f.bf16_launches for f in BF16_COUNTED}
 
 
 def train_phase(dev, tree, tips, pm):
@@ -1334,26 +1366,31 @@ def seg_inputs(pm):
     return plan, (prog, segs, n_slots), bwd
 
 
+def storage_bytes(pm):
+    """Bytes of one CLV element in the model's storage (``dtype``)."""
+    return 2 if pm.config.dtype == "bfloat16" else 4
+
+
 def seg_fwd_bound(pm, plan):
     """Kernel 7's (7m's) bound: the tip codes read, lik and sc and every
-    boundary CLV written once, against kernel 2's (2m's) operations in the
-    model's arithmetic."""
+    boundary CLV written once (in the model's storage), against kernel
+    2's (2m's) operations in the model's arithmetic."""
     S, C = pm.config.states, pm.config.categories
     fwd, rate = node_work(S, C, pm.config.resolved_kernel_variant)
     per_site = (pm.codes.element_size() * pm.tree.n_leaves + 8
-                + 4 * pm.config.rows * plan.n_boundaries)
+                + storage_bytes(pm) * pm.config.rows * plan.n_boundaries)
     return bound(per_site * pm.n_pad, len(pm.schedule) * fwd * pm.n_pad, rate)
 
 
 def seg_bwd_bound(pm, plan):
-    """Kernel 8's (8m's) bound: the tip codes, the boundary CLVs and the
-    cotangent read once, against the whole-tree VJP's operations in the
-    model's arithmetic."""
+    """Kernel 8's (8m's) bound: the tip codes, the boundary CLVs (in the
+    model's storage) and the cotangent read once, against the whole-tree
+    VJP's operations in the model's arithmetic."""
     flops, rate = tree_bwd_work(pm.config.states, pm.config.categories,
                                 len(pm.schedule),
                                 pm.config.resolved_kernel_variant)
     per_site = (pm.codes.element_size() * pm.tree.n_leaves + 4
-                + 4 * pm.config.rows * plan.n_boundaries)
+                + storage_bytes(pm) * pm.config.rows * plan.n_boundaries)
     return bound(per_site * pm.n_pad, flops * pm.n_pad, rate)
 
 
@@ -1362,7 +1399,8 @@ def _seg_args(pm, fwd):
     return ((pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
              pm.root_rows[0], pm.n_sites),
             dict(n_boundaries=pm._segmented_inputs()[0].n_boundaries,
-                 n_slots=n_slots, categories=pm.config.categories))
+                 n_slots=n_slots, categories=pm.config.categories,
+                 dtype=getattr(torch, pm.config.dtype)))
 
 
 def kernel7_phase(dev, pm):
@@ -1410,9 +1448,18 @@ def kernel7_phase(dev, pm):
 
 def kernel8_phase(pm):
     """Kernel 8 against its plain version at the tree workload (160 taxa x
-    2^20), with a real step's cotangent: the boundary adjoints bit for
+    2^20), kernel8_against, then the plans of seg_cap_probe."""
+    res, glik = kernel8_against(pm)
+    seg_cap_probe(pm, glik)
+    return res
+
+
+def kernel8_against(pm, name="kernel8"):
+    """Kernel 8 against its plain version on the model's own plan and
+    storage, with a real step's cotangent: the boundary adjoints bit for
     bit, the site sums within SEG_SUM_RTOL of scale, two runs
-    bit-identical; its time and checkpoint beside kernel 4's."""
+    bit-identical; its time and checkpoint beside kernel 4's.  Prints
+    under phase ``name``; returns its entry and the cotangent."""
     plan, fwd, (bprog, bsegs) = seg_inputs(pm)
     args, kw = _seg_args(pm, fwd)
     lik, _, bbuf = plf_tree_seg(*args, **kw)
@@ -1443,22 +1490,23 @@ def kernel8_phase(pm):
     resident = seg_mod._resident_blocks(pm.device, pm.codes.element_size(),
                                         pm.config.categories,
                                         pm.fused_tip_table.shape[1],
-                                        plan.seg_ops)
+                                        plan.seg_ops, bbuf.dtype == BF16)
     sms = torch.cuda.get_device_properties(pm.device).multi_processor_count
-    phase("kernel8", f"{E} nodes x {pm.n_sites} sites, {len(plan.segments)} "
+    phase(name, f"{E} nodes x {pm.n_sites} sites, {pm.config.dtype} "
+          f"storage, {len(plan.segments)} "
           f"segments of at most {plan.seg_ops} ops: boundary adjoints == "
           f"plain bit for bit, gl/gr/gec/grr within {max(errs):.2e} of scale "
           f"(max abs {abs_err:.3g}), bit-identical run to run; "
           f"{resident // sms} blocks of {seg_mod.SEG_SITES} threads per SM; "
-          f"device-memory checkpoint {bbuf.numel() * 4 / 1e9:.3f} GB "
+          f"device-memory checkpoint "
+          f"{bbuf.numel() * bbuf.element_size() / 1e9:.3f} GB "
           f"({plan.n_boundaries} boundaries) against kernel 4's "
           f"{ck4 / 1e9:.2f} GB; kernel {ms:.3f} ms (bound "
           f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}), plain "
           f"{plain_ms:.1f} ms")
     del bbuf, lik
     torch.cuda.empty_cache()
-    seg_cap_probe(pm, glik)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **bd)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, **bd), glik
 
 
 def seg_cap_probe(pm, glik):
@@ -1634,13 +1682,15 @@ def _seg_mxu_args(pm, plan, fwd):
              pm.root_rows[0], pm.n_sites),
             dict(n_boundaries=plan.n_boundaries, n_slots=n_slots,
                  states=cfg.states, categories=cfg.categories,
-                 variant=cfg.resolved_kernel_variant, planes=pm._planes()))
+                 variant=cfg.resolved_kernel_variant, planes=pm._planes(),
+                 dtype=getattr(torch, cfg.dtype)))
 
 
-def kernel7m_against(pm, label, plain=True):
-    """Kernel 7m on the model's own plan against kernel 2m (lik and sc)
-    and, with ``plain``, its plain version (lik, sc and every boundary
-    CLV), bit for bit; its time beside kernel 2m's."""
+def kernel7m_against(pm, label, plain=True, name="kernel7m"):
+    """Kernel 7m on the model's own plan against kernel 2m (lik and sc;
+    with fp32 boundaries only) and, with ``plain``, its plain version
+    (lik, sc and every boundary CLV), bit for bit; its time beside kernel
+    2m's.  Prints under phase ``name``."""
     cfg = pm.config
     plan, fwd, _ = seg_inputs(pm)
     args, kw = _seg_mxu_args(pm, plan, fwd)
@@ -1651,8 +1701,13 @@ def kernel7m_against(pm, label, plain=True):
                categories=cfg.categories,
                variant=cfg.resolved_kernel_variant, planes=pm._planes())
     ref = plf_tree_mxu(*kargs, **kkw)
-    check(torch.equal(lik, ref[0]) and torch.equal(sc, ref[1]),
-          f"kernel 7m != kernel 2m ({label}, {kw['variant']})")
+    rounded = kw["dtype"] != torch.float32 and plan.n_boundaries > 0
+    if rounded:
+        check(not torch.equal(lik, ref[0]),
+              f"kernel 7m with bf16 boundaries == kernel 2m ({label})")
+    else:
+        check(torch.equal(lik, ref[0]) and torch.equal(sc, ref[1]),
+              f"kernel 7m != kernel 2m ({label}, {kw['variant']})")
     plain_ms, note = None, ""
     if plain:
         want, plain_ms = timed(lambda: plf_tree_seg_torch(*args, **kw))
@@ -1664,10 +1719,12 @@ def kernel7m_against(pm, label, plain=True):
     ms = cuda_ms(lambda: plf_tree_seg_mxu(*args, **kw), reps=3, warmup=1)
     ms2 = cuda_ms(lambda: plf_tree_mxu(*kargs, **kkw), reps=3, warmup=1)
     bd = seg_fwd_bound(pm, plan)
-    phase("kernel7m", f"{label}, {kw['variant']}: {pm.tree.n_leaves} taxa x "
+    same = (f"{cfg.dtype} boundaries, lik != kernel 2m's" if rounded
+            else "lik and sc == kernel 2m")
+    phase(name, f"{label}, {kw['variant']}: {pm.tree.n_leaves} taxa x "
           f"{pm.n_sites} sites, S={cfg.states}: {len(plan.segments)} "
           f"segments (at most {plan.seg_ops} ops), {fwd[2]} arena slots; "
-          f"lik and sc == kernel 2m{note}, bit for bit ({int(sc.sum())} "
+          f"{same}{note}, bit for bit ({int(sc.sum())} "
           f"rescales); kernel {ms:.3f} ms (kernel 2m {ms2:.3f} ms; bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']})"
           + ("" if plain_ms is None else f", plain {plain_ms:.1f} ms"))
@@ -1693,12 +1750,12 @@ def kernel7m_phase(models, codon, dev):
     return res
 
 
-def kernel8m_against(pm, glik, label, chunks=False):
+def kernel8m_against(pm, glik, label, chunks=False, name="kernel8m"):
     """Kernel 8m against its plain version on the model's own plan:
     boundary adjoints bit for bit, site sums within SEG_MXU_SUM_RTOL of
     scale (with ``chunks`` also under a quarter of the one-chunk
     checkpoint), bit-identical run to run; its time and memory beside
-    kernel 4m's."""
+    kernel 4m's.  Prints under phase ``name``."""
     cfg = pm.config
     plan, fwd, (bprog, bsegs) = seg_inputs(pm)
     args, kw = _seg_mxu_args(pm, plan, fwd)
@@ -1741,7 +1798,7 @@ def kernel8m_against(pm, glik, label, chunks=False):
                                               **bkw), reps=3, warmup=1)
     bd = seg_bwd_bound(pm, plan)
     ck4 = tree_bwd_scratch_bytes(len(pm.schedule), cfg.rows, pm.n_pad)
-    phase("kernel8m", f"{label}, {kw['variant']}: {len(pm.schedule)} nodes x "
+    phase(name, f"{label}, {kw['variant']}: {len(pm.schedule)} nodes x "
           f"{pm.n_sites} sites, S={cfg.states}, {len(plan.segments)} "
           f"segments of at most {plan.seg_ops} ops: boundary adjoints == "
           f"plain bit for bit, gl/gr/gec/grr within {max(errs):.2e} of scale "
@@ -1749,7 +1806,8 @@ def kernel8m_against(pm, glik, label, chunks=False):
           f"{chunking['blocks']} blocks, accumulators in "
           f"{'shared' if chunking['acc_shared'] else 'device'} memory; "
           f"device memory: op checkpoint {chunking['bytes'] / 1e9:.3f} GB, "
-          f"boundaries and adjoints {2 * bbuf.numel() * 4 / 1e9:.3f} GB "
+          f"boundaries and adjoints "
+          f"{2 * bbuf.numel() * bbuf.element_size() / 1e9:.3f} GB "
           f"({plan.n_boundaries} boundaries) against kernel 4m's "
           f"{ck4 / 1e9:.2f} GB; kernel {ms:.3f} ms (bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}), plain "
@@ -1947,6 +2005,298 @@ def protein_segmented_phase(models, dev):
     return launches
 
 
+# ------------------------------------------------------ bf16 CLV storage --
+
+BF16 = torch.bfloat16
+#: A bf16-storage result against the fp32 model's: the value within this
+#: share (tests/test_tree_seg.py:416), the gradient within BF16_GRAD_REL of
+#: each entry with a BF16_GRAD_FLOOR floor (:449-450), the JAX package's
+#: classes for its own bf16 storage.
+BF16_LL_REL = 5e-3
+BF16_GRAD_REL, BF16_GRAD_FLOOR = 0.05, 1e-2
+
+
+def _main_path(run):
+    """``run()`` with every launch count set to 0 just before; returns its
+    result, the launches it made (either storage) and the bf16 ones."""
+    _reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, {k: c for k, c in _counts().items() if c},
+            {k: c for k, c in _bf16_counts().items() if c})
+
+
+def _bf16_grad_err(g16, g32):
+    g16, g32 = np.asarray(g16, np.float64), np.asarray(g32, np.float64)
+    return float(np.max(np.abs(g16 - g32) / (np.abs(g32) + BF16_GRAD_FLOOR)))
+
+
+def bf16_kernel1(dev, node_case):
+    """Kernel 1's bf16 form: PLFEngine(dtype="bfloat16").plf on the
+    forced-underflow case (the main path: the bf16 kernel once), x3 the
+    bf16 rounding of the fp32 kernel's (golden-exact) x3 on the rounded
+    inputs; then at 2^24 sites == the plain version bit for bit, out of
+    place and in place, timed beside the fp32 form and a same-run 2R+1W
+    probe of the same bf16 bytes."""
+    x1, x2, left, right, ev = node_case
+    eng = PLFEngine(PLFConfig(dtype="bfloat16"), device=dev)
+    out, ran, ran16 = _main_path(lambda: eng.plf(x1, x2, left, right, ev))
+    check(ran == ran16 == {"plf_node": 1},
+          f"PLFEngine.plf under bf16 launched {ran} ({ran16} bf16)")
+    rnd = lambda a: torch.as_tensor(a).to(BF16).float().numpy()
+    f32 = PLFEngine(PLFConfig(), device=dev).plf(rnd(x1), rnd(x2), left,
+                                                 right, ev)
+    n_flag = int(out.scaler_vector.sum())
+    check(out.x3.dtype == BF16 and torch.equal(out.x3, f32.x3.to(BF16))
+          and torch.equal(out.scaler_vector, f32.scaler_vector)
+          and n_flag > 0, "PLFEngine.plf under bf16 != bf16 of the fp32 "
+          "kernel on the rounded inputs")
+    phase("bf16", f"PLFEngine(dtype='bfloat16').plf, forced-underflow "
+          f"case, {len(x1)} sites: bf16 kernel 1 once ({ran16}); x3 bf16 == "
+          f"bf16 of the fp32 kernel's x3 on the rounded inputs, flags equal "
+          f"({n_flag} rescaled)")
+    del out, f32
+    nb = NODE_SITES_BIG
+    nb_pad = L.sites_padding(nb, UNIT)
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.rand((16, nb_pad), generator=g, device=dev)
+    b = torch.rand((16, nb_pad), generator=g, device=dev)
+    a[:, 0::4] *= 1e-12
+    a[:, nb:] = 0.0
+    b[:, nb:] = 0.0
+    a16, b16 = a.to(BF16), b.to(BF16)
+    lc, rc, ec = lane_constants(left, right, ev, dev)
+    x3k, sck = plf_node(a16, b16, lc, rc, ec, nb)
+    x3p, scp = plf_node_torch(a16, b16, lc, rc, ec, nb)
+    x3f, scf = plf_node(a16.float(), b16.float(), lc, rc, ec, nb)
+    a2 = a16.clone()
+    x3i, sci = plf_node(a2, b16, lc, rc, ec, nb, out=a2)
+    torch.cuda.synchronize()
+    check(torch.equal(x3k, x3p) and torch.equal(sck, scp)
+          and x3i.data_ptr() == a2.data_ptr() and torch.equal(x3i, x3p)
+          and torch.equal(sci, scp), "kernel 1 (bf16) != plain at 2^24")
+    check(torch.equal(x3k, x3f.to(BF16)) and torch.equal(sck, scf),
+          "kernel 1 (bf16) != bf16 of kernel 1 (fp32) on the widened inputs")
+    n_flag = int(sck.sum())
+    del x3p, scp, x3f, scf, a2, x3i, sci
+    torch.cuda.empty_cache()
+    ms16 = cuda_ms(lambda: plf_node(a16, b16, lc, rc, ec, nb), reps=20)
+    ms32 = cuda_ms(lambda: plf_node(a, b, lc, rc, ec, nb), reps=20)
+    c16 = torch.empty_like(a16)
+    ms_probe = cuda_ms(lambda: torch.add(a16, b16, out=c16), reps=20)
+    ms_plain = cuda_ms(lambda: plf_node_torch(a16, b16, lc, rc, ec, nb),
+                       reps=3, warmup=1)
+    fwd, _ = node_work(4, 4)
+    bd = bound(100 * nb_pad, fwd * nb_pad, FP32_FLOPS)
+    gbs = 100 * nb_pad / (ms16 * 1e-3) / 1e9
+    probe_gbs = 3 * a16.numel() * 2 / (ms_probe * 1e-3) / 1e9
+    phase("bf16", f"kernel 1, bf16 storage, {nb} sites: == plain out of "
+          f"place and in place ({n_flag} rescaled); kernel {ms16:.4f} ms "
+          f"({gbs:.0f} GB/s at 100 B/site, {100 * gbs / probe_gbs:.1f}% of a "
+          f"same-run bf16 2R+1W torch.add probe at {probe_gbs:.0f} GB/s; "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}); fp32 form "
+          f"{ms32:.4f} ms; plain {ms_plain:.3f} ms")
+    del a, b, a16, b16, c16, x3k, sck
+    torch.cuda.empty_cache()
+    return dict(launches=ran16["plf_node"], ms=ms16, plain_ms=ms_plain,
+                max_abs_err=0.0, **bd)
+
+
+def bf16_kernel1m(dev):
+    """Kernel 1m's bf16 form in "mxu_3x" at S = 20 on 2^21 sites: == the
+    plain version bit for bit, out of place and in place, timed beside the
+    fp32 form; then PLFEngine(states=20, "mxu_3x", dtype="bfloat16").plf on
+    its first 65,536 sites (the main path: the bf16 kernel once), equal
+    to it site for site."""
+    S, C, n = 20, 4, NODE_MXU_SITES
+    a, b, (left, right, ev), (lc, rc, ec) = _mxu_case(dev, n, S, C, 21)
+    a16, b16 = a.to(BF16), b.to(BF16)
+    kw = dict(states=S, categories=C, variant="mxu_3x")
+    x3k, sck = plf_node_mxu(a16, b16, lc, rc, ec, n, **kw)
+    x3p, scp = plf_node_mxu_torch(a16, b16, lc, rc, ec, n, **kw)
+    b2 = b16.clone()
+    x3i, sci = plf_node_mxu(a16, b2, lc, rc, ec, n, out=b2, **kw)
+    torch.cuda.synchronize()
+    n_flag = int(sck.sum())
+    check(torch.equal(x3k, x3p) and torch.equal(sck, scp)
+          and torch.equal(x3i, x3p) and torch.equal(sci, scp) and n_flag > 0,
+          "kernel 1m (bf16, mxu_3x) != plain version")
+    del x3p, scp, b2, x3i, sci
+    m = NODE_MXU_GOLDEN
+    site_major = lambda t: np.ascontiguousarray(
+        L.from_lane_major(t[:, :m].float().cpu().numpy(), S, C))
+    eng = PLFEngine(PLFConfig(states=S, kernel_variant="mxu_3x",
+                              dtype="bfloat16"), device=dev)
+    out, ran, ran16 = _main_path(lambda: eng.plf(
+        site_major(a16), site_major(b16), left, right, ev))
+    check(ran == ran16 == {"plf_node_mxu": 1},
+          f"PLFEngine.plf (S=20, bf16) launched {ran} ({ran16} bf16)")
+    check(out.x3.dtype == BF16 and np.array_equal(
+        out.x3.float().cpu().numpy(), site_major(x3k)),
+        "PLFEngine.plf (S=20, bf16) != kernel 1m")
+    torch.cuda.empty_cache()
+    ms16 = cuda_ms(lambda: plf_node_mxu(a16, b16, lc, rc, ec, n, **kw),
+                   reps=10)
+    ms32 = cuda_ms(lambda: plf_node_mxu(a, b, lc, rc, ec, n, **kw), reps=10)
+    ms_plain = cuda_ms(lambda: plf_node_mxu_torch(a16, b16, lc, rc, ec, n,
+                                                  **kw), reps=2, warmup=1)
+    n_pad = a.shape[1]
+    site_bytes = 3 * S * C * 2 + 4
+    flops, rate = node_work(S, C, "mxu_3x")
+    bd = bound(site_bytes * n_pad, flops * n_pad, rate)
+    phase("bf16", f"kernel 1m, bf16 storage, mxu_3x, S={S} C={C}, {n} "
+          f"sites: == plain out of place and in place ({n_flag} rescaled); "
+          f"PLFEngine.plf on {m} sites: bf16 kernel 1m once ({ran16}), == "
+          f"it; kernel {ms16:.4f} ms (bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} at {site_bytes} B/site); fp32 form "
+          f"{ms32:.4f} ms; plain {ms_plain:.3f} ms")
+    del a, b, a16, b16, x3k, sck
+    torch.cuda.empty_cache()
+    return dict(launches=ran16["plf_node_mxu"], ms=ms16, plain_ms=ms_plain,
+                max_abs_err=0.0, **bd)
+
+
+def bf16_step(pm16, pm32, dev, label):
+    """The "segmented" value-and-gradient step of a bf16 model (the main
+    path: the bf16 forms of the model's segmented kernels once each) and
+    of its fp32 twin: the bf16 tree_loglik_fn warns naming bf16, the value
+    differs from the fp32 step's within BF16_LL_REL, the gradient within
+    BF16_GRAD_REL; both step times in turns (fp32, bf16, bf16, fp32)."""
+    fn32, t0 = tree_loglik_fn(pm32, backend="segmented")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        fn16, _ = tree_loglik_fn(pm16, backend="segmented")
+    check(any("bf16" in str(x.message) for x in w),
+          f"{label}: no bf16 warning from tree_loglik_fn")
+    (v16, g16), ran, ran16 = _main_path(lambda: _grad_step(fn16, t0, dev))
+    v32, g32 = _grad_step(fn32, t0, dev)
+    g16, g32 = g16.cpu().numpy(), g32.cpu().numpy()
+    rel = abs(v16 / v32 - 1)
+    err = _bf16_grad_err(g16, g32)
+    check(ran == ran16 and len(ran) == 2 and set(ran.values()) == {1}
+          and fn16.engine == "segmented",
+          f"{label}: the bf16 'segmented' step launched {ran} ({ran16} bf16)")
+    check(v16 != v32 and rel < BF16_LL_REL and np.isfinite(g16).all()
+          and err < BF16_GRAD_REL,
+          f"{label}: bf16 step value rel {rel}, gradient {err}")
+    times = {"fp32": [], "bf16": []}
+    for d in ("fp32", "bf16", "bf16", "fp32"):
+        fn = fn16 if d == "bf16" else fn32
+        times[d].append(_median_ms(lambda: _grad_step(fn, t0, dev), reps=3))
+    return ran16, (f"'segmented' step: bf16 kernels {ran16}, value rel "
+                   f"{rel:.2e} to fp32's, gradient within {err:.3e} (floor "
+                   f"{BF16_GRAD_FLOOR}); step {times['bf16']} ms against fp32 "
+                   f"{times['fp32']} ms wall (medians of 3, in turns)")
+
+
+def bf16_dna_segmented(dev, tree, tips, pm):
+    """The DNA segmented paths under bf16 at 160 taxa x 2^20: log_likelihood
+    (method="segmented") (the bf16 kernel 7 once) differs from the fp32
+    model's within BF16_LL_REL; kernel 7's lik, sc and every bf16
+    boundary == plain bit for bit; the "segmented" step (bf16_step);
+    kernel 8 (kernel8_against).  The fp32 forms are timed on the same
+    model in phases kernel7 and kernel8 of the same run."""
+    t0 = time.perf_counter()
+    pm16 = PhyloModel(tree, hky85(2.0), tips, alpha=0.5, device=dev,
+                      config=PLFConfig(dtype="bfloat16"))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    seg16, ran, ran16 = _main_path(
+        lambda: pm16.log_likelihood(method="segmented"))
+    check(ran == ran16 == {"plf_tree_seg": 1},
+          f"method='segmented' under bf16 launched {ran} ({ran16} bf16)")
+    ll32 = pm.log_likelihood(method="segmented").log_likelihood
+    rel = abs(seg16.log_likelihood / ll32 - 1)
+    check(seg16.log_likelihood != ll32 and rel < BF16_LL_REL,
+          f"bf16 segmented ll {seg16.log_likelihood} vs fp32 {ll32}")
+    plan, fwd, _ = seg_inputs(pm16)
+    args, kw = _seg_args(pm16, fwd)
+    lik, sc, bbuf = plf_tree_seg(*args, **kw)
+    plain, plain_ms = timed(lambda: plf_tree_seg_torch(*args, **kw))
+    check(bbuf.dtype == BF16 and all(
+        torch.equal(a, b) for a, b in zip((lik, sc, bbuf), plain)),
+        "kernel 7 (bf16) != its plain version")
+    del plain, lik, sc
+    ms = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=5)
+    bd = seg_fwd_bound(pm16, plan)
+    phase("bf16", f"{pm16.tree.n_leaves} taxa x {pm16.n_sites} sites (model "
+          f"built in {built:.1f} s): log_likelihood(method='segmented') "
+          f"{seg16.log_likelihood:.6f}, bf16 kernel 7 once ({ran16}), rel "
+          f"{rel:.2e} to fp32's {ll32:.6f}; kernel 7 lik, sc and "
+          f"{plan.n_boundaries} bf16 boundaries == plain bit for bit; "
+          f"boundaries {bbuf.numel() * 2 / 1e9:.3f} GB against fp32's "
+          f"{bbuf.numel() * 4 / 1e9:.3f} GB; kernel {ms:.3f} ms (bound "
+          f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}), plain "
+          f"{plain_ms:.1f} ms")
+    del bbuf
+    step16, line = bf16_step(pm16, pm, dev, "DNA")
+    phase("bf16", f"{pm16.tree.n_leaves} taxa x {pm16.n_sites} sites, "
+          f"{line}")
+    k8, _ = kernel8_against(pm16, name="bf16")
+    del pm16
+    torch.cuda.empty_cache()
+    k8["launches"] = step16["plf_tree_seg_bwd"]
+    return dict(launches=ran16["plf_tree_seg"], ms=ms, plain_ms=plain_ms,
+                max_abs_err=0.0, **bd), k8
+
+
+def bf16_protein_segmented(dev, models, codon):
+    """The matrix forms under bf16: the default protein model's twin with
+    dtype="bfloat16" at 64 x 131,072 ("mxu_3x"): log_likelihood(method=
+    "segmented") (the bf16 kernel 7m once) against the fp32 model's, the
+    "segmented" step (bf16_step), kernels 7m and 8m == plain bit for bit
+    (kernel7m_against, kernel8m_against); then kernels 7m and 8m at S = 61
+    on the first 8,192 codons of the codon workload."""
+    ref = models["mxu_3x"]
+    cfg16 = PLFConfig(states=20, kernel_variant="mxu_3x", dtype="bfloat16")
+    pm16 = PhyloModel(ref.tree, ref.model, ref.tip_states, alpha=0.5,
+                      device=dev, config=cfg16)
+    seg16, ran, ran16 = _main_path(
+        lambda: pm16.log_likelihood(method="segmented"))
+    check(ran == ran16 == {"plf_tree_seg_mxu": 1},
+          f"protein method='segmented' under bf16 launched {ran}")
+    ll32 = ref.log_likelihood(method="segmented").log_likelihood
+    rel = abs(seg16.log_likelihood / ll32 - 1)
+    check(seg16.log_likelihood != ll32 and rel < BF16_LL_REL,
+          f"protein bf16 segmented ll {seg16.log_likelihood} vs {ll32}")
+    step16, line = bf16_step(pm16, ref, dev, "protein")
+    phase("bf16", f"protein {PROT_TAXA} x {PROT_SITES}, mxu_3x: "
+          f"log_likelihood(method='segmented') {seg16.log_likelihood:.6f}, "
+          f"bf16 kernel 7m once ({ran16}), rel {rel:.2e} to fp32's; {line}")
+    k7 = kernel7m_against(pm16, "protein, bf16 storage", name="bf16")
+    k8 = kernel8m_against(pm16, step_cotangent(ref), "protein, bf16 storage",
+                          name="bf16")
+    del pm16
+    tree, tips, gy, _ = codon
+    cpm = PhyloModel(tree, gy, tips[:, :CODON_K4_SITES], alpha=0.7,
+                     device=dev, config=PLFConfig(
+                         states=61, kernel_variant="mxu_3x",
+                         dtype="bfloat16"))
+    kernel7m_against(cpm, "codon, bf16 storage", name="bf16")
+    kernel8m_against(cpm, step_cotangent(cpm), "codon, bf16 storage",
+                     name="bf16")
+    del cpm
+    torch.cuda.empty_cache()
+    k7["launches"] = ran16["plf_tree_seg_mxu"]
+    k8["launches"] = step16["plf_tree_seg_bwd_mxu"]
+    return k7, k8
+
+
+def bf16_phase(dev, tree, tips, pm, node_case, models, codon):
+    """bf16 CLV storage (PLFConfig(dtype="bfloat16")) on the card, each of
+    the six bf16 storage forms through its main path and against its plain
+    version; returns their entries for the kernels line."""
+    t0 = time.perf_counter()
+    res = {"plf_node": bf16_kernel1(dev, node_case),
+           "plf_node_mxu": bf16_kernel1m(dev)}
+    res["plf_tree_seg"], res["plf_tree_seg_bwd"] = bf16_dna_segmented(
+        dev, tree, tips, pm)
+    res["plf_tree_seg_mxu"], res["plf_tree_seg_bwd_mxu"] = (
+        bf16_protein_segmented(dev, models, codon))
+    phase("bf16", f"phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def _median_ms(fn, reps=5):
     """Median host-clock time of ``fn`` in ms, the device synchronised
     before and after each run."""
@@ -2082,6 +2432,7 @@ def main():
     k7m = kernel7m_phase(models, codon, dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))
+    k16 = bf16_phase(dev, tree, tips, pm, node_case, models, codon)
 
     # Bounds of the DNA kernels at the shapes their times were taken at:
     # kernels 1 and 3 at 2^20 sites, kernels 2 and 4 at 160 taxa x 2^20.
@@ -2097,7 +2448,8 @@ def main():
     k4.update(tree_bwd_bound(pm))
     entry = lambda kname, src, replaces, r: dict(
         name=kname, route="cuda", source=f"plf_tpu_torch/csrc/{src}",
-        replaces=replaces, launches=launches[kname],
+        replaces=replaces,
+        launches=r["launches"] if "launches" in r else launches[kname],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
     kernels = [
@@ -2123,6 +2475,15 @@ def main():
         entry("plf_tree_seg_bwd_mxu", "plf_tree_seg_bwd_mxu.cu",
               "plf_tpu/ops/plf_tree_seg.py:843", k8m["mxu_3x"]),
     ]
+    replaces = {"plf_node": "plf_pallas.py:78",
+                "plf_node_mxu": "plf_pallas.py:233",
+                "plf_tree_seg": "plf_tree_seg.py:383",
+                "plf_tree_seg_bwd": "plf_tree_seg.py:843",
+                "plf_tree_seg_mxu": "plf_tree_seg.py:383",
+                "plf_tree_seg_bwd_mxu": "plf_tree_seg.py:843"}
+    kernels += [entry(f"{k}:bf16_storage", f"{k}.cu",
+                      f"plf_tpu/ops/{replaces[k]}", k16[k])
+                for k in replaces]
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: {launches}")
     phase("peak", f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "

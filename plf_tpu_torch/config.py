@@ -39,7 +39,9 @@ class PLFConfig:
     categories: int = 4        # gamma rate categories
     block_sites: int = 4096    # site padding unit (multiple of 128)
     backend: Backend = Backend.KERNEL
-    dtype: str = "float32"     # CLV storage; only float32 is ported
+    dtype: str = "float32"     # CLV storage: "float32" or "bfloat16" (fp32
+                               # arithmetic; honoured by PLFEngine.plf and
+                               # the segmented engine's boundaries)
     tip_dtype: str = "int32"   # tip state-code storage: "int32" or "int8"
     kernel_variant: str = "vpu"  # "vpu" (bit-exact elementwise), "mxu"
                                  # (fp32), "mxu_3x" (bf16x3), "mxu_bf16"
@@ -71,14 +73,6 @@ class PLFConfig:
         if self.kernel_variant != "auto":
             return self.kernel_variant
         return "vpu" if self.states <= 8 else "mxu_3x"
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for settings whose kernels are not
-        ported yet (ROADMAP.md, Queue 1).  Every kernel variant runs."""
-        if self.dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 CLV storage (kernel 1, the segmented engine's "
-                "boundaries) is not ported yet (ROADMAP.md, Queue 1 item 7)")
 
     @property
     def elements_per_site(self) -> int:

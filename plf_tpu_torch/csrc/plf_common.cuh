@@ -12,8 +12,18 @@
 // (__fmul_rn / __fadd_rn are never contracted into an FMA), so the result is
 // bit-identical to the golden model.  Subnormals are kept: the library is
 // built without -ftz / fast-math.
+//
+// CLV storage.  A kernel that streams CLVs through device memory takes their
+// storage type as a template parameter T: float, or __nv_bfloat16 for the
+// bf16 storage of PLFConfig(dtype="bfloat16") (plf_tpu/ops/plf_pallas.py:
+// 88-91, :119; plf_tpu/ops/plf_tree_seg.py:452-484, :568).  Arithmetic is
+// fp32 either way: widen() on every load, narrow<T>() on every store, the
+// latter rounding to nearest even as astype and torch's .to(bfloat16) do and
+// keeping bf16 subnormals.  For T = float both are the identity, so a float
+// instantiation compiles to the code it had before storage was a parameter.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -22,6 +32,20 @@ namespace plf {
 constexpr int S = 4;                                   // DNA states
 constexpr float MIN_LIKELIHOOD = 2.3283064365386963e-10f;  // 2^-32
 constexpr float TWO_TO_THE_32 = 4294967296.0f;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Constants hold one float4 per row: row r of an (S*C, S) lane-constant
 // matrix (plf_tpu_torch/ops/layout.py), i.e. its S = 4 columns.
@@ -108,3 +132,22 @@ extern "C" const char* plf_error_string(int err) {
     case 8: { constexpr int C_ = 8; __VA_ARGS__; } break; \
     default: return (int)cudaErrorInvalidValue;    \
   }
+
+// Instantiate F<..., T_>(...) for the library's CLV storage type: a source
+// is built twice, into a float library and, with -DPLF_BF16_STORAGE, a bf16
+// one (plf_tpu_torch/ops/_build.py), so that the two forms compile in
+// parallel.  A launch whose `bf16` argument names the other storage returns
+// cudaErrorInvalidValue.
+#ifdef PLF_BF16_STORAGE
+#define PLF_STORAGE_T __nv_bfloat16
+#define PLF_STORAGE_BF16 1
+#else
+#define PLF_STORAGE_T float
+#define PLF_STORAGE_BF16 0
+#endif
+#define PLF_DISPATCH_T(bf16, ...)                                       \
+  do {                                                                  \
+    if ((bf16) != PLF_STORAGE_BF16) return (int)cudaErrorInvalidValue;  \
+    using T_ = PLF_STORAGE_T;                                           \
+    __VA_ARGS__;                                                        \
+  } while (0)

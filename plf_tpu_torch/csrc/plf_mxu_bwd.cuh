@@ -68,11 +68,14 @@ __device__ __forceinline__ float tile_dot(const float* in_row,
 }
 
 // dst[i] = a tile of rows rows x kBwdSites from src, whose rows are
-// `stride` floats apart (a checkpoint slot, a boundary row, an adjoint).
-__device__ __forceinline__ void load_tile(const float* src, size_t stride,
+// `stride` elements apart (a checkpoint slot, a boundary row, an adjoint),
+// widened to fp32 from the storage type T (float, or bf16 boundaries: the
+// float instantiation, the only one kernel 4m makes, is a plain copy).
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* src, size_t stride,
                                           int tile, float* dst) {
   for (int i = threadIdx.x; i < tile; i += kBwdThreads)
-    dst[i] = src[(size_t)(i / kBwdSites) * stride + i % kBwdSites];
+    dst[i] = plf::widen(src[(size_t)(i / kBwdSites) * stride + i % kBwdSites]);
 }
 
 // A tip's tile: the tip-table columns of the codes crow[0..kBwdSites) (a

@@ -11,6 +11,12 @@
 // matrices are staged once per block in shared memory and read as one float4
 // per row.  No intermediate leaves the registers.
 //
+// bf16 storage (T = __nv_bfloat16, PLFConfig(dtype="bfloat16")): the CLVs are
+// read as bf16 and widened, the arithmetic and the rescale test are fp32, and
+// x3 is narrowed after the rescale, as _plf_kernel stores (x3 * fac).astype
+// (plf_pallas.py:114-119).  A site then moves 100 bytes (2*16*2 + 16*2 + 4),
+// about half of the fp32 form's.
+//
 // In-place form: x3 may be the same buffer as x1 or x2 (the parent CLV written
 // over a dead child, plf_tpu/ops/plf_pallas.py:328-330).  That is safe because
 // each thread reads every row of its own site into registers before it writes
@@ -22,11 +28,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int C>
+template <int C, typename T>
 __global__ void __launch_bounds__(kThreads)
-plf_node_kernel(const float* x1, const float* x2, const float* lc,
-                const float* rc, const float* ec, float* x3, int* sc, int n,
-                int n_pad) {
+plf_node_kernel(const T* x1, const T* x2, const float* lc, const float* rc,
+                const float* ec, T* x3, int* sc, int n, int n_pad) {
   constexpr int R = plf::S * C;
   __shared__ float4 s_lc[R], s_rc[R], s_ec[R];
   for (int i = threadIdx.x; i < R; i += blockDim.x) {
@@ -40,27 +45,32 @@ plf_node_kernel(const float* x1, const float* x2, const float* lc,
   float a[R], b[R], out[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    a[r] = x1[(size_t)r * n_pad + site];
-    b[r] = x2[(size_t)r * n_pad + site];
+    a[r] = plf::widen(x1[(size_t)r * n_pad + site]);
+    b[r] = plf::widen(x2[(size_t)r * n_pad + site]);
   }
   const int flag = plf::plf_site<C>(a, b, s_lc, s_rc, s_ec, site < n, out);
 #pragma unroll
-  for (int r = 0; r < R; ++r) x3[(size_t)r * n_pad + site] = out[r];
+  for (int r = 0; r < R; ++r)
+    x3[(size_t)r * n_pad + site] = plf::narrow<T>(out[r]);
   sc[site] = flag;
 }
 
 }  // namespace
 
-// x1, x2, x3: (S*C, n_pad) fp32; lc, rc, ec: (S*C, S) fp32, 16-byte aligned;
-// sc: (n_pad,) int32.  Returns cudaGetLastError() after the launch.
-extern "C" int plf_node_launch(const float* x1, const float* x2,
+// x1, x2, x3: (S*C, n_pad), fp32, or bf16 when bf16 is set; lc, rc, ec:
+// (S*C, S) fp32, 16-byte aligned; sc: (n_pad,) int32.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int plf_node_launch(const void* x1, const void* x2,
                                const float* lc, const float* rc,
-                               const float* ec, float* x3, int* sc, int n,
-                               int n_pad, int categories, void* stream) {
+                               const float* ec, void* x3, int* sc, int n,
+                               int n_pad, int categories, int bf16,
+                               void* stream) {
   if (n_pad <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((n_pad + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PLF_DISPATCH_C(categories, plf_node_kernel<C_><<<grid, kThreads, 0, st>>>(
-                                 x1, x2, lc, rc, ec, x3, sc, n, n_pad));
+  PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+      plf_node_kernel<C_, T_><<<grid, kThreads, 0, st>>>(
+          static_cast<const T_*>(x1), static_cast<const T_*>(x2), lc, rc, ec,
+          static_cast<T_*>(x3), sc, n, n_pad)));
   return (int)cudaGetLastError();
 }

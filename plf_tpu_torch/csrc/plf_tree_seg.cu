@@ -19,7 +19,8 @@
 // segs[s] = (end of segment s's ops, exported boundary id or -1): at the end of
 // a segment its root goes to bbuf, and the last segment's root to the site
 // likelihood, the sequential root reduction of kernel 2.  Every op is
-// plf::plf_site, so lik and sc equal kernel 2's bit for bit.
+// plf::plf_site, so with fp32 boundaries lik and sc equal kernel 2's bit for
+// bit.
 //
 // Bound: kernel 2's, plus the boundary buffer.  Per site the kernel reads the
 // tip codes once (n_leaves x 1 or 4 bytes), writes 8 bytes of output and each
@@ -29,16 +30,23 @@
 // 2, and the boundaries add ~1% to its bytes.  In practice it is latency-bound
 // at the occupancy its arena allows, as kernel 2 is: the design keeps kernel
 // 2's block of 128 threads and an arena of only the slots live in one segment.
+//
+// bf16 boundaries (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): a
+// segment's root is narrowed as it is exported to bbuf and widened when a
+// later segment reads it, as the TPU kernel stores root.astype(bf16) (:568)
+// and widens the rows it lands (:452-484).  The consumer reads the rounded
+// row back from bbuf, never the fp32 value the exporting thread computed;
+// the last segment's root, lik and sc stay fp32.  The boundary bytes halve.
 #include "plf_common.cuh"
 
 namespace {
 
-template <int C, typename CodeT>
+template <int C, typename CodeT, typename BT>
 __global__ void plf_tree_seg_kernel(const CodeT* codes, const int* prog,
                                     int n_ops, const int* segs, int n_seg,
                                     const float* lcs, const float* rcs,
                                     const float* ec, const float* ttab,
-                                    int ncols, const float* rr, float* bbuf,
+                                    int ncols, const float* rr, BT* bbuf,
                                     float* lik, int* sc, int n, int n_pad) {
   constexpr int R = plf::S * C;
   extern __shared__ float4 smem4[];
@@ -74,9 +82,9 @@ __global__ void plf_tree_seg_kernel(const CodeT* codes, const int* prog,
 #pragma unroll
       for (int r = 0; r < R; ++r) x[r] = s[r * T];
     } else if (flag == 2) {  // boundary CLV
-      const float* b = bbuf + (size_t)src * bnd_stride + site;
+      const BT* b = bbuf + (size_t)src * bnd_stride + site;
 #pragma unroll
-      for (int r = 0; r < R; ++r) x[r] = b[(size_t)r * n_pad];
+      for (int r = 0; r < R; ++r) x[r] = plf::widen(b[(size_t)r * n_pad]);
     } else {                 // tip: the table column of this site's code
       const int code = (int)codes[(size_t)src * n_pad + site];
       const bool ok = code >= 0 && code < ncols;  // else no column: zeros
@@ -108,9 +116,10 @@ __global__ void plf_tree_seg_kernel(const CodeT* codes, const int* prog,
     }
     const float* x = arena + (size_t)__ldg(oslot + end - 1) * R * T + tid;
     if (gout >= 0) {
-      float* d = bbuf + (size_t)gout * bnd_stride + site;
+      BT* d = bbuf + (size_t)gout * bnd_stride + site;
 #pragma unroll
-      for (int r = 0; r < R; ++r) d[(size_t)r * n_pad] = x[r * T];
+      for (int r = 0; r < R; ++r)
+        d[(size_t)r * n_pad] = plf::narrow<BT>(x[r * T]);
     } else {
       float l = __fmul_rn(s_rr[0], x[0]);
 #pragma unroll
@@ -129,21 +138,22 @@ size_t smem_bytes(int ncols, int n_slots, int threads) {
                           (size_t)n_slots * R * threads);
 }
 
-template <int C, typename CodeT>
+template <int C, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* lcs, const float* rcs, const float* ec,
-           const float* ttab, int ncols, const float* rr, float* bbuf,
+           const float* ttab, int ncols, const float* rr, void* bbuf,
            float* lik, int* sc, int n_slots, int n, int n_pad, int threads,
            cudaStream_t st) {
   const size_t smem = smem_bytes<C>(ncols, n_slots, threads);
-  auto kern = plf_tree_seg_kernel<C, CodeT>;
+  auto kern = plf_tree_seg_kernel<C, CodeT, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_pad + threads - 1) / threads);
   kern<<<grid, threads, smem, st>>>(static_cast<const CodeT*>(codes), prog,
                                     n_ops, segs, n_seg, lcs, rcs, ec, ttab,
-                                    ncols, rr, bbuf, lik, sc, n, n_pad);
+                                    ncols, rr, static_cast<BT*>(bbuf), lik,
+                                    sc, n, n_pad);
   return (int)cudaGetLastError();
 }
 
@@ -152,29 +162,30 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
 // codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (1); prog: (6, n_ops)
 // int32 rows lsrc, lflag, rsrc, rflag, oslot, edge; segs: (n_seg, 2) int32;
 // lcs, rcs: (E, S*C, S) fp32; ec: (S*C, S); ttab: (S*C, ncols); rr: (S*C,);
-// bbuf: (n_boundaries, S*C, n_pad) fp32; lik: (n_pad,) fp32; sc: (n_pad,)
-// int32.  Returns cudaGetLastError().
+// bbuf: (n_boundaries, S*C, n_pad), fp32, or bf16 when bf16 is set; lik:
+// (n_pad,) fp32; sc: (n_pad,) int32.  Returns cudaGetLastError().
 extern "C" int plf_tree_seg_launch(const void* codes, int code_bytes,
                                    const int* prog, int n_ops, const int* segs,
                                    int n_seg, const float* lcs,
                                    const float* rcs, const float* ec,
                                    const float* ttab, int ncols,
-                                   const float* rr, float* bbuf, float* lik,
+                                   const float* rr, void* bbuf, float* lik,
                                    int* sc, int n_slots, int n, int n_pad,
-                                   int categories, int threads, void* stream) {
+                                   int categories, int threads, int bf16,
+                                   void* stream) {
   if (n_pad <= 0 || n_ops <= 0 || n_seg <= 0 || threads <= 0 || n_slots <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_DISPATCH_C(categories, return launch<C_, int32_t>(
-                                   codes, prog, n_ops, segs, n_seg, lcs, rcs,
-                                   ec, ttab, ncols, rr, bbuf, lik, sc, n_slots,
-                                   n, n_pad, threads, st));
+    PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+        return launch<C_, int32_t, T_>(codes, prog, n_ops, segs, n_seg, lcs,
+                                       rcs, ec, ttab, ncols, rr, bbuf, lik,
+                                       sc, n_slots, n, n_pad, threads, st)));
   } else if (code_bytes == 1) {
-    PLF_DISPATCH_C(categories, return launch<C_, int8_t>(
-                                   codes, prog, n_ops, segs, n_seg, lcs, rcs,
-                                   ec, ttab, ncols, rr, bbuf, lik, sc, n_slots,
-                                   n, n_pad, threads, st));
+    PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+        return launch<C_, int8_t, T_>(codes, prog, n_ops, segs, n_seg, lcs,
+                                      rcs, ec, ttab, ncols, rr, bbuf, lik,
+                                      sc, n_slots, n, n_pad, threads, st)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -41,13 +41,19 @@
 // eight blocks share an SM (plan_segments in plf_tree_seg.py; on an H100 at
 // 160 taxa x 2^20 sites, plans for 2, 4 and 8 blocks per SM ran this kernel
 // in 104, 62 and 39 ms).
+//
+// bf16 storage (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): bbuf holds
+// kernel 7's rounded boundaries, widened where phase 1 reads them, so the
+// recompute sees the rows the forward's consumers saw; a boundary adjoint is
+// narrowed as it is written to gbuf and widened as its producer's root seed,
+// as the TPU kernel's gexp/gbout scratch does (:1022-1024, :1070-1075).
 #include "plf_grad.cuh"
 
 namespace {
 
 constexpr int kSites = 32;  // threads per block = sites per tile (SEG_SITES)
 
-template <int C, typename CodeT>
+template <int C, typename CodeT, typename BT>
 __global__ void __launch_bounds__(kSites)
 plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
                         const int* __restrict__ prog, int n_ops,
@@ -56,7 +62,7 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
                         const float* rcsT, const float* ec, const float* ecT,
                         const float* ttab, int ncols, const float* rr,
                         const float* __restrict__ glik,
-                        const float* __restrict__ bbuf, float* gbuf,
+                        const BT* __restrict__ bbuf, BT* gbuf,
                         float* __restrict__ partial, int seg_ops,
                         int tiles_per_block, int n, int n_pad) {
   constexpr int R = plf::S * C;
@@ -113,9 +119,9 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
 #pragma unroll
       for (int r = 0; r < R; ++r) x[r] = s[r * kSites];
     } else if (flag == 2) {  // boundary CLV
-      const float* b = bbuf + (size_t)src * bnd_stride + site;
+      const BT* b = bbuf + (size_t)src * bnd_stride + site;
 #pragma unroll
-      for (int r = 0; r < R; ++r) x[r] = b[(size_t)r * n_pad];
+      for (int r = 0; r < R; ++r) x[r] = plf::widen(b[(size_t)r * n_pad]);
     } else {                 // tip: the table column of this site's code
       const int code = (int)codes[(size_t)src * n_pad + site];
       const bool ok = code >= 0 && code < ncols;  // else no column: zeros
@@ -141,9 +147,9 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
       store(src, o);
     } else if (flag == 2) {
       plf::stage<C>(g, opT, o);
-      float* d = gbuf + (size_t)src * bnd_stride + site;
+      BT* d = gbuf + (size_t)src * bnd_stride + site;
 #pragma unroll
-      for (int r = 0; r < R; ++r) d[(size_t)r * n_pad] = o[r];
+      for (int r = 0; r < R; ++r) d[(size_t)r * n_pad] = plf::narrow<BT>(o[r]);
     }
   };
 
@@ -198,9 +204,9 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
         __syncthreads();
       } else {
         float adj[R];
-        const float* src = gbuf + (size_t)gout * bnd_stride + site;
+        const BT* src = gbuf + (size_t)gout * bnd_stride + site;
 #pragma unroll
-        for (int r = 0; r < R; ++r) adj[r] = src[(size_t)r * n_pad];
+        for (int r = 0; r < R; ++r) adj[r] = plf::widen(src[(size_t)r * n_pad]);
         store(root, adj);
       }
 
@@ -276,30 +282,31 @@ size_t smem_bytes(int ncols, int seg_ops) {
          (size_t)seg_ops * (sizeof(float) * R * kSites + kSites);
 }
 
-template <int C, typename CodeT>
+template <int C, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* lcs, const float* rcs, const float* lcsT,
            const float* rcsT, const float* ec, const float* ecT,
            const float* ttab, int ncols, const float* rr, const float* glik,
-           const float* bbuf, float* gbuf, float* partial, int seg_ops,
+           const void* bbuf, void* gbuf, float* partial, int seg_ops,
            int n_blocks, int tiles_per_block, int n, int n_pad,
            cudaStream_t st) {
   const size_t smem = smem_bytes<C>(ncols, seg_ops);
-  auto kern = plf_tree_seg_bwd_kernel<C, CodeT>;
+  auto kern = plf_tree_seg_bwd_kernel<C, CodeT, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<n_blocks, kSites, smem, st>>>(
       static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, lcs, rcs,
-      lcsT, rcsT, ec, ecT, ttab, ncols, rr, glik, bbuf, gbuf, partial,
-      seg_ops, tiles_per_block, n, n_pad);
+      lcsT, rcsT, ec, ecT, ttab, ncols, rr, glik,
+      static_cast<const BT*>(bbuf), static_cast<BT*>(gbuf), partial, seg_ops,
+      tiles_per_block, n, n_pad);
   return (int)cudaGetLastError();
 }
 
-template <int C, typename CodeT>
+template <int C, typename CodeT, typename BT>
 int occupancy(int ncols, int seg_ops, int* blocks) {
   const size_t smem = smem_bytes<C>(ncols, seg_ops);
-  auto kern = plf_tree_seg_bwd_kernel<C, CodeT>;
+  auto kern = plf_tree_seg_bwd_kernel<C, CodeT, BT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -313,46 +320,49 @@ int occupancy(int ncols, int seg_ops, int* blocks) {
 // int32 rows lsrc, lflag, rsrc, rflag, oslot (op j of a segment in slot j),
 // edge; segs: (n_seg, 2) int32; lcs, rcs, lcsT, rcsT: (E, S*C, S) fp32 with
 // E = n_ops; ec, ecT: (S*C, S); ttab: (S*C, ncols); rr: (S*C,); glik: (n_pad,);
-// bbuf, gbuf: (n_boundaries, S*C, n_pad) fp32; partial: (n_blocks, 2*E*S*C*S +
-// S*C*S + S*C) fp32 (block b takes tiles [b*tiles_per_block, ...)).  n_pad is a
-// multiple of 32.  Returns cudaGetLastError().
+// bbuf, gbuf: (n_boundaries, S*C, n_pad), fp32, or bf16 when bf16 is set;
+// partial: (n_blocks, 2*E*S*C*S + S*C*S + S*C) fp32 (block b takes tiles
+// [b*tiles_per_block, ...)).  n_pad is a multiple of 32.  Returns
+// cudaGetLastError().
 extern "C" int plf_tree_seg_bwd_launch(
     const void* codes, int code_bytes, const int* prog, int n_ops,
     const int* segs, int n_seg, const float* lcs, const float* rcs,
     const float* lcsT, const float* rcsT, const float* ec, const float* ecT,
     const float* ttab, int ncols, const float* rr, const float* glik,
-    const float* bbuf, float* gbuf, float* partial, int seg_ops, int n_blocks,
-    int tiles_per_block, int n, int n_pad, int categories, void* stream) {
+    const void* bbuf, void* gbuf, float* partial, int seg_ops, int n_blocks,
+    int tiles_per_block, int n, int n_pad, int categories, int bf16,
+    void* stream) {
   if (n_pad <= 0 || n_pad % kSites || n_ops <= 0 || n_seg <= 0 ||
       seg_ops <= 0 || n_blocks <= 0 || tiles_per_block <= 0 ||
       (long long)n_blocks * tiles_per_block * kSites < n_pad)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_DISPATCH_C(categories, return launch<C_, int32_t>(
-                                   codes, prog, n_ops, segs, n_seg, lcs, rcs,
-                                   lcsT, rcsT, ec, ecT, ttab, ncols, rr, glik,
-                                   bbuf, gbuf, partial, seg_ops, n_blocks,
-                                   tiles_per_block, n, n_pad, st));
+    PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+        return launch<C_, int32_t, T_>(
+            codes, prog, n_ops, segs, n_seg, lcs, rcs, lcsT, rcsT, ec, ecT,
+            ttab, ncols, rr, glik, bbuf, gbuf, partial, seg_ops, n_blocks,
+            tiles_per_block, n, n_pad, st)));
   } else if (code_bytes == 1) {
-    PLF_DISPATCH_C(categories, return launch<C_, int8_t>(
-                                   codes, prog, n_ops, segs, n_seg, lcs, rcs,
-                                   lcsT, rcsT, ec, ecT, ttab, ncols, rr, glik,
-                                   bbuf, gbuf, partial, seg_ops, n_blocks,
-                                   tiles_per_block, n, n_pad, st));
+    PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+        return launch<C_, int8_t, T_>(
+            codes, prog, n_ops, segs, n_seg, lcs, rcs, lcsT, rcsT, ec, ecT,
+            ttab, ncols, rr, glik, bbuf, gbuf, partial, seg_ops, n_blocks,
+            tiles_per_block, n, n_pad, st)));
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // Resident blocks per SM of the launch plf_tree_seg_bwd_launch would make.
 extern "C" int plf_tree_seg_bwd_occupancy(int code_bytes, int categories,
-                                          int ncols, int seg_ops, int* blocks) {
+                                          int ncols, int seg_ops, int bf16,
+                                          int* blocks) {
   if (code_bytes == 4) {
-    PLF_DISPATCH_C(categories, return occupancy<C_, int32_t>(ncols, seg_ops,
-                                                             blocks));
+    PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+        return occupancy<C_, int32_t, T_>(ncols, seg_ops, blocks)));
   } else if (code_bytes == 1) {
-    PLF_DISPATCH_C(categories, return occupancy<C_, int8_t>(ncols, seg_ops,
-                                                            blocks));
+    PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+        return occupancy<C_, int8_t, T_>(ncols, seg_ops, blocks)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -49,6 +49,16 @@
 // adjoint stages, three operator gradients per op), plus reading each
 // boundary CLV once and writing and reading each boundary adjoint once.
 // Latency-bound at the occupancy kernel 4m's tiles allow, as kernel 4m is.
+//
+// bf16 storage (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): bbuf holds
+// kernel 7m's rounded boundaries, widened as phase 1 loads them; the seed of
+// a segment's root widens its gbuf row; a boundary child's adjoint, which
+// adjoint_to writes in fp32, is staged in the x1 or x2 tile (free once the
+// sums have read them, a barrier later) and narrowed from there into gbuf, as
+// the TPU kernel's gexp scratch narrows it (:1070-1075).  kernel 4m never
+// instantiates BT, so its code is the float form of the shared header.
+#include <type_traits>
+
 #include "plf_mxu_bwd.cuh"
 
 namespace {
@@ -56,7 +66,7 @@ namespace {
 constexpr int kThreads = plf_mxu::kBwdThreads;
 constexpr int kSites = plf_mxu::kBwdSites;  // TS
 
-template <int MODE, int V, typename CodeT>
+template <int MODE, int V, typename CodeT, typename BT>
 __global__ void __launch_bounds__(kThreads)
 plf_tree_seg_bwd_mxu_kernel(
     const CodeT* __restrict__ codes, const int* __restrict__ prog,
@@ -65,7 +75,7 @@ plf_tree_seg_bwd_mxu_kernel(
     const float* lTl, const float* rTh, const float* rTl, const float* eh,
     const float* el, const float* eTh, const float* eTl,
     const float* __restrict__ ttab, int ncols, const float* __restrict__ rr,
-    const float* __restrict__ glik, const float* bbuf, float* gbuf,
+    const float* __restrict__ glik, const BT* bbuf, BT* gbuf,
     float* scratch, unsigned char* flags, int seg_ops, int site0, int chunk,
     float* __restrict__ partial, float* acc_global, int accumulate,
     int tiles_per_block, int n, int n_pad, int S, int C) {
@@ -100,16 +110,27 @@ plf_tree_seg_bwd_mxu_kernel(
   const size_t cols = (size_t)2 * E * RS + RS + R;
   float* part = partial + blockIdx.x * cols;
 
+  // fp32 storage: a boundary child's adjoint goes straight to gbuf; bf16
+  // storage stages it in shared memory first (see the top of this file),
+  // all of it under `if constexpr`.  Keep the fp32 form's code free of the
+  // staging: passing the staging tile through `place` gave it 12 bytes of
+  // spills and cost it 3-5% in "mxu_3x" on an H100 (kernel_turns.py).
+  constexpr bool kStage = !std::is_same<BT, float>::value;
+
   // Where operand (src, flag) of the tile at chunk offset local0 lies, rows
-  // `stride` floats apart: a checkpoint slot or a boundary row (tips have no
-  // place; load expands them).
+  // `stride` floats apart: a checkpoint slot or, in fp32 storage, a boundary
+  // row of gbuf (tips have no place; load expands them).
   auto place = [&](int src, int flag, int local0, size_t* stride) -> float* {
     if (flag == 1) {
       *stride = chunk;
       return scratch + (size_t)src * slot_stride + local0;
     }
     *stride = n_pad;
-    return gbuf + (size_t)src * bnd_stride + site0 + local0;
+    if constexpr (kStage) {
+      return nullptr;  // staged in tA / tB instead
+    } else {
+      return gbuf + (size_t)src * bnd_stride + site0 + local0;
+    }
   };
   auto load = [&](int src, int flag, int local0, float* dst) {
     if (flag == 0) {
@@ -165,10 +186,10 @@ plf_tree_seg_bwd_mxu_kernel(
         __syncthreads();
         plf_mxu::seed_root(tA, s_g, s_grr, rr, dst, chunk, R);
       } else {
-        const float* g = gbuf + (size_t)gout * bnd_stride + site0 + local0;
+        const BT* g = gbuf + (size_t)gout * bnd_stride + site0 + local0;
         for (int j = tid; j < tile; j += kThreads)
           dst[(size_t)(j / kSites) * chunk + j % kSites] =
-              g[(size_t)(j / kSites) * n_pad + j % kSites];
+              plf::widen(g[(size_t)(j / kSites) * n_pad + j % kSites]);
       }
       __syncthreads();
     }
@@ -195,9 +216,33 @@ plf_tree_seg_bwd_mxu_kernel(
         size_t sl = 0, sr = 0;
         float* dl = lf ? place(ls, lf, local0, &sl) : nullptr;
         float* dr = rf ? place(rs, rf, local0, &sr) : nullptr;
+        if constexpr (kStage) {
+          if (lf == 2 || rf == 2) __syncthreads();  // sums done with tA/tB
+          if (lf == 2) {
+            dl = tA;
+            sl = kSites;
+          }
+          if (rf == 2) {
+            dr = tB;
+            sr = kSites;
+          }
+        }
         plf_mxu::adjoint_to<MODE, V>(tU1, tU2, lTh + e, lTl + e, rTh + e,
                                      rTl + e, dl, sl, dr, sr, S, C);
         __syncthreads();
+        if constexpr (kStage) {
+          if (lf == 2 || rf == 2) {
+            for (int j = tid; j < tile; j += kThreads) {
+              const size_t off = (size_t)(j / kSites) * n_pad + site0 +
+                                 local0 + j % kSites;
+              if (lf == 2)
+                gbuf[(size_t)ls * bnd_stride + off] = plf::narrow<BT>(tA[j]);
+              if (rf == 2)
+                gbuf[(size_t)rs * bnd_stride + off] = plf::narrow<BT>(tB[j]);
+            }
+            __syncthreads();  // before the next tile's loads rewrite tA/tB
+          }
+        }
       }
       plf_mxu::flush_edge(acc, part, E, S, C, eo, !accumulate,
                           !accumulate && first);
@@ -210,24 +255,46 @@ plf_tree_seg_bwd_mxu_kernel(
   }
 }
 
-template <int MODE, int V, typename CodeT>
+// bf16 storage with the one-pass bf16 mode ("mxu_bf16"), which no gradient
+// backend runs: never instantiated, so the bf16 library holds 8 of these
+// kernels where the float one holds 12.
+template <int MODE, typename BT>
+constexpr bool kBf16Mode2 = MODE == 2 && !std::is_same<BT, float>::value;
+
+template <int MODE, int V, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* const* pl, const float* ttab, int ncols,
-           const float* rr, const float* glik, const float* bbuf, float* gbuf,
+           const float* rr, const float* glik, const void* bbuf, void* gbuf,
            float* scratch, unsigned char* flags, int seg_ops, int site0,
-           int chunk, float* partial, float* acc_global, int accumulate, int n_blocks,
-           int tiles_per_block, int n, int n_pad, int S, int C,
+           int chunk, float* partial, float* acc_global, int accumulate,
+           int n_blocks, int tiles_per_block, int n, int n_pad, int S, int C,
            cudaStream_t st) {
-  auto kern = plf_tree_seg_bwd_mxu_kernel<MODE, V, CodeT>;
-  const size_t smem = plf_mxu::bwd_smem_bytes(S * C, S, acc_global == nullptr);
-  cudaError_t err = plf_mxu::bwd_prepare(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<n_blocks, kThreads, smem, st>>>(
-      static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, pl[0],
-      pl[1], pl[2], pl[3], pl[4], pl[5], pl[6], pl[7], pl[8], pl[9], pl[10],
-      pl[11], ttab, ncols, rr, glik, bbuf, gbuf, scratch, flags, seg_ops,
-      site0, chunk, partial, acc_global, accumulate, tiles_per_block, n, n_pad, S, C);
-  return (int)cudaGetLastError();
+  if constexpr (kBf16Mode2<MODE, BT>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    auto kern = plf_tree_seg_bwd_mxu_kernel<MODE, V, CodeT, BT>;
+    const size_t smem =
+        plf_mxu::bwd_smem_bytes(S * C, S, acc_global == nullptr);
+    cudaError_t err = plf_mxu::bwd_prepare(kern, smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<n_blocks, kThreads, smem, st>>>(
+        static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, pl[0],
+        pl[1], pl[2], pl[3], pl[4], pl[5], pl[6], pl[7], pl[8], pl[9],
+        pl[10], pl[11], ttab, ncols, rr, glik, static_cast<const BT*>(bbuf),
+        static_cast<BT*>(gbuf), scratch, flags, seg_ops, site0, chunk,
+        partial, acc_global, accumulate, tiles_per_block, n, n_pad, S, C);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int MODE, int V, typename CodeT, typename BT>
+int plan(int R, int S, int* acc_shared, int* blocks) {
+  if constexpr (kBf16Mode2<MODE, BT>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return plf_mxu::bwd_plan(plf_tree_seg_bwd_mxu_kernel<MODE, V, CodeT, BT>,
+                             R, S, acc_shared, blocks);
+  }
 }
 
 }  // namespace
@@ -239,25 +306,27 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
 // S) for the EV constants: lc hi/lo, rc hi/lo, their transposes lcT hi/lo,
 // rcT hi/lo, ec hi/lo, ecT hi/lo (lo is read in bf16x3 mode only); ttab:
 // (S*C, ncols), rounded as the forward's tips; rr: (S*C,); glik: (n_pad,)
-// fp32; bbuf, gbuf: (n_boundaries, S*C, n_pad) fp32; scratch: (seg_ops, S*C,
-// chunk) fp32; flags: (seg_ops, chunk) bytes; partial: (n_blocks, 2*E*S*C*S
-// + S*C*S + S*C) fp32 (written when accumulate is 0, added to otherwise);
-// acc_global: (n_blocks, 3*S*C*S) fp32 when plf_tree_seg_bwd_mxu_plan put
-// the accumulators in device memory, else null.  chunk is a multiple of 8
-// sites; block b takes tiles [b * tiles_per_block, ...) of the chunk.  mode:
-// 0 fp32, 1 bf16x3, 2 bf16.  Returns cudaGetLastError(); a segment with more
-// than seg_ops ops stops the kernel (the checkpoint was sized for seg_ops).
+// fp32; bbuf, gbuf: (n_boundaries, S*C, n_pad), fp32, or bf16 when bf16 is
+// set; scratch: (seg_ops, S*C, chunk) fp32; flags: (seg_ops, chunk) bytes;
+// partial: (n_blocks, 2*E*S*C*S + S*C*S + S*C) fp32 (written when accumulate
+// is 0, added to otherwise); acc_global: (n_blocks, 3*S*C*S) fp32 when
+// plf_tree_seg_bwd_mxu_plan put the accumulators in device memory, else
+// null.  chunk is a multiple of 8 sites; block b takes tiles [b *
+// tiles_per_block, ...) of the chunk.  mode: 0 fp32, 1 bf16x3, 2 bf16; the
+// bf16 storage library has no mode 2 ("mxu_bf16" never trains; kBf16Mode2).
+// Returns cudaGetLastError(); a segment with more than seg_ops ops stops the
+// kernel (the checkpoint was sized for seg_ops).
 extern "C" int plf_tree_seg_bwd_mxu_launch(
     const void* codes, int code_bytes, const int* prog, int n_ops,
     const int* segs, int n_seg, const float* lh, const float* ll,
     const float* rh, const float* rl, const float* lTh, const float* lTl,
     const float* rTh, const float* rTl, const float* eh, const float* el,
     const float* eTh, const float* eTl, const float* ttab, int ncols,
-    const float* rr, const float* glik, const float* bbuf, float* gbuf,
+    const float* rr, const float* glik, const void* bbuf, void* gbuf,
     float* scratch, unsigned char* flags, int seg_ops, int site0, int chunk,
     float* partial, float* acc_global, int accumulate, int n_blocks,
     int tiles_per_block, int n, int n_pad, int states, int categories,
-    int mode, void* stream) {
+    int mode, int bf16, void* stream) {
   if (n_pad <= 0 || chunk <= 0 || chunk % kSites || site0 < 0 ||
       site0 + chunk > n_pad || n_ops <= 0 || n_seg <= 0 || seg_ops <= 0 ||
       n_blocks <= 0 || tiles_per_block <= 0 || states < 1 || categories < 1 ||
@@ -266,19 +335,19 @@ extern "C" int plf_tree_seg_bwd_mxu_launch(
   const float* pl[12] = {lh, ll, rh, rl, lTh, lTl, rTh, rTl, eh, el, eTh, eTl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_MXU_DISPATCH(mode, states,
-                     return launch<M_, V_, int32_t>(
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return launch<M_, V_, int32_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          glik, bbuf, gbuf, scratch, flags, seg_ops, site0,
                          chunk, partial, acc_global, accumulate, n_blocks,
-                         tiles_per_block, n, n_pad, states, categories, st));
+                         tiles_per_block, n, n_pad, states, categories, st)));
   } else if (code_bytes == 1) {
-    PLF_MXU_DISPATCH(mode, states,
-                     return launch<M_, V_, int8_t>(
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return launch<M_, V_, int8_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          glik, bbuf, gbuf, scratch, flags, seg_ops, site0,
                          chunk, partial, acc_global, accumulate, n_blocks,
-                         tiles_per_block, n, n_pad, states, categories, st));
+                         tiles_per_block, n, n_pad, states, categories, st)));
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -287,19 +356,17 @@ extern "C" int plf_tree_seg_bwd_mxu_launch(
 // 0 in device memory, acc_global) and how many of its blocks are resident
 // per SM: kernel 4m's rule (plf_mxu::bwd_plan).
 extern "C" int plf_tree_seg_bwd_mxu_plan(int code_bytes, int states,
-                                         int categories, int mode,
+                                         int categories, int mode, int bf16,
                                          int* acc_shared, int* blocks) {
   const int R = states * categories;
   if (code_bytes == 4) {
-    PLF_MXU_DISPATCH(mode, states,
-                     return plf_mxu::bwd_plan(
-                         plf_tree_seg_bwd_mxu_kernel<M_, V_, int32_t>, R,
-                         states, acc_shared, blocks));
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return plan<M_, V_, int32_t, T_>(R, states, acc_shared,
+                                                    blocks)));
   } else if (code_bytes == 1) {
-    PLF_MXU_DISPATCH(mode, states,
-                     return plf_mxu::bwd_plan(
-                         plf_tree_seg_bwd_mxu_kernel<M_, V_, int8_t>, R,
-                         states, acc_shared, blocks));
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return plan<M_, V_, int8_t, T_>(R, states, acc_shared,
+                                                    blocks)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -20,8 +20,8 @@
 // segment its root tile goes to bbuf, and the last segment's root to the
 // site likelihood.  Each op is kernel 2m's (plf_mxu.cuh's node_tile and the
 // same rescale) and the root reduction is kernel 2m's sequential fp32 one,
-// so lik and sc equal kernel 2m's bit for bit in every mode, and the
-// boundary CLVs, stored in fp32, round-trip exactly.
+// so with fp32 boundaries, which round-trip exactly, lik and sc equal kernel
+// 2m's bit for bit in every mode.
 //
 // Bound: kernel 2m's, plus the boundary buffer: per site the tip codes
 // once, 8 bytes of output, and each boundary CLV written once and read
@@ -29,6 +29,13 @@
 // per site and op in fp32 mode, three times the products in bf16x3 mode.
 // It is latency-bound at the occupancy its arena allows, as kernel 2m is;
 // the arena holds only the slots live in one segment.
+//
+// bf16 boundaries (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): the
+// root tile is narrowed as it is exported and a boundary tile widened as it
+// is brought in, as the TPU kernel's bf16 landing scratch does (:452-484,
+// :568), so a consumer computes on the rounded row; lik and sc then differ
+// from kernel 2m's by that rounding, and 160 bytes of each boundary move
+// where 320 did.
 #include "plf_mxu.cuh"
 
 namespace {
@@ -36,13 +43,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kSites = 8;  // TS, as kernel 2m
 
-template <int MODE, int V, typename CodeT>
+template <int MODE, int V, typename CodeT, typename BT>
 __global__ void __launch_bounds__(kThreads)
 plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
                         const int* segs, int n_seg, const float* lh,
                         const float* ll, const float* rh, const float* rl,
                         const float* eh, const float* el, const float* ttab,
-                        int ncols, const float* rr, float* bbuf, float* lik,
+                        int ncols, const float* rr, BT* bbuf, float* lik,
                         int* sc, int n_slots, int n, int n_pad, int S, int C) {
   extern __shared__ float smem[];
   const int rows = S * C;
@@ -81,8 +88,8 @@ plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
       float v = 0.0f;
       if (site < n_pad) {
         if (flag == 2) {
-          v = bbuf[(size_t)src * bnd_stride + (size_t)(i / kSites) * n_pad +
-                   site];
+          v = plf::widen(bbuf[(size_t)src * bnd_stride +
+                              (size_t)(i / kSites) * n_pad + site]);
         } else {
           const int code = (int)codes[(size_t)src * n_pad + site];
           if (code >= 0 && code < ncols) v = s_tt[(i / kSites) * ncols + code];
@@ -125,7 +132,7 @@ plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
         const int site = site0 + j % kSites;
         if (site < n_pad)
           bbuf[(size_t)gout * bnd_stride + (size_t)(j / kSites) * n_pad +
-               site] = root[j];
+               site] = plf::narrow<BT>(root[j]);
       }
     } else if (tid < kSites && site0 + tid < n_pad) {
       const float* x = root + tid;
@@ -145,12 +152,12 @@ size_t smem_bytes(int rows, int ncols, int n_slots) {
                           ((size_t)n_slots + 3) * rows * kSites);
 }
 
-template <int MODE, int V, typename CodeT>
+template <int MODE, int V, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* const* pl, const float* ttab, int ncols,
-           const float* rr, float* bbuf, float* lik, int* sc, int n_slots,
+           const float* rr, void* bbuf, float* lik, int* sc, int n_slots,
            int n, int n_pad, int S, int C, cudaStream_t st) {
-  auto kern = plf_tree_seg_mxu_kernel<MODE, V, CodeT>;
+  auto kern = plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>;
   const size_t smem = smem_bytes(S * C, ncols, n_slots);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -158,7 +165,8 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
   const dim3 grid((n_pad + kSites - 1) / kSites);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, pl[0],
-      pl[1], pl[2], pl[3], pl[4], pl[5], ttab, ncols, rr, bbuf, lik, sc,
+      pl[1], pl[2], pl[3], pl[4], pl[5], ttab, ncols, rr,
+      static_cast<BT*>(bbuf), lik, sc,
       n_slots, n, n_pad, S, C);
   return (int)cudaGetLastError();
 }
@@ -169,33 +177,33 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
 // int32 rows lsrc, lflag, rsrc, rflag, oslot, edge; segs: (n_seg, 2) int32;
 // lh/ll, rh/rl: (E, S*C, S) fp32 hi and lo planes of the per-edge lane
 // constants; eh/el: (S*C, S); ttab: (S*C, ncols), already rounded for the
-// variant; rr: (S*C,); bbuf: (n_boundaries, S*C, n_pad) fp32; lik: (n_pad,)
-// fp32; sc: (n_pad,) int32.  mode: 0 fp32, 1 bf16x3, 2 bf16.  Returns
-// cudaGetLastError().
+// variant; rr: (S*C,); bbuf: (n_boundaries, S*C, n_pad), fp32, or bf16 when
+// bf16 is set; lik: (n_pad,) fp32; sc: (n_pad,) int32.  mode: 0 fp32, 1
+// bf16x3, 2 bf16.  Returns cudaGetLastError().
 extern "C" int plf_tree_seg_mxu_launch(
     const void* codes, int code_bytes, const int* prog, int n_ops,
     const int* segs, int n_seg, const float* lh, const float* ll,
     const float* rh, const float* rl, const float* eh, const float* el,
-    const float* ttab, int ncols, const float* rr, float* bbuf, float* lik,
+    const float* ttab, int ncols, const float* rr, void* bbuf, float* lik,
     int* sc, int n_slots, int n, int n_pad, int states, int categories,
-    int mode, void* stream) {
+    int mode, int bf16, void* stream) {
   if (n_pad <= 0 || n_ops <= 0 || n_seg <= 0 || n_slots <= 0 || states < 1 ||
       categories < 1)
     return (int)cudaErrorInvalidValue;
   const float* pl[6] = {lh, ll, rh, rl, eh, el};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_MXU_DISPATCH(mode, states,
-                     return launch<M_, V_, int32_t>(
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return launch<M_, V_, int32_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          bbuf, lik, sc, n_slots, n, n_pad, states, categories,
-                         st));
+                         st)));
   } else if (code_bytes == 1) {
-    PLF_MXU_DISPATCH(mode, states,
-                     return launch<M_, V_, int8_t>(
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return launch<M_, V_, int8_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          bbuf, lik, sc, n_slots, n, n_pad, states, categories,
-                         st));
+                         st)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,12 @@ variant, and "vpu" at other S), on the CPU their plain versions.  "vpu"
 and "mxu" keep the golden model's fp32 order, so ``verify`` is exact by
 default for them; "mxu_3x" and "mxu_bf16" carry their error classes
 (about 1e-5 and 1e-2 relative), which ``verify``'s bars do not admit.
+
+``PLFConfig(dtype="bfloat16")`` is honoured where the JAX engine honours
+it: ``plf()`` on ``Backend.KERNEL`` stores the padded CLVs and the parent
+in bf16 (kernels 1 and 1m read and write bf16 rows, fp32 arithmetic) and
+returns a bf16 ``x3``; ``plf_batch()``, ``Backend.TORCH`` and
+``Backend.REFERENCE`` stay fp32.
 """
 
 from __future__ import annotations
@@ -113,6 +119,11 @@ class PLFEngine:
     # -- single call ---------------------------------------------------------
 
     def plf(self, x1, x2, left, right, ev, wgt=None) -> PLFResult:
+        """One PLF call on site-major ``(n, C*S)`` or ``(n, C, S)`` CLVs,
+        in the config's CLV storage."""
+        return self._plf(x1, x2, left, right, ev, wgt, self.config.dtype)
+
+    def _plf(self, x1, x2, left, right, ev, wgt, dtype: str) -> PLFResult:
         cfg = self.config
         S, C = cfg.states, cfg.categories
         x1 = self._t(x1, torch.float32)
@@ -132,11 +143,10 @@ class PLFEngine:
         if cfg.backend is Backend.TORCH:
             return PLFResult(*plf_torch(x1, x2, left, right, ev, wgt,
                                         states=S, categories=C))
-        cfg.check_ported()
         return PLFResult(*plf_node_site_major(
             x1, x2, left, right, ev, wgt, states=S, categories=C,
             block_sites=cfg.block_sites,
-            variant=cfg.resolved_kernel_variant))
+            variant=cfg.resolved_kernel_variant, dtype=dtype))
 
     # -- multi-instance -------------------------------------------------------
 
@@ -146,11 +156,12 @@ class PLFEngine:
         Args are batched on a leading instance axis: ``x1/x2``
         ``(I, n, C*S)`` or ``(I, n, C, S)``, ``left/right`` ``(I, C, S, S)``,
         ``ev`` ``(I, S, S)``, ``wgt`` ``(I, n)``.  The instances run one
-        after another (a grid axis over instances is ROADMAP work).
+        after another (a grid axis over instances is ROADMAP work), in fp32
+        whatever the config's ``dtype``, as the JAX engine's batch does.
         """
         ni = len(x1)
-        outs = [self.plf(x1[i], x2[i], left[i], right[i], ev[i],
-                         None if wgt is None else wgt[i])
+        outs = [self._plf(x1[i], x2[i], left[i], right[i], ev[i],
+                          None if wgt is None else wgt[i], "float32")
                 for i in range(ni)]
         return PLFResult(*(torch.stack([getattr(o, f.name) for o in outs])
                            for f in dataclasses.fields(PLFResult)))

@@ -27,7 +27,9 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
   kernels 7 + 8 for "vpu" at S = 4, kernels 7m + 8m in the model's
   arithmetic for every other model; the tree cut into subtrees whose
   roots pass through a boundary buffer, the VJP's only checkpoint kept
-  across segments.
+  across segments.  Under ``PLFConfig(dtype="bfloat16")`` that buffer and
+  its adjoints are stored in bf16, with the JAX package's warning; the
+  other backends ignore ``dtype``.
 
 ``"auto"`` takes ``"torch"`` for a model on the CPU, and for a model
 whose config chose ``Backend.TORCH``.  For a model on a CUDA device it
@@ -68,6 +70,7 @@ likelihood, with branch lengths fitted through ``tree_loglik_fn``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -94,8 +97,9 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     where kernel 4's (4m's) checkpoint (``E * (S*C*4 + 1)`` bytes per site)
     exceeds half the ``free`` device memory, so it would run in chunks, and
     the segmented backward's boundary buffers (the residual and its
-    adjoints, ``2 * n_boundaries * S*C * 4`` bytes per site) fit the free
-    memory (kernel 8m's own op checkpoint is chunked as kernel 4m's is).
+    adjoints, ``2 * n_boundaries * S*C * itemsize`` bytes per site, 4 or 2
+    by the config's ``dtype``) fit the free memory (kernel 8m's own op
+    checkpoint is chunked as kernel 4m's is).
     A matrix-form model in fp32 ("mxu", "vpu" at S != 4) keeps "tree": at
     1,024 protein taxa x 131,072 sites, with kernel 4m's checkpoint in two
     chunks, "segmented" won by 7% in "mxu_3x" and lost by 19% in "mxu"
@@ -116,7 +120,8 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     if tree_bwd_scratch_bytes(len(pm.schedule), rows, pm.n_pad) <= free // 2:
         return False
     n_bnd = pm._segmented_inputs()[0].n_boundaries
-    return 2 * n_bnd * rows * 4 * pm.n_pad <= free
+    itemsize = 2 if pm.config.dtype == "bfloat16" else 4
+    return 2 * n_bnd * rows * itemsize * pm.n_pad <= free
 
 
 def _auto_backend(pm, matrix_form: bool = False) -> str:
@@ -203,7 +208,7 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
             raise NotImplementedError(
                 f"the 'kernel' gradient backend at S={S} needs "
                 "_plf_bwd_kernel at S != 4 (kernel 3 is S = 4 only): "
-                "ROADMAP.md, Queue 2 item 4; backend='tree' or 'torch' "
+                "ROADMAP.md, Queue 2 item 2; backend='tree' or 'torch' "
                 "trains this model")
         variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
     build = {"torch": _core_torch, "kernel": _core_kernel,
@@ -326,7 +331,9 @@ def _core_tree(pm, segmented: bool = False):
     """Kernel 2 forward + kernel 4 backward, or kernels 2m + 4m in the
     model's arithmetic (the JAX "tree" backend, optimize.py:355-545), or
     with ``segmented`` kernels 7 + 8 (7m + 8m) (the JAX "segmented"
-    backend, optimize.py:446-451); operators indexed by original edge."""
+    backend, optimize.py:446-457, bf16 boundaries and adjoints under the
+    config's ``dtype``, with its warning); operators indexed by original
+    edge."""
     cfg = pm.config
     S, C = cfg.states, cfg.categories
     variant = cfg.resolved_kernel_variant
@@ -337,10 +344,17 @@ def _core_tree(pm, segmented: bool = False):
     sched = reorder_schedule(pm.schedule, n_leaves)
     kernel_variant = variant if matrix_form else "vpu"
     if segmented:
+        if cfg.dtype == "bfloat16":
+            warnings.warn(
+                "optimising through bf16 boundary-CLV storage: "
+                "likelihoods/gradients carry ~1e-3-class rounding from "
+                "the bf16 streams; use dtype='float32' for final fits",
+                stacklevel=4)
         tdiff = make_tree_diff_segmented(sched, n_leaves, states=S,
                                          categories=C,
                                          n_codes=pm.tip_table.shape[1],
-                                         variant=kernel_variant)
+                                         variant=kernel_variant,
+                                         dtype=cfg.dtype)
     else:
         tdiff = make_tree_diff(sched, n_leaves, states=S, categories=C,
                                variant=kernel_variant)

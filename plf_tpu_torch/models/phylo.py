@@ -26,7 +26,9 @@ Those kernels take their operators split once here, for the variant
 A third path, **segmented** (``ops/plf_tree_seg.py``: kernel 7, or 7m
 for a matrix-form model), cuts the tree into subtrees whose roots pass
 through a boundary buffer in device memory: the JAX package's route for
-trees too big for one arena.
+trees too big for one arena.  ``config.dtype="bfloat16"`` stores that
+buffer in bf16; the fused and per-node paths ignore ``dtype`` and stay
+fp32, as the JAX package's do.
 
 ``auto`` takes the fused path whenever the GPU capacity rule of the
 model's kernel (``ops/plf_tree.py::tree_block_threads`` or
@@ -135,7 +137,6 @@ class PhyloModel(nn.Module):
         cfg = config or PLFConfig(states=model.states, kernel_variant="auto")
         if cfg.states != model.states:
             cfg = dataclasses.replace(cfg, states=model.states)
-        cfg.check_ported()
         self.tip_states = np.asarray(tip_states)
         self.n_sites_obs = int(self.tip_states.shape[1])
         self.wgt = (np.ones(self.n_sites_obs, np.int32) if wgt is None
@@ -454,7 +455,9 @@ class PhyloModel(nn.Module):
     def log_likelihood_segmented(self) -> TreeLikelihoodResult:
         """Segmented whole-tree evaluation (kernel 7 or 7m, one launch):
         the tree's subtrees in order, their roots through a boundary
-        buffer.  Bit-equal to the fused path (and, in the "vpu" form, to
+        buffer in the config's CLV storage (``dtype``; the one path of
+        this model that honours it, as in the JAX package).  With fp32
+        boundaries bit-equal to the fused path (and, in the "vpu" form, to
         the per-node path)."""
         cfg = self.config
         plan, prog, segs, n_slots = self._segmented_inputs()
@@ -463,7 +466,8 @@ class PhyloModel(nn.Module):
             self.fused_tip_table, self.root_rows[0], self.n_sites,
             n_boundaries=plan.n_boundaries, n_slots=n_slots,
             states=cfg.states, categories=cfg.categories,
-            variant=cfg.resolved_kernel_variant, planes=self._planes())
+            variant=cfg.resolved_kernel_variant, planes=self._planes(),
+            dtype=getattr(torch, cfg.dtype))
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 

@@ -8,6 +8,12 @@ an edited source rebuilds and an unchanged one loads the library built
 before.  Nothing is downloaded and no prebuilt binary is used; a failed
 build raises with nvcc's output.
 
+A kernel with a bf16 CLV storage form (``PLFConfig(dtype="bfloat16")``)
+is built twice from its one source: library ``<name>`` holds the float
+form and ``<name>_bf16`` (``storage_library(name, True)``, nvcc given
+``-DPLF_BF16_STORAGE``) the bf16 one, so that the two compile in
+parallel and the float form is the code it was before bf16 storage.
+
 Flags: ``-fmad=false`` keeps every ``a*b + c`` as a rounded multiply and
 a rounded add (the golden model's order), and neither ``-use_fast_math``
 nor ``-ftz=true`` is given, so subnormals are kept as the golden model
@@ -26,13 +32,14 @@ import time
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_libraries",
-           "load_library", "build_log"]
+           "load_library", "build_log", "storage_library"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "plf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+BF16_SUFFIX = "_bf16"
 
 
 def _nvcc() -> str:
@@ -48,9 +55,24 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def storage_library(source: str, bf16: bool) -> str:
+    """Name of the library of ``csrc/<source>.cu`` for float or bf16 CLV
+    storage."""
+    return source + BF16_SUFFIX if bf16 else source
+
+
+def _source(name: str):
+    """``(csrc/<source>.cu, extra nvcc flags)`` of library ``name``."""
+    if name.endswith(BF16_SUFFIX):
+        return (CSRC / f"{name[:-len(BF16_SUFFIX)]}.cu",
+                ("-DPLF_BF16_STORAGE",))
+    return CSRC / f"{name}.cu", ()
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    src, extra = _source(name)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
+    for p in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -67,9 +89,10 @@ def _library(name: str) -> Path:
 
 
 def build_libraries(names) -> None:
-    """Build every ``csrc/<name>.cu`` whose library is missing or stale,
-    one nvcc per source, all started together; raise with nvcc's output
-    if one fails (the others are stopped)."""
+    """Build every library of ``names`` (``csrc/<name>.cu``, or its bf16
+    storage form) that is missing or stale, one nvcc each, all started
+    together; raise with nvcc's output if one fails (the others are
+    stopped).  Each build log records its own nvcc's seconds."""
     jobs = []
     try:
         for name in names:
@@ -77,31 +100,40 @@ def build_libraries(names) -> None:
             if so.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            src, extra = _source(name)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            jobs.append((name, so, tmp, cmd, time.perf_counter(),
-                         subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True)))
-        for name, so, tmp, cmd, t0, proc in jobs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
+            out = so.with_suffix(f".{os.getpid()}.out")
+            cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o",
+                   str(tmp), str(src)]
+            with open(out, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f,
+                                        stderr=subprocess.STDOUT)
+            jobs.append(dict(name=name, so=so, tmp=tmp, out=out, cmd=cmd,
+                             t0=time.perf_counter(), proc=proc, secs=None))
+        while any(j["secs"] is None for j in jobs):
+            for j in jobs:
+                if j["secs"] is None and j["proc"].poll() is not None:
+                    j["secs"] = time.perf_counter() - j["t0"]
+            time.sleep(0.05)
+        for j in jobs:
+            text = j["out"].read_text()
+            if j["proc"].returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed to build {name}.cu (exit "
-                    f"{proc.returncode}):\n{' '.join(cmd)}\n{out}")
-            build_log(name).write_text(
-                f"{' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n{out}")
-            os.replace(tmp, so)
+                    f"nvcc failed to build {j['name']} (exit "
+                    f"{j['proc'].returncode}):\n{' '.join(j['cmd'])}\n{text}")
+            build_log(j["name"]).write_text(
+                f"{' '.join(j['cmd'])}\n# {j['secs']:.1f} s\n{text}")
+            os.replace(j["tmp"], j["so"])
     finally:
-        for *_, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for j in jobs:
+            if j["proc"].poll() is None:
+                j["proc"].kill()
+                j["proc"].wait()
+            j["out"].unlink(missing_ok=True)
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its hash changed, then load it (once
+    """Build library ``name`` if its hash changed, then load it (once
     per process: the callers cache the handle)."""
     build_libraries([name])
     return ctypes.CDLL(str(_library(name)))

@@ -22,9 +22,10 @@ package's block-matrix code.
 :func:`plf_node_mxu` dispatches on the device of its tensors: a CPU tensor
 takes the plain version :func:`plf_node_mxu_torch`, a CUDA tensor launches
 ``csrc/plf_node_mxu.cu`` or raises.  ``plf_node_mxu.launches`` counts
-kernel launches.  On the card set ``torch.backends.cuda.matmul.allow_tf32
-= False`` before calling the dense forms: the kernel's plain version uses no
-matmul.
+kernel launches, ``plf_node_mxu.bf16_launches`` those of the bf16 CLV
+storage form (bf16 child and parent rows, fp32 arithmetic) among them.
+On the card set ``torch.backends.cuda.matmul.allow_tf32 = False`` before
+calling the dense forms: the kernel's plain version uses no matmul.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import torch
 
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .plf_grad import op_grad, transpose_lane_constants
-from .plf_node import SMEM_BLOCK_BYTES, _check, _valid, stage
+from .plf_node import (SMEM_BLOCK_BYTES, _check, _valid, count_launch,
+                       stage)
 
 __all__ = ["MODES", "uses_mxu_kernels", "bf16_round", "bf16_split",
            "dot_bf16x3", "make_mxu_dots", "operator_planes", "node_planes",
@@ -233,10 +235,12 @@ def plf_node_mxu_torch(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
                        categories: int = 4, out: Optional[torch.Tensor] = None,
                        variant: str = "mxu_3x", planes=None):
     """Plain version of kernel 1m (same arguments and results as
-    :func:`plf_node_mxu`), on the device of its inputs."""
-    x3, mask = node_mxu_plain(x1, x2, lc, rc, ec,
+    :func:`plf_node_mxu`), on the device of its inputs.  bf16 CLVs are
+    widened, and ``x3`` is narrowed after the rescale."""
+    x3, mask = node_mxu_plain(x1.float(), x2.float(), lc, rc, ec,
                               _valid(n, x1.shape[-1], x1.device), states,
                               categories, variant, planes)
+    x3 = x3.to(x1.dtype)
     if out is not None:
         out.copy_(x3)
         x3 = out
@@ -251,13 +255,13 @@ def node_mxu_smem_bytes(rows: int) -> int:
 
 
 @functools.cache
-def _lib():
-    """Build (first use) and load csrc/plf_node_mxu.cu, with its C
-    prototypes."""
-    from ._build import load_library
-    lib = load_library("plf_node_mxu")
+def _lib(bf16: bool = False):
+    """Build (first use) and load csrc/plf_node_mxu.cu's library for fp32
+    or ``bf16`` storage, with its C prototypes."""
+    from ._build import load_library, storage_library
+    lib = load_library(storage_library("plf_node_mxu", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.plf_node_mxu_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+    lib.plf_node_mxu_launch.argtypes = [vp] * 10 + [ci] * 6 + [vp]
     lib.plf_node_mxu_launch.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -271,9 +275,9 @@ def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
     of ``variant`` (any key of :data:`MODES`).
 
     Arguments and results are :func:`plf_node.plf_node`'s: ``x1``/``x2``
-    ``(S*C, n_pad)`` fp32, ``lc``/``rc``/``ec`` ``(S*C, S)`` lane
-    constants, ``n`` valid sites, ``out`` optionally ``x1`` or ``x2`` to
-    write the parent in place; returns ``(x3, scaler)``.  ``planes``: the
+    ``(S*C, n_pad)`` fp32 or both bf16, ``lc``/``rc``/``ec`` ``(S*C, S)``
+    lane constants, ``n`` valid sites, ``out`` optionally ``x1`` or ``x2``
+    to write the parent in place; returns ``(x3, scaler)``.  ``planes``: the
     operators already split for ``variant`` (:func:`node_planes`).
     """
     _check(x1, x2, lc, rc, ec, out, states, categories)
@@ -298,7 +302,8 @@ def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
               for p in node_planes(lc, rc, ec, variant, planes)]
     if states % 4 == 0 and any(p.data_ptr() % 16 for p in planes):
         raise ValueError("plf_node_mxu: lc/rc/ec must be 16-byte aligned")
-    lib = _lib()
+    bf16 = x1.dtype == torch.bfloat16
+    lib = _lib(bf16)
     x3 = torch.empty_like(x1) if out is None else out
     sc = torch.empty((1, n_pad), dtype=torch.int32, device=x1.device)
     with torch.cuda.device(x1.device):
@@ -306,12 +311,12 @@ def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
         err = lib.plf_node_mxu_launch(
             x1.data_ptr(), x2.data_ptr(), *(p.data_ptr() for p in planes),
             x3.data_ptr(), sc.data_ptr(), int(n), n_pad, states, categories,
-            mode, stream)
+            mode, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"plf_node_mxu kernel launch failed: "
                            f"{lib.plf_error_string(err).decode()}")
-    plf_node_mxu.launches += 1
+    count_launch(plf_node_mxu, x1.dtype)
     return x3, sc
 
 
-plf_node_mxu.launches = 0
+plf_node_mxu.launches = plf_node_mxu.bf16_launches = 0

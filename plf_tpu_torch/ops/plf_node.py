@@ -7,12 +7,16 @@ in shared memory, every intermediate in registers, uncontracted fp32 in
 the golden model's order.  What bounds it on the card is device memory:
 196 bytes per site at S = C = 4 (two child CLVs read, one parent CLV and
 one int32 flag written), against ~23 fp32 operations per CLV element.
+With bf16 CLV storage (``PLFConfig(dtype="bfloat16")``, the JAX
+package's fast mode, ``plf_pallas.py:379-383``) the kernel reads and
+writes bf16 rows, 100 bytes per site, and computes in fp32.
 
 :func:`plf_node` dispatches on the kernel variant first (any form but
 "vpu" at S = 4 goes to kernel 1m, ``ops/plf_mxu.py``), then on the device
 of its tensors: a CPU tensor takes the plain version
 :func:`plf_node_torch`, a CUDA tensor launches the kernel or raises.
-``plf_node.launches`` counts kernel launches.
+``plf_node.launches`` counts kernel launches, ``plf_node.bf16_launches``
+those of the bf16 storage form among them.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from . import layout as L
 
 __all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
-           "node_plain", "stage", "SMEM_BLOCK_BYTES"]
+           "node_plain", "stage", "count_launch", "SMEM_BLOCK_BYTES"]
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -77,10 +81,12 @@ def _valid(n: int, n_pad: int, device):
 def plf_node_torch(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
                    categories: int = 4, out: Optional[torch.Tensor] = None):
     """Plain version of kernel 1 (same arguments and results as
-    :func:`plf_node`), on the device of its inputs."""
-    x3, mask = node_plain(x1, x2, lc, rc, ec, _valid(n, x1.shape[-1],
-                                                      x1.device),
-                          states, categories)
+    :func:`plf_node`), on the device of its inputs.  bf16 CLVs are widened,
+    and ``x3`` is narrowed after the rescale (round to nearest even)."""
+    x3, mask = node_plain(x1.float(), x2.float(), lc, rc, ec,
+                          _valid(n, x1.shape[-1], x1.device), states,
+                          categories)
+    x3 = x3.to(x1.dtype)
     if out is not None:
         out.copy_(x3)
         x3 = out
@@ -97,8 +103,12 @@ def _check(x1, x2, lc, rc, ec, out, states, categories):
             raise ValueError(f"{name} must be ({rows}, {states}), got "
                              f"{tuple(t.shape)}")
     ts = [x1, x2, lc, rc, ec] + ([] if out is None else [out])
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("plf_node takes float32 tensors only")
+    clvs = [x1, x2] + ([] if out is None else [out])
+    if (any(t.dtype != torch.float32 for t in (lc, rc, ec))
+            or x1.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != x1.dtype for t in clvs)):
+        raise TypeError("plf_node takes float32 lc/rc/ec and x1, x2 (and "
+                        "out) all float32 or all bfloat16")
     if any(t.device != x1.device for t in ts):
         raise ValueError("plf_node: all tensors must be on one device")
     if out is not None and out.shape != x1.shape:
@@ -114,12 +124,13 @@ def _check(x1, x2, lc, rc, ec, out, states, categories):
 
 
 @functools.cache
-def _lib():
-    """Build (first use) and load csrc/plf_node.cu, with its C prototypes."""
-    from ._build import load_library
-    lib = load_library("plf_node")
+def _lib(bf16: bool = False):
+    """Build (first use) and load csrc/plf_node.cu's library for fp32 or
+    ``bf16`` storage, with its C prototypes."""
+    from ._build import load_library, storage_library
+    lib = load_library(storage_library("plf_node", bf16))
     lib.plf_node_launch.argtypes = [_c_void_p] * 7 + [
-        _c_int, _c_int, _c_int, _c_void_p]
+        _c_int, _c_int, _c_int, _c_int, _c_void_p]
     lib.plf_node_launch.restype = _c_int
     lib.plf_error_string.argtypes = [_c_int]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -132,7 +143,8 @@ def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
     """Fused PLF on lane-major operands.
 
     Args:
-      x1, x2: ``(S*C, n_pad)`` fp32 lane-major child CLVs.
+      x1, x2: ``(S*C, n_pad)`` lane-major child CLVs, fp32 or, for bf16
+        storage, both bf16.
       lc, rc: ``(S*C, S)`` branch constants
         (:func:`layout.branch_to_lane_constants`).
       ec: ``(S*C, S)`` eigenvector constants
@@ -149,7 +161,8 @@ def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
         ``variant`` (:func:`plf_mxu.node_planes`).
 
     Returns:
-      ``(x3, scaler)``: ``(S*C, n_pad)`` fp32 and ``(1, n_pad)`` int32.
+      ``(x3, scaler)``: ``(S*C, n_pad)`` in the storage type of ``x1``
+      and ``(1, n_pad)`` int32.
     """
     from .plf_mxu import plf_node_mxu, uses_mxu_kernels
     if uses_mxu_kernels(variant, states):
@@ -175,7 +188,8 @@ def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
     n_pad = x1.shape[-1]
     if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
         raise ValueError(f"plf_node: bad n={n} for n_pad={n_pad}")
-    lib = _lib()
+    bf16 = x1.dtype == torch.bfloat16
+    lib = _lib(bf16)
     x3 = torch.empty_like(x1) if out is None else out
     sc = torch.empty((1, n_pad), dtype=torch.int32, device=x1.device)
     with torch.cuda.device(x1.device):
@@ -183,23 +197,32 @@ def plf_node(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
         err = lib.plf_node_launch(
             x1.data_ptr(), x2.data_ptr(), lc.data_ptr(), rc.data_ptr(),
             ec.data_ptr(), x3.data_ptr(), sc.data_ptr(), int(n), n_pad,
-            categories, stream)
+            categories, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"plf_node kernel launch failed: "
                            f"{lib.plf_error_string(err).decode()}")
-    plf_node.launches += 1
+    count_launch(plf_node, x1.dtype)
     return x3, sc
 
 
-plf_node.launches = 0
+def count_launch(wrapper, dtype) -> None:
+    """Add one launch to ``wrapper.launches`` and, for bf16 CLV storage,
+    to ``wrapper.bf16_launches``."""
+    wrapper.launches += 1
+    wrapper.bf16_launches += int(dtype == torch.bfloat16)
+
+
+plf_node.launches = plf_node.bf16_launches = 0
 
 
 def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,
                         categories: int = 4, block_sites: int = 4096,
-                        variant: str = "vpu"):
+                        variant: str = "vpu", dtype: str = "float32"):
     """Site-major convenience wrapper (counterpart of
     ``plf_tpu/ops/plf_pallas.py::plf_pallas``): layout in, kernel 1,
-    layout out, in the form of ``variant``.  Returns ``(x3 (n, C, S),
+    layout out, in the form of ``variant``.  ``dtype="bfloat16"`` stores
+    the padded lane-major CLVs, and so ``x3``, in bf16 (cast after
+    padding, as ``plf_pallas`` does).  Returns ``(x3 (n, C, S),
     scaler_vector (n,) int32, scaler_increment int64 scalar)``."""
     S, C = states, categories
     n = x1.reshape(-1, C, S).shape[0]
@@ -208,6 +231,7 @@ def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,
         raise ValueError(f"x1/x2 site count mismatch: {n} vs {n2}")
     x1l = L.pad_to_multiple(L.to_lane_major(x1, S, C), block_sites)
     x2l = L.pad_to_multiple(L.to_lane_major(x2, S, C), block_sites)
+    x1l, x2l = (x.to(getattr(torch, dtype)) for x in (x1l, x2l))
     lc = L.branch_to_lane_constants(left, S, C)
     rc = L.branch_to_lane_constants(right, S, C)
     ec = L.ev_to_lane_constants(ev, S, C)

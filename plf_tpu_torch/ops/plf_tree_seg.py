@@ -77,8 +77,20 @@ per boundary, and the rule takes the cap whose plan needs the least
 (:func:`seg_mxu_site_bytes`), among plans whose kernel-7m arena fits
 (:func:`.plf_tree.tree_mxu_fits`).
 
-Not ported yet (ROADMAP queue 2): bf16 boundary storage and the bf16
-adjoint chain, and the batched segmented scorer.
+bf16 storage (``PLFConfig(dtype="bfloat16")``, the JAX package's
+``io_dtype``): every kernel and plain version here takes ``bbuf`` (and
+kernel 8's ``gbuf``) in bf16 as well as fp32.  A segment's root is rounded
+to nearest even as it is exported and widened where a later segment (or
+the backward's recompute) reads it, a boundary adjoint rounded as it is
+written and widened as its producer's root seed, exactly where the JAX
+kernels narrow and widen (``plf_tree_seg.py:452-484``, ``:568``,
+``:1022-1024``, ``:1070-1075``); arithmetic, the last segment's root,
+``lik``, ``sc`` and the site sums stay fp32.  The plan does not depend on
+the storage type (:func:`seg_mxu_site_bytes` counts fp32 boundaries), so
+an fp32 and a bf16 run cut a tree alike, as the JAX planner does.  Each
+wrapper's ``bf16_launches`` counts the launches of its bf16 form.
+
+Not ported yet (ROADMAP queue 1 item 3): the batched segmented scorer.
 """
 
 from __future__ import annotations
@@ -94,7 +106,7 @@ import torch
 from .plf_grad import GRAD_THREADS, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
-from .plf_node import SMEM_BLOCK_BYTES
+from .plf_node import SMEM_BLOCK_BYTES, count_launch
 from .plf_tree import root_reduce, tree_block_threads, tree_mxu_fits
 from .plf_tree_grad import (TREE_BWD_MXU_SITES, tree_bwd_chunk_sites,
                             tree_bwd_mxu_blocks, tree_bwd_scratch_bytes)
@@ -191,7 +203,8 @@ def seg_mxu_site_bytes(plan: "SegPlan", rows: int) -> int:
     """Device memory per site of a matrix-form segmented step on
     ``plan``: kernel 8m's op checkpoint (``seg_ops`` fp32 CLVs and flag
     bytes, :func:`.plf_tree_grad.tree_bwd_scratch_bytes`), and the
-    boundary CLVs of kernel 7m with kernel 8m's adjoints of them."""
+    boundary CLVs of kernel 7m with kernel 8m's adjoints of them, counted
+    in fp32 whatever their storage (the plan is the same for both)."""
     return (tree_bwd_scratch_bytes(plan.seg_ops, rows, 1)
             + 2 * plan.n_boundaries * 4 * rows)
 
@@ -454,28 +467,28 @@ def _operand(src, flag, codes, ttab, bbuf, arena):
     if flag == 0:
         return ttab[:, codes[src].long()]
     if flag == 2:
-        return bbuf[src]
+        return bbuf[src].float()
     return arena[src]
 
 
 def plf_tree_seg_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
                        n_boundaries: int, n_slots: int, states: int = 4,
                        categories: int = 4, variant: str = "vpu",
-                       planes=None):
+                       planes=None, dtype: torch.dtype = torch.float32):
     """Plain version of kernels 7 and 7m (the arguments and results of
     :func:`plf_tree_seg`), on the device of its inputs, segment by segment
     in the kernels' op order: :func:`.plf_mxu.node_mxu_plain` per op in
     the arithmetic of ``variant`` (in fp32 mode it is
     :func:`.plf_node.node_plain`), tips as columns of ``ttab`` (the
-    variant's rounded table), the sequential root reduction."""
+    variant's rounded table), the sequential root reduction; boundaries
+    stored in ``dtype`` (assigning a root to a bf16 row rounds it)."""
     S, C = states, categories
     pl = node_planes(lcs, rcs, ec, variant, planes)
     n_pad = codes.shape[-1]
     dev = codes.device
     valid = torch.arange(n_pad, device=dev) < n
     lsrc, lflag, rsrc, rflag, oslot, edge = prog.cpu().tolist()
-    bbuf = torch.empty((n_boundaries, S * C, n_pad), dtype=torch.float32,
-                       device=dev)
+    bbuf = torch.empty((n_boundaries, S * C, n_pad), dtype=dtype, device=dev)
     arena: List[Optional[torch.Tensor]] = [None] * n_slots
     scaler = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     start = 0
@@ -507,9 +520,9 @@ def plf_tree_seg_bwd_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
     identities in the arithmetic of ``variant`` (in fp32 mode those of
     :func:`.plf_tree_grad.plf_tree_bwd_torch`); the adjoints of a
     segment's boundary inputs go to ``gbuf`` ``(n_boundaries, S*C,
-    n_pad)`` (allocated when None) for the segments that produced them.
-    Every per-site value equals the kernels'; the site sums run in another
-    order."""
+    n_pad)`` (allocated like ``bbuf`` when None; a bf16 row rounds them)
+    for the segments that produced them.  Every per-site value equals the
+    kernels'; the site sums run in another order."""
     S, C = states, categories
     pl = node_planes(lcs, rcs, ec, variant, planes)
     lh, ll, rh, rl, eh, el = pl
@@ -545,7 +558,7 @@ def plf_tree_seg_bwd_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
             grr = (arena[root] * g).sum(dim=1)
             arena[root] = rr[:, None] * g
         else:
-            arena[root] = gbuf[gout]
+            arena[root] = gbuf[gout].float()
         for i in range(end - 1, start - 1, -1):
             e = edge[i]
             g_y = torch.where(flag[oslot[i]], arena[oslot[i]] * two32,
@@ -599,15 +612,22 @@ def _check(codes, prog, segs, lcs, rcs, ec, ttab, rr, states, categories,
         raise ValueError("plf_tree_seg: all tensors must be on one device")
 
 
+def _check_storage(dtype):
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"boundary storage must be float32 or bfloat16, "
+                         f"got {dtype}")
+
+
 def _check_bwd(codes, bbuf, glik, gbuf, rows):
     n_pad = codes.shape[-1]
     n_bnd = bbuf.shape[0]
+    _check_storage(bbuf.dtype)
     for name, t in (("glik", glik), ("bbuf", bbuf), ("gbuf", gbuf)):
         want = (1, n_pad) if name == "glik" else (n_bnd, rows, n_pad)
-        if t is not None and (tuple(t.shape) != want
-                              or t.dtype != torch.float32
+        dtype = torch.float32 if name == "glik" else bbuf.dtype
+        if t is not None and (tuple(t.shape) != want or t.dtype != dtype
                               or t.device != codes.device):
-            raise ValueError(f"{name} must be {want} float32 on "
+            raise ValueError(f"{name} must be {want} {dtype} on "
                              f"{codes.device}")
 
 
@@ -626,14 +646,15 @@ def _raise_on(lib, err, name):
 
 
 @functools.cache
-def _lib():
-    """Build (first use) and load csrc/plf_tree_seg.cu."""
-    from ._build import load_library
-    lib = load_library("plf_tree_seg")
+def _lib(bf16: bool = False):
+    """Build (first use) and load csrc/plf_tree_seg.cu's library for fp32 or
+    ``bf16`` storage."""
+    from ._build import load_library, storage_library
+    lib = load_library(storage_library("plf_tree_seg", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_launch.argtypes = (
         [vp, ci, vp, ci, vp, ci] + [vp] * 4 + [ci, vp, vp, vp, vp]
-        + [ci] * 5 + [vp])
+        + [ci] * 6 + [vp])
     lib.plf_tree_seg_launch.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -642,7 +663,8 @@ def _lib():
 
 def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
                  n_boundaries: int, n_slots: int, states: int = 4,
-                 categories: int = 4, variant: str = "vpu", planes=None):
+                 categories: int = 4, variant: str = "vpu", planes=None,
+                 dtype: torch.dtype = torch.float32):
     """Kernel 7 (or 7m): the segmented whole-tree likelihood.
 
     Args:
@@ -658,27 +680,30 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
         (:func:`.plf_mxu.round_tip_table`).
       planes: kernel 7m only: ``lcs``/``rcs``/``ec`` already split for
         ``variant`` (:func:`.plf_mxu.node_planes`).
+      dtype: the boundary storage, ``torch.float32`` or ``torch.bfloat16``.
 
     Returns:
       ``(lik, sc, bbuf)``: ``(1, n_pad)`` fp32 site likelihoods and int32
-      rescale counts (kernel 2's or 2m's, bit for bit), and every boundary
-      CLV, ``(n_boundaries, S*C, n_pad)`` fp32 (the VJP's residual).
+      rescale counts (with fp32 boundaries kernel 2's or 2m's, bit for
+      bit), and every boundary CLV, ``(n_boundaries, S*C, n_pad)`` in
+      ``dtype`` (the VJP's residual).
     """
     if uses_mxu_kernels(variant, states):
         return plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n,
                                 n_boundaries=n_boundaries, n_slots=n_slots,
                                 states=states, categories=categories,
-                                variant=variant, planes=planes)
+                                variant=variant, planes=planes, dtype=dtype)
     if planes is not None:
         raise ValueError("plf_tree_seg: planes are for the matrix-form "
                          "kernel")
     _check(codes, prog, segs, lcs, rcs, ec, ttab, rr, states, categories,
            variant)
+    _check_storage(dtype)
     args = (codes, prog, segs, lcs, rcs, ec, ttab, rr)
     if codes.device.type == "cpu":
         return plf_tree_seg_torch(*args, n, n_boundaries=n_boundaries,
                                   n_slots=n_slots, states=states,
-                                  categories=categories)
+                                  categories=categories, dtype=dtype)
     if codes.device.type != "cuda":
         raise ValueError(f"plf_tree_seg: no kernel for device {codes.device}")
     if not 1 <= categories <= 8:
@@ -697,9 +722,8 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     dev = codes.device
     lik = torch.empty((1, n_pad), dtype=torch.float32, device=dev)
     sc = torch.empty((1, n_pad), dtype=torch.int32, device=dev)
-    bbuf = torch.empty((n_boundaries, rows, n_pad), dtype=torch.float32,
-                       device=dev)
-    lib = _lib()
+    bbuf = torch.empty((n_boundaries, rows, n_pad), dtype=dtype, device=dev)
+    lib = _lib(dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         err = lib.plf_tree_seg_launch(
             codes.data_ptr(), codes.element_size(), prog.data_ptr(),
@@ -707,24 +731,26 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
             rcs.data_ptr(), ec.data_ptr(), ttab.data_ptr(), n_codes,
             rr.data_ptr(), bbuf.data_ptr(), lik.data_ptr(), sc.data_ptr(),
             n_slots, int(n), n_pad, categories, threads,
+            int(dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "plf_tree_seg")
-    plf_tree_seg.launches += 1
+    count_launch(plf_tree_seg, dtype)
     return lik, sc, bbuf
 
 
-plf_tree_seg.launches = 0
+plf_tree_seg.launches = plf_tree_seg.bf16_launches = 0
 
 
 @functools.cache
-def _lib_mxu():
-    """Build (first use) and load csrc/plf_tree_seg_mxu.cu."""
-    from ._build import load_library
-    lib = load_library("plf_tree_seg_mxu")
+def _lib_mxu(bf16: bool = False):
+    """Build (first use) and load csrc/plf_tree_seg_mxu.cu's library for fp32 or
+    ``bf16`` storage."""
+    from ._build import load_library, storage_library
+    lib = load_library(storage_library("plf_tree_seg_mxu", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_mxu_launch.argtypes = (
         [vp, ci, vp, ci, vp, ci] + [vp] * 7 + [ci, vp, vp, vp, vp]
-        + [ci] * 6 + [vp])
+        + [ci] * 7 + [vp])
     lib.plf_tree_seg_mxu_launch.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -734,7 +760,7 @@ def _lib_mxu():
 def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
                      n_boundaries: int, n_slots: int, states: int = 20,
                      categories: int = 4, variant: str = "mxu_3x",
-                     planes=None):
+                     planes=None, dtype: torch.dtype = torch.float32):
     """Kernel 7m: :func:`plf_tree_seg` in the arithmetic of ``variant``
     (any key of :data:`.plf_mxu.MODES`), at any S.  Same arguments and
     results as :func:`plf_tree_seg`; ``ttab`` is taken as given (an exact
@@ -743,12 +769,13 @@ def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     None)."""
     _check(codes, prog, segs, lcs, rcs, ec, ttab, rr, states, categories,
            variant)
+    _check_storage(dtype)
     args = (codes, prog, segs, lcs, rcs, ec, ttab, rr)
     if codes.device.type == "cpu":
         return plf_tree_seg_torch(*args, n, n_boundaries=n_boundaries,
                                   n_slots=n_slots, states=states,
                                   categories=categories, variant=variant,
-                                  planes=planes)
+                                  planes=planes, dtype=dtype)
     if codes.device.type != "cuda":
         raise ValueError(f"plf_tree_seg_mxu: no kernel for device "
                          f"{codes.device}")
@@ -766,9 +793,8 @@ def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     dev = codes.device
     lik = torch.empty((1, n_pad), dtype=torch.float32, device=dev)
     sc = torch.empty((1, n_pad), dtype=torch.int32, device=dev)
-    bbuf = torch.empty((n_boundaries, rows, n_pad), dtype=torch.float32,
-                       device=dev)
-    lib = _lib_mxu()
+    bbuf = torch.empty((n_boundaries, rows, n_pad), dtype=dtype, device=dev)
+    lib = _lib_mxu(dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         err = lib.plf_tree_seg_mxu_launch(
             codes.data_ptr(), codes.element_size(), prog.data_ptr(),
@@ -776,27 +802,28 @@ def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
             *(p.data_ptr() for p in pl), ttab.data_ptr(), n_codes,
             rr.data_ptr(), bbuf.data_ptr(), lik.data_ptr(), sc.data_ptr(),
             n_slots, int(n), n_pad, states, categories, MODES[variant],
+            int(dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "plf_tree_seg_mxu")
-    plf_tree_seg_mxu.launches += 1
+    count_launch(plf_tree_seg_mxu, dtype)
     return lik, sc, bbuf
 
 
-plf_tree_seg_mxu.launches = 0
+plf_tree_seg_mxu.launches = plf_tree_seg_mxu.bf16_launches = 0
 
 
 @functools.cache
-def _lib_bwd():
-    """Build (first use) and load csrc/plf_tree_seg_bwd.cu."""
-    from ._build import load_library
-    lib = load_library("plf_tree_seg_bwd")
+def _lib_bwd(bf16: bool = False):
+    """Build (first use) and load csrc/plf_tree_seg_bwd.cu's library for fp32 or
+    ``bf16`` storage."""
+    from ._build import load_library, storage_library
+    lib = load_library(storage_library("plf_tree_seg_bwd", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_bwd_launch.argtypes = (
         [vp, ci, vp, ci, vp, ci] + [vp] * 7 + [ci] + [vp] * 5
-        + [ci] * 6 + [vp])
+        + [ci] * 7 + [vp])
     lib.plf_tree_seg_bwd_launch.restype = ci
-    lib.plf_tree_seg_bwd_occupancy.argtypes = [ci, ci, ci, ci,
-                                               ctypes.POINTER(ci)]
+    lib.plf_tree_seg_bwd_occupancy.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]
     lib.plf_tree_seg_bwd_occupancy.restype = ci
     lib.plf_tree_seg_bwd_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_seg_bwd_reduce.restype = ci
@@ -807,15 +834,16 @@ def _lib_bwd():
 
 @functools.cache
 def _resident_blocks(device: torch.device, code_bytes: int, categories: int,
-                     n_codes: int, seg_ops: int) -> int:
+                     n_codes: int, seg_ops: int, bf16: bool = False) -> int:
     """Kernel-8 blocks resident on the whole card at once (blocks per SM,
     registers and shared memory counted by the CUDA runtime, times the
-    SMs): the launch is one wave."""
-    lib = _lib_bwd()
+    SMs) for the storage form ``bf16`` or fp32: the launch is one wave."""
+    lib = _lib_bwd(bf16)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.plf_tree_seg_bwd_occupancy(code_bytes, categories, n_codes,
-                                             seg_ops, ctypes.byref(blocks))
+                                             seg_ops, int(bf16),
+                                             ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"plf_tree_seg_bwd occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
@@ -843,7 +871,8 @@ def plf_tree_seg_bwd(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik, bbuf,
       prog, segs: :func:`segment_program` with ``reuse_slots=False``
         (the same plan as the forward's); seg_ops: the plan's, the most
         ops in a segment (the kernel stops on a segment with more).
-      glik: ``(1, n_pad)`` cotangent; bbuf: the forward's boundary CLVs.
+      glik: ``(1, n_pad)`` cotangent; bbuf: the forward's boundary CLVs,
+        fp32 or bf16 (the storage of the adjoint chain ``gbuf`` too).
         The rest as :func:`plf_tree_seg` (the kernels take the transposed
         operators too, made here: :func:`.plf_grad.
         transpose_lane_constants`, or the transposed planes,
@@ -851,8 +880,8 @@ def plf_tree_seg_bwd(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik, bbuf,
       variant: "vpu" at S = 4 runs kernel 8, anything else kernel 8m
         (:func:`plf_tree_seg_bwd_mxu`, which alone reads ``planes`` and
         ``max_scratch_bytes``).
-      gbuf: where the boundary adjoints go, ``bbuf``'s shape (scratch,
-        allocated when None; passed to inspect them).
+      gbuf: where the boundary adjoints go, ``bbuf``'s shape and type
+        (scratch, allocated when None; passed to inspect them).
 
     Returns:
       ``(gl, gr, gec, grr)``: ``(E, S*C, S)``, ``(E, S*C, S)``, ``(S*C,
@@ -895,8 +924,9 @@ def plf_tree_seg_bwd(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik, bbuf,
                          f"fit {SEG_BLOCKS_PER_SM} blocks per SM")
     dev = codes.device
     tiles = n_pad // SEG_SITES
+    bf16 = bbuf.dtype == torch.bfloat16
     resident = _resident_blocks(dev, codes.element_size(), categories,
-                                n_codes, seg_ops)
+                                n_codes, seg_ops, bf16)
     per = -(-tiles // resident)
     n_blocks = -(-tiles // per)
     E, RS = lcs.shape[0], rows * states
@@ -905,7 +935,7 @@ def plf_tree_seg_bwd(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik, bbuf,
     out = torch.empty(cols, dtype=torch.float32, device=dev)
     if gbuf is None:
         gbuf = torch.empty_like(bbuf)
-    lib = _lib_bwd()
+    lib = _lib_bwd(bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.plf_tree_seg_bwd_launch(
@@ -914,31 +944,32 @@ def plf_tree_seg_bwd(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik, bbuf,
             lcsT.data_ptr(), rcsT.data_ptr(), ec.data_ptr(), ecT.data_ptr(),
             ttab.data_ptr(), n_codes, rr.data_ptr(), glik.data_ptr(),
             bbuf.data_ptr(), gbuf.data_ptr(), partial.data_ptr(), seg_ops,
-            n_blocks, per, int(n), n_pad, categories, stream)
+            n_blocks, per, int(n), n_pad, categories, int(bf16), stream)
         if err == 0:
             err = lib.plf_tree_seg_bwd_reduce(partial.data_ptr(), n_blocks,
                                               cols, out.data_ptr(), stream)
     _raise_on(lib, err, "plf_tree_seg_bwd")
-    plf_tree_seg_bwd.launches += 1
+    count_launch(plf_tree_seg_bwd, bbuf.dtype)
     return _split_sums(out, E, rows, states)
 
 
-plf_tree_seg_bwd.launches = 0
+plf_tree_seg_bwd.launches = plf_tree_seg_bwd.bf16_launches = 0
 
 
 @functools.cache
-def _lib_bwd_mxu():
-    """Build (first use) and load csrc/plf_tree_seg_bwd_mxu.cu."""
-    from ._build import load_library
-    lib = load_library("plf_tree_seg_bwd_mxu")
+def _lib_bwd_mxu(bf16: bool = False):
+    """Build (first use) and load csrc/plf_tree_seg_bwd_mxu.cu's library for fp32 or
+    ``bf16`` storage."""
+    from ._build import load_library, storage_library
+    lib = load_library(storage_library("plf_tree_seg_bwd_mxu", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_bwd_mxu_launch.argtypes = (
         [vp, ci, vp, ci, vp, ci] + [vp] * 13 + [ci] + [vp] * 6 + [ci] * 3
-        + [vp] * 2 + [ci] * 8 + [vp])
+        + [vp] * 2 + [ci] * 9 + [vp])
     lib.plf_tree_seg_bwd_mxu_launch.restype = ci
     lib.plf_tree_seg_bwd_mxu_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_seg_bwd_mxu_reduce.restype = ci
-    lib.plf_tree_seg_bwd_mxu_plan.argtypes = ([ci] * 4
+    lib.plf_tree_seg_bwd_mxu_plan.argtypes = ([ci] * 5
                                               + [ctypes.POINTER(ci)] * 2)
     lib.plf_tree_seg_bwd_mxu_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
@@ -948,17 +979,19 @@ def _lib_bwd_mxu():
 
 @functools.cache
 def _launch_plan_mxu(device: torch.device, code_bytes: int, states: int,
-                     categories: int, mode: int) -> Tuple[bool, int]:
-    """``(acc_shared, resident)`` of kernel 8m, as its library decides
-    them with kernel 4m's rule (``plf_tree_seg_bwd_mxu_plan``): the
-    accumulators in shared memory when two blocks with them fit an SM,
-    else a row of device memory per block; and the blocks resident on the
-    whole card at once."""
-    lib = _lib_bwd_mxu()
+                     categories: int, mode: int,
+                     bf16: bool = False) -> Tuple[bool, int]:
+    """``(acc_shared, resident)`` of kernel 8m's fp32 or ``bf16`` storage
+    form, as its library decides them with kernel 4m's rule
+    (``plf_tree_seg_bwd_mxu_plan``): the accumulators in shared memory
+    when two blocks with them fit an SM, else a row of device memory per
+    block; and the blocks resident on the whole card at once."""
+    lib = _lib_bwd_mxu(bf16)
     acc_shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.plf_tree_seg_bwd_mxu_plan(code_bytes, states, categories,
-                                            mode, ctypes.byref(acc_shared),
+                                            mode, int(bf16),
+                                            ctypes.byref(acc_shared),
                                             ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"plf_tree_seg_bwd_mxu occupancy query failed: "
@@ -981,7 +1014,8 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
     fits ``max_scratch_bytes`` (default half the card's free memory), as
     kernel 4m does (:func:`.plf_tree_grad.tree_bwd_chunk_sites`).
     ``plf_tree_seg_bwd_mxu.last_scratch`` records the last call's chunking
-    and where its accumulators lived.
+    and where its accumulators lived.  On the card bf16 storage takes
+    every variant but "mxu_bf16", which no gradient backend trains.
     """
     _check(codes, prog, segs, lcs, rcs, ec, ttab, rr, states, categories,
            variant)
@@ -1008,7 +1042,12 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
         raise ValueError(f"plf_tree_seg_bwd_mxu: n_pad={n_pad} must be a "
                          f"positive multiple of {GRAD_THREADS} and "
                          f"0 <= n={n} <= n_pad")
-    lib = _lib_bwd_mxu()
+    bf16 = bbuf.dtype == torch.bfloat16
+    if bf16 and variant == "mxu_bf16":
+        raise ValueError("plf_tree_seg_bwd_mxu: bf16 storage has no "
+                         "'mxu_bf16' form (no gradient backend trains "
+                         "'mxu_bf16')")
+    lib = _lib_bwd_mxu(bf16)
     dev = codes.device
     if gbuf is None:
         gbuf = torch.empty_like(bbuf)
@@ -1018,7 +1057,7 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
     E, RS = lcs.shape[0], rows * S
     cols = 2 * E * RS + RS + rows
     acc_shared, resident = _launch_plan_mxu(dev, codes.element_size(), S, C,
-                                            MODES[variant])
+                                            MODES[variant], bf16)
     n_blocks, _ = tree_bwd_mxu_blocks(chunk, cols, resident)
     partial = torch.empty((n_blocks, cols), dtype=torch.float32, device=dev)
     acc = None if acc_shared else torch.empty(
@@ -1043,14 +1082,14 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
                 flags.data_ptr(), seg_ops, site0, sites, partial.data_ptr(),
                 None if acc is None else acc.data_ptr(), int(k > 0),
                 -(-tiles // per), per, int(n), n_pad, S, C, MODES[variant],
-                stream)
+                int(bf16), stream)
             if err != 0:
                 break
         else:
             err = lib.plf_tree_seg_bwd_mxu_reduce(
                 partial.data_ptr(), n_blocks, cols, out.data_ptr(), stream)
     _raise_on(lib, err, "plf_tree_seg_bwd_mxu")
-    plf_tree_seg_bwd_mxu.launches += 1
+    count_launch(plf_tree_seg_bwd_mxu, bbuf.dtype)
     plf_tree_seg_bwd_mxu.last_scratch = dict(
         chunk_sites=chunk, chunks=len(chunks), blocks=n_blocks,
         bytes=tree_bwd_scratch_bytes(seg_ops, rows, chunk),
@@ -1058,7 +1097,7 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
     return _split_sums(out, E, rows, S)
 
 
-plf_tree_seg_bwd_mxu.launches = 0
+plf_tree_seg_bwd_mxu.launches = plf_tree_seg_bwd_mxu.bf16_launches = 0
 plf_tree_seg_bwd_mxu.last_scratch = None
 
 
@@ -1067,16 +1106,17 @@ plf_tree_seg_bwd_mxu.last_scratch = None
 
 class _SegDiff(torch.autograd.Function):
     """Kernel 7 (7m) forward, kernel 8 (8m) backward; the residual is the
-    boundary buffer (and the small operand arrays and operator planes),
-    never an op CLV."""
+    boundary buffer in its storage type (and the small operand arrays and
+    operator planes), never an op CLV."""
 
     @staticmethod
     def forward(ctx, codes, lcs, rcs, ec, ttab, rr, fwd, bwd, n, plan,
-                n_slots, states, categories, variant, planes):
+                n_slots, states, categories, variant, planes, dtype):
         lik, sc, bbuf = plf_tree_seg(
             codes, fwd[0], fwd[1], lcs, rcs, ec, ttab, rr, n,
             n_boundaries=plan.n_boundaries, n_slots=n_slots, states=states,
-            categories=categories, variant=variant, planes=planes)
+            categories=categories, variant=variant, planes=planes,
+            dtype=dtype)
         ctx.seg_ops = plan.seg_ops
         ctx.save_for_backward(codes, bwd[0], bwd[1], lcs, rcs, ec, ttab, rr,
                               bbuf)
@@ -1093,24 +1133,28 @@ class _SegDiff(torch.autograd.Function):
             bbuf, ctx.n, seg_ops=ctx.seg_ops, states=ctx.states,
             categories=ctx.categories, variant=ctx.variant,
             planes=ctx.planes)
-        return (None, gl, gr, gec, None, grr) + (None,) * 9
+        return (None, gl, gr, gec, None, grr) + (None,) * 10
 
 
 def make_tree_diff_segmented(schedule: Sequence[Tuple], n_leaves: int, *,
                              states: int = 4, categories: int = 4,
                              cap_ops: Optional[int] = None,
-                             n_codes: int = 16, variant: str = "vpu"):
+                             n_codes: int = 16, variant: str = "vpu",
+                             dtype: str = "float32"):
     """Differentiable segmented whole-tree likelihood, with the contract
     of :func:`.plf_tree_grad.make_tree_diff`: ``fn(codes, lcs, rcs, ec,
     ttab, rr, n, planes=None) -> (lik, sc)``, operators by original edge,
     ``rr`` ``(S*C,)``; differentiable in lcs, rcs, ec and rr.  "vpu" at
     S = 4 runs kernel 7 forward and kernel 8 backward ("planes" must be
     None), every other ``variant`` kernels 7m and 8m on ``planes`` (split
-    here when None); one launch each.  ``fn.plan`` is the plan, cut by
-    the capacity rule of the kernels that run (the JAX package's plan for
-    the same schedule and ``cap_ops``)."""
+    here when None); one launch each.  ``dtype="bfloat16"`` stores the
+    boundary CLVs and their adjoints in bf16 (the JAX function's
+    ``dtype``).  ``fn.plan`` is the plan, cut by the capacity rule of the
+    kernels that run (the JAX package's plan for the same schedule and
+    ``cap_ops``), whatever ``dtype``."""
     if variant not in MODES:
         raise ValueError(f"unknown kernel variant {variant!r}")
+    storage = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     rows = states * categories
     pos_sched = [(p, l, r, 0.0, 0.0, i)
                  for i, (p, l, r, *_x) in enumerate(schedule)]
@@ -1133,7 +1177,7 @@ def make_tree_diff_segmented(schedule: Sequence[Tuple], n_leaves: int, *,
             planes = tuple(p.detach() for p in planes)
         return _SegDiff.apply(codes, lcs, rcs, ec, ttab, rr, fwd, bwd,
                               int(n), plan, n_slots, states, categories,
-                              variant, planes)
+                              variant, planes, storage)
 
     fn.plan = plan
     return fn

@@ -924,3 +924,274 @@ def test_segmented_mxu_wrappers_reject_what_they_cannot_run(cuda):
     with pytest.raises(ValueError, match="bbuf"):
         SG.plf_tree_seg_bwd(*bargs, g, bbuf[:, :, :128], pm.n_sites,
                             seg_ops=plan.seg_ops, **kw)
+
+
+# ----------------------------------------- bf16 CLV storage (dtype="bfloat16")
+
+BF16 = torch.bfloat16
+
+
+def _bf16_lane(x, S, C, device):
+    """A site-major fp32 CLV as padded lane-major bf16 on the card."""
+    return torch.as_tensor(L.pad_to_multiple(L.to_lane_major(x, S, C), 128),
+                           device=device).to(BF16).contiguous()
+
+
+@pytest.mark.parametrize("S,C,variant", [(4, 4, "vpu"), (4, 5, "vpu"),
+                                         (20, 4, "mxu"), (20, 4, "mxu_3x"),
+                                         (20, 4, "mxu_bf16"),
+                                         (61, 4, "mxu_3x")])
+def test_kernel1_bf16_storage_equals_plain(cuda, S, C, variant):
+    """Kernels 1 ("vpu" at S = 4) and 1m on bf16 CLVs with the
+    forced-underflow pattern: x3 (bf16) and the flags equal the plain
+    version's bit for bit, out of place and in place; x3 is the bf16
+    rounding of the fp32 kernel's x3 on the widened inputs; the launch is
+    counted as a bf16 one."""
+    n = 600 - 5
+    x1, x2, left, right, ev = (_underflow_case(n, C, 19) if S == 4
+                               else _underflow_case_s(n, S, C, 19))
+    consts = [torch.as_tensor(a, device=cuda) for a in (
+        L.branch_to_lane_constants(left, S, C),
+        L.branch_to_lane_constants(right, S, C),
+        L.ev_to_lane_constants(ev, S, C))]
+    a, b = _bf16_lane(x1, S, C, cuda), _bf16_lane(x2, S, C, cuda)
+    kw = dict(states=S, categories=C, variant=variant)
+    wrapper = plf_node if S == 4 and variant == "vpu" else plf_node_mxu
+    plain = plf_node_torch if wrapper is plf_node else plf_node_mxu_torch
+    before = (wrapper.launches, wrapper.bf16_launches)
+    x3, sc = plf_node(a, b, *consts, n, **kw)
+    assert (wrapper.launches, wrapper.bf16_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    x3p, scp = plain(a, b, *consts, n, **(
+        dict(states=S, categories=C) if plain is plf_node_torch else kw))
+    x3f, scf = plf_node(a.float(), b.float(), *consts, n, **kw)
+    torch.cuda.synchronize()
+    assert x3.dtype == BF16
+    assert torch.equal(x3, x3p) and torch.equal(sc, scp)
+    assert torch.equal(x3, x3f.to(BF16)) and torch.equal(sc, scf)
+    assert int(sc.sum()) > 0 and not sc[0, n:].any()
+    for which in (0, 1):
+        ops = [a.clone(), b.clone()]
+        x3i, sci = plf_node(*ops, *consts, n, out=ops[which], **kw)
+        assert x3i.data_ptr() == ops[which].data_ptr()
+        assert torch.equal(x3i, x3p) and torch.equal(sci, scp)
+
+
+def test_bf16_wrappers_reject_mixed_storage(cuda):
+    """A wrapper given bf16 and fp32 CLVs together, bf16 constants, or a
+    storage type other than fp32 and bf16 raises; it never converts."""
+    x = torch.rand(16, 256, device=cuda)
+    c = torch.rand(16, 4, device=cuda)
+    for wrapper, kw in ((plf_node, {}),
+                        (plf_node_mxu, dict(states=4, variant="mxu"))):
+        with pytest.raises(TypeError, match="bfloat16"):
+            wrapper(x.to(BF16), x, c, c, c, 200, **kw)
+        with pytest.raises(TypeError, match="bfloat16"):
+            wrapper(x.to(BF16), x.to(BF16), c, c, c, 200, out=x.clone(),
+                    **kw)
+        with pytest.raises(TypeError, match="bfloat16"):
+            wrapper(x.to(BF16), x.to(BF16), c.to(BF16), c, c, 200, **kw)
+        with pytest.raises(TypeError, match="bfloat16"):
+            wrapper(x.half(), x.half(), c, c, c, 200, **kw)
+    pm, plan, (fwd, (prog, segs, _)) = _seg_case(cuda, n_sites=300)
+    with pytest.raises(ValueError, match="bfloat16"):
+        _seg_fwd(pm, plan, fwd, lambda *a, **k: SG.plf_tree_seg(
+            *a, dtype=torch.float16, **k))
+    _, _, bbuf = _seg_fwd(pm, plan, fwd, lambda *a, **k: SG.plf_tree_seg(
+        *a, dtype=BF16, **k))
+    assert bbuf.dtype == BF16
+    g = torch.zeros((1, pm.n_pad), device=cuda)
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+            pm.root_rows[0], g)
+    with pytest.raises(ValueError, match="gbuf"):
+        SG.plf_tree_seg_bwd(*args, bbuf, pm.n_sites, seg_ops=plan.seg_ops,
+                            gbuf=torch.empty(bbuf.shape, device=cuda))
+    with pytest.raises(ValueError, match="bfloat16"):
+        SG.plf_tree_seg_bwd(*args, bbuf.half(), pm.n_sites,
+                            seg_ops=plan.seg_ops)
+
+
+def _seg_bf16(fn, **over):
+    return lambda *a, **k: fn(*a, **{**k, **over})
+
+
+@pytest.mark.parametrize("tip_dtype,cap", [("int32", None), ("int8", 4)])
+def test_kernel7_kernel8_bf16_storage_equal_plain(cuda, tip_dtype, cap):
+    """Kernel 7 with bf16 boundaries: lik, sc and every (bf16) boundary
+    equal the plain version's bit for bit, and lik differs from the fp32
+    form's.  Kernel 8 on them: the bf16 boundary adjoints equal the plain
+    version's bit for bit, the site sums within 1e-6 of scale, two runs
+    bit-identical; both launches counted as bf16 ones."""
+    pm, plan, (fwd, (prog, segs, _)) = _seg_case(
+        cuda, cap, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128))
+    assert plan.n_boundaries > 0
+    k7 = SG.plf_tree_seg.bf16_launches
+    lik, sc, bbuf = _seg_fwd(pm, plan, fwd, _seg_bf16(SG.plf_tree_seg,
+                                                      dtype=BF16))
+    assert SG.plf_tree_seg.bf16_launches == k7 + 1
+    plain = _seg_fwd(pm, plan, fwd, _seg_bf16(SG.plf_tree_seg_torch,
+                                              dtype=BF16))
+    lik32 = _seg_fwd(pm, plan, fwd)[0]
+    torch.cuda.synchronize()
+    assert bbuf.dtype == BF16
+    for a, b in zip((lik, sc, bbuf), plain):
+        assert torch.equal(a, b)
+    assert not torch.equal(lik, lik32)
+    C = pm.config.categories
+    glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
+                       .manual_seed(5), device=cuda)
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+            pm.root_rows[0], glik, bbuf, pm.n_sites)
+    gbufs = [torch.full_like(bbuf, float("nan")) for _ in range(3)]
+    k8 = SG.plf_tree_seg_bwd.bf16_launches
+    k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, categories=C,
+                             gbuf=gbufs[0])
+    k2 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, categories=C,
+                             gbuf=gbufs[1])
+    assert SG.plf_tree_seg_bwd.bf16_launches == k8 + 2
+    p = SG.plf_tree_seg_bwd_torch(*args, categories=C, gbuf=gbufs[2])
+    torch.cuda.synchronize()
+    assert torch.equal(gbufs[0], gbufs[2]) and torch.equal(gbufs[0],
+                                                           gbufs[1])
+    for i in range(4):
+        assert torch.equal(k1[i], k2[i])
+    for i in range(3):
+        _sums_close(k1[i], p[i], rtol=1e-6)
+    _sums_close(k1[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1), rtol=1e-6)
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
+@pytest.mark.parametrize("states", [20, 61])
+def test_kernel7m_kernel8m_bf16_storage_equal_plain(cuda, variant, states):
+    """Kernels 7m and 8m with bf16 boundaries and adjoints, in every mode
+    at S = 20 and S = 61: lik, sc and every boundary equal the plain
+    version's bit for bit; the boundary adjoints equal the plain version's
+    bit for bit in one chunk and in chunks of two tiles, the site sums
+    within 3e-6 of scale; the launches counted as bf16 ones.  Kernel 8m
+    has no bf16 "mxu_bf16" form (no gradient backend trains it): its
+    wrapper raises there and launches nothing."""
+    pm, plan, (fwd, (prog, segs, _)) = _seg_mxu_case(cuda, variant,
+                                                     states=states)
+    S, C = states, pm.config.categories
+    kw = dict(states=S, categories=C, variant=variant)
+    fargs = _seg_mxu_args(pm, *fwd[:2]) + (pm.n_sites,)
+    fkw = dict(n_boundaries=plan.n_boundaries, n_slots=fwd[2], dtype=BF16,
+               **kw)
+    k7 = SG.plf_tree_seg_mxu.bf16_launches
+    lik, sc, bbuf = SG.plf_tree_seg(*fargs, **fkw)
+    assert SG.plf_tree_seg_mxu.bf16_launches == k7 + 1
+    plain = SG.plf_tree_seg_torch(*fargs, **fkw)
+    torch.cuda.synchronize()
+    for a, b in zip((lik, sc, bbuf), plain):
+        assert torch.equal(a, b)
+    glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)
+                       .manual_seed(7), device=cuda)
+    args = _seg_mxu_args(pm, prog, segs) + (glik, bbuf, pm.n_sites)
+    k8 = SG.plf_tree_seg_bwd_mxu.bf16_launches
+    if variant == "mxu_bf16":
+        with pytest.raises(ValueError, match="mxu_bf16"):
+            SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, **kw)
+        assert SG.plf_tree_seg_bwd_mxu.bf16_launches == k8
+        return
+    gbufs = [torch.full_like(bbuf, float("nan")) for _ in range(3)]
+    k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[0], **kw)
+    per_tile = TG.tree_bwd_scratch_bytes(plan.seg_ops, pm.config.rows, 128)
+    k2 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[1],
+                             max_scratch_bytes=2 * per_tile, **kw)
+    assert SG.plf_tree_seg_bwd_mxu.last_scratch["chunks"] > 1
+    assert SG.plf_tree_seg_bwd_mxu.bf16_launches == k8 + 2
+    p = SG.plf_tree_seg_bwd_torch(*args, gbuf=gbufs[2], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gbufs[0], gbufs[2]) and torch.equal(gbufs[1],
+                                                           gbufs[2])
+    for k in (k1, k2):
+        for i in range(3):
+            _sums_close(k[i], p[i], rtol=3e-6)
+        _sums_close(k[3].reshape(1, -1, 1), p[3].reshape(1, -1, 1),
+                    rtol=3e-6)
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_bf16_paths_on_the_card(cuda, monkeypatch, states):
+    """Under PLFConfig(dtype="bfloat16"): PLFEngine.plf launches the bf16
+    form of kernel 1 (1m at S = 20) and returns bf16; plf_batch, the fused
+    path and the "tree" step launch only fp32 forms and equal the fp32
+    model; log_likelihood(method="segmented") launches the bf16 kernel 7
+    (7m) once, and a "segmented" step the bf16 kernels 7 + 8 (7m + 8m)
+    once each, its value within 5e-3 of the fp32 model's.  The DNA
+    gradient is within 0.05 of the fp32 one with a 1e-2 floor
+    (tests/test_tree_seg.py:449-450).  The protein gradient is not held to
+    the fp32 one: on this model rounded eigen-coordinate boundaries and
+    1/lik-scaled adjoints move it by about seven times its size, in the
+    JAX package (7.17) as in the port's plain path (7.36; python -m
+    tests.test_torch_bf16 40 1500).
+    It matches its CPU twin's (the plain versions on the card's lane
+    constants, as test_matrix_form_training_step's) within rtol 2e-4 and
+    1e-4 of the largest entry."""
+    variant = "vpu" if states == 4 else "mxu_3x"
+    tree = random_tree(40, seed=8, mean_branch=0.2)
+    rng = np.random.default_rng(8)
+    tips = rng.integers(-1, states + (10 if states == 4 else 3),
+                        size=(40, 1500))
+    model = hky85(2.0) if states == 4 else empirical_protein("lg")
+    pms = {d: PhyloModel(tree, model, tips, alpha=0.6, device=cuda,
+                         config=PLFConfig(states=states, dtype=d,
+                                          kernel_variant=variant))
+           for d in ("float32", "bfloat16")}
+    node = plf_node if states == 4 else plf_node_mxu
+    fwd = SG.plf_tree_seg if states == 4 else SG.plf_tree_seg_mxu
+    bwd = SG.plf_tree_seg_bwd if states == 4 else SG.plf_tree_seg_bwd_mxu
+    wrappers = _counted() + (SG.plf_tree_seg, SG.plf_tree_seg_bwd,
+                             SG.plf_tree_seg_mxu, SG.plf_tree_seg_bwd_mxu)
+    bf16_counts = lambda: [f.bf16_launches for f in (node, fwd, bwd)]
+    C = pms["float32"].config.categories
+    x1, x2, left, right, ev = _underflow_case_s(300, states, C, 3)
+    eng = PLFEngine(PLFConfig(states=states, categories=C, dtype="bfloat16",
+                              kernel_variant=variant), device=cuda)
+    c0 = bf16_counts()
+    out = eng.plf(x1, x2, left, right, ev)
+    assert out.x3.dtype == BF16 and bf16_counts() == [c0[0] + 1] + c0[1:]
+    batch = eng.plf_batch(x1[None], x2[None], left[None], right[None],
+                          ev[None])
+    assert batch.x3.dtype == torch.float32 and bf16_counts()[0] == c0[0] + 1
+    a, b = (pms[d].log_likelihood(method="fused") for d in pms)
+    np.testing.assert_array_equal(a.site_log_likelihood,
+                                  b.site_log_likelihood)
+    c0 = bf16_counts()
+    seg16 = pms["bfloat16"].log_likelihood(method="segmented")
+    assert bf16_counts() == [c0[0], c0[1] + 1, c0[2]]
+    seg32 = pms["float32"].log_likelihood(method="segmented")
+    rel = abs(seg16.log_likelihood / seg32.log_likelihood - 1)
+    assert seg16.log_likelihood != seg32.log_likelihood and rel < 5e-3
+    out = {}
+    for d, pm in pms.items():
+        for backend in ("segmented", "tree"):
+            fn, t0 = tree_loglik_fn(pm, backend=backend)
+            counts, c0 = [f.launches for f in wrappers], bf16_counts()
+            t = torch.tensor(t0, device=cuda, requires_grad=True)
+            v = fn(t)
+            v.backward()
+            runs = sum(f.launches - c for f, c in zip(wrappers, counts))
+            assert runs == 2, (d, backend, runs)
+            seg16_step = d == "bfloat16" and backend == "segmented"
+            assert bf16_counts() == ([c0[0], c0[1] + 1, c0[2] + 1]
+                                     if seg16_step else c0)
+            out[d, backend] = (float(v.detach()), t.grad)
+    assert out["bfloat16", "tree"][0] == out["float32", "tree"][0]
+    assert torch.equal(out["bfloat16", "tree"][1], out["float32", "tree"][1])
+    (v16, g16), (v32, g32) = (out[d, "segmented"]
+                              for d in ("bfloat16", "float32"))
+    assert v16 != v32 and abs(v16 / v32 - 1) < 5e-3
+    assert bool(torch.isfinite(g16).all())
+    if states == 4:
+        assert float(((g16 - g32).abs() / (g32.abs() + 1e-2)).max()) < 0.05
+        return
+    twin = PhyloModel(tree, model, tips, alpha=0.6, device="cpu",
+                      config=pms["bfloat16"].config)
+    fn, t0 = tree_loglik_fn(twin, backend="segmented")
+    t = torch.tensor(t0, requires_grad=True)
+    monkeypatch.setattr(TO, "_lane_constants", _card_lane_constants(cuda))
+    fn(t).backward()
+    want = t.grad.numpy()
+    np.testing.assert_allclose(g16.cpu().numpy(), want, rtol=2e-4,
+                               atol=1e-4 * np.abs(want).max())

@@ -112,13 +112,20 @@ def test_geometry_matches_jax(n):
 
 
 def test_unported_engine_settings_raise():
-    """bf16 CLV storage still raises; every kernel variant now runs (the
-    MXU forms through kernel 1m's plain version here), "mxu" bit-equal to
-    the golden model."""
+    """Every setting that once raised now runs.  bf16 CLV storage (kernel
+    1's plain version here): a bf16 x3, the bf16 rounding of the golden
+    model's x3 on the bf16-rounded inputs, and its flags.  Every kernel
+    variant (the MXU forms through kernel 1m's plain version), "mxu"
+    bit-equal to the golden model."""
     x1, x2, left, right, ev, _ = _case(128, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PLFEngine(PLFConfig(dtype="bfloat16"), device="cpu").plf(
-            x1, x2, left, right, ev)
+    out = PLFEngine(PLFConfig(dtype="bfloat16"), device="cpu").plf(
+        x1, x2, left, right, ev)
+    r16 = lambda a: torch.as_tensor(a).to(torch.bfloat16)
+    x3_16, sv_16, _ = plf_reference(r16(x1).float().numpy(),
+                                    r16(x2).float().numpy(), left, right, ev)
+    assert out.x3.dtype == torch.bfloat16
+    assert torch.equal(out.x3, r16(x3_16))
+    np.testing.assert_array_equal(out.scaler_vector.numpy(), sv_16)
     x3_ref, sv_ref, _ = plf_reference(x1, x2, left, right, ev)
     for variant in ("mxu", "mxu_3x", "mxu_bf16"):
         out = PLFEngine(PLFConfig(kernel_variant=variant),
@@ -181,6 +188,27 @@ def test_build_hash_follows_sources(tmp_path, monkeypatch):
     (tmp_path / "plf_common.cuh").write_text(
         (tmp_path / "plf_common.cuh").read_text() + "\n// edited\n")
     assert _build._digest("plf_tree") != before
+
+
+def test_bf16_storage_builds_a_library_of_its_own(tmp_path, monkeypatch):
+    """A kernel's bf16 storage form is its source built with
+    -DPLF_BF16_STORAGE into a second library, hashed apart from the float
+    one; the float library's command is the one it had before."""
+    assert _build.storage_library("plf_tree_seg", False) == "plf_tree_seg"
+    name = _build.storage_library("plf_tree_seg", True)
+    assert _build._source(name) == (_build.CSRC / "plf_tree_seg.cu",
+                                    ("-DPLF_BF16_STORAGE",))
+    assert _build._source("plf_tree_seg") == (_build.CSRC / "plf_tree_seg.cu",
+                                              ())
+    assert _build._digest(name) != _build._digest("plf_tree_seg")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: shutil.which("false"))
+    with pytest.raises(RuntimeError, match="nvcc failed to build "
+                       "plf_tree_seg_bf16") as err:
+        _build.build_libraries([name])
+    assert "-DPLF_BF16_STORAGE" in str(err.value)
+    assert str(_build.CSRC / "plf_tree_seg.cu") in str(err.value)
+    assert not [p for p in tmp_path.iterdir() if p.suffix != ".log"]
 
 
 # ------------------------------------------------------------------ guards --

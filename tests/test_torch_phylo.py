@@ -243,9 +243,11 @@ def test_keep_root_clv_takes_per_node(spies):
 
 
 def test_unported_paths_raise():
-    """The sharded path and bf16 CLV storage raise; the MXU variants run
-    on the fused and per-node paths, which agree, and on the segmented
-    path, which equals the fused one site for site."""
+    """The sharded path raises; bf16 CLV storage now runs, and on the
+    fused and per-node paths, which ignore it, equals the fp32 model site
+    for site; the MXU variants run on the fused and per-node paths, which
+    agree, and on the segmented path, which equals the fused one site for
+    site."""
     pt = _port_of(_jax_model("gamma"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.log_likelihood_sharded()
@@ -256,8 +258,12 @@ def test_unported_paths_raise():
         pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
         w=pm.model.w, newick="((A,B),C);", tip_states=_tips(3, 10, 1),
         rates=[1.0], config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(TCfg(dtype="bfloat16"))
+    bf16, f32 = port(TCfg(dtype="bfloat16")), port(TCfg())
+    for method in ("fused", "per-node"):
+        a, b = (m.log_likelihood(method=method) for m in (bf16, f32))
+        assert np.isfinite(a.log_likelihood)
+        np.testing.assert_array_equal(a.site_log_likelihood,
+                                      b.site_log_likelihood)
     for variant in ("mxu", "mxu_3x", "mxu_bf16"):
         pv = port(TCfg(kernel_variant=variant))
         fused = pv.log_likelihood(method="fused")

@@ -314,9 +314,9 @@ def test_matrix_form_and_bf16_guards():
     here): can_segment is True, method="segmented" equals the fused path
     site for site and backend="segmented" trains (kernels 7m + 8m, plain,
     on the CPU), its value equal to the "tree" backend's;
-    make_tree_diff_segmented takes S = 20.  bf16 CLV storage still raises
-    NotImplementedError naming ROADMAP at construction, and "mxu_bf16"
-    still refuses every gradient backend."""
+    make_tree_diff_segmented takes S = 20.  bf16 CLV storage now builds and
+    its segmented path runs (kernel 7's plain version with bf16
+    boundaries), and "mxu_bf16" still refuses every gradient backend."""
     pm = _jax_model(jrt(5, seed=2), 128, seed=2, variant="mxu")
     pt = _port_of(pm)
     assert pt.can_segment()
@@ -331,12 +331,12 @@ def test_matrix_form_and_bf16_guards():
         with torch.no_grad():
             values[backend] = float(fn(t0))
     assert values["segmented"] == values["tree"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.phylo_model(
-            pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
-            w=pm.model.w, newick="((A,B),C);",
-            tip_states=np.zeros((3, 10), np.int32), rates=[1.0],
-            config=PLFConfig(dtype="bfloat16"), device="cpu")
+    b16 = convert.phylo_model(
+        pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
+        w=pm.model.w, newick="((A,B),C);",
+        tip_states=np.zeros((3, 10), np.int32), rates=[1.0],
+        config=PLFConfig(dtype="bfloat16"), device="cpu")
+    assert np.isfinite(b16.log_likelihood(method="segmented").log_likelihood)
     bf16 = convert.phylo_model(
         pi=pm.model.pi, eigenvalues=pm.model.eigenvalues, u=pm.model.u,
         w=pm.model.w, newick="((A,B),C);",
