@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the eleven CUDA kernels of ``plf_tpu_torch`` from
+Builds the thirteen CUDA kernels of ``plf_tpu_torch`` from
 ``plf_tpu_torch/csrc`` (into ``build/plf_tpu_torch/``, one nvcc per
 source, all started together) and holds each against its plain PyTorch
 version on the card (kernels 1 and 1m also against the numpy golden
@@ -59,6 +59,19 @@ plain version bit for bit (kernel 1 at 2^24 sites, 1m at 2^21, S = 61 at
 8,192 codons), its results against the fp32 model's within the JAX
 package's bf16 classes, timed beside its fp32 form.
 
+The last two kernels' paths: kernel 9, the compute-only probe, at
+bench_gen's shape (phase ``kernel9``) and behind ``python -m plf_tpu_torch
+--gen``; kernel 3m, the node backward at S != 4, against its plain version
+(``kernel3s``) and through the "kernel" gradient backend on "vpu" twins of
+the protein and codon models (``kernel_train``: one kernel-1m and one
+kernel-3m launch per node, against "tree" and float64 differences, both
+steps timed in turns, kernel 3m against its plain version on one node's
+residuals at each model's own size); last ``cli`` runs ``python -m
+plf_tpu_torch`` as a user does, in a subprocess that loads the libraries
+built here: DNA at 2^24 sites (``--roundtrip`` at 2^21), 20 states at
+2^21, ``--gen`` at S = 4 and 20, each checked exactly against the golden
+oracle where it verifies.
+
 A profile phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
 idle share, the top kernels) and times kernel 2 at the occupancy its
@@ -94,12 +107,14 @@ from plf_tpu_torch.models.phylo import LIK_FLOOR
 from plf_tpu_torch.ops import layout as L
 from plf_tpu_torch.ops import plf_grad, plf_mxu, plf_tree_grad
 from plf_tpu_torch.ops import plf_node as node_mod, plf_tree as tree_mod
-from plf_tpu_torch.ops._build import (build_libraries, build_log,
-                                      storage_library)
+from plf_tpu_torch.ops._build import (BUILD_DIR, build_libraries,
+                                      build_log, storage_library)
 from plf_tpu_torch.ops.plf_grad import (plf_node_bwd, plf_node_bwd_torch,
                                         transpose_lane_constants)
 from plf_tpu_torch.ops.plf_mxu import plf_node_mxu, plf_node_mxu_torch
-from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch
+from plf_tpu_torch.ops.plf_node import (gen_flops, plf_node,
+                                        plf_node_gen, plf_node_gen_torch,
+                                        plf_node_torch)
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,
                                         plf_tree_mxu_occupancy,
                                         plf_tree_occupancy, plf_tree_torch,
@@ -240,7 +255,16 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+#: Seconds of the run by phase: the time since the previous phase line
+#: goes to the phase of the next.
+PHASE_SECONDS = {}
+_last_line = [time.perf_counter()]
+
+
 def phase(name, msg):
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _last_line[0]
+    _last_line[0] = now
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -312,7 +336,9 @@ def build_phase():
             "plf_tree_bwd_mxu": plf_tree_grad._lib_mxu,
             "plf_tree_seg": seg_mod._lib, "plf_tree_seg_bwd": seg_mod._lib_bwd,
             "plf_tree_seg_mxu": seg_mod._lib_mxu,
-            "plf_tree_seg_bwd_mxu": seg_mod._lib_bwd_mxu}
+            "plf_tree_seg_bwd_mxu": seg_mod._lib_bwd_mxu,
+            "plf_gen": node_mod._lib_gen,
+            "plf_node_bwd_mxu": plf_grad._lib_mxu}
     for name in BF16_STORAGE:
         mods[storage_library(name, True)] = functools.partial(mods[name],
                                                               True)
@@ -584,7 +610,8 @@ def _grad_step(fn, t0, dev):
 
 COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
            plf_tree_mxu, plf_tree_bwd_mxu, plf_tree_seg, plf_tree_seg_bwd,
-           plf_tree_seg_mxu, plf_tree_seg_bwd_mxu)
+           plf_tree_seg_mxu, plf_tree_seg_bwd_mxu, plf_node_gen,
+           plf_grad.plf_node_bwd_mxu)
 
 
 #: The wrappers with a bf16 CLV storage form, which count its launches in
@@ -2402,12 +2429,349 @@ def profile_phase(pm):
               f"{ms:.3f} ms")
 
 
+# ---------------------------------- kernel 9 and kernel 3m (S != 4) --
+
+GEN_BLOCK, GEN_BLOCKS, GEN_ITERS = 8192, 256, 8   # bench_gen, bench.py:272
+
+
+def kernel9_phase(dev):
+    """Kernel 9, the compute-only probe, at bench_gen's shape (block 8,192,
+    256 blocks, 8 chained nodes: 2^24 node-sites) at S = 4 and S = 20:
+    == its plain version bit for bit, timed against its operations
+    bound."""
+    res = {}
+    for S in (4, 20):
+        C = 4
+        rng = np.random.default_rng(0)
+        lc, rc, ec = lane_constants(
+            rng.random((C, S, S), np.float32),
+            rng.random((C, S, S), np.float32),
+            rng.random((S, S), np.float32), dev, S, C)
+        kw = dict(states=S, categories=C, block_sites=GEN_BLOCK,
+                  n_blocks=GEN_BLOCKS, inner_iters=GEN_ITERS)
+        k = plf_node_gen(lc, rc, ec, **kw)
+        p = plf_node_gen_torch(lc, rc, ec, **kw)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        check(torch.equal(k, p), f"kernel 9 at S={S} != plain version")
+        n_fin = int(torch.isfinite(k).sum())
+        ms_k = cuda_ms(lambda: plf_node_gen(lc, rc, ec, **kw), reps=10)
+        ms_p = cuda_ms(lambda: plf_node_gen_torch(lc, rc, ec, **kw), reps=1,
+                       warmup=0)
+        n = GEN_BLOCK * GEN_BLOCKS
+        node_sites = n * GEN_ITERS
+        flops = gen_flops(S, C) * node_sites
+        bd = bound(4 * n, flops, FP32_FLOPS)
+        phase("kernel9", f"S={S} C={C}, {n} sites x {GEN_ITERS} nodes: == "
+              f"plain ({n_fin} of {n} checksums finite); kernel {ms_k:.4f} "
+              f"ms ({node_sites / ms_k / 1e6:.3f} Gnode-sites/s, "
+              f"{flops / ms_k / 1e9:.2f} TFLOP/s at {gen_flops(S, C)} flops "
+              f"per node-site; bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']} at 67 TFLOP/s, which counts an FMA as two: "
+              f"under -fmad=false the uncontracted ceiling is half, "
+              f"{2 * bd['bound_ms']:.4f} ms), plain {ms_p:.3f} ms")
+        res[S] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err, **bd)
+        del k, p
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel3m_against_plain(args, S, C, label):
+    """Kernel 3m on ``args`` (x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n)
+    against its plain version: gx1/gx2 bit for bit, the operator sums
+    within SUM_RTOL of scale and bit-identical run to run.  Returns the
+    sums' error (share of scale) and the largest absolute difference."""
+    kw = dict(states=S, categories=C)
+    k1 = plf_node_bwd(*args, **kw)
+    k2 = plf_node_bwd(*args, **kw)
+    p = plf_node_bwd_torch(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(k1[0], p[0]) and torch.equal(k1[1], p[1]),
+          f"kernel 3m gx1/gx2 != plain, {label}")
+    check(all(torch.equal(u, v) for u, v in zip(k1, k2)),
+          f"kernel 3m differs between two runs, {label}")
+    err = max(sums_err(k1[i], p[i]) for i in (2, 3, 4))
+    check(err <= SUM_RTOL, f"kernel 3m op grads, {label}: {err} of scale "
+          f"> {SUM_RTOL}")
+    return err, max(float((u - v).abs().max()) for u, v in zip(k1, p))
+
+
+def kernel3s_phase(dev):
+    """Kernel 3m (the node VJP at S != 4) against its plain version at
+    kernel 1m's shapes: S = 20, C = 4 on 2^21 - 77 sites and S = 61 on
+    2^18 - 5 (kernel3m_against_plain); timed against its bound.  Phase
+    ``kernel_train`` holds it at its main path's shapes too."""
+    res = {}
+    for S, n in ((20, NODE_MXU_SITES), (61, NODE_MXU_S61)):
+        C = 4
+        rows = S * C
+        a, b, _, (lc, rc, ec) = _mxu_case(dev, n, S, C, 30 + S)
+        n_pad = a.shape[1]
+        _, sc = plf_node(a, b, lc, rc, ec, n, states=S, categories=C)
+        g = torch.randn(a.shape, generator=torch.Generator(device=dev)
+                        .manual_seed(S), device=dev)
+        consts = [lc, rc] + [transpose_lane_constants(t, S, C)
+                             for t in (lc, rc, ec)]
+        kw = dict(states=S, categories=C)
+        err, abs_err = kernel3m_against_plain((a, b, g, sc, *consts, n), S,
+                                              C, f"S={S}, {n} sites")
+        ms_k = cuda_ms(lambda: plf_node_bwd(a, b, g, sc, *consts, n, **kw),
+                       reps=5)
+        ms_p = cuda_ms(lambda: plf_node_bwd_torch(a, b, g, sc, *consts, n,
+                                                  **kw), reps=1, warmup=0)
+        site_bytes = 5 * rows * 4 + 4
+        bd = bound(site_bytes * n_pad, node_bwd_flops(S, C) * n_pad,
+                   FP32_FLOPS)
+        acc_shared, resident = plf_grad._mxu_plan(dev, S, C)
+        blocks, _ = plf_grad.node_bwd_mxu_blocks(n_pad, resident)
+        phase("kernel3s", f"S={S} C={C}, {n} sites ({int(sc.sum())} "
+              f"rescued): gx1/gx2 == plain; gl/gr/ge within {err:.2e} "
+              f"of scale of plain (max abs {abs_err:.3g}), bit-identical run "
+              f"to run; {blocks} blocks, accumulators in "
+              f"{'shared' if acc_shared else 'device'} memory; kernel "
+              f"{ms_k:.4f} ms ({site_bytes * n_pad / (ms_k * 1e-3) / 1e9:.0f}"
+              f" GB/s at {site_bytes} B/site; bound {bd['bound_ms']:.4f} ms "
+              f"by {bd['bound_by']}), plain {ms_p:.3f} ms")
+        res[S] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=abs_err, **bd)
+        del a, b, g, sc
+        torch.cuda.empty_cache()
+    return res
+
+
+def node_residuals(fn, t0, dev):
+    """One value-and-gradient step of a "kernel" backend, with kernel 3m's
+    arguments kept (cloned) at the node whose forward rescued the most
+    sites: ``(x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n)``."""
+    best = [None, -1]
+    wrapped = plf_grad.plf_node_bwd
+
+    def keep(*args, **kw):
+        rescued = int(args[3].sum())
+        if rescued > best[1]:
+            best[:] = [tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args), rescued]
+        return wrapped(*args, **kw)
+
+    plf_grad.plf_node_bwd = keep
+    try:
+        _grad_step(fn, t0, dev)
+    finally:
+        plf_grad.plf_node_bwd = wrapped
+    return best[0]
+
+
+def kernel3m_on_main_path(pm, fn, t0, dev, label):
+    """Kernel 3m against its plain version (kernel3m_against_plain) on one
+    node's residuals of ``pm``'s "kernel" step, at the model's own
+    n_pad."""
+    S, C = pm.config.states, pm.config.categories
+    args = node_residuals(fn, t0, dev)
+    err, abs_err = kernel3m_against_plain(args, S, C, label)
+    acc_shared, resident = plf_grad._mxu_plan(dev, S, C)
+    blocks, per = plf_grad.node_bwd_mxu_blocks(pm.n_pad, resident)
+    phase("kernel_train", f"{label}: kernel 3m on the residuals of the node "
+          f"with the most rescued sites ({int(args[3].sum())}), n_pad "
+          f"{pm.n_pad}, {blocks} blocks of {per} tiles: gx1/gx2 == plain, "
+          f"gl/gr/ge within {err:.2e} of scale (max abs {abs_err:.3g}), "
+          f"bit-identical run to run")
+    del args
+
+
+def _turns(fns, reps=3):
+    """Each ``fns[name]`` timed in turns a, b, b, a (median of ``reps``
+    steps per turn): ``{name: [ms, ms]}``."""
+    names = list(fns)
+    out = {k: [] for k in names}
+    for k in names + names[::-1]:
+        out[k].append(_median_ms(fns[k], reps=reps))
+    return out
+
+
+def kernel_train_phase(ptree, ptips, codon, dev):
+    """The "kernel" backend at S != 4 (kernels 1m in fp32 mode + 3m once
+    per node): a "vpu" twin of the 64 x 131,072 LG+G4 protein model and
+    one of the 32 x 65,536 codon model, each step against "tree" on the
+    same model (values rel 1e-5, gradients within rtol 2e-4 / atol 1e-4 x
+    max|g|); kernel 3m against its plain version on one node's residuals
+    of each "kernel" step (kernel3m_on_main_path); the protein gradient
+    against float64 central differences; both protein steps timed in
+    turns; auto takes "kernel" for both and "tree" for the 4,096-site
+    sub-alignment (optimize.KERNEL_MIN_NODE_SITES);
+    optimize_branch_lengths on "kernel"."""
+    lg = empirical_protein("lg")
+    cfg = PLFConfig(states=20, kernel_variant="vpu")
+    pm = PhyloModel(ptree, lg, ptips, alpha=0.5, device=dev, config=cfg)
+    E = len(pm.schedule)
+    want = {"plf_node_mxu": E, "plf_node_bwd_mxu": E}
+    fns, out, launches = {}, {}, None
+    for backend in ("kernel", "tree"):
+        torch.cuda.reset_peak_memory_stats()
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+        check((fn.engine, fn.variant) == (backend, "vpu"),
+              f"{backend}: {fn.engine!r} / {fn.variant!r}")
+        v, g, counts = _step_launches(fn, t0, dev)
+        if backend == "kernel":
+            check(counts == want, f"kernel step launched {counts}, not "
+                  f"{want}")
+            launches = counts
+            kstep = (fn, t0)
+        out[backend] = (v, g.cpu().numpy(),
+                        torch.cuda.max_memory_allocated() / 2 ** 30, counts)
+        fns[backend] = functools.partial(_grad_step, fn, t0, dev)
+    (v_k, g_k, mem_k, c_k), (v_t, g_t, mem_t, c_t) = out["kernel"], out["tree"]
+    auto = tree_loglik_fn(pm)[0].engine
+    check(auto == "kernel", f"auto took {auto!r} for the vpu protein model")
+    rel = abs(v_k - v_t) / abs(v_t)
+    check(rel < 1e-5, f"protein kernel value {v_k} vs tree {v_t}")
+    err = _grad_bar(g_k, g_t)
+    check(err <= 1.0, f"protein kernel vs tree gradient: {err} of the bar")
+    ms = _turns(fns)
+    phase("kernel_train", f"protein {PROT_TAXA} x {PROT_SITES}, LG+G4, "
+          f"\"vpu\": kernel step launched {c_k}, tree step {c_t}; value "
+          f"rel {rel:.2e}, gradient within {err:.3f} of the bar; steps in "
+          f"turns kernel/tree/tree/kernel: kernel {ms['kernel'][0]:.2f} / "
+          f"{ms['kernel'][1]:.2f} ms, tree {ms['tree'][0]:.2f} / "
+          f"{ms['tree'][1]:.2f} ms (medians of 3 each); peak {mem_k:.2f} "
+          f"GiB (kernel) vs {mem_t:.2f} GiB (tree); auto takes {auto!r}")
+    fns.clear()
+    kernel3m_on_main_path(pm, *kstep, dev, f"protein {PROT_TAXA} x "
+                          f"{PROT_SITES}")
+    del kstep
+
+    sub_tips = ptips[:, :FD_SITES]
+    sub = PhyloModel(ptree, lg, sub_tips, alpha=0.5, device=dev, config=cfg)
+    auto = tree_loglik_fn(sub)[0].engine
+    check(auto == "tree", f"auto took {auto!r} for the {FD_SITES}-site "
+          f"vpu protein model")
+    fn, t0 = tree_loglik_fn(sub, backend="kernel")
+    g = _grad_step(fn, t0, dev)[1].cpu().numpy()
+    h, fds = 1e-4, []
+    for i in (0, 1, ptree.n_leaves):
+        ll = []
+        for d in (h, -h):
+            tr = copy.deepcopy(ptree)
+            tr.nodes[i].length += d
+            ll.append(PhyloModel(tr, lg, sub_tips, alpha=0.5, device=dev,
+                                 config=cfg).log_likelihood_bruteforce())
+        fd = (ll[0] - ll[1]) / (2 * h)
+        fds.append(f"branch {i}: {g[i]:.6g} vs {fd:.6g}")
+        check(abs(g[i] - fd) <= 1e-3 * abs(fd),
+              f"kernel gradient vs float64 differences, {fds[-1]}")
+    phase("kernel_train", f"{FD_SITES}-site sub-alignment (auto takes "
+          f"{auto!r}), kernel gradient vs float64 central differences (h "
+          f"{h}) of the brute force, within rel 1e-3: " + "; ".join(fds))
+
+    t_opt, ll0, ll1 = optimize_branch_lengths(pm, steps=2, backend="kernel")
+    check(ll1 > ll0 and np.all(t_opt > 0),
+          f"optimize_branch_lengths(kernel): {ll0} -> {ll1}")
+    phase("kernel_train", f"optimize_branch_lengths(steps=2, "
+          f"backend='kernel'): {ll0:.3f} -> {ll1:.3f}")
+    del pm, sub
+    torch.cuda.empty_cache()
+
+    tree, tips, gy, _ = codon
+    cm = PhyloModel(tree, gy, tips, alpha=0.7, device=dev,
+                    config=PLFConfig(states=61, kernel_variant="vpu"))
+    res = {}
+    for backend in ("kernel", "tree"):
+        torch.cuda.reset_peak_memory_stats()
+        fn, t0 = tree_loglik_fn(cm, backend=backend)
+        v, g, counts = _step_launches(fn, t0, dev)
+        if backend == "kernel":
+            kernel3m_on_main_path(cm, fn, t0, dev, f"codon {CODON_TAXA} x "
+                                  f"{CODON_SITES}")
+        ms = _median_ms(functools.partial(_grad_step, fn, t0, dev), reps=1)
+        res[backend] = (v, g.cpu().numpy(), ms, counts,
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+    (v_k, g_k, ms_k, c_k, m_k), (v_t, g_t, ms_t, c_t, m_t) = (
+        res["kernel"], res["tree"])
+    Ec = len(cm.schedule)
+    check(c_k == {"plf_node_mxu": Ec, "plf_node_bwd_mxu": Ec},
+          f"codon kernel step launched {c_k}")
+    auto = tree_loglik_fn(cm)[0].engine
+    check(auto == "kernel", f"auto took {auto!r} for the vpu codon model")
+    rel = abs(v_k - v_t) / abs(v_t)
+    check(rel < 1e-5, f"codon kernel value {v_k} vs tree {v_t}")
+    err = _grad_bar(g_k, g_t)
+    check(err <= 1.0, f"codon kernel vs tree gradient: {err} of the bar")
+    phase("kernel_train", f"codon {CODON_TAXA} x {CODON_SITES}, GY94+G4, "
+          f"\"vpu\" (S=61): kernel step launched {c_k}; value rel "
+          f"{rel:.2e} to tree, gradient within {err:.3f} of the bar; one "
+          f"step each after the counted one (wall ms): kernel {ms_k:.1f}, "
+          f"tree {ms_t:.1f}; peak {m_k:.2f} vs {m_t:.2f} GiB; auto takes "
+          f"{auto!r}")
+    del cm
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+#: The command-line runs of phase ``cli``: arguments, whether the run
+#: verifies against the golden oracle.
+CLI_RUNS = (
+    (["--sites", "16777216", "--calls", "10"], True),
+    (["--sites", "2097152", "--calls", "10", "--roundtrip"], True),
+    (["20state", "--sites", "2097152", "--calls", "5"], True),
+    (["--gen", "--sites", "2097152", "--block", "8192", "--calls", "10"],
+     False),
+    (["20state", "--gen", "--sites", "2097152", "--block", "8192",
+      "--calls", "10"], False),
+)
+
+
+def cli_phase():
+    """``python -m plf_tpu_torch`` as a user runs it, in a subprocess (the
+    libraries of phase ``build`` are loaded, not rebuilt): the DNA default
+    at 2^24 sites x 10 calls, --roundtrip at 2^21 x 10, 20state at 2^21 x
+    5, --gen at S = 4 and 20.  Each exits 0 and, where it verifies, prints
+    'Test result: Passed' (exact equality with the golden oracle); the
+    msm rate and the kernel launches come from each run's own output."""
+    from plf_tpu_torch.runtime.native import golden_oracle
+    oracle = golden_oracle()       # builds the host oracle once
+    libs = set(BUILD_DIR.glob("*.so"))
+    torch.cuda.empty_cache()
+    res = {"gen_launches": 0}
+    for argv, verifies in CLI_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "plf_tpu_torch", *argv],
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        text = proc.stdout
+        check(proc.returncode == 0, f"python -m plf_tpu_torch {argv} exited "
+              f"{proc.returncode}:\n{text[-2000:]}\n{proc.stderr[-2000:]}")
+        check(set(BUILD_DIR.glob("*.so")) == libs,
+              f"{argv}: the CLI built a library")
+        launches = re.search(r"^kernel launches: (.*)$", text, re.M).group(1)
+        label = " ".join(argv)
+        if verifies:
+            check("Test result: Passed" in text, f"{argv}: no pass:\n"
+                  f"{text[-2000:]}")
+            row = re.search(r"^\| Device compute \(HBM->VPU->HBM\): +\| +"
+                            r"([0-9.]+) \| +([0-9.]+) \| +([0-9.]+) \|$",
+                            text, re.M)
+            msm_ms, mbs, mas = (float(x) for x in row.groups())
+            res[label] = dict(msm_ms=msm_ms, mas=mas)
+            phase("cli", f"{label}: exit 0, Test result: Passed ({oracle} "
+                  f"golden oracle, exact); msm {msm_ms:.3f} ms = "
+                  f"{mas:.3f} MA/s, {mbs:.1f} MB/s; launches {launches}; "
+                  f"{wall:.1f} s wall")
+        else:
+            rate = re.search(r"gen probe: ([0-9.]+) Gnode-sites/s", text)
+            res["gen_launches"] += int(re.search(r"plf_node_gen (\d+)",
+                                                 launches).group(1))
+            res[label] = dict(gnode=float(rate.group(1)))
+            phase("cli", f"{label}: exit 0, {rate.group(0)}; launches "
+                  f"{launches}; {wall:.1f} s wall")
+    return res
+
+
 def main():
     name = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
     k1, node_case = kernel1_phase(dev)
     k3 = kernel3_phase(dev, node_case, k1["probe_gbs"])
+    k9 = kernel9_phase(dev)
     tree, tips, pm = tree_workload(dev)
     k2 = kernel2_phase(pm)
     k4 = kernel4_phase(pm)
@@ -2420,6 +2784,7 @@ def main():
     launches.update(segmented_phase(dev, pm))
     profile_phase(pm)
     k1m = kernel1m_phase(dev)
+    k3s = kernel3s_phase(dev)
     ptree, ptips, models = protein_workload(dev)
     k2m = kernel2m_phase(models)
     prot_launches, _ = protein_phase(ptree, ptips, models, dev)
@@ -2428,11 +2793,15 @@ def main():
     k4m = kernel4m_phase(models, codon, dev)
     train_launches, _ = protein_train_phase(ptree, ptips, models, dev)
     launches["plf_tree_bwd_mxu"] = train_launches["plf_tree_bwd_mxu"]
+    kt_launches, _ = kernel_train_phase(ptree, ptips, codon, dev)
+    launches["plf_node_bwd_mxu"] = kt_launches["plf_node_bwd_mxu"]
     codon_phase(codon, dev)
     k7m = kernel7m_phase(models, codon, dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))
     k16 = bf16_phase(dev, tree, tips, pm, node_case, models, codon)
+    cli = cli_phase()
+    launches["plf_node_gen"] = cli["gen_launches"]
 
     # Bounds of the DNA kernels at the shapes their times were taken at:
     # kernels 1 and 3 at 2^20 sites, kernels 2 and 4 at 160 taxa x 2^20.
@@ -2474,6 +2843,10 @@ def main():
               "plf_tpu/ops/plf_tree_seg.py:383", k7m["mxu_3x"]),
         entry("plf_tree_seg_bwd_mxu", "plf_tree_seg_bwd_mxu.cu",
               "plf_tpu/ops/plf_tree_seg.py:843", k8m["mxu_3x"]),
+        entry("plf_gen", "plf_gen.cu", "plf_tpu/ops/plf_pallas.py:401",
+              dict(k9[4], launches=launches["plf_node_gen"])),
+        entry("plf_node_bwd_mxu", "plf_node_bwd_mxu.cu",
+              "plf_tpu/ops/plf_grad.py:120", k3s[20]),
     ]
     replaces = {"plf_node": "plf_pallas.py:78",
                 "plf_node_mxu": "plf_pallas.py:233",
@@ -2488,6 +2861,8 @@ def main():
           f"a kernel was not launched on its main path: {launches}")
     phase("peak", f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"device memory allocated at peak")
+    phase("time", f"{sum(PHASE_SECONDS.values()):.1f} s in all: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,12 +15,17 @@ Differences from the JAX config:
   their own thread blocks); it keeps the padded site count ``n_pad`` a
   multiple of the same 128-site unit as the JAX package, so lane-major
   arrays cross between the two packages by value.
+* ``instances``, ``layout`` and ``aie_type`` are not fields: the port has
+  one buffer layout and one streaming form, and :meth:`PLFConfig.from_name`
+  hands a name's instance count back beside the config.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from enum import Enum
+from typing import Tuple
 
 
 class Backend(Enum):
@@ -82,6 +87,45 @@ class PLFConfig:
     def rows(self) -> int:
         """Rows of the canonical lane-major CLV layout."""
         return self.states * self.categories
+
+    @classmethod
+    def from_name(cls, name: str, **overrides) -> Tuple["PLFConfig", int]:
+        """Parse a config name: the JAX package's (``plftpu_..._pallas_
+        inst9_blk2048``), the port's own (:meth:`to_name`) or a reference
+        xclbin name (``plf_mem4DNAwindowComb_128x9DNAwindow8192Comb``),
+        with the JAX package's rules (``plf_tpu/config.py:162-207``).
+
+        A reference window size is in bytes and becomes sites by ``>> 4``,
+        rounded down to the 128-site unit; ``"<S>state"`` sets the states;
+        ``_pallas``/``_kernel`` map to ``Backend.KERNEL``,
+        ``_xla``/``_torch`` to ``Backend.TORCH``.  Returns ``(config,
+        instances)``: the instance count (``inst<I>`` or ``128x<I>``, else
+        1) is the caller's, since the config has no such field.
+        """
+        mb = re.search(r"blk(\d+)", name)
+        if mb:
+            block = int(mb.group(1))
+        else:
+            mw = re.search(r"(?:window|stream)(\d\d+)", name)
+            if mw:
+                block = max(128, (int(mw.group(1)) >> 4) // 128 * 128)
+            else:
+                block = 4096
+        ms = re.search(r"(\d+)state", name)
+        states = int(ms.group(1)) if ms else 4
+        mi = re.search(r"inst(\d+)", name) or re.search(r"128x(\d+)", name)
+        instances = int(mi.group(1)) if mi else 1
+        backend = Backend.KERNEL
+        for token, b in (("pallas", Backend.KERNEL),
+                         ("kernel", Backend.KERNEL),
+                         ("xla", Backend.TORCH), ("torch", Backend.TORCH),
+                         ("reference", Backend.REFERENCE)):
+            if f"_{token}" in name:
+                backend = b
+                break
+        kw = dict(states=states, block_sites=block, backend=backend)
+        kw.update(overrides)
+        return cls(**kw), instances
 
     def to_name(self) -> str:
         """Config-name string in the JAX package's token order (the port

@@ -92,10 +92,12 @@ class PLFEngine:
                     total_sites=n_sites * plf_calls * instances,
                     total_hbm_bytes=per_call["hbm_bytes"] * instances)
 
-    def describe(self, n_sites: int, plf_calls: int = 1) -> str:
-        """Reference-style config/geometry report."""
+    def describe(self, n_sites: int, plf_calls: int = 1,
+                 instances: int = 1) -> str:
+        """Reference-style config/geometry report (``host_mem.cpp:45-101``)
+        of a workload of ``instances`` node pairs per call."""
         cfg = self.config
-        p = self.geometry(n_sites, plf_calls)["per_call"]
+        p = self.geometry(n_sites, plf_calls, instances)["per_call"]
         bar = "=" * 68
         rows = [
             bar,
@@ -109,6 +111,7 @@ class PLFEngine:
             f"| {'alignment sites':24} | {n_sites:36} |",
             f"| {'padded sites':24} | {p['sites_padded']:36} |",
             f"| {'plf calls':24} | {plf_calls:36} |",
+            f"| {'instances':24} | {instances:36} |",
             bar,
             f"| {'CLV bytes (each)':24} | {p['clv_bytes']:36} |",
             f"| {'device bytes per call':24} | {p['hbm_bytes']:36} |",

@@ -16,10 +16,11 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
   variants, and "vpu" at S != 4: protein and codon models).  Residuals
   are the small operand arrays; the backward's checkpoint is scratch.
 * ``"kernel"`` (JAX ``"pallas"``): kernel 1 forward and kernel 3 backward
-  once per node (``ops/plf_grad.py``), S = 4 only; every node keeps its
-  two child CLVs for the backward (~20 GB at 160 taxa x 2^20 sites).  A
-  model of an MXU variant runs it in "vpu" arithmetic, as JAX's "pallas"
-  path does.
+  once per node (``ops/plf_grad.py``); at S != 4 kernel 1m in fp32 mode
+  and kernel 3m, the same "vpu" arithmetic.  Every node keeps its two
+  child CLVs for the backward (~20 GB at 160 taxa x 2^20 sites, 5.3 GB at
+  64 protein taxa x 131,072).  A model of an MXU variant runs it in
+  "vpu" arithmetic, as JAX's "pallas" path does.
 * ``"torch"`` (JAX ``"xla"``): the plain element-wise site-major
   traversal under torch autograd, the CPU oracle.
 * ``"segmented"`` (JAX ``"segmented"``): the segmented whole-tree forward
@@ -32,22 +33,31 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
   other backends ignore ``dtype``.
 
 ``"auto"`` takes ``"torch"`` for a model on the CPU, and for a model
-whose config chose ``Backend.TORCH``.  For a model on a CUDA device it
-takes ``"tree"`` whenever the forward kernel admits the tree
+whose config chose ``Backend.TORCH``.  For a "vpu" model at S != 4 on a
+CUDA device it takes ``"kernel"`` from the size at which that was
+measured faster than "tree" (``_kernel_wins``: nodes x padded sites at
+least 63 x 131,072 for LG+G4 proteins, 31 x 4,096 for GY94+G4 codons)
+while the per-node residuals fit half the free device memory, as the
+JAX package takes "pallas" on the TPU where they fit.
+Otherwise, on a CUDA device it takes ``"tree"`` whenever the forward
+kernel admits the tree
 (``PhyloModel.can_fuse``), except where kernel 4's (4m's) checkpoint would
 have to be chunked (more than half the free device memory) while the
 segmented backward's boundary buffers fit it, for a "vpu" DNA model or an
 "mxu_3x" one: there it takes ``"segmented"``.  Past the forward kernel's capacity it takes
 ``"kernel"`` for "vpu" at S = 4 and ``"segmented"`` for a model on the
 matrix-form kernels, as the JAX package does.  The rule stands on the
-backends measured on an H100 (PERF.md): the tree backend's step was the
-faster one at every shape where its checkpoint fits one chunk (160 taxa x
-2^20 and 2^16 sites, 20 taxa x 2^20; "segmented" 6% slower at 160 x
-2^20), "segmented" the faster one at 256 taxa x 2^22 (int8 tips), where
-kernel 4 runs in three chunks; at 1,024 protein taxa x 131,072 sites,
-where kernel 4m runs in two, "segmented" won in bf16x3 ("mxu_3x") and
-lost in fp32 ("mxu"); the per-node residuals grow with sites x nodes.  "mxu_bf16" raises ValueError on every backend, as in the JAX
-package.
+backends measured on an H100 (PERF.md): for DNA the tree backend's step
+was the faster one at every shape where its checkpoint fits one chunk
+(160 taxa x 2^20 and 2^16 sites, 20 taxa x 2^20; "kernel" 42% slower at
+160 x 2^20, "segmented" 6%), "segmented" the faster one at 256 taxa x
+2^22 (int8 tips), where kernel 4 runs in three chunks; at 1,024 protein
+taxa x 131,072 sites, where kernel 4m runs in two, "segmented" won in
+bf16x3 ("mxu_3x") and lost in fp32 ("mxu"); for a "vpu" protein or codon
+model "kernel" won only from the sizes above ("tree" was 4-10x faster
+at 1,500-4,096 protein sites, where the per-node cost of "kernel"
+dominates); the per-node residuals grow with sites x nodes.
+"mxu_bf16" raises ValueError on every backend, as in the JAX package.
 
 The branch lengths, rates and mixture weights enter through the per-edge
 lane-constant stacks and the root row vector, computed for all edges in
@@ -91,6 +101,50 @@ __all__ = ["tree_loglik_fn", "optimize_branch_lengths", "optimize_alpha",
 BACKENDS = ("auto", "tree", "kernel", "torch", "segmented")
 
 
+def _free_bytes(dev) -> int:
+    """The card's free memory plus the blocks PyTorch's caching allocator
+    holds unused (which a step can take), so that the auto rules do not
+    depend on what earlier steps left cached."""
+    return (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+
+
+#: The fewest node-sites (PLF nodes x padded sites) at which a "kernel"
+#: step on a "vpu" model beat "tree" on an H100, by (S, C): the smallest
+#: measured winner (``backend_turns.py``, PERF.md).  At S = 20, C = 4
+#: "tree" won at every shape up to 4,177,920 (255 nodes x 16,384 sites)
+#: and "kernel" from 8,257,536 (63 x 131,072) up; at S = 61 "tree" won at
+#: 61,440 (15 x 4,096 codons) and "kernel" from 126,976 (31 x 4,096) up.
+#: Other (S, C) were not measured and keep "tree".
+KERNEL_MIN_NODE_SITES = {(20, 4): 63 * 131_072, (61, 4): 31 * 4_096}
+
+
+def _kernel_wins(pm, free: Optional[int] = None) -> bool:
+    """Whether a step on the card takes "kernel" (kernels 1m + 3m once per
+    node) for a "vpu" model at S != 4: where it was measured faster than
+    "tree" (:data:`KERNEL_MIN_NODE_SITES`: the model's nodes x n_pad at
+    least that of the smallest shape "kernel" won at for its S and C), and
+    its per-node residuals, the two child CLVs of every node (``3 * E *
+    S*C * n_pad * 4`` bytes, the JAX package's count,
+    ``plf_tpu/models/optimize.py:104-111``), fit half the ``free`` device
+    memory (default: :func:`_free_bytes`).  Measured on an H100 in turns
+    (``backend_turns.py``, PERF.md): a "kernel" step pays a cost per node
+    that sites hardly change (29-46 ms, 0.46-0.73 ms a node, at 64
+    protein taxa x 4,096 sites, where "tree" takes 4.9-5.5 ms), which
+    only many sites amortise (64 x 131,072: "kernel" 72.2 against 81.3-81.5
+    ms); at S = 61 kernel 4m's cost grows faster than the nodes (128 codon
+    taxa x 16,384: 421-423 against 1,297-1,313 ms), so "kernel" won from
+    32 taxa at every size measured (1,500 to 65,536 codons)."""
+    cfg = pm.config
+    least = KERNEL_MIN_NODE_SITES.get((cfg.states, cfg.categories))
+    E = len(pm.schedule)
+    if least is None or E * pm.n_pad < least:
+        return False
+    if free is None:
+        free = _free_bytes(pm.device)
+    return 3 * E * cfg.rows * pm.n_pad * 4 <= free // 2
+
+
 def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     """Whether a step on the card takes "segmented" over "tree": for
     kernel 8 ("vpu" at S = 4) and kernel 8m's bf16x3 mode ("mxu_3x"),
@@ -113,9 +167,7 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     if uses_mxu_kernels(variant, S) and MODES[variant] != MODES["mxu_3x"]:
         return False
     if free is None:
-        dev = pm.device
-        free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(
-            dev) - torch.cuda.memory_allocated(dev))
+        free = _free_bytes(pm.device)
     rows = pm.config.rows
     if tree_bwd_scratch_bytes(len(pm.schedule), rows, pm.n_pad) <= free // 2:
         return False
@@ -124,15 +176,19 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     return 2 * n_bnd * rows * itemsize * pm.n_pad <= free
 
 
-def _auto_backend(pm, matrix_form: bool = False) -> str:
+def _auto_backend(pm, matrix_form: bool = False, vpu: bool = False) -> str:
     """The ``"auto"`` choice (module docstring) for a model on the card
-    or not: "torch" off the card, else "tree" when the forward kernel
-    takes the tree ("segmented" where :func:`_segmented_wins`), else
-    "kernel" -- or, for a model on the matrix-form kernels
-    (``matrix_form``), "segmented" (kernels 7m + 8m), as the JAX package
-    takes its segmented engine past the fused kernel's arena."""
+    or not: "torch" off the card; "kernel" for a "vpu" model (``vpu``) on
+    the matrix-form kernels (S != 4) where :func:`_kernel_wins`; else
+    "tree" when the forward kernel takes the tree ("segmented" where
+    :func:`_segmented_wins`), else "kernel" -- or, for a model on the
+    matrix-form kernels (``matrix_form``), "segmented" (kernels 7m + 8m),
+    as the JAX package takes its segmented engine past the fused kernel's
+    arena."""
     if pm.device.type != "cuda":
         return "torch"
+    if matrix_form and vpu and _kernel_wins(pm):
+        return "kernel"
     if pm.can_fuse():
         return "segmented" if _segmented_wins(pm) else "tree"
     return "segmented" if matrix_form else "kernel"
@@ -202,14 +258,8 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
     matrix_form = uses_mxu_kernels(variant, S)
     if backend == "auto":
         backend = ("torch" if pm.config.backend is Backend.TORCH
-                   else _auto_backend(pm, matrix_form))
-    if backend == "kernel" and matrix_form:
-        if S != 4:
-            raise NotImplementedError(
-                f"the 'kernel' gradient backend at S={S} needs "
-                "_plf_bwd_kernel at S != 4 (kernel 3 is S = 4 only): "
-                "ROADMAP.md, Queue 2 item 2; backend='tree' or 'torch' "
-                "trains this model")
+                   else _auto_backend(pm, matrix_form, variant == "vpu"))
+    if backend == "kernel":
         variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
     build = {"torch": _core_torch, "kernel": _core_kernel,
              "tree": _core_tree, "segmented": _core_segmented}[backend]
@@ -299,7 +349,8 @@ def _core_torch(pm):
 
 def _core_kernel(pm):
     """Kernel 1 forward + kernel 3 backward per node (the JAX "pallas"
-    backend, optimize.py:219-313)."""
+    backend, optimize.py:219-313); kernels 1m (fp32 mode) + 3m at
+    S != 4."""
     cfg = pm.config
     S, C = cfg.states, cfg.categories
     u, lam, pi_u = _model_tensors(pm)

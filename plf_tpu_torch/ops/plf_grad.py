@@ -18,14 +18,20 @@ Counterpart of ``plf_tpu/ops/plf_grad.py``.  Replaces
 The adjoint of a stage is the same stage with transposed constants
 (:func:`transpose_lane_constants`).  What bounds the kernel on the card is
 device memory: 324 bytes per site at S = C = 4 (x1, x2, g and the flags
-read, gx1 and gx2 written).
+read, gx1 and gx2 written).  At S != 4 kernel 3m (``csrc/
+plf_node_bwd_mxu.cu``, :func:`plf_node_bwd_mxu`) computes the same
+function in fp32 on ``[row][site]`` shared-memory tiles, kernel 4m's
+reverse sweep for one node: a site's rows and its ``3*S*C*S`` gradient
+slots no longer fit a thread's registers.
 
-:func:`plf_node_bwd` dispatches on the device of its tensors: a CPU tensor
-takes the plain version :func:`plf_node_bwd_torch`, a CUDA tensor
-launches the kernel or raises.  ``plf_node_bwd.launches`` counts kernel
-launches.  :func:`make_plf_diff` is the differentiable fused PLF: kernel 1
-forward, kernel 3 backward.  The TPU-only MXU form of the operator
-reduction (``_op_grad_mxu``, ``PLF_VPU_BWD_MXU_REDUCE``) is not ported.
+:func:`plf_node_bwd` dispatches on S first (S != 4 goes to kernel 3m),
+then on the device of its tensors: a CPU tensor takes the plain version
+:func:`plf_node_bwd_torch`, a CUDA tensor launches the kernel or raises.
+``plf_node_bwd.launches`` and ``plf_node_bwd_mxu.launches`` count each
+kernel's launches.  :func:`make_plf_diff` is the differentiable fused
+PLF: kernel 1 (1m in fp32 mode at S != 4) forward, kernel 3 (3m) backward.
+The TPU-only MXU form of the operator reduction (``_op_grad_mxu``,
+``PLF_VPU_BWD_MXU_REDUCE``) is not ported.
 """
 
 from __future__ import annotations
@@ -36,11 +42,12 @@ import functools
 import torch
 
 from ..reference import TWO_TO_THE_32
-from .plf_node import _tile_rows, plf_node, stage
+from .plf_node import SMEM_BLOCK_BYTES, _tile_rows, plf_node, stage
 
 __all__ = ["transpose_lane_constants", "op_grad", "plf_node_bwd",
-           "plf_node_bwd_torch", "make_plf_diff", "node_bwd_blocks",
-           "GRAD_THREADS", "MAX_GRAD_BLOCKS"]
+           "plf_node_bwd_torch", "plf_node_bwd_mxu", "make_plf_diff",
+           "node_bwd_blocks", "node_bwd_mxu_blocks", "GRAD_THREADS",
+           "MAX_GRAD_BLOCKS", "NODE_BWD_MXU_SITES"]
 
 #: Threads per block of the backward kernels, and sites per tile
 #: (``csrc/plf_grad.cuh::kGradThreads``); ``n_pad`` must be a multiple.
@@ -49,6 +56,9 @@ GRAD_THREADS = 128
 #: Most blocks a backward launch spreads its sites over; each block writes
 #: one row of operator-gradient partials.
 MAX_GRAD_BLOCKS = 1024
+
+#: Sites per tile of kernel 3m (``plf_mxu_bwd.cuh::kBwdSites``).
+NODE_BWD_MXU_SITES = 8
 
 
 def transpose_lane_constants(lc, states: int = 4, categories: int = 4):
@@ -153,16 +163,20 @@ def plf_node_bwd(x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n: int, *,
 
     Returns:
       ``(gx1, gx2, gl, gr, ge)``: ``(S*C, n_pad)`` fp32 child cotangents
-      and ``(S*C, S)`` fp32 operator gradients summed over sites.
+      and ``(S*C, S)`` fp32 operator gradients summed over sites.  At
+      S != 4 the call goes to :func:`plf_node_bwd_mxu` (kernel 3m).
     """
     consts = (lc, rc, lcT, rcT, ecT)
+    if states != 4:
+        return plf_node_bwd_mxu(x1, x2, g, sc, *consts, n, states=states,
+                                categories=categories)
     _check(x1, x2, g, sc, consts, states, categories)
     if x1.device.type == "cpu":
         return plf_node_bwd_torch(x1, x2, g, sc, *consts, n, states=states,
                                   categories=categories)
     if x1.device.type != "cuda":
         raise ValueError(f"plf_node_bwd: no kernel for device {x1.device}")
-    if states != 4 or not 1 <= categories <= 8:
+    if not 1 <= categories <= 8:
         raise ValueError("the CUDA PLF backward takes S = 4 and C in 1..8, "
                          f"got S={states}, C={categories}")
     if not all(t.is_contiguous() for t in (x1, x2, g, sc, *consts)):
@@ -199,9 +213,115 @@ def plf_node_bwd(x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n: int, *,
 plf_node_bwd.launches = 0
 
 
+@functools.cache
+def _lib_mxu():
+    """Build (first use) and load csrc/plf_node_bwd_mxu.cu, with its C
+    prototypes."""
+    from ._build import load_library
+    lib = load_library("plf_node_bwd_mxu")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.plf_node_bwd_mxu_launch.argtypes = [vp] * 13 + [ci, ci, vp] + [
+        ci] * 4 + [vp]
+    lib.plf_node_bwd_mxu_launch.restype = ci
+    lib.plf_node_bwd_mxu_plan.argtypes = [ci, ci] + [ctypes.POINTER(ci)] * 2
+    lib.plf_node_bwd_mxu_plan.restype = ci
+    lib.plf_error_string.argtypes = [ci]
+    lib.plf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _mxu_plan(device: torch.device, states: int, categories: int):
+    """``(acc_shared, resident)`` of kernel 3m, as its library decides
+    them (``plf_node_bwd_mxu_plan``, kernel 4m's rule): the accumulators in
+    shared memory when two blocks with them fit an SM (S = 20), else in a
+    row of device memory per block (S = 61); and the blocks resident on
+    the whole card at once."""
+    lib = _lib_mxu()
+    acc_shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.plf_node_bwd_mxu_plan(states, categories,
+                                        ctypes.byref(acc_shared),
+                                        ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"plf_node_bwd_mxu occupancy query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bool(acc_shared.value), blocks.value * sms
+
+
+def node_bwd_mxu_blocks(n_sites: int, resident: int):
+    """``(n_blocks, tiles_per_block)`` of a kernel-3m launch over
+    ``n_sites`` (a multiple of :data:`NODE_BWD_MXU_SITES`): at most one
+    wave of ``resident`` blocks and :data:`MAX_GRAD_BLOCKS`, each with at
+    least one tile."""
+    tiles = n_sites // NODE_BWD_MXU_SITES
+    per = -(-tiles // max(1, min(resident, MAX_GRAD_BLOCKS)))
+    return -(-tiles // per), per
+
+
+def plf_node_bwd_mxu(x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n: int, *,
+                     states: int = 20, categories: int = 4):
+    """Kernel 3m: the VJP of one fused PLF node at any S (the port routes
+    S != 4 here), in fp32.  Arguments and results are
+    :func:`plf_node_bwd`'s; ``gx1``/``gx2`` equal the plain version bit for
+    bit, the operator sums agree with it to a tolerance and are
+    bit-identical run to run."""
+    consts = (lc, rc, lcT, rcT, ecT)
+    _check(x1, x2, g, sc, consts, states, categories)
+    if x1.device.type == "cpu":
+        return plf_node_bwd_torch(x1, x2, g, sc, *consts, n, states=states,
+                                  categories=categories)
+    if x1.device.type != "cuda":
+        raise ValueError(f"plf_node_bwd_mxu: no kernel for device "
+                         f"{x1.device}")
+    S, C = states, categories
+    rows = S * C
+    tiles_bytes = 4 * (6 * rows * NODE_BWD_MXU_SITES
+                       + 2 * NODE_BWD_MXU_SITES + rows)
+    if tiles_bytes > SMEM_BLOCK_BYTES:
+        raise ValueError(f"plf_node_bwd_mxu: {rows} rows do not fit one "
+                         f"block's shared memory ({SMEM_BLOCK_BYTES} bytes)")
+    if not all(t.is_contiguous() for t in (x1, x2, g, sc, *consts)):
+        raise ValueError("plf_node_bwd_mxu: tensors must be contiguous")
+    if S % 4 == 0 and any(t.data_ptr() % 16 for t in consts):
+        raise ValueError("plf_node_bwd_mxu: lc/rc/lcT/rcT/ecT must be "
+                         "16-byte aligned")
+    n_pad = x1.shape[1]
+    if n_pad % GRAD_THREADS or n_pad >= 2 ** 31 or not 0 <= n <= n_pad:
+        raise ValueError(f"plf_node_bwd_mxu: n_pad={n_pad} must be a "
+                         f"positive multiple of {GRAD_THREADS} and "
+                         f"0 <= n={n} <= n_pad")
+    lib = _lib_mxu()
+    dev = x1.device
+    acc_shared, resident = _mxu_plan(dev, S, C)
+    n_blocks, per = node_bwd_mxu_blocks(n_pad, resident)
+    gx1 = torch.empty_like(x1)
+    gx2 = torch.empty_like(x1)
+    partial = torch.empty((n_blocks, 3 * rows * S), dtype=torch.float32,
+                          device=dev)
+    acc = None if acc_shared else torch.empty_like(partial)
+    gops = torch.empty((3, rows, S), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.plf_node_bwd_mxu_launch(
+            x1.data_ptr(), x2.data_ptr(), g.data_ptr(), sc.data_ptr(),
+            *(t.data_ptr() for t in consts), gx1.data_ptr(), gx2.data_ptr(),
+            partial.data_ptr(), None if acc is None else acc.data_ptr(),
+            n_blocks, per, gops.data_ptr(), int(n), n_pad, S, C, stream)
+    if err != 0:
+        raise RuntimeError(f"plf_node_bwd_mxu kernel launch failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    plf_node_bwd_mxu.launches += 1
+    return gx1, gx2, gops[0], gops[1], gops[2]
+
+
+plf_node_bwd_mxu.launches = 0
+
+
 class _PlfDiff(torch.autograd.Function):
-    """Kernel 1 forward (never in place: x1 and x2 are residuals of the
-    backward), kernel 3 backward."""
+    """Kernel 1 (1m) forward (never in place: x1 and x2 are residuals of
+    the backward), kernel 3 (3m) backward."""
 
     @staticmethod
     def forward(ctx, x1, x2, lc, rc, ec, n, states, categories):
@@ -227,9 +347,10 @@ class _PlfDiff(torch.autograd.Function):
 def make_plf_diff(states: int = 4, categories: int = 4):
     """Differentiable fused PLF: ``fn(x1, x2, lc, rc, ec, n) -> (x3, sc)``.
 
-    The forward is kernel 1 (:func:`plf_node.plf_node`, out of place: x1
-    and x2 are kept for the backward, as the JAX package passes
-    ``donate=0``); the backward is kernel 3 (:func:`plf_node_bwd`).
+    The forward is kernel 1 (:func:`plf_node.plf_node` in "vpu": kernel
+    1m in fp32 mode at S != 4; out of place: x1 and x2 are kept for the
+    backward, as the JAX package passes ``donate=0``); the backward is
+    kernel 3 (:func:`plf_node_bwd`: kernel 3m at S != 4).
     Gradients flow to x1, x2 and the lane constants lc, rc, ec; the int32
     scaler output is not differentiable.
     """

@@ -17,6 +17,12 @@ of its tensors: a CPU tensor takes the plain version
 :func:`plf_node_torch`, a CUDA tensor launches the kernel or raises.
 ``plf_node.launches`` counts kernel launches, ``plf_node.bf16_launches``
 those of the bf16 storage form among them.
+
+Kernel 9, :func:`plf_node_gen`, is the compute-only probe that replaces
+``plf_pallas.py::_gen_kernel`` (``plf_pallas_gen``, ``:436``;
+``csrc/plf_gen.cu``): it builds its CLVs on the card and chains PLF nodes
+over them, so it moves no CLV through device memory and is bound by
+operations.  ``plf_node_gen.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from . import layout as L
 
 __all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
-           "node_plain", "stage", "count_launch", "SMEM_BLOCK_BYTES"]
+           "node_plain", "stage", "count_launch", "plf_node_gen",
+           "plf_node_gen_torch", "gen_flops", "SMEM_BLOCK_BYTES"]
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -241,3 +248,124 @@ def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,
     sv = sc[0, :n]
     si = (sv.to(torch.int64) * wgt.to(torch.int64)).sum()
     return x3, sv, si
+
+
+# ------------------------------------------- kernel 9: the compute probe --
+
+def gen_flops(states: int, categories: int) -> int:
+    """fp32 operations of one probe node at one site: three stages of S
+    products and S - 1 sums per row, the stage-2 product and the row
+    sum's add (368 at S = C = 4, as ``bench.py:297`` counts)."""
+    return states * categories * (6 * states - 1)
+
+
+def _gen_clvs(rows: int, n_sites: int, block_sites: int, device):
+    """The probe's child CLVs ``(rows, n_sites)``, as ``_gen_kernel``
+    builds them: with ``s`` a site's index within its block and ``r`` the
+    row, ``x1 = (0.1 + s*1e-4) + r*0.05`` and ``x2 = (1 - (s*1e-4)*0.5) +
+    (r*0.05)*0.25``, each op in fp32."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    s = torch.arange(n_sites, device=device) % block_sites
+    base = s.to(torch.float32) * f32(1e-4)
+    rowf = torch.arange(rows, device=device).to(torch.float32)[:, None] \
+        * f32(0.05)
+    x1 = (f32(0.1) + base) + rowf
+    x2 = (f32(1.0) - base * f32(0.5)) + rowf * f32(0.25)
+    return x1, x2
+
+
+def plf_node_gen_torch(lc, rc, ec, *, states: int = 4, categories: int = 4,
+                       block_sites: int = 4096, n_blocks: int = 64,
+                       inner_iters: int = 8):
+    """Plain version of kernel 9 (same arguments and result as
+    :func:`plf_node_gen`), on the device of ``lc``.  The rows are summed
+    in a loop, row 0 first, the kernel's order (``torch.sum`` may take
+    another)."""
+    S, C = states, categories
+    x1, x2 = _gen_clvs(S * C, n_blocks * block_sites, block_sites, lc.device)
+    acc = torch.zeros(x1.shape[1], dtype=torch.float32, device=lc.device)
+    for _ in range(inner_iters):
+        x1 = stage(stage(x1, lc, S, C) * stage(x2, rc, S, C), ec, S, C)
+        t = x1[0]
+        for r in range(1, S * C):
+            t = t + x1[r]
+        acc = acc + t
+    return acc[None, :]
+
+
+@functools.cache
+def _lib_gen():
+    """Build (first use) and load csrc/plf_gen.cu, with its C prototype."""
+    from ._build import load_library
+    lib = load_library("plf_gen")
+    lib.plf_gen_launch.argtypes = [_c_void_p] * 4 + [_c_int] * 5 + [
+        _c_void_p]
+    lib.plf_gen_launch.restype = _c_int
+    lib.plf_error_string.argtypes = [_c_int]
+    lib.plf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plf_node_gen(lc, rc, ec, *, states: int = 4, categories: int = 4,
+                 block_sites: int = 4096, n_blocks: int = 64,
+                 inner_iters: int = 8):
+    """Compute-only PLF probe (kernel 9, ``plf_pallas_gen``'s contract):
+    ``n_blocks * block_sites * inner_iters`` node-site evaluations with no
+    CLV traffic.
+
+    Args:
+      lc, rc, ec: ``(S*C, S)`` fp32 lane constants; the device follows
+        ``lc``.
+      block_sites, n_blocks: the probe covers ``n_blocks * block_sites``
+        sites; a site's synthetic CLVs depend on its index within its
+        block.
+      inner_iters: chained PLF nodes per site.
+
+    Returns:
+      ``(1, n_blocks * block_sites)`` fp32 per-site checksum.
+    """
+    S, C = states, categories
+    rows = S * C
+    for name, t in (("lc", lc), ("rc", rc), ("ec", ec)):
+        if tuple(t.shape) != (rows, S) or t.dtype != torch.float32:
+            raise ValueError(f"plf_node_gen: {name} must be ({rows}, {S}) "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+        if t.device != lc.device:
+            raise ValueError("plf_node_gen: lc/rc/ec must be on one device")
+    n = n_blocks * block_sites
+    if S < 2 or block_sites < 1 or n_blocks < 1 or inner_iters < 0 \
+            or n >= 2 ** 31:
+        raise ValueError(f"plf_node_gen: bad S={S}, block_sites="
+                         f"{block_sites}, n_blocks={n_blocks} or "
+                         f"inner_iters={inner_iters}")
+    kw = dict(states=S, categories=C, block_sites=block_sites,
+              n_blocks=n_blocks, inner_iters=inner_iters)
+    if lc.device.type == "cpu":
+        return plf_node_gen_torch(lc, rc, ec, **kw)
+    if lc.device.type != "cuda":
+        raise ValueError(f"plf_node_gen: no kernel for device {lc.device}")
+    if S == 4 and not 1 <= C <= 8:
+        raise ValueError(f"plf_node_gen takes C in 1..8 at S = 4, got C={C}")
+    # at S != 4 a block holds kernel 1m's three rows x 32-site tiles
+    if S != 4 and 4 * (3 * rows * 32 + 32) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"plf_node_gen: {rows} rows do not fit one block's "
+                         f"shared memory ({SMEM_BLOCK_BYTES} bytes)")
+    if not all(t.is_contiguous() for t in (lc, rc, ec)):
+        raise ValueError("plf_node_gen: lc/rc/ec must be contiguous")
+    if S % 4 == 0 and any(t.data_ptr() % 16 for t in (lc, rc, ec)):
+        raise ValueError("plf_node_gen: lc/rc/ec must be 16-byte aligned")
+    lib = _lib_gen()
+    out = torch.empty((1, n), dtype=torch.float32, device=lc.device)
+    with torch.cuda.device(lc.device):
+        stream = torch.cuda.current_stream(lc.device).cuda_stream
+        err = lib.plf_gen_launch(lc.data_ptr(), rc.data_ptr(), ec.data_ptr(),
+                                 out.data_ptr(), n, block_sites, inner_iters,
+                                 S, C, stream)
+    if err != 0:
+        raise RuntimeError(f"plf_node_gen kernel launch failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    plf_node_gen.launches += 1
+    return out
+
+
+plf_node_gen.launches = 0

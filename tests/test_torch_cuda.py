@@ -307,6 +307,144 @@ def test_tree_and_kernel_gradients_agree(cuda):
     np.testing.assert_array_equal(out["auto"][1], g_t)
 
 
+# ------------------------------------- kernel 9 and kernel 3m (S != 4) --
+
+def _gen_consts(cuda, S, C, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(a, device=cuda) for a in (
+        L.branch_to_lane_constants(rng.random((C, S, S), np.float32), S, C),
+        L.branch_to_lane_constants(rng.random((C, S, S), np.float32), S, C),
+        L.ev_to_lane_constants(rng.random((S, S), np.float32), S, C))]
+
+
+@pytest.mark.parametrize("S,C", [(4, 4), (4, 5), (20, 4), (61, 4)])
+def test_kernel9_equals_plain(cuda, S, C):
+    """The compute-only probe == its plain version bit for bit (at S = 61
+    every checksum is +inf after 8 nodes, and equal as such); one launch
+    counted per call."""
+    from plf_tpu_torch.ops.plf_node import plf_node_gen, plf_node_gen_torch
+    consts = _gen_consts(cuda, S, C)
+    kw = dict(states=S, categories=C, block_sites=1024, n_blocks=3,
+              inner_iters=8)
+    before = plf_node_gen.launches
+    got = plf_node_gen(*consts, **kw)
+    assert plf_node_gen.launches == before + 1
+    want = plf_node_gen_torch(*consts, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 3072)
+    assert torch.equal(got, want)
+    assert bool(torch.isposinf(got).all()) == (S == 61)
+
+
+def test_kernel9_rejects_what_it_cannot_run(cuda):
+    from plf_tpu_torch.ops.plf_node import plf_node_gen
+    lc, rc, ec = _gen_consts(cuda, 4, 9)
+    with pytest.raises(ValueError, match="C in 1..8"):
+        plf_node_gen(lc, rc, ec, states=4, categories=9)
+    lc, rc, ec = _gen_consts(cuda, 61, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        plf_node_gen(lc, rc, ec, states=61, categories=10)
+    lc, rc, ec = _gen_consts(cuda, 20, 4)
+    with pytest.raises(ValueError, match="one device"):
+        plf_node_gen(lc, rc.cpu(), ec, states=20)
+
+
+@pytest.mark.parametrize("S,C", [(20, 4), (20, 5), (61, 4), (13, 3)])
+def test_kernel3m_matches_plain(cuda, S, C):
+    """Kernel 3m (plf_node_bwd at S != 4): gx1/gx2 == plain bit for bit,
+    zero on padding sites; the operator sums within 1e-4 of scale of the
+    plain version and bit-identical run to run; plf_node_bwd_mxu counts
+    the launches, plf_node_bwd none."""
+    n = 40 * 128 - 37
+    n_pad = L.sites_padding(n, 128)
+    rng = np.random.default_rng(S)
+    lc, rc, ec = _gen_consts(cuda, S, C, seed=S)
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    a = torch.rand((S * C, n_pad), generator=gen, device=cuda)
+    b = torch.rand((S * C, n_pad), generator=gen, device=cuda)
+    a[:, 0::4] *= 1e-16
+    a[:, n:] = 0.0
+    b[:, n:] = 0.0
+    _, sc = plf_node(a, b, lc, rc, ec, n, states=S, categories=C)
+    assert int(sc.sum()) > 0
+    g = torch.as_tensor(rng.standard_normal((S * C, n_pad)),
+                        dtype=torch.float32, device=cuda)
+    consts = [lc, rc] + [G.transpose_lane_constants(t, S, C)
+                         for t in (lc, rc, ec)]
+    before = (G.plf_node_bwd.launches, G.plf_node_bwd_mxu.launches)
+    k1 = G.plf_node_bwd(a, b, g, sc, *consts, n, states=S, categories=C)
+    k2 = G.plf_node_bwd(a, b, g, sc, *consts, n, states=S, categories=C)
+    assert (G.plf_node_bwd.launches, G.plf_node_bwd_mxu.launches) == (
+        before[0], before[1] + 2)
+    p = G.plf_node_bwd_torch(a, b, g, sc, *consts, n, states=S,
+                             categories=C)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], p[0]) and torch.equal(k1[1], p[1])
+    assert not k1[0][:, n:].any() and not k1[1][:, n:].any()
+    for i in range(5):
+        assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
+    for i in (2, 3, 4):
+        _sums_close(k1[i], p[i])
+
+
+def test_kernel3m_rejects_what_it_cannot_run(cuda):
+    x = torch.rand(80, 256, device=cuda)
+    c = torch.rand(80, 20, device=cuda)
+    sc = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
+    y, d = x[:, :200].contiguous(), c
+    with pytest.raises(ValueError, match="multiple of 128"):
+        G.plf_node_bwd(y, y, y, sc[:, :200].contiguous(), d, d, d, d, d, 200,
+                       states=20)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.plf_node_bwd(x, x, x, sc, d, d, d, d,
+                       torch.rand(20, 80, device=cuda).t(), 200, states=20)
+    with pytest.raises(ValueError, match="one device"):
+        G.plf_node_bwd(x, x, x, sc.cpu(), d, d, d, d, d, 200, states=20)
+    big = torch.rand(61 * 20, 128, device=cuda)
+    cb = torch.rand(61 * 20, 61, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        G.plf_node_bwd(big, big, big, sc[:, :128].contiguous(), cb, cb, cb,
+                       cb, cb, 100, states=61, categories=20)
+
+
+@pytest.mark.parametrize("states", [20, 61])
+def test_kernel_backend_at_other_state_counts(cuda, states):
+    """tree_loglik_fn(backend="kernel") on a "vpu" model at S = 20 (LG)
+    and S = 61 (GY94, simulated codons): one kernel-1m and one kernel-3m
+    launch per node and step, nothing else; value within rel 1e-5 and
+    gradient within rtol 2e-4 / 1e-4 of the largest entry of the "tree"
+    step on the same model; "auto" takes "tree", measured faster at 16
+    taxa x 1,500 sites at both S (optimize.KERNEL_MIN_NODE_SITES)."""
+    tree = random_tree(16, seed=8, mean_branch=0.2)
+    if states == 20:
+        model = empirical_protein("lg")
+        tips = np.random.default_rng(8).integers(-1, 23, size=(16, 1500))
+    else:
+        model = codon_gy94(2.0, 0.3)
+        tips = simulate_alignment(tree, model, 1500, alpha=0.6, seed=8)
+    pm = PhyloModel(tree, model, tips, alpha=0.6,
+                    config=PLFConfig(states=states, kernel_variant="vpu"))
+    E = len(pm.schedule)
+    out = {}
+    for backend in ("kernel", "tree"):
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+        assert (fn.engine, fn.variant) == (backend, "vpu")
+        counts = [f.launches for f in _counted() + (G.plf_node_bwd_mxu,)]
+        t = torch.tensor(t0, device=cuda, requires_grad=True)
+        v = fn(t)
+        v.backward()
+        runs = [f.launches - c for f, c in
+                zip(_counted() + (G.plf_node_bwd_mxu,), counts)]
+        if backend == "kernel":
+            assert runs == [0, 0, 0, 0, E, 0, 0, E], runs
+        out[backend] = (float(v.detach()), t.grad.cpu().numpy())
+    (v_k, g_k), (v_t, g_t) = out["kernel"], out["tree"]
+    assert tree_loglik_fn(pm)[0].engine == "tree"
+    assert v_k == pytest.approx(v_t, rel=1e-5)
+    np.testing.assert_allclose(g_k, g_t, rtol=2e-4,
+                               atol=1e-4 * np.abs(g_t).max())
+
+
 # ------------------------------------------------- matrix-form kernels --
 
 MXU_VARIANTS = ["mxu", "mxu_3x", "mxu_bf16"]

@@ -169,7 +169,7 @@ def test_build_flags_keep_golden_arithmetic():
         "plf_node.cu", "plf_tree.cu", "plf_node_bwd.cu", "plf_tree_bwd.cu",
         "plf_node_mxu.cu", "plf_tree_mxu.cu", "plf_tree_bwd_mxu.cu",
         "plf_tree_seg.cu", "plf_tree_seg_bwd.cu", "plf_tree_seg_mxu.cu",
-        "plf_tree_seg_bwd_mxu.cu"}
+        "plf_tree_seg_bwd_mxu.cu", "plf_gen.cu", "plf_node_bwd_mxu.cu"}
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
@@ -227,6 +227,9 @@ def test_port_never_imports_jax():
             "plf_tpu_torch.ops.plf_torch, plf_tpu_torch.ops._build\n"
             "import plf_tpu_torch.ops.plf_grad, plf_tpu_torch.ops.plf_tree_grad, "
             "plf_tpu_torch.models.optimize, plf_tpu_torch.ops.plf_mxu\n"
+            "import plf_tpu_torch.__main__, plf_tpu_torch.runtime, "
+            "plf_tpu_torch.runtime.executor, plf_tpu_torch.runtime.native, "
+            "plf_tpu_torch.utils.timing\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'plf_tpu.')) or m == 'plf_tpu']\n"
             "assert not bad, bad\n"

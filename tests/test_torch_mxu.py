@@ -438,28 +438,33 @@ def test_training_guards(variant):
     """Models on the matrix-form kernels (the MXU variants, and "vpu" at
     S = 20) on the CPU: "auto" takes "torch"; "tree" runs kernels 2m + 4m
     and "segmented" kernels 7m + 8m (their plain versions here) in the
-    model's arithmetic; "kernel" raises NotImplementedError naming ROADMAP
-    up front (kernel 3 is S = 4 only; no quiet fallback); mxu_bf16 raises
-    ValueError everywhere, as in JAX.  Values within rel 1e-4 of
-    log_likelihood()."""
+    model's arithmetic; "kernel" runs kernels 1m + 3m (their plain
+    versions) in "vpu" arithmetic whatever the variant, as JAX's "pallas"
+    path does, so its value is held to an "mxu" twin's log_likelihood()
+    (fp32 in the golden order); mxu_bf16 raises ValueError everywhere, as
+    in JAX.  Values within rel 1e-4 of log_likelihood()."""
     pt = _port_of(_jax_protein(variant, n_leaves=4, n_sites=128), variant)
     if variant == "mxu_bf16":
         for backend in ("torch", "kernel", "tree", "auto"):
             with pytest.raises(ValueError, match="mxu_bf16"):
                 tree_loglik_fn(pt, backend=backend)
         return
-    with pytest.raises(NotImplementedError, match="kernel 3 is S = 4 only"):
-        tree_loglik_fn(pt, backend="kernel")
     ll = pt.log_likelihood().log_likelihood
-    for backend, engine in (("auto", "torch"), ("torch", "torch"),
-                            ("tree", "tree"), ("segmented", "segmented")):
+    twin = pt if variant == "mxu" else _port_of(
+        _jax_protein("mxu", n_leaves=4, n_sites=128), "mxu")
+    ll_mxu = twin.log_likelihood().log_likelihood
+    for backend, engine, arith, want in (
+            ("auto", "torch", variant, ll), ("torch", "torch", variant, ll),
+            ("tree", "tree", variant, ll),
+            ("segmented", "segmented", variant, ll),
+            ("kernel", "kernel", "vpu", ll_mxu)):
         fn, t0 = tree_loglik_fn(pt, backend=backend)
-        assert (fn.engine, fn.variant) == (engine, variant)
+        assert (fn.engine, fn.variant) == (engine, arith)
         t = torch.tensor(t0, requires_grad=True)
         v = fn(t)
         v.backward()
         assert torch.isfinite(t.grad).all()
-        assert float(v.detach()) == pytest.approx(ll, rel=1e-4)
+        assert float(v.detach()) == pytest.approx(want, rel=1e-4)
 
 
 def test_entry_points_default_to_the_card():

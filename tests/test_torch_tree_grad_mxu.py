@@ -343,9 +343,11 @@ class _Stand:
 def test_routing_of_matrix_form_models():
     """auto: "torch" off the card; on the card "tree" when kernel 2m takes
     the tree, else "segmented" (kernels 7m + 8m, as the JAX package takes
-    its segmented engine; a "vpu" DNA model keeps "kernel").  "kernel" at
-    S != 4 raises, on an MXU variant at S = 4 it runs kernels 1 + 3 and
-    reports "vpu"; "segmented" runs at S = 20."""
+    its segmented engine; a "vpu" DNA model keeps "kernel").  "kernel"
+    runs in "vpu" arithmetic on every variant: at S = 20 kernels 1m (fp32
+    mode) + 3m, its value within rel 1e-4 of an "mxu" model's
+    log_likelihood() (the same fp32 golden order), on an MXU variant at
+    S = 4 kernels 1 + 3; "segmented" runs at S = 20."""
     assert TO._auto_backend(_Stand("cpu", False), True) == "torch"
     assert TO._auto_backend(_Stand("cuda", True), True) == "tree"
     assert TO._auto_backend(_Stand("cuda", False), False) == "kernel"
@@ -353,8 +355,11 @@ def test_routing_of_matrix_form_models():
     pt = _port_of(_jax_protein("mxu", n_leaves=4, n=128), 20, "mxu")
     fn, _ = TO.tree_loglik_fn(pt)
     assert (fn.engine, fn.variant) == ("torch", "mxu")
-    with pytest.raises(NotImplementedError, match="kernel 3 is S = 4 only"):
-        TO.tree_loglik_fn(pt, backend="kernel")
+    fn, t0 = TO.tree_loglik_fn(pt, backend="kernel")
+    assert (fn.engine, fn.variant) == ("kernel", "vpu")
+    with torch.no_grad():
+        assert float(fn(t0)) == pytest.approx(
+            pt.log_likelihood().log_likelihood, rel=1e-4)
     fn, _ = TO.tree_loglik_fn(pt, backend="segmented")
     assert (fn.engine, fn.variant) == ("segmented", "mxu")
     dna = JPM(jrt(5, seed=2), JS.hky85(2.0),
@@ -420,3 +425,41 @@ def test_tree_bwd_mxu_wrapper_dispatch_and_checks():
                             **kw)
     with pytest.raises(ValueError, match="glik"):
         TG.plf_tree_bwd_mxu(*args[:-1], args[-1][:, :64], pt.n_sites, **kw)
+
+
+def test_auto_takes_kernel_where_measured_faster(monkeypatch):
+    """On the card "auto" takes "kernel" (kernels 1m + 3m per node) for a
+    "vpu" model at S != 4 from the nodes x padded sites at which it was
+    measured faster than "tree" (optimize.KERNEL_MIN_NODE_SITES: 63 x
+    131,072 at S = 20, 31 x 4,096 at S = 61, C = 4), while its per-node
+    residuals, 3 * E * S*C * n_pad * 4 bytes, fit half the free memory;
+    below that size, at an unmeasured (S, C), past the memory and for
+    every MXU variant the rule stays "tree"."""
+    from types import SimpleNamespace
+    pt = _port_of(_jax_protein("vpu"), 20, "vpu")
+
+    def stand(S, C, E, n_pad):
+        return SimpleNamespace(
+            device=torch.device("cuda"), schedule=[None] * E, n_pad=n_pad,
+            config=SimpleNamespace(states=S, categories=C, rows=S * C),
+            can_fuse=lambda: True, can_segment=lambda: False)
+
+    big = 1 << 40
+    for S, C, E, n_pad, want in (
+            (20, 4, 63, 131_072, True), (20, 4, 255, 65_536, True),
+            (20, 4, 255, 16_384, False), (20, 4, 63, 65_536, False),
+            (20, 4, 15, 131_072, False), (61, 4, 31, 4_096, True),
+            (61, 4, 15, 16_384, True), (61, 4, 15, 4_096, False),
+            (20, 1, 255, 131_072, False), (2, 4, 255, 131_072, False)):
+        assert TO._kernel_wins(stand(S, C, E, n_pad), free=big) is want
+    card = stand(20, 4, 63, 131_072)
+    resid = 3 * 63 * 80 * 131_072 * 4
+    assert TO._kernel_wins(card, free=2 * resid)
+    assert not TO._kernel_wins(card, free=2 * resid - 2)
+    for free, vpu, want in ((2 * resid, True, "kernel"),
+                            (2 * resid - 2, True, "tree"),
+                            (2 * resid, False, "tree")):
+        monkeypatch.setattr(TO, "_free_bytes", lambda dev, f=free: f)
+        assert TO._auto_backend(card, True, vpu) == want
+    fn, _ = TO.tree_loglik_fn(pt)              # off the card: "torch"
+    assert (fn.engine, fn.variant) == ("torch", "vpu")
