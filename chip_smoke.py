@@ -588,13 +588,18 @@ def kernel4_phase(pm):
     ms_p = cuda_ms(lambda: plf_tree_bwd_torch(*args, glik, n), reps=1,
                    warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sms = torch.cuda.get_device_properties(pm.device).multi_processor_count
+    bpsm = plf_tree_grad.tree_bwd_resident_blocks(
+        pm.device, pm.codes.element_size(), cfg.categories,
+        pm.tip_table.shape[1]) // sms
     phase("kernel4", f"{len(pm.schedule)} nodes x {n} sites: gl/gr/gec/grr within "
           f"{max(errs + errs_rr):.2e} of scale of plain (max abs "
           f"{abs_err:.3g}), bit-identical run to run; {chunking['chunks']} "
           f"chunk of {chunking['chunk_sites']} sites, "
           f"{chunking['bytes'] / 1e9:.2f} GB scratch (and {small['chunks']} "
           f"chunks of {small['chunk_sites']} sites under a "
-          f"{budget / 1e9:.2f} GB budget, within {errs[1]:.2e}); kernel "
+          f"{budget / 1e9:.2f} GB budget, within {errs[1]:.2e}); "
+          f"{bpsm} blocks of 128 threads per SM; kernel "
           f"{ms_k:.3f} ms, plain {ms_p:.3f} ms; peak {peak:.2f} GiB")
     del k1, k2, k3, p
     torch.cuda.empty_cache()
@@ -670,7 +675,7 @@ def train_phase(dev, tree, tips, pm):
                                             + 1e-4 * scale)))
     check(err <= 1.0, f"tree vs kernel gradient: {err} of the bar")
     fn_auto, _ = tree_loglik_fn(pm)
-    check(fn_auto.engine == ("tree" if pm.can_fuse() else "kernel"),
+    check(fn_auto.engine == ("segmented" if pm.can_fuse() else "kernel"),
           f"auto took {fn_auto.engine!r} on the card")
     phase("train", f"tree vs kernel gradient within {err:.3f} of the "
           f"rtol 2e-4 / atol 1e-4 x max|g| bar (max|g| {scale:.4g}); auto "
@@ -1611,9 +1616,9 @@ def segmented_phase(dev, pm):
     "segmented" value-and-gradient step with exactly one launch each of
     kernels 7 and 8, against the "tree" step (values rel 1e-6, gradients
     within SEG_GRAD_RTOL of scale), with both step times and checkpoint
-    sizes, at 160 taxa x 2^20 and at 256 taxa x 2^22 with int8 tips; auto
-    takes "tree" at the first and "segmented" at the second, where kernel
-    4's checkpoint runs in chunks."""
+    sizes, at 160 taxa x 2^20 and at 256 taxa x 2^22 with int8 tips (where
+    kernel 4's checkpoint runs in chunks); auto takes "segmented" at both,
+    the faster step for DNA."""
     fused = pm.log_likelihood()
     _reset_counts()
     t0 = time.perf_counter()
@@ -1664,7 +1669,7 @@ def segmented_phase(dev, pm):
         gb = plan.n_boundaries * 4 * m.config.rows * m.n_pad / 1e9
         sc4 = res["tree"]["scratch"]
         auto = tree_loglik_fn(m)[0].engine
-        check(auto == ("tree" if m is pm else "segmented"),
+        check(auto == "segmented",
               f"auto took {auto!r} at {m.tree.n_leaves} taxa")
         phase("segmented", f"{m.tree.n_leaves} taxa x {m.n_sites} sites: one "
               f"value+gradient step 'tree' {res['tree']['ms']} ms, "

@@ -19,10 +19,12 @@
 // S = C = 4) and the int32 flag, and writes gx1 and gx2: 324 bytes, against
 // ~60 fp32 operations per CLV element.  Design: one thread per site as in
 // kernel 1 (coalesced rows, constants as float4 rows in shared memory, every
-// per-site intermediate in registers), tiles of 128 sites per block in a loop,
-// and the operator-gradient sums staged through shared memory into per-block
-// partials plus a fixed-order second pass (plf_grad.cuh).  gx1 gets its own
-// buffer (the JAX call reuses g's buffer; autograd may still hold g).
+// per-site intermediate in registers), tiles of 128 sites per block in a loop.
+// The operator-gradient sums (plf_grad.cuh): each warp sums its 32 sites per
+// tile and m, each lane keeps its share in registers across the tiles, and at
+// the end the block adds its four warps in order into its row of partials,
+// for a fixed-order second pass.  gx1 gets its own buffer (the JAX call
+// reuses g's buffer; autograd may still hold g).
 #include "plf_grad.cuh"
 
 namespace {
@@ -38,11 +40,13 @@ plf_node_bwd_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
                     float* __restrict__ gx2, float* __restrict__ partial, int n,
                     int n_pad, int tiles_per_block, int n_tiles) {
   constexpr int R = plf::S * C;
-  constexpr int NE = 3 * R * plf::S;
-  constexpr int NS = plf::grad_slots<C>();
+  constexpr int RS = R * plf::S;
+  constexpr int NQ = plf::grad_passes<C>();
+  constexpr int NW = kT / plf::kWarp;
   __shared__ float4 s_lc[R], s_rc[R], s_lcT[R], s_rcT[R], s_ecT[R];
-  extern __shared__ float st[];
-  const int tid = threadIdx.x;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid % plf::kWarp, warp = tid / plf::kWarp;
+  float* st = reinterpret_cast<float*>(smem4) + warp * plf::warp_stage_floats<C>();
   for (int i = tid; i < R; i += kT) {
     s_lc[i] = reinterpret_cast<const float4*>(lc)[i];
     s_rc[i] = reinterpret_cast<const float4*>(rc)[i];
@@ -52,9 +56,11 @@ plf_node_bwd_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
   }
   __syncthreads();
 
-  float acc[NS];
+  float2 sum[3][NQ];
 #pragma unroll
-  for (int j = 0; j < NS; ++j) acc[j] = 0.0f;
+  for (int m = 0; m < 3; ++m)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) sum[m][q] = make_float2(0.0f, 0.0f);
   const int t0 = blockIdx.x * tiles_per_block;
   const int t1 = min(t0 + tiles_per_block, n_tiles);
   for (int t = t0; t < t1; ++t) {
@@ -78,27 +84,58 @@ plf_node_bwd_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
       gu2[r] = __fmul_rn(gp[r], u1[r]);
       u1[r] = __fmul_rn(u1[r], u2[r]);  // p
     }
-    plf::stage_put<C>(st, 0, a, tid);
-    plf::stage_put<C>(st, 1, gu1, tid);
-    plf::stage_put<C>(st, 2, b, tid);
-    plf::stage_put<C>(st, 3, gu2, tid);
-    plf::stage_put<C>(st, 4, u1, tid);
-    plf::stage_put<C>(st, 5, gy, tid);
     plf::stage<C>(gu1, s_lcT, o);
 #pragma unroll
     for (int r = 0; r < R; ++r) gx1[(size_t)r * n_pad + site] = o[r];
     plf::stage<C>(gu2, s_rcT, o);
 #pragma unroll
     for (int r = 0; r < R; ++r) gx2[(size_t)r * n_pad + site] = o[r];
-    __syncthreads();
-    plf::op_grad_tile<C>(st, tid, acc);
-    __syncthreads();
-  }
+    float2 s[NQ];
+    plf::warp_op_grad<C>(st, a, gu1, lane, s);
 #pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    const int e = tid + j * kT;
-    if (e < NE) partial[(size_t)blockIdx.x * NE + e] = acc[j];
+    for (int q = 0; q < NQ; ++q)
+      sum[0][q] = make_float2(__fadd_rn(sum[0][q].x, s[q].x),
+                              __fadd_rn(sum[0][q].y, s[q].y));
+    plf::warp_op_grad<C>(st, b, gu2, lane, s);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      sum[1][q] = make_float2(__fadd_rn(sum[1][q].x, s[q].x),
+                              __fadd_rn(sum[1][q].y, s[q].y));
+    plf::warp_op_grad<C>(st, u1, gy, lane, s);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      sum[2][q] = make_float2(__fadd_rn(sum[2][q].x, s[q].x),
+                              __fadd_rn(sum[2][q].y, s[q].y));
   }
+  // The block's row: its warps' sums added in warp order.
+  __syncthreads();
+  float2* comb = reinterpret_cast<float2*>(smem4);   // [warp][m][q][lane]
+#pragma unroll
+  for (int m = 0; m < 3; ++m)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      comb[((warp * 3 + m) * NQ + q) * plf::kWarp + lane] = sum[m][q];
+  __syncthreads();
+  for (int j = tid; j < 3 * NQ * plf::kWarp; j += kT) {
+    float2 v = comb[j];
+    for (int w = 1; w < NW; ++w) {
+      const float2 u = comb[w * 3 * NQ * plf::kWarp + j];
+      v = make_float2(__fadd_rn(v.x, u.x), __fadd_rn(v.y, u.y));
+    }
+    const int m = j / (NQ * plf::kWarp), q = (j / plf::kWarp) % NQ;
+    const int ln = j % plf::kWarp;
+    float* row = partial + (size_t)blockIdx.x * 3 * RS + m * RS;
+    const int e0 = plf::grad_entry<C>(ln, q, 0), e1 = plf::grad_entry<C>(ln, q, 1);
+    if (e0 >= 0) row[e0] = v.x;
+    if (e1 >= 0) row[e1] = v.y;
+  }
+}
+
+// Dynamic shared memory: the four warps' staging areas (the block's
+// combining area at the end fits in them).
+template <int C>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (kT / plf::kWarp) * plf::warp_stage_floats<C>();
 }
 
 template <int C>
@@ -108,7 +145,7 @@ int launch(const float* x1, const float* x2, const float* g, const int* sc,
            int n_blocks, int tiles_per_block, float* gops, int n, int n_pad,
            cudaStream_t st) {
   constexpr int R = plf::S * C;
-  const size_t smem = plf::grad_stage_bytes<C>();
+  const size_t smem = smem_bytes<C>();
   auto kern = plf_node_bwd_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

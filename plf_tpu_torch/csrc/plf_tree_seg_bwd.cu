@@ -3,9 +3,10 @@
 // Replaces plf_tpu/ops/plf_tree_seg.py::_seg_bwd_kernel (:843, launched by
 // _seg_bwd_call :1095), its "vpu" form at S = 4.  The TPU kernel runs a
 // sequential grid of (segments in reverse x site blocks) and chains the
-// boundary adjoints through a buffer in device memory; here a block owns its
-// tiles of kSites sites through every segment, so nothing is ordered between
-// blocks.  For each tile, the segments of the plan in reverse:
+// boundary adjoints through a buffer in device memory; here a one-warp block
+// owns its tiles of kSites sites through every segment, so nothing is ordered
+// between blocks.  For each segment of the plan in reverse, for each of the
+// block's tiles:
 //
 //   phase 1  recompute the segment's ops (operands: tips from their codes,
 //            boundary CLVs from bbuf, earlier ops of the segment from the
@@ -14,16 +15,18 @@
 //   seed     the root's adjoint: for the last segment g = glik on valid sites
 //            (0 on padding), grr[r] += sum_s x_root[r] * g, adjoint rr[r] * g;
 //            for the others the boundary adjoint its consumer wrote to gbuf
-//            earlier in this same loop (by this same thread);
+//            in an earlier segment of this loop (by this same thread);
 //   phase 2  kernel 4's reverse sweep: g_y = f * adjoint, g_p = S3(g_y; ecT),
 //            g_u1 = g_p*u2, g_u2 = g_p*u1; a child op's slot flips to its
 //            adjoint S1(g_u1; lcT[e]), a boundary child's adjoint goes to
 //            gbuf[boundary][row][site], a tip child's is never formed.
 //
 // gl[e], gr[e] (per edge), gec and grr are sums over all sites without float
-// atomics: per tile a staging pass (plf_grad.cuh, 32-site rows), each block's
-// sums in its own row of `partial` (gl/gr read, added to and written back in
-// tile order by the thread that owns the entry), and a fixed-order second pass
+// atomics (plf_grad.cuh): per tile and op the warp sums its 32 sites and adds
+// them to the segment's sums in shared memory (`segacc`, one slot per op,
+// written by the block's first tile); when the segment's tiles are done its
+// sums go to the block's row of `partial`, each entry written once; gec and
+// grr stay in each lane's registers to the end; a fixed-order second pass
 // over the rows in fp64 (plf_tree_seg_bwd_reduce).  Two runs are
 // bit-identical.  Every per-site value is computed in the order of the plain
 // version (plf_tree_seg_bwd_torch), so the boundary adjoints in gbuf equal its
@@ -31,16 +34,26 @@
 //
 // Bound: operations.  Per site and op, the forward recompute (~23 fp32
 // operations per CLV element), g_p, g_u1/g_u2, an adjoint stage per internal
-// child and three operator-gradient products: ~5,000 fp32 operations per site
-// and op at S = C = 4, against ~64 bytes per site for each boundary read and
-// adjoint written.  What the design does about it: the checkpoint of every op
-// CLV lives in shared memory, not in device memory (kernel 4 moves ~60 KB per
-// site at 159 nodes there); the device-memory residual is the boundary buffer,
+// child and three operator-gradient products: ~1,040 fp32 operations per
+// site and op at S = C = 4 that the function needs, ~1,800 instructions as
+// the kernel issues them (the second stage-1 pass, the operator loads, the
+// sums' staging and butterflies), against ~64 bytes per site for each
+// boundary read and adjoint written.  The checkpoint of every op CLV lives
+// in shared memory, not in device memory (kernel 4 moves ~31 KB per site at
+// 159 nodes there); the device-memory residual is the boundary buffer,
 // n_boundaries x 64 bytes per site.  The cost is occupancy: a block of 32
-// threads holds seg_ops slots of 2 KB, and the planner caps seg_ops so that
-// eight blocks share an SM (plan_segments in plf_tree_seg.py; on an H100 at
-// 160 taxa x 2^20 sites, plans for 2, 4 and 8 blocks per SM ran this kernel
-// in 104, 62 and 39 ms).
+// threads holds seg_ops slots of 2.5 KB (CLV, flags, gl/gr sums), and the
+// planner caps seg_ops so that eight blocks share an SM (plan_segments in
+// plf_tree_seg.py).  Staging one pair of (S*C, 32) arrays at a time (4 KB
+// at C = 4) leaves room for 8 ops a segment, and walking the segments
+// outermost keeps a segment's gl/gr sums in shared memory until its tiles
+// are done, so no tile reads back a partial sum from device memory.  On an
+// H100 (80 GB HBM3, 700 W) at 160 taxa x 2^20 sites: 178 registers, 8
+// blocks per SM (shared memory; registers would allow 11), 23.2 ms on the
+// cap-8 plan (36 segments of at most 6 ops, 35 boundaries); plans cut for
+// 4, 6, 8 and 10 blocks per SM ran it in 36.0, 29.4, 23.2 and 22.8 ms;
+// without the operator-gradient sums it ran 18.2 ms (104 registers).
+// Issue and latency bind, at 1/9 of the operations bound (2.7 ms).
 //
 // bf16 storage (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): bbuf holds
 // kernel 7's rounded boundaries, widened where phase 1 reads them, so the
@@ -67,17 +80,18 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
                         int tiles_per_block, int n, int n_pad) {
   constexpr int R = plf::S * C;
   constexpr int RS = R * plf::S;
-  constexpr int NS = plf::grad_slots<C, kSites>();
-  constexpr int P = kSites + 1;                            // staging pitch
+  constexpr int NQ = plf::grad_passes<C>();
+  constexpr int NA = 2 * NQ * kSites;                    // float2 per op
   extern __shared__ float4 smem4[];
   float4* s_ec = smem4;                                  // R float4
   float4* s_ecT = smem4 + R;                             // R float4
-  float* s_tt = reinterpret_cast<float*>(smem4 + 2 * R); // R * ncols
+  float* st = reinterpret_cast<float*>(smem4 + 2 * R);   // staging
+  float2* segacc = reinterpret_cast<float2*>(
+      st + plf::warp_stage_floats<C>());                 // seg_ops * NA
+  float* arena = reinterpret_cast<float*>(segacc + (size_t)seg_ops * NA);
+  float* s_tt = arena + (size_t)seg_ops * R * kSites;    // R * ncols
   float* s_rr = s_tt + R * ncols;                        // R
-  float* st = s_rr + R;                                  // 6 * R * P staging
-  float* arena = st + 6 * R * P;                         // seg_ops * R * kSites
-  unsigned char* flags =
-      reinterpret_cast<unsigned char*>(arena + (size_t)seg_ops * R * kSites);
+  unsigned char* flags = reinterpret_cast<unsigned char*>(s_rr + R);
   const int tid = threadIdx.x;
   for (int i = tid; i < R; i += kSites) {
     s_ec[i] = reinterpret_cast<const float4*>(ec)[i];
@@ -99,19 +113,6 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
   const int tile1 = min(tile0 + tiles_per_block, n_pad / kSites);
   const size_t cols = (size_t)2 * E * RS + RS + R;
   float* part = partial + blockIdx.x * cols;
-
-  // This block's gl/gr sums start at zero; each entry is owned, here and
-  // below, by thread (entry % kSites).
-  for (int e = 0; e < E; ++e) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int ent = tid + j * kSites;
-      if (ent < 2 * RS) {
-        const int m = ent / RS;
-        part[(size_t)m * E * RS + (size_t)e * RS + (ent - m * RS)] = 0.0f;
-      }
-    }
-  }
 
   auto load = [&](int src, int flag, int site, float (&x)[R]) {
     if (flag == 1) {         // arena slot
@@ -153,19 +154,20 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
     }
   };
 
-  float acc[NS];
+  float2 gsum[NQ];   // gec: this lane's entries, op by op over all tiles
 #pragma unroll
-  for (int j = 0; j < NS; ++j) acc[j] = 0.0f;
+  for (int q = 0; q < NQ; ++q) gsum[q] = make_float2(0.0f, 0.0f);
   float acc_rr = 0.0f;
 
-  for (int t = tile0; t < tile1; ++t) {
-    const int site = t * kSites + tid;
-    const bool valid = site < n;
-    for (int s = n_seg - 1; s >= 0; --s) {
-      const int end = __ldg(segs + 2 * s);
-      const int gout = __ldg(segs + 2 * s + 1);
-      const int start = s ? __ldg(segs + 2 * s - 2) : 0;
-      if (end - start > seg_ops) __trap();   // the arena was sized for less
+  for (int s = n_seg - 1; s >= 0; --s) {
+    const int end = __ldg(segs + 2 * s);
+    const int gout = __ldg(segs + 2 * s + 1);
+    const int start = s ? __ldg(segs + 2 * s - 2) : 0;
+    if (end - start > seg_ops) __trap();   // the arena was sized for less
+
+    for (int t = tile0; t < tile1; ++t) {
+      const int site = t * kSites + tid;
+      const bool valid = site < n;
 
       // ---- phase 1: the segment's op CLVs and flags, recomputed ----
       float a[R], b[R], out[R];
@@ -181,32 +183,21 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
         flags[slot * kSites + tid] = (unsigned char)f;
       }
 
-      // ---- seed: the root's adjoint ----
+      // ---- seed: the root's adjoint (out holds the root's CLV) ----
       const int root = __ldg(oslot + end - 1);
-      if (gout < 0) {
-        const float g = valid ? glik[site] : 0.0f;
-        float x[R], adj[R];
-        load(root, 1, site, x);
-#pragma unroll
-        for (int r = 0; r < R; ++r) adj[r] = __fmul_rn(s_rr[r], g);
-        store(root, adj);
-        plf::stage_put<C, kSites>(st, 0, x, tid);
-        st[(size_t)R * P + tid] = g;   // staging array 1, row 0
-        __syncthreads();
-        if (tid < R) {
-          const float* xr = st + (size_t)tid * P;
-          const float* gs = st + (size_t)R * P;
-          float sum = __fmul_rn(xr[0], gs[0]);
-          for (int k = 1; k < kSites; ++k)
-            sum = __fadd_rn(sum, __fmul_rn(xr[k], gs[k]));
-          acc_rr = __fadd_rn(acc_rr, sum);
-        }
-        __syncthreads();
-      } else {
+      {
         float adj[R];
-        const BT* src = gbuf + (size_t)gout * bnd_stride + site;
+        if (gout < 0) {
+          const float g = valid ? glik[site] : 0.0f;
+          plf::warp_root_grad<C>(st, out, g, tid, acc_rr);
 #pragma unroll
-        for (int r = 0; r < R; ++r) adj[r] = plf::widen(src[(size_t)r * n_pad]);
+          for (int r = 0; r < R; ++r) adj[r] = __fmul_rn(s_rr[r], g);
+        } else {
+          const BT* src = gbuf + (size_t)gout * bnd_stride + site;
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            adj[r] = plf::widen(src[(size_t)r * n_pad]);
+        }
         store(root, adj);
       }
 
@@ -236,51 +227,75 @@ plf_tree_seg_bwd_kernel(const CodeT* __restrict__ codes,
           gu2[r] = __fmul_rn(gp[r], u1[r]);
           u1[r] = __fmul_rn(u1[r], u2[r]);  // p
         }
-        plf::stage_put<C, kSites>(st, 0, a, tid);
-        plf::stage_put<C, kSites>(st, 1, gu1, tid);
-        plf::stage_put<C, kSites>(st, 2, b, tid);
-        plf::stage_put<C, kSites>(st, 3, gu2, tid);
-        plf::stage_put<C, kSites>(st, 4, u1, tid);
-        plf::stage_put<C, kSites>(st, 5, gy, tid);
         put_adjoint(lp, lf, site, gu1, lcT);
         put_adjoint(rp, rf, site, gu2, rcT);
-        __syncthreads();
-        float tile_sum[NS];
+        float2 s0[NQ], s1[NQ], s2[NQ];
+        plf::warp_op_grad<C>(st, a, gu1, tid, s0);
+        plf::warp_op_grad<C>(st, b, gu2, tid, s1);
+        plf::warp_op_grad<C>(st, u1, gy, tid, s2);
 #pragma unroll
-        for (int j = 0; j < NS; ++j) tile_sum[j] = 0.0f;
-        plf::op_grad_tile<C, kSites>(st, tid, tile_sum);
-        __syncthreads();
+        for (int q = 0; q < NQ; ++q)
+          gsum[q] = make_float2(__fadd_rn(gsum[q].x, s2[q].x),
+                                __fadd_rn(gsum[q].y, s2[q].y));
+        // gl[e], gr[e]: into the segment's sums (slot i - start).
+        float2* sa = segacc + (size_t)(i - start) * NA + tid;
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const int ent = tid + j * kSites;
-          if (ent < 2 * RS) {          // gl[e] or gr[e]: this block's row
-            const int m = ent / RS;
-            float* p = part + (size_t)m * E * RS + (size_t)e * RS + (ent - m * RS);
-            *p = __fadd_rn(*p, tile_sum[j]);
-          } else if (ent < 3 * RS) {   // gec: summed over every op
-            acc[j] = __fadd_rn(acc[j], tile_sum[j]);
+        for (int q = 0; q < NQ; ++q) {
+          float2 v0 = s0[q], v1 = s1[q];
+          if (t > tile0) {
+            const float2 o0 = sa[q * kSites], o1 = sa[(NQ + q) * kSites];
+            v0 = make_float2(__fadd_rn(o0.x, v0.x), __fadd_rn(o0.y, v0.y));
+            v1 = make_float2(__fadd_rn(o1.x, v1.x), __fadd_rn(o1.y, v1.y));
           }
+          sa[q * kSites] = v0;
+          sa[(NQ + q) * kSites] = v1;
+        }
+      }
+    }
+
+    // The segment's gl/gr sums, once, into this block's row.
+    for (int i = start; i < end; ++i) {
+      const int e = __ldg(eidx + i);
+      const float2* sa = segacc + (size_t)(i - start) * NA + tid;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float* row = part + (size_t)m * E * RS + (size_t)e * RS;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float2 v = sa[(m * NQ + q) * kSites];
+          const int e0 = plf::grad_entry<C>(tid, q, 0);
+          const int e1 = plf::grad_entry<C>(tid, q, 1);
+          if (e0 >= 0) row[e0] = v.x;
+          if (e1 >= 0) row[e1] = v.y;
         }
       }
     }
   }
+  float* tail = part + (size_t)2 * E * RS;
 #pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    const int ent = tid + j * kSites;
-    if (ent >= 2 * RS && ent < 3 * RS)
-      part[(size_t)2 * E * RS + (ent - 2 * RS)] = acc[j];
+  for (int q = 0; q < NQ; ++q) {
+    const float2 v = gsum[q];
+    const int e0 = plf::grad_entry<C>(tid, q, 0);
+    const int e1 = plf::grad_entry<C>(tid, q, 1);
+    if (e0 >= 0) tail[e0] = v.x;
+    if (e1 >= 0) tail[e1] = v.y;
   }
-  if (tid < R) part[(size_t)2 * E * RS + RS + tid] = acc_rr;
+  if (tid < R) tail[RS + tid] = acc_rr;
 }
 
-// Dynamic shared memory of one block (seg_bwd_smem_bytes in plf_tree_seg.py).
+// Dynamic shared memory of one block (seg_bwd_smem_bytes in plf_tree_seg.py):
+// ec, ecT, the staging area, the tip table, rr, and per op a CLV slot, its
+// gl/gr sums and kSites flag bytes.
 template <int C>
 size_t smem_bytes(int ncols, int seg_ops) {
   constexpr int R = plf::S * C;
-  return sizeof(float) * ((size_t)2 * R * plf::S + (size_t)R * ncols + R) +
-         plf::grad_stage_bytes<C, kSites>() +
-         (size_t)seg_ops * (sizeof(float) * R * kSites + kSites);
+  return sizeof(float) * ((size_t)2 * R * plf::S + plf::warp_stage_floats<C>() +
+                          (size_t)R * ncols + R) +
+         (size_t)seg_ops * (sizeof(float) * (R * kSites +
+                                             4 * plf::grad_passes<C>() * kSites) +
+                            kSites);
 }
+
 
 template <int C, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,

@@ -39,24 +39,24 @@ measured faster than "tree" (``_kernel_wins``: nodes x padded sites at
 least 63 x 131,072 for LG+G4 proteins, 31 x 4,096 for GY94+G4 codons)
 while the per-node residuals fit half the free device memory, as the
 JAX package takes "pallas" on the TPU where they fit.
-Otherwise, on a CUDA device it takes ``"tree"`` whenever the forward
-kernel admits the tree
-(``PhyloModel.can_fuse``), except where kernel 4's (4m's) checkpoint would
-have to be chunked (more than half the free device memory) while the
-segmented backward's boundary buffers fit it, for a "vpu" DNA model or an
-"mxu_3x" one: there it takes ``"segmented"``.  Past the forward kernel's capacity it takes
-``"kernel"`` for "vpu" at S = 4 and ``"segmented"`` for a model on the
-matrix-form kernels, as the JAX package does.  The rule stands on the
-backends measured on an H100 (PERF.md): for DNA the tree backend's step
-was the faster one at every shape where its checkpoint fits one chunk
-(160 taxa x 2^20 and 2^16 sites, 20 taxa x 2^20; "kernel" 42% slower at
-160 x 2^20, "segmented" 6%), "segmented" the faster one at 256 taxa x
-2^22 (int8 tips), where kernel 4 runs in three chunks; at 1,024 protein
-taxa x 131,072 sites, where kernel 4m runs in two, "segmented" won in
-bf16x3 ("mxu_3x") and lost in fp32 ("mxu"); for a "vpu" protein or codon
-model "kernel" won only from the sizes above ("tree" was 4-10x faster
-at 1,500-4,096 protein sites, where the per-node cost of "kernel"
-dominates); the per-node residuals grow with sites x nodes.
+Otherwise, on a CUDA device it takes, when the forward kernel admits the
+tree (``PhyloModel.can_fuse``), ``"segmented"`` for a DNA "vpu" model
+stored in fp32 whose boundary buffers fit the free device memory, and
+``"segmented"`` too for an "mxu_3x" model (or bf16 boundaries) where
+kernel 4's (4m's) checkpoint would have to be chunked (more than half the
+free memory) while those buffers fit; else ``"tree"``.  Past the forward
+kernel's capacity it takes ``"kernel"`` for "vpu" at S = 4 and
+``"segmented"`` for a model on the matrix-form kernels, as the JAX
+package does.  The rule stands on the backends measured on an H100
+(PERF.md): for DNA "segmented" (kernels 7 + 8) was the faster step at
+every shape timed, 20-256 taxa x 4,096-2^20 sites (`backend_turns.py
+--dna`; 13% at 160 x 2^20, 29.3 against 33.0 ms) and 256 x 2^22 int8
+(170 against 203 ms); at 1,024 protein taxa x 131,072 sites, where
+kernel 4m runs in two chunks, "segmented" won in bf16x3 ("mxu_3x") and
+lost in fp32 ("mxu"); for a "vpu" protein or codon model "kernel" won
+only from the sizes above ("tree" was 4-10x faster at 1,500-4,096
+protein sites, where the per-node cost of "kernel" dominates); the
+per-node residuals grow with sites x nodes.
 "mxu_bf16" raises ValueError on every backend, as in the JAX package.
 
 The branch lengths, rates and mixture weights enter through the per-edge
@@ -146,14 +146,17 @@ def _kernel_wins(pm, free: Optional[int] = None) -> bool:
 
 
 def _segmented_wins(pm, free: Optional[int] = None) -> bool:
-    """Whether a step on the card takes "segmented" over "tree": for
-    kernel 8 ("vpu" at S = 4) and kernel 8m's bf16x3 mode ("mxu_3x"),
-    where kernel 4's (4m's) checkpoint (``E * (S*C*4 + 1)`` bytes per site)
-    exceeds half the ``free`` device memory, so it would run in chunks, and
-    the segmented backward's boundary buffers (the residual and its
-    adjoints, ``2 * n_boundaries * S*C * itemsize`` bytes per site, 4 or 2
-    by the config's ``dtype``) fit the free memory (kernel 8m's own op
-    checkpoint is chunked as kernel 4m's is).
+    """Whether a step on the card takes "segmented" over "tree", where the
+    segmented backward's boundary buffers (the residual and its adjoints,
+    ``2 * n_boundaries * S*C * itemsize`` bytes per site, 4 or 2 by the
+    config's ``dtype``) fit the ``free`` device memory: for a DNA "vpu"
+    model stored in fp32 always (kernels 7 + 8 were the faster pair at
+    every DNA shape timed on an H100, 20-256 taxa x 4,096-2^20 sites and
+    256 x 2^22 int8, PERF.md), and for kernel 8m's bf16x3 mode ("mxu_3x")
+    or bf16 boundaries (whose values a "segmented" step rounds) only where
+    kernel 4's (4m's) checkpoint (``E * (S*C*4 + 1)`` bytes per site)
+    exceeds half the free memory, so it would run in chunks (kernel 8m's
+    own op checkpoint is chunked as kernel 4m's is).
     A matrix-form model in fp32 ("mxu", "vpu" at S != 4) keeps "tree": at
     1,024 protein taxa x 131,072 sites, with kernel 4m's checkpoint in two
     chunks, "segmented" won by 7% in "mxu_3x" and lost by 19% in "mxu"
@@ -164,16 +167,20 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     if not pm.can_segment():
         return False
     variant, S = pm.config.resolved_kernel_variant, pm.config.states
-    if uses_mxu_kernels(variant, S) and MODES[variant] != MODES["mxu_3x"]:
+    matrix_form = uses_mxu_kernels(variant, S)
+    if matrix_form and MODES[variant] != MODES["mxu_3x"]:
         return False
     if free is None:
         free = _free_bytes(pm.device)
     rows = pm.config.rows
-    if tree_bwd_scratch_bytes(len(pm.schedule), rows, pm.n_pad) <= free // 2:
-        return False
+    bf16 = pm.config.dtype == "bfloat16"
     n_bnd = pm._segmented_inputs()[0].n_boundaries
-    itemsize = 2 if pm.config.dtype == "bfloat16" else 4
-    return 2 * n_bnd * rows * itemsize * pm.n_pad <= free
+    if 2 * n_bnd * rows * (2 if bf16 else 4) * pm.n_pad > free:
+        return False
+    if not matrix_form and not bf16:
+        return True
+    return tree_bwd_scratch_bytes(len(pm.schedule), rows,
+                                  pm.n_pad) > free // 2
 
 
 def _auto_backend(pm, matrix_form: bool = False, vpu: bool = False) -> str:

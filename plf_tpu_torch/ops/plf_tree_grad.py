@@ -12,6 +12,12 @@ Counterpart of ``plf_tpu/ops/plf_tree_grad.py``.  Replaces
   CLV to its adjoint, and the per-edge ``gl``/``gr``, ``gec`` and ``grr``
   are summed over all sites.
 
+A block of 128 threads takes its tiles of 128 sites through both phases
+in turn; the operand an op takes from the op just before it (the child
+evaluated last) stays in registers in both sweeps, and each warp sums its
+own sites (``csrc/plf_grad.cuh``).  A launch is one wave of the blocks
+resident on the card (:func:`tree_bwd_resident_blocks`).
+
 The adjoint identities are those of :mod:`.plf_grad`;
 :func:`.plf_grad.transpose_lane_constants` transposes a whole ``(E, S*C,
 S)`` operator stack at once (the "vpu" branch of the JAX package's
@@ -53,15 +59,15 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .plf_grad import (GRAD_THREADS, node_bwd_blocks,
-                       op_grad, transpose_lane_constants)
+from .plf_grad import GRAD_THREADS, op_grad, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
 from .plf_node import node_plain, stage
 from .plf_tree import compile_register_schedule, plf_tree
 
 __all__ = ["compile_backward_schedule", "backward_schedule",
-           "tree_bwd_scratch_bytes", "tree_bwd_chunk_sites", "plf_tree_bwd",
+           "tree_bwd_scratch_bytes", "tree_bwd_chunk_sites",
+           "tree_bwd_resident_blocks", "plf_tree_bwd",
            "plf_tree_bwd_torch", "plf_tree_bwd_mxu", "plf_tree_bwd_mxu_torch",
            "tree_bwd_mxu_blocks", "TREE_BWD_MXU_SITES", "make_tree_diff"]
 
@@ -194,11 +200,31 @@ def _lib():
         [vp, ci, ci, vp, ci] + [vp] * 7 + [ci, vp, vp, vp, vp, ci, ci, vp,
                                             ci, ci, ci, ci, ci, vp])
     lib.plf_tree_bwd_launch.restype = ci
+    lib.plf_tree_bwd_occupancy.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
+    lib.plf_tree_bwd_occupancy.restype = ci
     lib.plf_tree_bwd_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_bwd_reduce.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def tree_bwd_resident_blocks(device: torch.device, code_bytes: int,
+                             categories: int, n_codes: int) -> int:
+    """Kernel-4 blocks resident on the whole card at once (blocks per SM,
+    registers and shared memory counted by the CUDA runtime, times the
+    SMs): each launch is one wave of at most this many blocks."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.plf_tree_bwd_occupancy(code_bytes, categories, n_codes,
+                                         ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"plf_tree_bwd occupancy query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return blocks.value * sms
 
 
 def plf_tree_bwd(codes, bsched, lcs, rcs, lcsT, rcsT, ec, ecT, ttab, rr,
@@ -252,10 +278,14 @@ def plf_tree_bwd(codes, bsched, lcs, rcs, lcsT, rcsT, ec, ecT, ttab, rr,
     if max_scratch_bytes is None:
         max_scratch_bytes = torch.cuda.mem_get_info(dev)[0] // 2
     chunk = tree_bwd_chunk_sites(n_pad, E, rows, max_scratch_bytes)
+    resident = tree_bwd_resident_blocks(dev, codes.element_size(),
+                                        categories, ttab.shape[1])
     plan, n_rows = [], 0
     for site0 in range(0, n_pad, chunk):
         sites = min(chunk, n_pad - site0)
-        n_blocks, per = node_bwd_blocks(sites)
+        tiles = sites // GRAD_THREADS
+        per = -(-tiles // resident)
+        n_blocks = -(-tiles // per)
         plan.append((site0, sites, n_rows, n_blocks, per))
         n_rows += n_blocks
     RS = rows * S

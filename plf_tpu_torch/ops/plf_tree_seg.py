@@ -24,13 +24,15 @@ packages cut a tree into the same segments for the same cap.
   allocated slots, the segment's root written to ``bbuf``.  The last
   segment's root gives the site likelihood: ``lik`` and ``sc`` equal
   kernel 2's bit for bit.
-* Kernel 8: one thread per site and a block per tile of
-  :data:`SEG_SITES` sites walks the segments in reverse: phase 1
-  recomputes the segment's ops into a shared-memory arena of one slot per
-  op (and a flag byte each), the root's adjoint is seeded (``rr * glik``
-  for the last segment, else the boundary adjoint its consumer wrote to
-  ``gbuf``), phase 2 sweeps the ops in reverse with kernel 4's identities
-  and writes the adjoints of the segment's boundary inputs to ``gbuf``.
+* Kernel 8: one thread per site, a one-warp block owns its tiles of
+  :data:`SEG_SITES` sites and walks the segments in reverse, each over
+  all its tiles: phase 1 recomputes the segment's ops into a
+  shared-memory arena of one slot per op (and a flag byte each), the
+  root's adjoint is seeded (``rr * glik`` for the last segment, else the
+  boundary adjoint its consumer wrote to ``gbuf``), phase 2 sweeps the
+  ops in reverse with kernel 4's identities and writes the adjoints of
+  the segment's boundary inputs to ``gbuf``; a segment's gl/gr sums stay
+  in shared memory until its tiles are done.
   The VJP's residual is ``bbuf``: ``n_boundaries * S*C * 4`` bytes per
   site, against kernel 4's ``E * (S*C * 4 + 1)``.
 * Kernel 7m: kernel 7's program on kernel 2m's ``[row][site]`` 8-site
@@ -60,15 +62,16 @@ original edge) and the VMEM budget (``SEG_VMEM_BUDGET``,
 ``fit_block_sites``).
 
 Capacity rules.  Kernel 8 (:func:`seg_bwd_smem_bytes`) keeps per site one
-``S*C`` fp32 slot per segment op plus a flag byte, the six
-operator-gradient staging rows of kernel 4 and the constants in shared
-memory.  At :data:`SEG_SITES` = 32 sites a DNA slot is 2 KB.  ``cap_ops``
-is chosen so that :data:`SEG_BLOCKS_PER_SM` blocks fit one SM's shared
-memory (6 ops at S = C = 4); a plan that does not fit at ``cap_ops=1``
-raises.  Kernel 7's arena is kernel 2's: the most slots live in any one
-segment, at 128 threads (:func:`.plf_tree.tree_block_threads`).  That rule
-admits no op at all at S = 20 or 61 (its fixed part alone is 84 KB and
-376 KB), so the matrix forms have their own (:func:`seg_mxu_cap_ops`):
+``S*C`` fp32 slot per segment op plus a flag byte, per op its gl/gr sums,
+one warp's operator-gradient staging area and the constants in shared
+memory.  At :data:`SEG_SITES` = 32 sites a DNA op takes 2.5 KB.
+``cap_ops`` is chosen so that :data:`SEG_BLOCKS_PER_SM` blocks fit one
+SM's shared memory (8 ops at S = C = 4); a plan that does not fit at
+``cap_ops=1`` raises.  Kernel 7's arena is kernel 2's: the most slots
+live in any one segment, at 128 threads
+(:func:`.plf_tree.tree_block_threads`).  That rule admits no op at all
+at S = 20 or 61 (its fixed part alone is 41 KB and 245 KB), so the
+matrix forms have their own (:func:`seg_mxu_cap_ops`):
 kernel 8m keeps its op checkpoint in device memory, as kernel 4m does, so
 its shared memory does not grow with the segment; what a cap buys is
 device memory, ``seg_ops`` checkpoint slots of ``S*C*4 + 1`` bytes per
@@ -124,9 +127,10 @@ SEG_SITES = 32
 
 #: Kernel-8 blocks that must fit one SM's shared memory at once.  Measured
 #: on an H100 at 160 taxa x 2^20 sites (chip_smoke.py, kernel8 phase):
-#: plans cut for 2, 4 and 8 blocks per SM (48-, 20- and 6-op caps) ran
-#: kernel 8 in 104, 62 and 39 ms; more blocks hide more latency than the
-#: extra boundaries cost.
+#: plans cut for 4, 6, 8 and 10 blocks per SM (19-, 12-, 8- and 6-op caps)
+#: ran kernel 8 in 36.0, 29.4, 23.2 and 22.8 ms and kernel 7 in 5.96, 5.11,
+#: 5.27 and 5.58 ms; more blocks hide more latency than the extra
+#: boundaries cost, up to 8, where a step's two kernels level off.
 SEG_BLOCKS_PER_SM = 8
 
 #: Shared memory of one H100 SM, and what the runtime keeps per block.
@@ -176,12 +180,16 @@ class SegPlan:
 def seg_bwd_smem_bytes(seg_ops: int, rows: int, n_codes: int,
                        states: int = 4) -> int:
     """Dynamic shared memory of one kernel-8 block: ec and its transpose,
-    the tip table and the root row vector, six ``rows x (SEG_SITES + 1)``
-    operator-gradient staging arrays, and per op a ``rows x SEG_SITES``
-    fp32 slot and ``SEG_SITES`` flag bytes."""
-    return (4 * (2 * rows * states + rows * n_codes + rows)
-            + 4 * 6 * rows * (SEG_SITES + 1)
-            + seg_ops * (4 * rows * SEG_SITES + SEG_SITES))
+    the warp's operator-gradient staging area (two ``rows x SEG_SITES``
+    arrays), the tip table and the root row vector, and per op a ``rows x
+    SEG_SITES`` fp32 slot, ``SEG_SITES`` flag bytes and the op's gl/gr
+    sums (two floats per lane, per matrix and per pass of four
+    categories)."""
+    passes = -(-(rows // states) // 4)
+    return (4 * (2 * rows * states + 2 * rows * SEG_SITES + rows * n_codes
+                 + rows)
+            + seg_ops * (4 * rows * SEG_SITES + SEG_SITES
+                         + 4 * 4 * passes * SEG_SITES))
 
 
 def _seg_fits(seg_ops: int, rows: int, n_codes: int) -> bool:

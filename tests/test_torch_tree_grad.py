@@ -32,6 +32,24 @@ def test_backward_schedule_identical(name):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("name", sorted(TREES))
+def test_backward_schedule_puts_a_child_last(name):
+    """Kernel 4 carries the CLV (forward) and the adjoint (reverse) of the
+    op evaluated just before each op in registers: in the reordered
+    schedule every op with an internal child has one of them at position
+    i - 1 (the subtree evaluated last), on every test tree, so only the
+    other child's values go through the checkpoint."""
+    tree = TREES[name]()
+    n = tree.n_leaves
+    sched = TT.reorder_schedule(tree.schedule(), n)
+    lpos, rpos, _ = TG.backward_schedule(sched, n)
+    prev = n + np.arange(len(sched)) - 1
+    internal = (lpos >= n) | (rpos >= n)
+    carried = ((lpos == prev) | (rpos == prev)) & (np.arange(len(sched)) > 0)
+    np.testing.assert_array_equal(carried, internal)
+    assert internal.sum() > 0
+
+
 def _case(n_leaves=9, n_sites=300, seed=4, alpha=0.6):
     """A JAX model (gaps, IUPAC codes, 300 sites -> 84 padding sites), its
     reordered schedule and a site-likelihood cotangent."""

@@ -5,6 +5,9 @@ interpret mode as ``tests/test_tree_seg.py`` runs it) and against the
 port's own fused kernels.  Tolerances are stated per test.
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -122,23 +125,24 @@ def test_plan_equals_jax(n_leaves, cap):
 
 
 def test_capacity_rule_and_program():
-    """Kernel 8's shared-memory rule: at 32 sites a DNA slot is 2 KB and
-    cap_ops 6 lets eight blocks share an SM (7 would not); a plan that
-    does not fit at cap_ops=1 raises.  The programs cover every op once,
+    """Kernel 8's shared-memory rule: at 32 sites a DNA op takes a 2 KB
+    slot, 32 flag bytes and 512 bytes of gl/gr sums, and cap_ops 8 lets
+    eight blocks share an SM (9 would not); a plan that does not fit at
+    cap_ops=1 raises.  The programs cover every op once,
     in segments, with one slot per op for kernel 8 and reused slots for
     kernel 7."""
     assert SG.SEG_SITES == 32 and SG.SEG_BLOCKS_PER_SM == 8
     assert SG.seg_bwd_smem_bytes(1, ROWS, 16) - \
-        SG.seg_bwd_smem_bytes(0, ROWS, 16) == 2048 + 32
-    assert SG.seg_cap_ops(ROWS, 16) == 6
+        SG.seg_bwd_smem_bytes(0, ROWS, 16) == 2048 + 32 + 512
+    assert SG.seg_cap_ops(ROWS, 16) == 8
     per_block = SG.SM_SMEM_BYTES // 8 - SG.SMEM_RESERVED_PER_BLOCK
-    assert SG.seg_bwd_smem_bytes(6, ROWS, 16) <= per_block \
-        < SG.seg_bwd_smem_bytes(7, ROWS, 16)
+    assert SG.seg_bwd_smem_bytes(8, ROWS, 16) <= per_block \
+        < SG.seg_bwd_smem_bytes(9, ROWS, 16)
     tree = jrt(160, seed=3)
     sched = TT.reorder_schedule(tree.schedule(), 160)
     pos = [(p, l, r, 0.0, 0.0, i) for i, (p, l, r, *_x) in enumerate(sched)]
     plan = SG.plan_segments(pos, 160, rows=ROWS)
-    assert plan.seg_ops <= 6 and plan.n_boundaries == len(plan.segments) - 1
+    assert plan.seg_ops <= 8 and plan.n_boundaries == len(plan.segments) - 1
     fwd, bwd = (SG.segment_program(plan, sched, reuse_slots=r)
                 for r in (True, False))
     for prog, segs, n_slots in (fwd, bwd):
@@ -350,23 +354,30 @@ def test_matrix_form_and_bf16_guards():
 
 
 def test_auto_takes_segmented_where_kernel4_would_chunk():
-    """The card's auto rule, on the free device memory it is given: "tree"
-    while kernel 4's checkpoint fits half of it (kernel 4's budget),
-    "segmented" where it would be chunked and kernel 8's boundary buffers
-    fit, "tree" again where they do not; the same boundaries for an
-    "mxu_3x" model, between kernel 4m's checkpoint and the boundary
-    buffers of kernels 7m and 8m; never for a matrix-form model in fp32
-    ("mxu"), whose "tree" step was the faster one where kernel 4m chunks
-    (PERF.md)."""
+    """The card's auto rule, on the free device memory it is given: for a
+    DNA "vpu" model stored in fp32, "segmented" wherever kernel 8's
+    boundary buffers fit, chunked kernel 4 or not (kernels 7 + 8 were the
+    faster step at every DNA shape timed on an H100, PERF.md), "tree"
+    where they do not; with bf16 boundaries, and for an "mxu_3x" model,
+    "segmented" only where kernel 4's (4m's) checkpoint would be chunked
+    (more than half the free memory) and the boundary buffers fit;
+    never for a matrix-form model in fp32 ("mxu"), whose "tree" step was
+    the faster one where kernel 4m chunks (PERF.md)."""
     pt = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2))
     plan = pt._segmented_inputs()[0]
     ck4 = len(pt.schedule) * (pt.config.rows * 4 + 1) * pt.n_pad
     bufs = 2 * plan.n_boundaries * pt.config.rows * 4 * pt.n_pad
     assert bufs < ck4
-    assert not TO._segmented_wins(pt, free=2 * ck4)
+    assert TO._segmented_wins(pt, free=2 * ck4)
     assert TO._segmented_wins(pt, free=2 * ck4 - 2)
     assert TO._segmented_wins(pt, free=bufs)
     assert not TO._segmented_wins(pt, free=bufs - 1)
+    b16 = copy.copy(pt)
+    b16.config = dataclasses.replace(pt.config, dtype="bfloat16")
+    assert not TO._segmented_wins(b16, free=2 * ck4)
+    assert TO._segmented_wins(b16, free=2 * ck4 - 2)
+    assert TO._segmented_wins(b16, free=bufs // 2)
+    assert not TO._segmented_wins(b16, free=bufs // 2 - 1)
     mxu_3x = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2,
                                  variant="mxu_3x"))
     plan = mxu_3x._segmented_inputs()[0]
