@@ -1116,7 +1116,8 @@ def kernel4m_against_plain(pm, glik, label, chunks=False):
           f"{pm.n_sites} sites, S={cfg.states}: gl/gr/gec/grr within "
           f"{max(errs):.2e} of scale of plain (max abs {abs_err:.3g}), "
           f"bit-identical run to run; {chunking['chunks']} chunk of "
-          f"{chunking['chunk_sites']} sites, {chunking['blocks']} blocks, "
+          f"{chunking['chunk_sites']} sites, {chunking['blocks']} blocks "
+          f"on {chunking['tile_sites']}-site tiles, "
           f"{chunking['bytes'] / 1e9:.2f} GB scratch{note}, accumulators "
           f"in {'shared' if chunking['acc_shared'] else 'device'} memory; "
           f"kernel {ms:.3f} ms (bound {bd['bound_ms']:.3f} ms by "
@@ -1835,7 +1836,8 @@ def kernel8m_against(pm, glik, label, chunks=False, name="kernel8m"):
           f"segments of at most {plan.seg_ops} ops: boundary adjoints == "
           f"plain bit for bit, gl/gr/gec/grr within {max(errs):.2e} of scale "
           f"(max abs {abs_err:.3g}){note}, bit-identical run to run; "
-          f"{chunking['blocks']} blocks, accumulators in "
+          f"{chunking['blocks']} blocks on {chunking['tile_sites']}-site "
+          f"tiles, accumulators in "
           f"{'shared' if chunking['acc_shared'] else 'device'} memory; "
           f"device memory: op checkpoint {chunking['bytes'] / 1e9:.3f} GB, "
           f"boundaries and adjoints "
@@ -1952,7 +1954,7 @@ def protein_segmented_phase(models, dev):
     taxa x 131,072 sites, then the step pair at 1,024 taxa x 131,072 with
     int8 tips, where kernel 4m's checkpoint runs in chunks, timed with
     both backends' memory, "mxu_3x" and "mxu", and the auto rule's choice
-    there ("segmented" in bf16x3, "tree" in fp32: _segmented_wins); last
+    there ("tree" in both: _segmented_wins); last
     a Backend.TORCH model on the card against the kernel path."""
     pm = models["mxu_3x"]
     fused = pm.log_likelihood()
@@ -1985,7 +1987,7 @@ def protein_segmented_phase(models, dev):
     p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
     tips = rng.choice(np.arange(-1, 23, dtype=np.int8),
                       size=(BIG_PROT_TAXA, PROT_SITES), p=p / p.sum())
-    for variant, rule in (("mxu_3x", "segmented"), ("mxu", "tree")):
+    for variant, rule in (("mxu_3x", "tree"), ("mxu", "tree")):
         t0 = time.perf_counter()
         big = PhyloModel(random_tree(BIG_PROT_TAXA, seed=1),
                          empirical_protein("lg"), tips, alpha=0.5,

@@ -1,21 +1,31 @@
 """Time backward kernels of two checkouts in turns on one NVIDIA GPU.
 
-    python3 kernel_turns.py [--dna] PARENT_DIR CHANGE_DIR
+    python3 kernel_turns.py [--dna] PARENT_DIR CHANGE_DIR [MORE_DIRS ...]
 
 Each directory is the root of a checkout (for the parent commit, unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists, such
-as ``build/``).  The script runs parent, change, change, parent, each in a
-process of its own with that checkout's ``plf_tpu_torch`` (its kernels
+as ``build/``).  The script builds every checkout's libraries at once,
+then runs parent, change, change, parent (with more directories, each in
+the given order and then in reverse, named by the directory), each turn in
+a process of its own with that checkout's ``plf_tpu_torch`` (its kernels
 built from its own sources into its own ``build/``), and prints one JSON
 line per turn of device times in ms.  Compare two versions only within
 one call: two calls may land on two cards.
 
-Default (protein): the mean of three launches after one warm-up (CUDA
-events around the three) of kernel 4m in each matrix-form variant and of
+Default (protein): the median of five launches after one, each timed
+alone by CUDA events, of kernel 4m in each matrix-form variant and of
 kernel 8m (the segmented backward, fp32 boundaries, on the model's own
 plan) in "mxu_3x" and "mxu", on the protein workload of
 ``chip_smoke.py`` (64 taxa x 131,072 sites, LG + Gamma4, a step's
-cotangent).  The two share ``csrc/plf_mxu_bwd.cuh``.
+cotangent), and of both in "mxu_3x" and "mxu" on its codon workload's
+first 8,192 codons (32 taxa, GY94 + Gamma4, S = 61); and the wall time
+of a "tree" and a "segmented" value-and-gradient step (median of five)
+on the protein model in "mxu_3x" and "mxu".  The two kernels share
+``csrc/plf_mxu_bwd.cuh``.  Each turn also gives every launch's device and
+host time, the card's SM clock and power draw read right after each
+kernel's five launches, each kernel's blocks per SM (and site tile, where
+the library's plan gives one), and the registers and spills ptxas gave
+each instance of kernels 4m and 8m (from the build logs).
 
 ``--dna``: the median of five launches after one, each timed alone, of
 kernel 4 (``csrc/plf_tree_bwd.cu``) on the DNA workloads of
@@ -38,61 +48,110 @@ import sys
 
 TURN = r'''
 import json
+import re
+import subprocess
 import numpy as np
 import torch
 from plf_tpu_torch import PLFConfig
-from plf_tpu_torch.models import PhyloModel, empirical_protein, random_tree
+from plf_tpu_torch.models import (PhyloModel, codon_gy94, empirical_protein,
+                                  random_tree, tree_loglik_fn)
 from plf_tpu_torch.ops import plf_tree as TT, plf_tree_grad as TG
 from plf_tpu_torch.ops import plf_tree_seg as SG
-from plf_tpu_torch.ops._build import build_libraries
+from plf_tpu_torch.ops._build import build_libraries, build_log
+from plf_tpu_torch.ops.plf_mxu import MODES
 
 assert torch.cuda.is_available(), "needs an NVIDIA GPU"
-build_libraries(["plf_tree_mxu", "plf_tree_bwd_mxu", "plf_tree_seg_mxu",
-                 "plf_tree_seg_bwd_mxu"])
-tree = random_tree(64, seed=1)
-p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
-tips = np.random.default_rng(64).choice(
-    np.arange(-1, 23, dtype=np.int8), size=(64, 1 << 17), p=p / p.sum())
+build_libraries(LIBS)
+SMS = torch.cuda.get_device_properties(0).multi_processor_count
 
-def ms(fn):
+
+def smi():
+    # the SM clock (MHz) and power draw (W) right after a kernel's launches
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def ms(fn, samples):
+    # median of 5 launches, each timed alone by CUDA events, after one;
+    # host_ms: the host's time from the first event to the second, which
+    # exceeds the device's only where the host held the launch up
+    import time
     fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
+    times, host = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
         fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / 3
+        host.append((time.perf_counter() - t0) * 1e3)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    samples.append(dict(ms=times, host_ms=host, smi=smi()))
+    return float(np.median(times))
 
 
-out = {"kernel4m_ms": {}, "kernel8m_ms": {}}
-for v in ("mxu", "mxu_3x", "mxu_bf16"):
-    pm = PhyloModel(tree, empirical_protein("lg"), tips, alpha=0.5,
-                    config=PLFConfig(states=20, kernel_variant=v))
-    sched = TT.reorder_schedule(pm.schedule, 64)
-    bs = torch.as_tensor(TG.backward_schedule(sched, 64), device="cuda")
+def ptxas(lib, kernel):
+    # {template arguments: registers} of every instance of kernel, and
+    # its bytes of spill stores where there are any
+    out, name = {}, None
+    for line in build_log(lib).read_text().splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        if not name or kernel + "I" not in name:
+            continue
+        key = name[name.index(kernel) + len(kernel):].split("EEv")[0]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)):
+            out[key + ":spill"] = int(m.group(1))
+    return out
+
+
+def glik_of(pm, v):
     lik, _ = TT.plf_tree_mxu(
         pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
         pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
-        root_slot=pm.root_slot, states=20, categories=4, variant=v,
-        planes=pm._planes())
-    glik = torch.where(lik > 1.1754944e-38, pm.wgt_pad.float()[None] / lik,
+        root_slot=pm.root_slot, states=pm.config.states,
+        categories=pm.config.categories, variant=v, planes=pm._planes())
+    return torch.where(lik > 1.1754944e-38, pm.wgt_pad.float()[None] / lik,
                        0.0).contiguous()
 
-    def bwd():
-        TG.plf_tree_bwd_mxu(pm.codes, bs, pm.lcs, pm.rcs, pm.ec,
-                            pm.fused_tip_table, pm.root_rows[0], glik,
-                            pm.n_sites, states=20, categories=4, variant=v,
-                            planes=pm._planes())
 
-    out["kernel4m_ms"][v] = ms(bwd)
-    if v == "mxu_bf16":
-        continue
+def plan_of(plan):
+    # [accumulators in shared memory, blocks per SM, site tile (where the
+    # library's plan gives one)]
+    return [int(plan[0]), int(plan[1]) // SMS] + [int(x) for x in plan[2:]]
+
+
+def kernels(pm, v, out, key, seg=True):
+    # kernel 4m (and 8m, fp32 boundaries, on the model's own plan) in
+    # variant v on pm, with each one's blocks per SM (and tile width,
+    # where the library's plan gives one)
+    S, C = pm.config.states, pm.config.categories
+    n = pm.tree.n_leaves
+    sched = TT.reorder_schedule(pm.schedule, n)
+    bs = torch.as_tensor(TG.backward_schedule(sched, n), device="cuda")
+    glik = glik_of(pm, v)
+    kw = dict(states=S, categories=C, variant=v, planes=pm._planes())
+    plan4 = TG._launch_plan(pm.device, pm.codes.element_size(), S, C,
+                            MODES[v])
+    out["plan"][f"kernel4m_{key}_{v}"] = plan_of(plan4)
+    out["kernel4m_ms"][f"{key}_{v}"] = ms(lambda: TG.plf_tree_bwd_mxu(
+        pm.codes, bs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+        pm.root_rows[0], glik, pm.n_sites, **kw),
+        out["samples"].setdefault(f"kernel4m_{key}_{v}", []))
+    if not seg:
+        return
     plan, prog, segs, n_slots = pm._segmented_inputs()
     bprog, bsegs, _ = SG.segment_program(plan, sched, reuse_slots=False)
-    kw = dict(states=20, categories=4, variant=v, planes=pm._planes())
     _, _, bbuf = SG.plf_tree_seg_mxu(
         pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
         pm.root_rows[0], pm.n_sites, n_boundaries=plan.n_boundaries,
@@ -100,11 +159,72 @@ for v in ("mxu", "mxu_3x", "mxu_bf16"):
     bargs = (pm.codes, torch.as_tensor(bprog, device="cuda"),
              torch.as_tensor(bsegs, device="cuda"), pm.lcs, pm.rcs, pm.ec,
              pm.fused_tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
-    out["kernel8m_ms"][v] = ms(lambda: SG.plf_tree_seg_bwd_mxu(
-        *bargs, seg_ops=plan.seg_ops, **kw))
+    plan8 = SG._launch_plan_mxu(pm.device, pm.codes.element_size(), S, C,
+                                MODES[v])
+    out["plan"][f"kernel8m_{key}_{v}"] = plan_of(plan8)
+    out["kernel8m_ms"][f"{key}_{v}"] = ms(lambda: SG.plf_tree_seg_bwd_mxu(
+        *bargs, seg_ops=plan.seg_ops, **kw),
+        out["samples"].setdefault(f"kernel8m_{key}_{v}", []))
+
+
+def steps(pm, v, out):
+    # one "tree" and one "segmented" value-and-gradient step (wall ms,
+    # median of 5 after one)
+    import time
+    for backend in ("tree", "segmented"):
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+
+        def step():
+            t = torch.tensor(t0, device="cuda", requires_grad=True)
+            fn(t).backward()
+            torch.cuda.synchronize()
+        step()
+        wall = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            step()
+            wall.append((time.perf_counter() - t1) * 1e3)
+        out["step_ms"][f"{backend}_{v}"] = float(np.median(wall))
+        out["samples"][f"step_{backend}_{v}"] = [dict(ms=wall, smi=smi())]
+
+
+out = {"ptxas": {"kernel4m": ptxas("plf_tree_bwd_mxu",
+                                   "plf_tree_bwd_mxu_kernel"),
+                 "kernel8m": ptxas("plf_tree_seg_bwd_mxu",
+                                   "plf_tree_seg_bwd_mxu_kernel")},
+       "kernel4m_ms": {}, "kernel8m_ms": {}, "step_ms": {}, "plan": {},
+       "samples": {}}
+tree = random_tree(64, seed=1)
+p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
+tips = np.random.default_rng(64).choice(
+    np.arange(-1, 23, dtype=np.int8), size=(64, 1 << 17), p=p / p.sum())
+for v in ("mxu_3x", "mxu", "mxu_bf16"):
+    pm = PhyloModel(tree, empirical_protein("lg"), tips, alpha=0.5,
+                    config=PLFConfig(states=20, kernel_variant=v))
+    kernels(pm, v, out, "protein", seg=v != "mxu_bf16")
+    if v != "mxu_bf16":
+        steps(pm, v, out)
+    del pm
+    torch.cuda.empty_cache()
+# chip_smoke.py's codon workload (GY94 kappa 2, omega 0.3, Gamma4 alpha
+# 0.7, random sense codons with 2% gaps), its first 8,192 codons
+rng = np.random.default_rng(7)
+codons = rng.integers(0, 61, size=(32, 1 << 16))
+codons[rng.random(codons.shape) < 0.02] = 61
+for v in ("mxu_3x", "mxu"):
+    pm = PhyloModel(random_tree(32, seed=3), codon_gy94(kappa=2.0, omega=0.3),
+                    codons[:, :1 << 13], alpha=0.7,
+                    config=PLFConfig(states=61, kernel_variant=v))
+    kernels(pm, v, out, "codon")
+    del pm
+    torch.cuda.empty_cache()
 print(json.dumps(out))
 '''
 
+PROTEIN_LIBS = ["plf_tree_mxu", "plf_tree_bwd_mxu", "plf_tree_seg_mxu",
+                "plf_tree_seg_bwd_mxu"]
+DNA_LIBS = ["plf_node_bwd", "plf_tree", "plf_tree_bwd", "plf_tree_seg",
+            "plf_tree_seg_bwd", "plf_tree_seg_bf16", "plf_tree_seg_bwd_bf16"]
 DNA_TURN = r'''
 import json
 import re
@@ -119,9 +239,7 @@ from plf_tpu_torch.ops import plf_grad as G
 from plf_tpu_torch.ops.plf_grad import transpose_lane_constants as T
 
 assert torch.cuda.is_available(), "needs an NVIDIA GPU"
-build_libraries(["plf_node_bwd", "plf_tree", "plf_tree_bwd", "plf_tree_seg",
-                 "plf_tree_seg_bwd", "plf_tree_seg_bf16",
-                 "plf_tree_seg_bwd_bf16"])
+build_libraries(LIBS)
 P = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
 SMS = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -240,23 +358,46 @@ print(json.dumps(out))
 '''
 
 
+def smi():
+    """The card's SM clock (MHz) and power draw (W), as nvidia-smi reads
+    them, around a turn."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.strip()
+
+
 def main():
     args = sys.argv[1:]
-    turn = TURN
+    turn, libs = TURN, PROTEIN_LIBS
     if args[:1] == ["--dna"]:
-        args, turn = args[1:], DNA_TURN
-    if len(args) != 2:
+        args, turn, libs = args[1:], DNA_TURN, DNA_LIBS
+    if len(args) < 2:
         sys.exit(__doc__)
-    dirs = {"parent": args[0], "change": args[1]}
-    for name in ("parent", "change", "change", "parent"):
-        root = os.path.abspath(dirs[name])
-        run = subprocess.run([sys.executable, "-c", turn], cwd=root,
-                             env=dict(os.environ, PYTHONPATH=root),
+    roots = [os.path.abspath(a) for a in args]
+    if len(args) == 2:
+        names = ["parent", "change"]
+    else:
+        names = [os.path.basename(r.rstrip("/")) or r for r in roots]
+    # every checkout's libraries first, all nvcc processes at once
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "from plf_tpu_torch.ops._build import "
+         f"build_libraries; build_libraries({libs!r})"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root)) for root in roots]
+    if any(b.wait() for b in builds):
+        sys.exit("a checkout's libraries failed to build")
+    order = list(range(len(roots))) + list(range(len(roots)))[::-1]
+    for i in order:
+        before = smi()
+        run = subprocess.run([sys.executable, "-c",
+                              f"LIBS = {libs!r}\n" + turn], cwd=roots[i],
+                             env=dict(os.environ, PYTHONPATH=roots[i]),
                              capture_output=True, text=True, timeout=900)
         if run.returncode:
-            sys.exit(f"{name} turn failed:\n{run.stderr[-3000:]}")
-        print(json.dumps({"turn": name, **json.loads(
-            run.stdout.strip().splitlines()[-1])}), flush=True)
+            sys.exit(f"{names[i]} turn failed:\n{run.stderr[-3000:]}")
+        print(json.dumps({"turn": names[i], "smi": [before, smi()],
+                          **json.loads(run.stdout.strip().splitlines()[-1])}),
+              flush=True)
 
 
 if __name__ == "__main__":

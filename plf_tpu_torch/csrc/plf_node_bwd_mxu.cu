@@ -28,7 +28,7 @@
 // accumulators, and adjoint_to writes gx1 and gx2 straight to device memory.
 // The accumulators sit in shared memory when two blocks with them fit an SM
 // (S = 20: 19 KB), else in a row of device memory owned by the block (S =
-// 61: 178 KB), as kernel 4m decides (bwd_plan).  Each block writes its sums
+// 61: 178 KB), by the rule kernel 4m had (bwd_plan).  Each block writes its sums
 // once, in output order, into its row of partial sums, and plf::colsum adds
 // the rows in a fixed order: no float atomics, bit-identical run to run.
 //

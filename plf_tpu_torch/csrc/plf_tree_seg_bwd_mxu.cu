@@ -33,17 +33,21 @@
 // across barriers, and nothing is ordered between blocks.  gbuf and the
 // checkpoint are read with plain loads, never the read-only cache.
 //
-// Layout and memory.  The sweep's device code, the [row][site] 8-site tiles,
-// the accumulators' placement and the per-block partial rows with their
-// fixed-order second pass (no float atomics: bit-identical run to run) are
-// kernel 4m's (plf_mxu_bwd.cuh), the second pass in fp64 as kernel 8's.  The
-// op checkpoint lives in device memory as kernel 4m's does, [slot][row][site]
+// Layout and memory.  The sweep's device code, the [row][site] tiles (32
+// sites and 320 threads at S = 20, 8 sites and 128 threads at S = 61), the
+// operator-gradient sums (tensor cores in the bf16 modes, register-blocked
+// fp32 in "mxu"), the accumulators' placement and the per-block partial
+// rows with their fixed-order second pass (no float atomics: bit-identical
+// run to run) are kernel 4m's (plf_mxu_bwd.cuh), the second pass in fp64 as
+// kernel 8's.  The op
+// checkpoint lives in device memory as kernel 4m's does, [slot][row][site]
 // with the chunk's length as row stride, but holds one segment's ops
 // (seg_ops slots, 321 bytes each per site at S = 20, C = 4) instead of the
-// whole tree's: at S = 61 one slot of one tile is 7.8 KB, so the segment's
-// checkpoint would not fit shared memory beside kernel 4m's six tiles.  The
-// host launches over chunks of sites so that it fits a budget, one wave of
-// resident blocks each (plf_tree_seg_bwd_mxu in ops/plf_tree_seg.py).
+// whole tree's: at S = 20 one slot of one 32-site tile is 10 KB, so the
+// segment's checkpoint would not fit shared memory beside kernel 4m's six
+// tiles.  The host launches over chunks of sites so that it fits a budget,
+// one wave of resident blocks each (plf_tree_seg_bwd_mxu in
+// ops/plf_tree_seg.py).
 //
 // Bound: kernel 4m's work (the forward recompute, three stages and two
 // adjoint stages, three operator gradients per op), plus reading each
@@ -63,11 +67,9 @@
 
 namespace {
 
-constexpr int kThreads = plf_mxu::kBwdThreads;
-constexpr int kSites = plf_mxu::kBwdSites;  // TS
-
-template <int MODE, int V, typename CodeT, typename BT>
-__global__ void __launch_bounds__(kThreads)
+template <int MODE, int V, int TS, typename CodeT, typename BT>
+__global__ void __launch_bounds__(plf_mxu::bwd_threads(TS),
+                                  plf_mxu::bwd_min_blocks(TS))
 plf_tree_seg_bwd_mxu_kernel(
     const CodeT* __restrict__ codes, const int* __restrict__ prog,
     int n_ops, const int* __restrict__ segs, int n_seg, const float* lh,
@@ -80,21 +82,22 @@ plf_tree_seg_bwd_mxu_kernel(
     float* __restrict__ partial, float* acc_global, int accumulate,
     int tiles_per_block, int n, int n_pad, int S, int C) {
   extern __shared__ float smem[];
-  const int R = S * C, RS = R * S, tile = R * kSites;
+  constexpr int NT = plf_mxu::bwd_threads(TS);
+  const int R = S * C, RS = R * S, tile = R * TS;
   float* tA = smem;          // x1 (and the recomputed parent in phase 1)
   float* tB = tA + tile;     // x2
   float* tG = tB + tile;     // g_y
   float* tU1 = tG + tile;    // g_u1
   float* tU2 = tU1 + tile;   // g_u2
   float* tP = tU2 + tile;    // p = u1 * u2 (phase 1: the stage-2 products)
-  int* s_big = reinterpret_cast<int*>(tP + tile);         // kSites
-  float* s_g = reinterpret_cast<float*>(s_big + kSites);  // kSites
-  float* s_grr = s_g + kSites;                            // R
+  int* s_big = reinterpret_cast<int*>(tP + tile);     // TS
+  float* s_g = reinterpret_cast<float*>(s_big + TS);  // TS
+  float* s_grr = s_g + TS;                            // R
   float* acc = acc_global ? acc_global + (size_t)blockIdx.x * 3 * RS
-                          : s_grr + R;                    // 3 * RS
+                          : s_grr + R;                // 3 * RS
   const int tid = threadIdx.x;
-  for (int j = tid; j < 3 * RS; j += kThreads) acc[j] = 0.0f;
-  for (int r = tid; r < R; r += kThreads) s_grr[r] = 0.0f;
+  for (int j = tid; j < 3 * RS; j += NT) acc[j] = 0.0f;
+  for (int r = tid; r < R; r += NT) s_grr[r] = 0.0f;
 
   const int* lsrc = prog;
   const int* lflag = prog + n_ops;
@@ -104,7 +107,7 @@ plf_tree_seg_bwd_mxu_kernel(
   const int* eidx = prog + 5 * n_ops;
   const int E = n_ops;
   const int t0 = blockIdx.x * tiles_per_block;
-  const int t1 = min(t0 + tiles_per_block, chunk / kSites);
+  const int t1 = min(t0 + tiles_per_block, chunk / TS);
   const size_t slot_stride = (size_t)R * chunk;
   const size_t bnd_stride = (size_t)R * n_pad;
   const size_t cols = (size_t)2 * E * RS + RS + R;
@@ -134,14 +137,14 @@ plf_tree_seg_bwd_mxu_kernel(
   };
   auto load = [&](int src, int flag, int local0, float* dst) {
     if (flag == 0) {
-      plf_mxu::expand_tip(codes + (size_t)src * n_pad + site0 + local0, ttab,
+      plf_mxu::expand_tip<TS, NT>(codes + (size_t)src * n_pad + site0 + local0, ttab,
                           ncols, tile, dst);
     } else if (flag == 2) {
-      plf_mxu::load_tile(bbuf + (size_t)src * bnd_stride + site0 + local0,
+      plf_mxu::load_tile<TS, NT>(bbuf + (size_t)src * bnd_stride + site0 + local0,
                          n_pad, tile, dst);
     } else {
       size_t stride;
-      plf_mxu::load_tile(place(src, flag, local0, &stride), stride, tile, dst);
+      plf_mxu::load_tile<TS, NT>(place(src, flag, local0, &stride), stride, tile, dst);
     }
   };
 
@@ -154,17 +157,17 @@ plf_tree_seg_bwd_mxu_kernel(
 
     // ---- phase 1: the segment's forward recompute, checkpointed ----
     for (int t = t0; t < t1; ++t) {
-      const int local0 = t * kSites;
+      const int local0 = t * TS;
       for (int i = start; i < end; ++i) {
-        if (tid < kSites) s_big[tid] = 0;
+        if (tid < TS) s_big[tid] = 0;
         load(__ldg(lsrc + i), __ldg(lflag + i), local0, tA);
         load(__ldg(rsrc + i), __ldg(rflag + i), local0, tB);
         __syncthreads();
         const size_t e = (size_t)__ldg(eidx + i) * RS;
         plf_mxu::node_tile<MODE, V>(tA, tB, tP, tA, lh + e, ll + e, rh + e,
-                                    rl + e, eh, el, S, C, kSites, s_big);
+                                    rl + e, eh, el, S, C, TS, s_big);
         const int slot = __ldg(oslot + i);
-        plf_mxu::checkpoint_tile(tA, s_big,
+        plf_mxu::checkpoint_tile<TS, NT>(tA, s_big,
                                  scratch + (size_t)slot * slot_stride + local0,
                                  chunk, flags + (size_t)slot * chunk + local0,
                                  n - (site0 + local0), tile);
@@ -175,21 +178,21 @@ plf_tree_seg_bwd_mxu_kernel(
     // ---- seed: the root's adjoint ----
     const int root = __ldg(oslot + end - 1);
     for (int t = t0; t < t1; ++t) {
-      const int local0 = t * kSites;
+      const int local0 = t * TS;
       float* dst = scratch + (size_t)root * slot_stride + local0;
       if (gout < 0) {
-        plf_mxu::load_tile(dst, chunk, tile, tA);
-        if (tid < kSites) {
+        plf_mxu::load_tile<TS, NT>(dst, chunk, tile, tA);
+        if (tid < TS) {
           const int site = site0 + local0 + tid;
           s_g[tid] = site < n ? glik[site] : 0.0f;
         }
         __syncthreads();
-        plf_mxu::seed_root(tA, s_g, s_grr, rr, dst, chunk, R);
+        plf_mxu::seed_root<TS, NT>(tA, s_g, s_grr, rr, dst, chunk, R);
       } else {
         const BT* g = gbuf + (size_t)gout * bnd_stride + site0 + local0;
-        for (int j = tid; j < tile; j += kThreads)
-          dst[(size_t)(j / kSites) * chunk + j % kSites] =
-              plf::widen(g[(size_t)(j / kSites) * n_pad + j % kSites]);
+        for (int j = tid; j < tile; j += NT)
+          dst[(size_t)(j / TS) * chunk + j % TS] =
+              plf::widen(g[(size_t)(j / TS) * n_pad + j % TS]);
       }
       __syncthreads();
     }
@@ -202,17 +205,17 @@ plf_tree_seg_bwd_mxu_kernel(
       const int eo = __ldg(eidx + i);
       const size_t e = (size_t)eo * RS;
       for (int t = t0; t < t1; ++t) {
-        const int local0 = t * kSites;
+        const int local0 = t * TS;
         load(ls, lf, local0, tA);
         load(rs, rf, local0, tB);
-        plf_mxu::load_adjoint(scratch + (size_t)slot * slot_stride + local0,
+        plf_mxu::load_adjoint<TS, NT>(scratch + (size_t)slot * slot_stride + local0,
                               chunk, flags + (size_t)slot * chunk + local0,
                               tile, tG);
         __syncthreads();
-        plf_mxu::sweep_products<MODE, V>(tA, tB, tG, tU1, tU2, tP, lh + e,
-                                         ll + e, rh + e, rl + e, eTh, eTl, S,
-                                         C);
-        plf_mxu::sweep_sums<MODE>(tA, tB, tP, tU1, tU2, tG, acc, S, C);
+        plf_mxu::sweep_products<MODE, V, TS, NT>(tA, tB, tG, tU1, tU2, tP,
+                                             lh + e, ll + e, rh + e, rl + e,
+                                             eTh, eTl, S, C);
+        plf_mxu::tile_sums<MODE, TS, NT>(tA, tB, tP, tU1, tU2, tG, acc, S, C);
         size_t sl = 0, sr = 0;
         float* dl = lf ? place(ls, lf, local0, &sl) : nullptr;
         float* dr = rf ? place(rs, rf, local0, &sr) : nullptr;
@@ -220,21 +223,22 @@ plf_tree_seg_bwd_mxu_kernel(
           if (lf == 2 || rf == 2) __syncthreads();  // sums done with tA/tB
           if (lf == 2) {
             dl = tA;
-            sl = kSites;
+            sl = TS;
           }
           if (rf == 2) {
             dr = tB;
-            sr = kSites;
+            sr = TS;
           }
         }
-        plf_mxu::adjoint_to<MODE, V>(tU1, tU2, lTh + e, lTl + e, rTh + e,
-                                     rTl + e, dl, sl, dr, sr, S, C);
+        plf_mxu::adjoint_to<MODE, V, TS, NT>(tU1, tU2, lTh + e, lTl + e,
+                                         rTh + e, rTl + e, dl, sl, dr, sr, S,
+                                         C);
         __syncthreads();
         if constexpr (kStage) {
           if (lf == 2 || rf == 2) {
-            for (int j = tid; j < tile; j += kThreads) {
-              const size_t off = (size_t)(j / kSites) * n_pad + site0 +
-                                 local0 + j % kSites;
+            for (int j = tid; j < tile; j += NT) {
+              const size_t off = (size_t)(j / TS) * n_pad + site0 + local0 +
+                                 j % TS;
               if (lf == 2)
                 gbuf[(size_t)ls * bnd_stride + off] = plf::narrow<BT>(tA[j]);
               if (rf == 2)
@@ -244,12 +248,12 @@ plf_tree_seg_bwd_mxu_kernel(
           }
         }
       }
-      plf_mxu::flush_edge(acc, part, E, S, C, eo, !accumulate,
-                          !accumulate && first);
+      plf_mxu::flush_edge<NT>(acc, part, E, S, C, eo, !accumulate,
+                                !accumulate && first);
       first = false;
     }
   }
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; r < R; r += NT) {
     float* d = part + (size_t)2 * E * RS + RS + r;
     *d = accumulate ? __fadd_rn(*d, s_grr[r]) : s_grr[r];
   }
@@ -261,7 +265,7 @@ plf_tree_seg_bwd_mxu_kernel(
 template <int MODE, typename BT>
 constexpr bool kBf16Mode2 = MODE == 2 && !std::is_same<BT, float>::value;
 
-template <int MODE, int V, typename CodeT, typename BT>
+template <int MODE, int V, int TS, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* const* pl, const float* ttab, int ncols,
            const float* rr, const float* glik, const void* bbuf, void* gbuf,
@@ -272,12 +276,12 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
   if constexpr (kBf16Mode2<MODE, BT>) {
     return (int)cudaErrorInvalidValue;
   } else {
-    auto kern = plf_tree_seg_bwd_mxu_kernel<MODE, V, CodeT, BT>;
-    const size_t smem =
-        plf_mxu::bwd_smem_bytes(S * C, S, acc_global == nullptr);
+    auto kern = plf_tree_seg_bwd_mxu_kernel<MODE, V, TS, CodeT, BT>;
+    const size_t smem = plf_mxu::bwd_smem_bytes(
+        S * C, S, acc_global == nullptr, TS);
     cudaError_t err = plf_mxu::bwd_prepare(kern, smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<n_blocks, kThreads, smem, st>>>(
+    kern<<<n_blocks, plf_mxu::bwd_threads(TS), smem, st>>>(
         static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, pl[0],
         pl[1], pl[2], pl[3], pl[4], pl[5], pl[6], pl[7], pl[8], pl[9],
         pl[10], pl[11], ttab, ncols, rr, glik, static_cast<const BT*>(bbuf),
@@ -287,13 +291,14 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
   }
 }
 
-template <int MODE, int V, typename CodeT, typename BT>
-int plan(int R, int S, int* acc_shared, int* blocks) {
+template <int MODE, int V, int TS, typename CodeT, typename BT>
+int fit(int R, int S, bool acc_shared, int* blocks) {
   if constexpr (kBf16Mode2<MODE, BT>) {
     return (int)cudaErrorInvalidValue;
   } else {
-    return plf_mxu::bwd_plan(plf_tree_seg_bwd_mxu_kernel<MODE, V, CodeT, BT>,
-                             R, S, acc_shared, blocks);
+    return plf_mxu::bwd_fit(
+        plf_tree_seg_bwd_mxu_kernel<MODE, V, TS, CodeT, BT>, R, S, acc_shared,
+        TS, plf_mxu::bwd_threads(TS), blocks);
   }
 }
 
@@ -311,8 +316,8 @@ int plan(int R, int S, int* acc_shared, int* blocks) {
 // partial: (n_blocks, 2*E*S*C*S + S*C*S + S*C) fp32 (written when accumulate
 // is 0, added to otherwise); acc_global: (n_blocks, 3*S*C*S) fp32 when
 // plf_tree_seg_bwd_mxu_plan put the accumulators in device memory, else
-// null.  chunk is a multiple of 8 sites; block b takes tiles [b *
-// tiles_per_block, ...) of the chunk.  mode: 0 fp32, 1 bf16x3, 2 bf16; the
+// null.  chunk is a multiple of the plan's tile of
+// sites; block b takes tiles [b * tiles_per_block, ...) of the chunk.  mode: 0 fp32, 1 bf16x3, 2 bf16; the
 // bf16 storage library has no mode 2 ("mxu_bf16" never trains; kBf16Mode2).
 // Returns cudaGetLastError(); a segment with more than seg_ops ops stops the
 // kernel (the checkpoint was sized for seg_ops).
@@ -326,24 +331,24 @@ extern "C" int plf_tree_seg_bwd_mxu_launch(
     float* scratch, unsigned char* flags, int seg_ops, int site0, int chunk,
     float* partial, float* acc_global, int accumulate, int n_blocks,
     int tiles_per_block, int n, int n_pad, int states, int categories,
-    int mode, int bf16, void* stream) {
-  if (n_pad <= 0 || chunk <= 0 || chunk % kSites || site0 < 0 ||
+    int mode, int bf16, int ts, void* stream) {
+  if (ts <= 0 || n_pad <= 0 || chunk <= 0 || chunk % ts || site0 < 0 ||
       site0 + chunk > n_pad || n_ops <= 0 || n_seg <= 0 || seg_ops <= 0 ||
       n_blocks <= 0 || tiles_per_block <= 0 || states < 1 || categories < 1 ||
-      (long long)n_blocks * tiles_per_block * kSites < chunk)
+      (long long)n_blocks * tiles_per_block * ts < chunk)
     return (int)cudaErrorInvalidValue;
   const float* pl[12] = {lh, ll, rh, rl, lTh, lTl, rTh, rTl, eh, el, eTh, eTl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
-                     return launch<M_, V_, int32_t, T_>(
+    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
+                     return launch<M_, V_, T_S, int32_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          glik, bbuf, gbuf, scratch, flags, seg_ops, site0,
                          chunk, partial, acc_global, accumulate, n_blocks,
                          tiles_per_block, n, n_pad, states, categories, st)));
   } else if (code_bytes == 1) {
-    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
-                     return launch<M_, V_, int8_t, T_>(
+    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
+                     return launch<M_, V_, T_S, int8_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          glik, bbuf, gbuf, scratch, flags, seg_ops, site0,
                          chunk, partial, acc_global, accumulate, n_blocks,
@@ -352,23 +357,28 @@ extern "C" int plf_tree_seg_bwd_mxu_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// Where the launch keeps its accumulators (*acc_shared: 1 in shared memory,
-// 0 in device memory, acc_global) and how many of its blocks are resident
-// per SM: kernel 4m's rule (plf_mxu::bwd_plan).
+// The launch's plan: its tile of sites (*sites), where it keeps its
+// accumulators (*acc_shared: 1 in shared memory, 0 in device memory,
+// acc_global) and how many of its blocks are resident per SM: kernel 4m's
+// rule (bwd_pick).
 extern "C" int plf_tree_seg_bwd_mxu_plan(int code_bytes, int states,
                                          int categories, int mode, int bf16,
-                                         int* acc_shared, int* blocks) {
+                                         int* acc_shared, int* blocks,
+                                         int* sites) {
   const int R = states * categories;
-  if (code_bytes == 4) {
-    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
-                     return plan<M_, V_, int32_t, T_>(R, states, acc_shared,
-                                                    blocks)));
-  } else if (code_bytes == 1) {
-    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
-                     return plan<M_, V_, int8_t, T_>(R, states, acc_shared,
-                                                    blocks)));
-  }
-  return (int)cudaErrorInvalidValue;
+  if (states < 1 || categories < 1 || (code_bytes != 4 && code_bytes != 1))
+    return (int)cudaErrorInvalidValue;
+  auto fit_at = [&](int ts, bool shared, int* nb) -> int {
+    if (code_bytes == 4)
+      PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
+                       return fit<M_, V_, T_S, int32_t, T_>(R, states, shared,
+                                                          nb)));
+    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
+                     return fit<M_, V_, T_S, int8_t, T_>(R, states, shared,
+                                                       nb)));
+    return (int)cudaErrorInvalidValue;
+  };
+  return plf_mxu::bwd_pick(states, fit_at, acc_shared, blocks, sites);
 }
 
 // The fixed-order second pass over the partial rows: out[c] = sum over rows

@@ -42,9 +42,9 @@ JAX package takes "pallas" on the TPU where they fit.
 Otherwise, on a CUDA device it takes, when the forward kernel admits the
 tree (``PhyloModel.can_fuse``), ``"segmented"`` for a DNA "vpu" model
 stored in fp32 whose boundary buffers fit the free device memory, and
-``"segmented"`` too for an "mxu_3x" model (or bf16 boundaries) where
-kernel 4's (4m's) checkpoint would have to be chunked (more than half the
-free memory) while those buffers fit; else ``"tree"``.  Past the forward
+``"segmented"`` too with bf16 boundaries (DNA, or an "mxu_3x" model)
+where kernel 4's (4m's) checkpoint would have to be chunked (more than
+half the free memory) while those buffers fit; else ``"tree"``.  Past the forward
 kernel's capacity it takes ``"kernel"`` for "vpu" at S = 4 and
 ``"segmented"`` for a model on the matrix-form kernels, as the JAX
 package does.  The rule stands on the backends measured on an H100
@@ -52,8 +52,8 @@ package does.  The rule stands on the backends measured on an H100
 every shape timed, 20-256 taxa x 4,096-2^20 sites (`backend_turns.py
 --dna`; 13% at 160 x 2^20, 29.3 against 33.0 ms) and 256 x 2^22 int8
 (170 against 203 ms); at 1,024 protein taxa x 131,072 sites, where
-kernel 4m runs in two chunks, "segmented" won in bf16x3 ("mxu_3x") and
-lost in fp32 ("mxu"); for a "vpu" protein or codon model "kernel" won
+kernel 4m runs in two chunks, "tree" won in bf16x3 ("mxu_3x") and in fp32
+("mxu"); for a "vpu" protein or codon model "kernel" won
 only from the sizes above ("tree" was 4-10x faster at 1,500-4,096
 protein sites, where the per-node cost of "kernel" dominates); the
 per-node residuals grow with sites x nodes.
@@ -152,28 +152,29 @@ def _segmented_wins(pm, free: Optional[int] = None) -> bool:
     config's ``dtype``) fit the ``free`` device memory: for a DNA "vpu"
     model stored in fp32 always (kernels 7 + 8 were the faster pair at
     every DNA shape timed on an H100, 20-256 taxa x 4,096-2^20 sites and
-    256 x 2^22 int8, PERF.md), and for kernel 8m's bf16x3 mode ("mxu_3x")
-    or bf16 boundaries (whose values a "segmented" step rounds) only where
-    kernel 4's (4m's) checkpoint (``E * (S*C*4 + 1)`` bytes per site)
-    exceeds half the free memory, so it would run in chunks (kernel 8m's
-    own op checkpoint is chunked as kernel 4m's is).
-    A matrix-form model in fp32 ("mxu", "vpu" at S != 4) keeps "tree": at
-    1,024 protein taxa x 131,072 sites, with kernel 4m's checkpoint in two
-    chunks, "segmented" won by 7% in "mxu_3x" and lost by 19% in "mxu"
-    (PERF.md).  ``free`` defaults to the card's free memory plus the
-    blocks PyTorch's caching allocator holds unused (which a step can
-    take), so the rule does not depend on what earlier steps left
-    cached."""
+    256 x 2^22 int8, PERF.md), and with bf16 boundaries (DNA, or kernel
+    8m's bf16x3 mode, "mxu_3x", whose values a "segmented" step rounds)
+    only where kernel 4's (4m's) checkpoint (``E * (S*C*4 + 1)`` bytes per
+    site) exceeds half the free memory, so it would run in chunks (kernel
+    8m's own op checkpoint is chunked as kernel 4m's is).
+    A matrix-form model in fp32 storage keeps "tree": at 1,024 protein
+    taxa x 131,072 sites, with kernel 4m's checkpoint in two chunks, the
+    "tree" step won by 4% in "mxu_3x" (2.74-2.76 against 2.87-2.88 s) and
+    by 18% in "mxu" (PERF.md, PR 11; "segmented" had won by 7% in
+    "mxu_3x" before kernels 4m and 8m were redesigned).  ``free`` defaults
+    to the card's free memory plus the blocks PyTorch's caching allocator
+    holds unused (which a step can take), so the rule does not depend on
+    what earlier steps left cached."""
     if not pm.can_segment():
         return False
     variant, S = pm.config.resolved_kernel_variant, pm.config.states
     matrix_form = uses_mxu_kernels(variant, S)
-    if matrix_form and MODES[variant] != MODES["mxu_3x"]:
+    bf16 = pm.config.dtype == "bfloat16"
+    if matrix_form and (MODES[variant] != MODES["mxu_3x"] or not bf16):
         return False
     if free is None:
         free = _free_bytes(pm.device)
     rows = pm.config.rows
-    bf16 = pm.config.dtype == "bfloat16"
     n_bnd = pm._segmented_inputs()[0].n_boundaries
     if 2 * n_bnd * rows * (2 if bf16 else 4) * pm.n_pad > free:
         return False

@@ -32,7 +32,12 @@ the JAX package's ``(rows, rows)`` block matrices: the block gradient's
 entries off the lane-constant positions never reach a branch length, so
 it returns the ``(E, S*C, S)`` lane-constant gradients
 (:func:`plf_mxu.mxu_op_grad`).  Its checkpoint is ``E * (rows * 4 + 1)``
-bytes per site, chunked by the same rule.
+bytes per site, chunked by the same rule.  It sweeps tiles of the sites
+its library's plan gives (32 at S = 20, 8 at S = 61) and sums the
+operator gradients of a tile as GEMMs over its sites: on the tensor cores
+in "mxu_3x" and "mxu_bf16", whose products are exact bf16 products, and
+register-blocked fp32 on the CUDA cores in "mxu"; the per-site values
+keep the plain version's arithmetic bit for bit.
 
 Operators are indexed by ORIGINAL edge, as kernel 2 reads them (row 5 of
 its schedule) and as ``PhyloModel.lcs`` holds them, through the forward
@@ -69,7 +74,7 @@ __all__ = ["compile_backward_schedule", "backward_schedule",
            "tree_bwd_scratch_bytes", "tree_bwd_chunk_sites",
            "tree_bwd_resident_blocks", "plf_tree_bwd",
            "plf_tree_bwd_torch", "plf_tree_bwd_mxu", "plf_tree_bwd_mxu_torch",
-           "tree_bwd_mxu_blocks", "TREE_BWD_MXU_SITES", "make_tree_diff"]
+           "tree_bwd_mxu_blocks", "acc_floats", "make_tree_diff"]
 
 
 def compile_backward_schedule(schedule: Sequence[Tuple], n_leaves: int):
@@ -329,21 +334,22 @@ plf_tree_bwd.last_scratch = None
 
 # ------------------------------------------------------------ kernel 4m --
 
-#: Sites per tile of kernel 4m (``kSites`` in ``csrc/plf_tree_bwd_mxu.cu``).
-TREE_BWD_MXU_SITES = 8
-
 #: Device memory the per-block partial rows of one kernel-4m call may take
 #: (3.75 MB a row at S = 61, 31 edges: at most 572 blocks).
 TREE_BWD_MXU_PARTIAL_BYTES = 1 << 31
 
 
-def tree_bwd_mxu_blocks(n_sites: int, cols: int, resident: int):
-    """``(n_blocks, tiles_per_block)`` of a kernel-4m launch over
-    ``n_sites`` (a multiple of 8): at most ``resident`` blocks (all that fit
-    the card at once, so the launch is one wave with no tail) and at most
+def tree_bwd_mxu_blocks(n_sites: int, cols: int, resident: int, sites: int):
+    """``(n_blocks, tiles_per_block)`` of a kernel-4m (or 8m) launch over
+    ``n_sites`` in tiles of ``sites`` (the library's plan: 32 at S = 20, 8
+    at S = 61; each divides the 128-site padding unit, so every chunk is
+    whole tiles): at most ``resident`` blocks (all that fit the card at
+    once, so the launch is one wave with no tail) and at most
     :data:`TREE_BWD_MXU_PARTIAL_BYTES` of partial rows of ``cols`` floats,
     each block with at least one tile."""
-    tiles = n_sites // TREE_BWD_MXU_SITES
+    if n_sites % sites:
+        raise ValueError(f"{n_sites} sites are not whole tiles of {sites}")
+    tiles = n_sites // sites
     cap = max(1, min(resident, TREE_BWD_MXU_PARTIAL_BYTES // (4 * cols)))
     per = -(-tiles // cap)
     return -(-tiles // per), per
@@ -409,11 +415,11 @@ def _lib_mxu():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_bwd_mxu_launch.argtypes = (
         [vp, ci, ci, vp, ci] + [vp] * 13 + [ci, vp, vp, vp, vp, ci, ci, vp,
-                                             vp] + [ci] * 8 + [vp])
+                                             vp] + [ci] * 9 + [vp])
     lib.plf_tree_bwd_mxu_launch.restype = ci
     lib.plf_tree_bwd_mxu_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_bwd_mxu_reduce.restype = ci
-    lib.plf_tree_bwd_mxu_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 2
+    lib.plf_tree_bwd_mxu_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
     lib.plf_tree_bwd_mxu_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -422,25 +428,33 @@ def _lib_mxu():
 
 @functools.cache
 def _launch_plan(device: torch.device, code_bytes: int, states: int,
-                 categories: int, mode: int) -> Tuple[bool, int]:
-    """``(acc_shared, resident)`` of kernel 4m, as its library decides
-    them (``plf_tree_bwd_mxu_plan``): whether the accumulators live in
-    shared memory (when two blocks with them fit an SM: S = 20) or in a row
-    of device memory per block (S = 61, where one block of 4 warps per SM
-    could not hide the latency of its sums), and the blocks resident on the
-    whole card at once (blocks per SM, registers and shared memory counted
-    by the CUDA runtime, times the SMs)."""
+                 categories: int, mode: int) -> Tuple[bool, int, int]:
+    """``(acc_shared, resident, sites)`` of kernel 4m, as its library
+    decides them (``plf_tree_bwd_mxu_plan``): the sites per tile (32 at
+    S = 20, 8 at S = 61), whether the accumulators live in shared memory
+    or in a row of device memory per block (whichever lets more blocks
+    share an SM, shared memory on a tie: shared at S = 20, device memory at
+    S = 61), and the blocks resident
+    on the whole card at once (blocks per SM, registers and shared memory
+    counted by the CUDA runtime, times the SMs)."""
     lib = _lib_mxu()
-    acc_shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    acc_shared, blocks, sites = (ctypes.c_int(0) for _ in range(3))
     with torch.cuda.device(device):
         err = lib.plf_tree_bwd_mxu_plan(code_bytes, states, categories, mode,
                                         ctypes.byref(acc_shared),
-                                        ctypes.byref(blocks))
+                                        ctypes.byref(blocks),
+                                        ctypes.byref(sites))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"plf_tree_bwd_mxu occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return bool(acc_shared.value), blocks.value * sms
+    return bool(acc_shared.value), blocks.value * sms, sites.value
+
+
+def acc_floats(states: int, categories: int) -> int:
+    """Accumulators of one kernel-4m or 8m block: gl, gr and gec of the
+    edge being swept, 3*R*S floats."""
+    return 3 * states * categories * states
 
 
 def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
@@ -461,7 +475,7 @@ def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
     Returns ``(gl, gr, gec, grr)`` site sums shaped as ``lcs``, ``rcs``,
     ``ec`` and ``rr``: the lane-constant entries of the JAX kernel's block
     gradients.  ``plf_tree_bwd_mxu.last_scratch`` records the last call's
-    chunking and where its accumulators lived.
+    chunking, its tile of sites and where its accumulators lived.
     """
     _check(codes, bsched, dict(lcs=lcs, rcs=rcs), dict(ec=ec), ttab, rr,
            glik, states, categories)
@@ -500,12 +514,13 @@ def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
     chunk = tree_bwd_chunk_sites(n_pad, E, rows, max_scratch_bytes)
     RS = rows * S
     cols = 2 * E * RS + RS + rows
-    acc_shared, resident = _launch_plan(dev, codes.element_size(), S, C,
-                                        MODES[variant])
-    n_blocks, _ = tree_bwd_mxu_blocks(chunk, cols, resident)
+    acc_shared, resident, ts = _launch_plan(dev, codes.element_size(), S, C,
+                                            MODES[variant])
+    n_blocks, _ = tree_bwd_mxu_blocks(chunk, cols, resident, ts)
     partial = torch.empty((n_blocks, cols), dtype=torch.float32, device=dev)
     acc = None if acc_shared else torch.empty(
-        (n_blocks, 3 * RS), dtype=torch.float32, device=dev)
+        (n_blocks, acc_floats(S, C)), dtype=torch.float32,
+        device=dev)
     scratch = torch.empty((E, rows, chunk), dtype=torch.float32, device=dev)
     flags = torch.empty((E, chunk), dtype=torch.uint8, device=dev)
     out = torch.empty(cols, dtype=torch.float32, device=dev)
@@ -514,7 +529,7 @@ def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         for k, site0 in enumerate(chunks):
             sites = min(chunk, n_pad - site0)
-            tiles = sites // TREE_BWD_MXU_SITES
+            tiles = sites // ts
             per = -(-tiles // n_blocks)
             err = lib.plf_tree_bwd_mxu_launch(
                 codes.data_ptr(), codes.element_size(), n_leaves,
@@ -524,7 +539,7 @@ def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
                 sites, partial.data_ptr(),
                 None if acc is None else acc.data_ptr(), int(k > 0),
                 -(-tiles // per), per, int(n), n_pad, S, C, MODES[variant],
-                stream)
+                ts, stream)
             if err != 0:
                 break
         else:
@@ -536,7 +551,8 @@ def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
     plf_tree_bwd_mxu.launches += 1
     plf_tree_bwd_mxu.last_scratch = dict(
         chunk_sites=chunk, chunks=len(chunks), blocks=n_blocks,
-        bytes=tree_bwd_scratch_bytes(E, rows, chunk), acc_shared=acc_shared)
+        bytes=tree_bwd_scratch_bytes(E, rows, chunk), acc_shared=acc_shared,
+        tile_sites=ts)
     gl = out[:E * RS].view(E, rows, S)
     gr = out[E * RS:2 * E * RS].view(E, rows, S)
     gec = out[2 * E * RS:2 * E * RS + RS].view(rows, S)

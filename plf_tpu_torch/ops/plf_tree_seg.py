@@ -111,7 +111,7 @@ from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
 from .plf_node import SMEM_BLOCK_BYTES, count_launch
 from .plf_tree import root_reduce, tree_block_threads, tree_mxu_fits
-from .plf_tree_grad import (TREE_BWD_MXU_SITES, tree_bwd_chunk_sites,
+from .plf_tree_grad import (acc_floats, tree_bwd_chunk_sites,
                             tree_bwd_mxu_blocks, tree_bwd_scratch_bytes)
 
 __all__ = ["plan_segments", "SegPlan", "Segment", "segment_program",
@@ -973,12 +973,12 @@ def _lib_bwd_mxu(bf16: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_bwd_mxu_launch.argtypes = (
         [vp, ci, vp, ci, vp, ci] + [vp] * 13 + [ci] + [vp] * 6 + [ci] * 3
-        + [vp] * 2 + [ci] * 9 + [vp])
+        + [vp] * 2 + [ci] * 10 + [vp])
     lib.plf_tree_seg_bwd_mxu_launch.restype = ci
     lib.plf_tree_seg_bwd_mxu_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_seg_bwd_mxu_reduce.restype = ci
     lib.plf_tree_seg_bwd_mxu_plan.argtypes = ([ci] * 5
-                                              + [ctypes.POINTER(ci)] * 2)
+                                              + [ctypes.POINTER(ci)] * 3)
     lib.plf_tree_seg_bwd_mxu_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -988,24 +988,26 @@ def _lib_bwd_mxu(bf16: bool = False):
 @functools.cache
 def _launch_plan_mxu(device: torch.device, code_bytes: int, states: int,
                      categories: int, mode: int,
-                     bf16: bool = False) -> Tuple[bool, int]:
-    """``(acc_shared, resident)`` of kernel 8m's fp32 or ``bf16`` storage
-    form, as its library decides them with kernel 4m's rule
-    (``plf_tree_seg_bwd_mxu_plan``): the accumulators in shared memory
-    when two blocks with them fit an SM, else a row of device memory per
-    block; and the blocks resident on the whole card at once."""
+                     bf16: bool = False) -> Tuple[bool, int, int]:
+    """``(acc_shared, resident, sites)`` of kernel 8m's fp32 or ``bf16``
+    storage form, as its library decides them with kernel 4m's rule
+    (``plf_tree_seg_bwd_mxu_plan``): the accumulators in shared memory or
+    in a row of device memory per block, whichever lets more blocks share
+    an SM; the blocks resident on the whole card at once; and the sites
+    per tile."""
     lib = _lib_bwd_mxu(bf16)
-    acc_shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    acc_shared, blocks, sites = (ctypes.c_int(0) for _ in range(3))
     with torch.cuda.device(device):
         err = lib.plf_tree_seg_bwd_mxu_plan(code_bytes, states, categories,
                                             mode, int(bf16),
                                             ctypes.byref(acc_shared),
-                                            ctypes.byref(blocks))
+                                            ctypes.byref(blocks),
+                                            ctypes.byref(sites))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"plf_tree_seg_bwd_mxu occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return bool(acc_shared.value), blocks.value * sms
+    return bool(acc_shared.value), blocks.value * sms, sites.value
 
 
 def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
@@ -1064,12 +1066,13 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
     chunk = tree_bwd_chunk_sites(n_pad, seg_ops, rows, max_scratch_bytes)
     E, RS = lcs.shape[0], rows * S
     cols = 2 * E * RS + RS + rows
-    acc_shared, resident = _launch_plan_mxu(dev, codes.element_size(), S, C,
-                                            MODES[variant], bf16)
-    n_blocks, _ = tree_bwd_mxu_blocks(chunk, cols, resident)
+    acc_shared, resident, ts = _launch_plan_mxu(
+        dev, codes.element_size(), S, C, MODES[variant], bf16)
+    n_blocks, _ = tree_bwd_mxu_blocks(chunk, cols, resident, ts)
     partial = torch.empty((n_blocks, cols), dtype=torch.float32, device=dev)
     acc = None if acc_shared else torch.empty(
-        (n_blocks, 3 * RS), dtype=torch.float32, device=dev)
+        (n_blocks, acc_floats(S, C)), dtype=torch.float32,
+        device=dev)
     scratch = torch.empty((seg_ops, rows, chunk), dtype=torch.float32,
                           device=dev)
     flags = torch.empty((seg_ops, chunk), dtype=torch.uint8, device=dev)
@@ -1079,7 +1082,7 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
         stream = torch.cuda.current_stream(dev).cuda_stream
         for k, site0 in enumerate(chunks):
             sites = min(chunk, n_pad - site0)
-            tiles = sites // TREE_BWD_MXU_SITES
+            tiles = sites // ts
             per = -(-tiles // n_blocks)
             err = lib.plf_tree_seg_bwd_mxu_launch(
                 codes.data_ptr(), codes.element_size(), prog.data_ptr(), E,
@@ -1090,7 +1093,7 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
                 flags.data_ptr(), seg_ops, site0, sites, partial.data_ptr(),
                 None if acc is None else acc.data_ptr(), int(k > 0),
                 -(-tiles // per), per, int(n), n_pad, S, C, MODES[variant],
-                int(bf16), stream)
+                int(bf16), ts, stream)
             if err != 0:
                 break
         else:
@@ -1101,7 +1104,7 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
     plf_tree_seg_bwd_mxu.last_scratch = dict(
         chunk_sites=chunk, chunks=len(chunks), blocks=n_blocks,
         bytes=tree_bwd_scratch_bytes(seg_ops, rows, chunk),
-        acc_shared=acc_shared)
+        acc_shared=acc_shared, tile_sites=ts)
     return _split_sums(out, E, rows, S)
 
 

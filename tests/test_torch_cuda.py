@@ -684,16 +684,19 @@ def _bsched(pm):
 @pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
 @pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
                                           (20, {"tip_dtype": "int8"}),
-                                          (61, {}), (61, {"p_inv": 0.2})])
+                                          (61, {}), (61, {"p_inv": 0.2}),
+                                          (20, {"n_sites": 33}),
+                                          (61, {"n_sites": 17})])
 def test_kernel4m_matches_plain(cuda, variant, states, extra):
     """Kernel 4m against its plain version in every mode, at S = 20 (C = 4,
-    C = 5 with +I, int8 tips: accumulators in shared memory) and S = 61
-    (C = 4 and 5: in device memory); one chunk and three under a budget of
-    two tiles' checkpoint; planes split by the wrapper or by the model,
-    bit-identical run to run; site sums within 1e-4 of each matrix's
-    scale."""
+    C = 5 with +I, int8 tips: 32-site tiles) and S = 61 (C = 4 and 5:
+    8-site tiles), and on one site past a whole tile (33 sites at S = 20,
+    17 at S = 61, past two 8-site tiles); one
+    chunk and three under a budget of two tiles' checkpoint; planes split
+    by the wrapper or by the model, bit-identical run to run; site sums
+    within 1e-4 of each matrix's scale."""
     pm = _protein_model(cuda, variant, states=states, n_leaves=12,
-                        n_sites=700, **extra)
+                        **{"n_sites": 700, **extra})
     C = pm.config.categories
     args = (pm.codes, _bsched(pm), pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
             pm.root_rows[0])
@@ -703,7 +706,8 @@ def test_kernel4m_matches_plain(cuda, variant, states, extra):
     before = TG.plf_tree_bwd_mxu.launches
     k1 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites, **kw)
     last = TG.plf_tree_bwd_mxu.last_scratch
-    assert last["chunks"] == 1 and last["acc_shared"] == (states == 20)
+    assert last["chunks"] == 1
+    assert last["tile_sites"] == (32 if states == 20 else 8)
     k2 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites, planes=pm._planes(),
                              **kw)
     per_tile = TG.tree_bwd_scratch_bytes(len(pm.schedule), pm.config.rows,
@@ -1046,11 +1050,14 @@ def test_kernel7m_equals_kernel2m_and_plain(cuda, variant, states, extra):
 @pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
                                           (20, {"tip_dtype": "int8"}),
                                           (61, {}), (61, {"p_inv": 0.2}),
-                                          (20, {"underflow": 1})])
+                                          (20, {"underflow": 1}),
+                                          (20, {"n_sites": 33}),
+                                          (61, {"n_sites": 17})])
 def test_kernel8m_matches_plain(cuda, variant, states, extra):
     """Kernel 8m against its plain version in every mode, at S = 20
-    (accumulators in shared memory) and S = 61 (in device memory), with
-    the forced-underflow tips too: the boundary adjoints equal the plain
+    (32-site tiles) and S = 61 (8-site tiles), with the forced-underflow
+    tips too, and on one site past a whole tile (33 sites at S = 20, 17 at
+    S = 61): the boundary adjoints equal the plain
     version's bit for bit; the site sums within 3e-6 of each matrix's
     scale (another summation order, the blocks' rows added in fp64), in
     one chunk and in chunks of two tiles' checkpoint; planes split by the
@@ -1075,7 +1082,8 @@ def test_kernel8m_matches_plain(cuda, variant, states, extra):
     before = SG.plf_tree_seg_bwd_mxu.launches
     k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[0], **kw)
     last = SG.plf_tree_seg_bwd_mxu.last_scratch
-    assert last["chunks"] == 1 and last["acc_shared"] == (states == 20)
+    assert last["chunks"] == 1
+    assert last["tile_sites"] == (32 if states == 20 else 8)
     k2 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[1],
                              planes=pm._planes(), **kw)
     per_tile = TG.tree_bwd_scratch_bytes(plan.seg_ops, pm.config.rows, 128)

@@ -381,9 +381,10 @@ def test_chunk_and_block_rules_at_protein_and_codon_rows():
     """The checkpoint rule at rows 80 (S = 20) and 244 (S = 61): E * (rows
     * 4 + 1) bytes per site, one chunk when it fits, whole 128-site tiles
     otherwise; and the block rule (one wave of resident blocks, partial rows
-    capped; 656 blocks of 25 tiles at the protein shape).  Where the
-    accumulators live is the kernel library's choice, held by the on-card
-    tests."""
+    capped) for the site tiles a library's plan gives (32 at S = 20, 16 at
+    S = 61; 8, the old width, still counts as before: 656 blocks of 25
+    tiles at the protein shape).  The tile and where the accumulators live
+    are the kernel library's choice, held by the on-card tests."""
     assert TG.tree_bwd_scratch_bytes(63, 80, 1) == 63 * 321
     assert TG.tree_bwd_scratch_bytes(31, 244, 1) == 31 * 977
     assert TG.tree_bwd_chunk_sites(1 << 17, 63, 80, 4 << 30) == 1 << 17
@@ -396,13 +397,17 @@ def test_chunk_and_block_rules_at_protein_and_codon_rows():
         assert TG.tree_bwd_scratch_bytes(E, rows, chunk + 128) > 1 << 29
     cols = 2 * 31 * 244 * 61 + 244 * 61 + 244
     for resident in (4 * 132, 8 * 132):          # one wave, partials capped
-        n_blocks, per = TG.tree_bwd_mxu_blocks(1 << 16, cols, resident)
-        assert n_blocks <= resident
-        assert n_blocks * cols * 4 <= TG.TREE_BWD_MXU_PARTIAL_BYTES
-        assert n_blocks * per * TG.TREE_BWD_MXU_SITES >= 1 << 16
-        assert (n_blocks - 1) * per * TG.TREE_BWD_MXU_SITES < 1 << 16
-    assert TG.tree_bwd_mxu_blocks(1 << 17, 203_280, 5 * 132) == (656, 25)
-    assert TG.tree_bwd_mxu_blocks(1024, 100, 1024) == (128, 1)
+        for ts in (8, 16, 32):
+            n_blocks, per = TG.tree_bwd_mxu_blocks(1 << 16, cols, resident,
+                                                   ts)
+            assert n_blocks <= resident
+            assert n_blocks * cols * 4 <= TG.TREE_BWD_MXU_PARTIAL_BYTES
+            assert n_blocks * per * ts >= 1 << 16
+            assert (n_blocks - 1) * per * ts < 1 << 16
+    assert TG.tree_bwd_mxu_blocks(1 << 17, 203_280, 5 * 132, 8) == (656, 25)
+    assert TG.tree_bwd_mxu_blocks(1 << 17, 203_280, 2 * 132, 32) == (256, 16)
+    assert TG.tree_bwd_mxu_blocks(1024, 100, 1024, 8) == (128, 1)
+    assert TG.tree_bwd_mxu_blocks(1024, 100, 1024, 32) == (32, 1)
 
 
 def test_tree_bwd_mxu_wrapper_dispatch_and_checks():

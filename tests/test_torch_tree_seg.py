@@ -358,11 +358,11 @@ def test_auto_takes_segmented_where_kernel4_would_chunk():
     DNA "vpu" model stored in fp32, "segmented" wherever kernel 8's
     boundary buffers fit, chunked kernel 4 or not (kernels 7 + 8 were the
     faster step at every DNA shape timed on an H100, PERF.md), "tree"
-    where they do not; with bf16 boundaries, and for an "mxu_3x" model,
+    where they do not; with bf16 boundaries (DNA, or an "mxu_3x" model),
     "segmented" only where kernel 4's (4m's) checkpoint would be chunked
     (more than half the free memory) and the boundary buffers fit;
-    never for a matrix-form model in fp32 ("mxu"), whose "tree" step was
-    the faster one where kernel 4m chunks (PERF.md)."""
+    never for a matrix-form model in fp32 storage ("mxu_3x", "mxu"), whose
+    "tree" step was the faster one where kernel 4m chunks (PERF.md)."""
     pt = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2))
     plan = pt._segmented_inputs()[0]
     ck4 = len(pt.schedule) * (pt.config.rows * 4 + 1) * pt.n_pad
@@ -384,9 +384,13 @@ def test_auto_takes_segmented_where_kernel4_would_chunk():
     assert plan.n_boundaries > 0
     ck4 = len(mxu_3x.schedule) * (mxu_3x.config.rows * 4 + 1) * mxu_3x.n_pad
     bufs = 2 * plan.n_boundaries * mxu_3x.config.rows * 4 * mxu_3x.n_pad
-    assert not TO._segmented_wins(mxu_3x, free=2 * ck4)
-    assert TO._segmented_wins(mxu_3x, free=2 * ck4 - 2)
-    assert TO._segmented_wins(mxu_3x, free=bufs)
-    assert not TO._segmented_wins(mxu_3x, free=bufs - 1)
+    for free in (2 * ck4, 2 * ck4 - 2, bufs, bufs - 1):
+        assert not TO._segmented_wins(mxu_3x, free=free)
+    m16 = copy.copy(mxu_3x)
+    m16.config = dataclasses.replace(mxu_3x.config, dtype="bfloat16")
+    assert not TO._segmented_wins(m16, free=2 * ck4)
+    assert TO._segmented_wins(m16, free=2 * ck4 - 2)
+    assert TO._segmented_wins(m16, free=bufs // 2)
+    assert not TO._segmented_wins(m16, free=bufs // 2 - 1)
     mxu = _port_of(_jax_model(jrt(40, seed=2), 300, seed=2, variant="mxu"))
     assert not TO._segmented_wins(mxu, free=bufs)
