@@ -46,12 +46,11 @@
 //
 // The accumulators of the edge being swept (3*R*S floats, entry m*R*S +
 // (o*C+c)*S + q) are read and written once per tile, each by the lane that
-// owns it, in shared memory or in a private row of device memory, whichever
-// lets more blocks share an SM (bwd_pick; shared memory on a tie):
-// shared at S = 20 (19 KB beside 61 KB of tiles), device memory at S = 61
-// (178 KB).  flush_edge writes them into the block's row of partial
-// sums once the edge is done, and plf::colsum adds the rows up in a fixed
-// order.  Tried on an H100 and slower (PERF.md, PR 11): hh and hl + lh in
+// owns it, in shared memory when two blocks with them fit an SM, else in a
+// private row of device memory (bwd_plan): shared at S = 20 (19 KB beside
+// 61 KB of tiles), device memory at S = 61 (178 KB).  flush_edge writes them
+// into the block's row of partial sums once the edge is done, and
+// plf::colsum adds the rows up in a fixed order.  Tried on an H100 and slower (PERF.md, PR 11): hh and hl + lh in
 // two sets of accumulators combined once per edge (S = 61: 170 against 92
 // ms), the accumulators in the fragments' own order in device memory, 16-
 // site tiles at S = 20, and more blocks per SM under a register cap.
@@ -541,50 +540,34 @@ int bwd_fit(K kernel, int R, int S, bool acc_shared, int TS, int NT,
                                                             NT, smem);
 }
 
-// Kernel 3m's plan: the accumulators in shared memory when two blocks with
-// them fit an SM, else in device memory (at S = 61 they are 178 KB: one
-// block of 4 warps per SM could not hide the latency of its sums).
+// The plan of a launch: the accumulators in shared memory when two blocks
+// with them fit an SM, else in device memory (at S = 61 they are 178 KB: one
+// block per SM could not hide the latency of its sums).  Kernel 3m plans
+// with its 8-site tiles of 128 threads; kernels 4m and 8m with their
+// bwd_tile(S) and bwd_threads, which keep shared memory at S = 20 (two
+// blocks of 320 threads) and take device memory at S = 61.
 template <typename K>
-int bwd_plan(K kernel, int R, int S, int* acc_shared, int* blocks) {
-  const int err =
-      bwd_fit(kernel, R, S, true, kBwdSites, kBwdThreads, blocks);
+int bwd_plan(K kernel, int R, int S, int* acc_shared, int* blocks,
+             int TS = kBwdSites, int NT = kBwdThreads) {
+  const int err = bwd_fit(kernel, R, S, true, TS, NT, blocks);
   if (err != 0) return err;
   *acc_shared = *blocks >= 2;
-  return *acc_shared ? 0
-                     : bwd_fit(kernel, R, S, false, kBwdSites, kBwdThreads,
-                               blocks);
-}
-
-// The plan of a kernel-4m or 8m launch: its site tile (bwd_tile) and the
-// place of its accumulators with the more resident blocks per SM (shared
-// memory on a tie).  fit(ts, acc_shared, &blocks) gives the blocks per SM
-// of the instance that would run.
-template <typename Fit>
-int bwd_pick(int S, Fit fit, int* acc_shared, int* blocks, int* sites) {
-  const int ts = bwd_tile(S);
-  int shared = 0, global = 0;
-  int err = fit(ts, true, &shared);
-  if (err == 0) err = fit(ts, false, &global);
-  if (err != 0) return err;
-  *sites = ts;
-  *acc_shared = shared >= global;
-  *blocks = shared >= global ? shared : global;
-  return *blocks > 0 ? 0 : (int)cudaErrorInvalidValue;
+  return *acc_shared ? 0 : bwd_fit(kernel, R, S, false, TS, NT, blocks);
 }
 
 }  // namespace plf_mxu
 
-// Instantiate F<MODE, V, TS>(...) of kernels 4m and 8m for a run-time mode,
-// state count and site tile ts (bwd_tile): V = 4 (float4 operator loads) on
-// 32-site tiles, 1 on 8-site tiles.
-#define PLF_MXU_BWD_DISPATCH(mode, states, ts, ...)                          \
+// Instantiate F<MODE, V, TS>(...) of kernels 4m and 8m for a run-time mode
+// and state count: TS = bwd_tile(states), with V = 4 (float4 operator
+// loads) on 32-site tiles, 1 on 8-site tiles.
+#define PLF_MXU_BWD_DISPATCH(mode, states, ...)                              \
   do {                                                                       \
-    if ((ts) != plf_mxu::bwd_tile(states) || (mode) < 0 || (mode) > 2)       \
-      return (int)cudaErrorInvalidValue;                                     \
-    if ((mode) == 0 && (ts) == 32) { constexpr int M_ = 0, V_ = 4, T_S = 32; __VA_ARGS__; } \
+    const bool wide_ = plf_mxu::bwd_tile(states) == 32;                      \
+    if ((mode) < 0 || (mode) > 2) return (int)cudaErrorInvalidValue;         \
+    if ((mode) == 0 && wide_) { constexpr int M_ = 0, V_ = 4, T_S = 32; __VA_ARGS__; } \
     else if ((mode) == 0) { constexpr int M_ = 0, V_ = 1, T_S = 8; __VA_ARGS__; } \
-    else if ((mode) == 1 && (ts) == 32) { constexpr int M_ = 1, V_ = 4, T_S = 32; __VA_ARGS__; } \
+    else if ((mode) == 1 && wide_) { constexpr int M_ = 1, V_ = 4, T_S = 32; __VA_ARGS__; } \
     else if ((mode) == 1) { constexpr int M_ = 1, V_ = 1, T_S = 8; __VA_ARGS__; } \
-    else if ((ts) == 32) { constexpr int M_ = 2, V_ = 4, T_S = 32; __VA_ARGS__; } \
+    else if (wide_) { constexpr int M_ = 2, V_ = 4, T_S = 32; __VA_ARGS__; } \
     else { constexpr int M_ = 2, V_ = 1, T_S = 8; __VA_ARGS__; }            \
   } while (0)

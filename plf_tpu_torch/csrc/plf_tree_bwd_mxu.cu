@@ -28,7 +28,7 @@
 // bf16 modes (bf16 products are exact in fp32) and register-blocked fp32 on
 // the CUDA cores in "mxu" (tile_sums).  The reverse sweep's device code
 // (sweep_products, tile_sums, adjoint_to, flush_edge), the tile and the
-// accumulators' placement (bwd_pick) live in plf_mxu_bwd.cuh,
+// accumulators' placement (bwd_plan) live in plf_mxu_bwd.cuh,
 // shared with kernel 8m.  The split is a pure function of a value, so
 // splitting an operand where it is read gives the values make_mxu_bwd_ops
 // splits once.
@@ -51,14 +51,14 @@
 // over all of the block's sites before they are written once.  The
 // accumulators of the current edge (gl, gr and its gec share, 3*R*S
 // floats) are read and written once per tile by the lane that owns them,
-// in `acc_global`, a private row of device memory per block, where that
-// lets more blocks share an SM than shared memory would, and in shared
-// memory otherwise: at S = 20 19 KB beside 61 KB of tiles (two blocks of
-// 320 threads either way), at S = 61 178 KB, in device memory.  Registers across the edge's tiles would need 30
-// floats a thread at C = 4 and more with C (up to 8).  This library makes
-// the choice (plf_tree_bwd_mxu_plan, from the runtime's occupancy); the
-// host allocates acc_global when told to, and the kernel reads the choice
-// from acc_global != null.  The tip table (244 x 62 floats at S = 61) and
+// in shared memory when two blocks with them fit an SM, and otherwise in
+// `acc_global`, a private row of device memory per block: at S = 20 19 KB
+// beside 61 KB of tiles (two blocks of 320 threads), in shared memory; at
+// S = 61 178 KB, in device memory.  Registers across the edge's tiles
+// would need 30 floats a thread at C = 4 and more with C (up to 8).  This
+// library makes the choice (plf_tree_bwd_mxu_plan, from the runtime's
+// occupancy); the host allocates acc_global when told to, and the kernel
+// reads the choice from acc_global != null.  The tip table (244 x 62 floats at S = 61) and
 // the root row vector are read through the read-only cache.
 //
 // Per-block partials.  Each block writes one row of 2*E*R*S + R*S + R
@@ -252,23 +252,25 @@ extern "C" int plf_tree_bwd_mxu_launch(
     const float* glik, float* scratch, unsigned char* flags, int site0,
     int chunk, float* partial, float* acc_global, int accumulate,
     int n_blocks, int tiles_per_block, int n, int n_pad, int states,
-    int categories, int mode, int ts, void* stream) {
-  if (ts <= 0 || n_pad <= 0 || chunk <= 0 || chunk % ts || site0 < 0 ||
+    int categories, int mode, void* stream) {
+  if (states < 1 || categories < 1) return (int)cudaErrorInvalidValue;
+  const int ts = plf_mxu::bwd_tile(states);
+  if (n_pad <= 0 || chunk <= 0 || chunk % ts || site0 < 0 ||
       site0 + chunk > n_pad || n_edges <= 0 || n_blocks <= 0 ||
-      tiles_per_block <= 0 || states < 1 || categories < 1 ||
+      tiles_per_block <= 0 ||
       (long long)n_blocks * tiles_per_block * ts < chunk)
     return (int)cudaErrorInvalidValue;
   const float* pl[12] = {lh, ll, rh, rl, lTh, lTl, rTh, rTl, eh, el, eTh, eTl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_MXU_BWD_DISPATCH(mode, states, ts,
+    PLF_MXU_BWD_DISPATCH(mode, states,
                      return launch<M_, V_, T_S, int32_t>(
                          codes, n_leaves, bsched, n_edges, pl, ttab, ncols, rr,
                          glik, scratch, flags, site0, chunk, partial,
                          acc_global, accumulate, n_blocks, tiles_per_block, n,
                          n_pad, states, categories, st));
   } else if (code_bytes == 1) {
-    PLF_MXU_BWD_DISPATCH(mode, states, ts,
+    PLF_MXU_BWD_DISPATCH(mode, states,
                      return launch<M_, V_, T_S, int8_t>(
                          codes, n_leaves, bsched, n_edges, pl, ttab, ncols, rr,
                          glik, scratch, flags, site0, chunk, partial,
@@ -289,20 +291,19 @@ extern "C" int plf_tree_bwd_mxu_plan(int code_bytes, int states,
   const int R = states * categories;
   if (states < 1 || categories < 1 || (code_bytes != 4 && code_bytes != 1))
     return (int)cudaErrorInvalidValue;
-  auto fit = [&](int ts, bool shared, int* nb) -> int {
-    if (code_bytes == 4)
-      PLF_MXU_BWD_DISPATCH(mode, states, ts,
-                           return plf_mxu::bwd_fit(
-                               plf_tree_bwd_mxu_kernel<M_, V_, T_S, int32_t>,
-                               R, states, shared, T_S, plf_mxu::bwd_threads(T_S),
-                               nb));
-    PLF_MXU_BWD_DISPATCH(mode, states, ts,
-                         return plf_mxu::bwd_fit(
-                             plf_tree_bwd_mxu_kernel<M_, V_, T_S, int8_t>, R,
-                             states, shared, T_S, plf_mxu::bwd_threads(T_S), nb));
-    return (int)cudaErrorInvalidValue;
-  };
-  return plf_mxu::bwd_pick(states, fit, acc_shared, blocks, sites);
+  *sites = plf_mxu::bwd_tile(states);
+  if (code_bytes == 4)
+    PLF_MXU_BWD_DISPATCH(mode, states,
+                         return plf_mxu::bwd_plan(
+                             plf_tree_bwd_mxu_kernel<M_, V_, T_S, int32_t>, R,
+                             states, acc_shared, blocks, T_S,
+                             plf_mxu::bwd_threads(T_S)));
+  PLF_MXU_BWD_DISPATCH(mode, states,
+                       return plf_mxu::bwd_plan(
+                           plf_tree_bwd_mxu_kernel<M_, V_, T_S, int8_t>, R,
+                           states, acc_shared, blocks, T_S,
+                           plf_mxu::bwd_threads(T_S)));
+  return (int)cudaErrorInvalidValue;
 }
 
 // The fixed-order second pass over the partial rows: out[c] = sum over rows

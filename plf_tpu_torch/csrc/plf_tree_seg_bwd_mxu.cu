@@ -292,13 +292,13 @@ int launch(const void* codes, const int* prog, int n_ops, const int* segs,
 }
 
 template <int MODE, int V, int TS, typename CodeT, typename BT>
-int fit(int R, int S, bool acc_shared, int* blocks) {
+int plan(int R, int S, int* acc_shared, int* blocks) {
   if constexpr (kBf16Mode2<MODE, BT>) {
     return (int)cudaErrorInvalidValue;
   } else {
-    return plf_mxu::bwd_fit(
+    return plf_mxu::bwd_plan(
         plf_tree_seg_bwd_mxu_kernel<MODE, V, TS, CodeT, BT>, R, S, acc_shared,
-        TS, plf_mxu::bwd_threads(TS), blocks);
+        blocks, TS, plf_mxu::bwd_threads(TS));
   }
 }
 
@@ -331,23 +331,25 @@ extern "C" int plf_tree_seg_bwd_mxu_launch(
     float* scratch, unsigned char* flags, int seg_ops, int site0, int chunk,
     float* partial, float* acc_global, int accumulate, int n_blocks,
     int tiles_per_block, int n, int n_pad, int states, int categories,
-    int mode, int bf16, int ts, void* stream) {
-  if (ts <= 0 || n_pad <= 0 || chunk <= 0 || chunk % ts || site0 < 0 ||
+    int mode, int bf16, void* stream) {
+  if (states < 1 || categories < 1) return (int)cudaErrorInvalidValue;
+  const int ts = plf_mxu::bwd_tile(states);
+  if (n_pad <= 0 || chunk <= 0 || chunk % ts || site0 < 0 ||
       site0 + chunk > n_pad || n_ops <= 0 || n_seg <= 0 || seg_ops <= 0 ||
-      n_blocks <= 0 || tiles_per_block <= 0 || states < 1 || categories < 1 ||
+      n_blocks <= 0 || tiles_per_block <= 0 ||
       (long long)n_blocks * tiles_per_block * ts < chunk)
     return (int)cudaErrorInvalidValue;
   const float* pl[12] = {lh, ll, rh, rl, lTh, lTl, rTh, rTl, eh, el, eTh, eTl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
-    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
+    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states,
                      return launch<M_, V_, T_S, int32_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          glik, bbuf, gbuf, scratch, flags, seg_ops, site0,
                          chunk, partial, acc_global, accumulate, n_blocks,
                          tiles_per_block, n, n_pad, states, categories, st)));
   } else if (code_bytes == 1) {
-    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
+    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states,
                      return launch<M_, V_, T_S, int8_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          glik, bbuf, gbuf, scratch, flags, seg_ops, site0,
@@ -360,7 +362,7 @@ extern "C" int plf_tree_seg_bwd_mxu_launch(
 // The launch's plan: its tile of sites (*sites), where it keeps its
 // accumulators (*acc_shared: 1 in shared memory, 0 in device memory,
 // acc_global) and how many of its blocks are resident per SM: kernel 4m's
-// rule (bwd_pick).
+// rule (bwd_plan).
 extern "C" int plf_tree_seg_bwd_mxu_plan(int code_bytes, int states,
                                          int categories, int mode, int bf16,
                                          int* acc_shared, int* blocks,
@@ -368,17 +370,16 @@ extern "C" int plf_tree_seg_bwd_mxu_plan(int code_bytes, int states,
   const int R = states * categories;
   if (states < 1 || categories < 1 || (code_bytes != 4 && code_bytes != 1))
     return (int)cudaErrorInvalidValue;
-  auto fit_at = [&](int ts, bool shared, int* nb) -> int {
-    if (code_bytes == 4)
-      PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
-                       return fit<M_, V_, T_S, int32_t, T_>(R, states, shared,
-                                                          nb)));
-    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states, ts,
-                     return fit<M_, V_, T_S, int8_t, T_>(R, states, shared,
-                                                       nb)));
-    return (int)cudaErrorInvalidValue;
-  };
-  return plf_mxu::bwd_pick(states, fit_at, acc_shared, blocks, sites);
+  *sites = plf_mxu::bwd_tile(states);
+  if (code_bytes == 4)
+    PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states,
+                     return plan<M_, V_, T_S, int32_t, T_>(R, states,
+                                                           acc_shared,
+                                                           blocks)));
+  PLF_DISPATCH_T(bf16, PLF_MXU_BWD_DISPATCH(mode, states,
+                   return plan<M_, V_, T_S, int8_t, T_>(R, states, acc_shared,
+                                                        blocks)));
+  return (int)cudaErrorInvalidValue;
 }
 
 // The fixed-order second pass over the partial rows: out[c] = sum over rows

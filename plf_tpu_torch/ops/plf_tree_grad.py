@@ -415,7 +415,7 @@ def _lib_mxu():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_bwd_mxu_launch.argtypes = (
         [vp, ci, ci, vp, ci] + [vp] * 13 + [ci, vp, vp, vp, vp, ci, ci, vp,
-                                             vp] + [ci] * 9 + [vp])
+                                             vp] + [ci] * 8 + [vp])
     lib.plf_tree_bwd_mxu_launch.restype = ci
     lib.plf_tree_bwd_mxu_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_bwd_mxu_reduce.restype = ci
@@ -432,9 +432,9 @@ def _launch_plan(device: torch.device, code_bytes: int, states: int,
     """``(acc_shared, resident, sites)`` of kernel 4m, as its library
     decides them (``plf_tree_bwd_mxu_plan``): the sites per tile (32 at
     S = 20, 8 at S = 61), whether the accumulators live in shared memory
-    or in a row of device memory per block (whichever lets more blocks
-    share an SM, shared memory on a tie: shared at S = 20, device memory at
-    S = 61), and the blocks resident
+    or in a row of device memory per block (shared memory when two blocks
+    with it fit an SM: shared at S = 20, device memory at S = 61), and the
+    blocks resident
     on the whole card at once (blocks per SM, registers and shared memory
     counted by the CUDA runtime, times the SMs)."""
     lib = _lib_mxu()
@@ -539,7 +539,7 @@ def plf_tree_bwd_mxu(codes, bsched, lcs, rcs, ec, ttab, rr, glik, n: int, *,
                 sites, partial.data_ptr(),
                 None if acc is None else acc.data_ptr(), int(k > 0),
                 -(-tiles // per), per, int(n), n_pad, S, C, MODES[variant],
-                ts, stream)
+                stream)
             if err != 0:
                 break
         else:

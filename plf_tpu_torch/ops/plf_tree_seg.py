@@ -973,7 +973,7 @@ def _lib_bwd_mxu(bf16: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_bwd_mxu_launch.argtypes = (
         [vp, ci, vp, ci, vp, ci] + [vp] * 13 + [ci] + [vp] * 6 + [ci] * 3
-        + [vp] * 2 + [ci] * 10 + [vp])
+        + [vp] * 2 + [ci] * 9 + [vp])
     lib.plf_tree_seg_bwd_mxu_launch.restype = ci
     lib.plf_tree_seg_bwd_mxu_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.plf_tree_seg_bwd_mxu_reduce.restype = ci
@@ -992,8 +992,8 @@ def _launch_plan_mxu(device: torch.device, code_bytes: int, states: int,
     """``(acc_shared, resident, sites)`` of kernel 8m's fp32 or ``bf16``
     storage form, as its library decides them with kernel 4m's rule
     (``plf_tree_seg_bwd_mxu_plan``): the accumulators in shared memory or
-    in a row of device memory per block, whichever lets more blocks share
-    an SM; the blocks resident on the whole card at once; and the sites
+    in a row of device memory per block (shared memory when two blocks with
+    it fit an SM); the blocks resident on the whole card at once; and the sites
     per tile."""
     lib = _lib_bwd_mxu(bf16)
     acc_shared, blocks, sites = (ctypes.c_int(0) for _ in range(3))
@@ -1093,7 +1093,7 @@ def plf_tree_seg_bwd_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
                 flags.data_ptr(), seg_ops, site0, sites, partial.data_ptr(),
                 None if acc is None else acc.data_ptr(), int(k > 0),
                 -(-tiles // per), per, int(n), n_pad, S, C, MODES[variant],
-                int(bf16), ts, stream)
+                int(bf16), stream)
             if err != 0:
                 break
         else:

@@ -689,8 +689,8 @@ def _bsched(pm):
                                           (61, {"n_sites": 17})])
 def test_kernel4m_matches_plain(cuda, variant, states, extra):
     """Kernel 4m against its plain version in every mode, at S = 20 (C = 4,
-    C = 5 with +I, int8 tips: 32-site tiles) and S = 61 (C = 4 and 5:
-    8-site tiles), and on one site past a whole tile (33 sites at S = 20,
+    C = 5 with +I, int8 tips: 32-site tiles, accumulators in shared memory)
+    and S = 61 (C = 4 and 5: 8-site tiles, in device memory), and on one site past a whole tile (33 sites at S = 20,
     17 at S = 61, past two 8-site tiles); one
     chunk and three under a budget of two tiles' checkpoint; planes split
     by the wrapper or by the model, bit-identical run to run; site sums
@@ -706,7 +706,7 @@ def test_kernel4m_matches_plain(cuda, variant, states, extra):
     before = TG.plf_tree_bwd_mxu.launches
     k1 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites, **kw)
     last = TG.plf_tree_bwd_mxu.last_scratch
-    assert last["chunks"] == 1
+    assert last["chunks"] == 1 and last["acc_shared"] == (states == 20)
     assert last["tile_sites"] == (32 if states == 20 else 8)
     k2 = TG.plf_tree_bwd_mxu(*args, glik, pm.n_sites, planes=pm._planes(),
                              **kw)
@@ -1055,7 +1055,8 @@ def test_kernel7m_equals_kernel2m_and_plain(cuda, variant, states, extra):
                                           (61, {"n_sites": 17})])
 def test_kernel8m_matches_plain(cuda, variant, states, extra):
     """Kernel 8m against its plain version in every mode, at S = 20
-    (32-site tiles) and S = 61 (8-site tiles), with the forced-underflow
+    (32-site tiles, accumulators in shared memory) and S = 61 (8-site
+    tiles, in device memory), with the forced-underflow
     tips too, and on one site past a whole tile (33 sites at S = 20, 17 at
     S = 61): the boundary adjoints equal the plain
     version's bit for bit; the site sums within 3e-6 of each matrix's
@@ -1082,7 +1083,7 @@ def test_kernel8m_matches_plain(cuda, variant, states, extra):
     before = SG.plf_tree_seg_bwd_mxu.launches
     k1 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[0], **kw)
     last = SG.plf_tree_seg_bwd_mxu.last_scratch
-    assert last["chunks"] == 1
+    assert last["chunks"] == 1 and last["acc_shared"] == (states == 20)
     assert last["tile_sites"] == (32 if states == 20 else 8)
     k2 = SG.plf_tree_seg_bwd(*args, seg_ops=plan.seg_ops, gbuf=gbufs[1],
                              planes=pm._planes(), **kw)

@@ -96,8 +96,8 @@ def emulate_sums(inp, gout, variant, S, C, ts, n_blocks, fp64_rows):
     launch's one wave), each tile's sums formed from zero (k steps of 16
     sites, 8 on 8-site tiles, rounded to fp32 on the tensor cores; in
     "mxu" an fp32 fma chain over the sites, each lane's from a site of its
-    own), added to fp32 accumulators; "mxu_3x" keeps hh and hl + lh in
-    two sets and combines them as hh + (hl + lh) when the edge is flushed;
+    own), added to fp32 accumulators; "mxu_3x" forms hh and hl + lh in two
+    fragments and adds each tile's hh + (hl + lh) to the accumulators;
     the blocks' rows added in order, in fp64 (8m) or fp32 (4m).  Rounding
     is to nearest throughout (the tensor cores' own additions inside a k
     step are modelled as exact, then rounded)."""

@@ -381,9 +381,9 @@ def test_chunk_and_block_rules_at_protein_and_codon_rows():
     """The checkpoint rule at rows 80 (S = 20) and 244 (S = 61): E * (rows
     * 4 + 1) bytes per site, one chunk when it fits, whole 128-site tiles
     otherwise; and the block rule (one wave of resident blocks, partial rows
-    capped) for the site tiles a library's plan gives (32 at S = 20, 16 at
-    S = 61; 8, the old width, still counts as before: 656 blocks of 25
-    tiles at the protein shape).  The tile and where the accumulators live
+    capped) for the site tiles a library's plan gives (32 at S = 20, 8 at
+    S = 61) and for 16; at the protein shape 8-site tiles, the old width,
+    still count as before: 656 blocks of 25 tiles.  The tile and where the accumulators live
     are the kernel library's choice, held by the on-card tests."""
     assert TG.tree_bwd_scratch_bytes(63, 80, 1) == 63 * 321
     assert TG.tree_bwd_scratch_bytes(31, 244, 1) == 31 * 977
