@@ -118,7 +118,8 @@ from plf_tpu_torch.ops.plf_node import (gen_flops, plf_node,
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,
                                         plf_tree_mxu_occupancy,
                                         plf_tree_occupancy, plf_tree_torch,
-                                        reorder_schedule, TREE_MXU_SITES)
+                                        reorder_schedule, TREE_MXU_SITES,
+                                        tree_mxu_block)
 from plf_tpu_torch.ops.plf_tree_grad import (backward_schedule,
                                              plf_tree_bwd,
                                              plf_tree_bwd_mxu,
@@ -952,12 +953,18 @@ def kernel2m_phase(models):
         flops, rate = node_work(S, C, variant)
         bd = bound((pm.codes.element_size() * pm.tree.n_leaves + 8) * n_pad,
                    E * flops * n_pad, rate)
+        # the same operations one at a time on the CUDA cores (-fmad=false:
+        # a multiply and an add are two instructions), the bit-exact form
+        ceiling_ms = E * flops * n_pad / (FP32_FLOPS / 2) * 1e3
         phase("kernel2m", f"{variant}: {E} nodes x {pm.n_sites} sites: == "
               f"plain (site likelihoods and {int(sc_k.sum())} rescales); "
               f"{pm.n_slots} arena slots, tiles of {TREE_MXU_SITES} sites, "
-              f"{blocks} blocks of 128 threads per SM; kernel {ms_k:.3f} ms "
+              f"{blocks} blocks of {tree_mxu_block(S, C)[0]} threads per SM; "
+              f"kernel {ms_k:.3f} ms "
               f"({1e3 / ms_k:.1f} tree evals/s; bound {bd['bound_ms']:.3f} "
-              f"ms by {bd['bound_by']}), plain {ms_p:.3f} ms")
+              f"ms by {bd['bound_by']}; uncontracted fp32 ceiling "
+              f"{ceiling_ms:.3f} ms, {ceiling_ms / ms_k:.1%} of it), plain "
+              f"{ms_p:.3f} ms")
         res[variant] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err, **bd)
     return res
 
@@ -2529,12 +2536,17 @@ def kernel3s_phase(dev):
         site_bytes = 5 * rows * 4 + 4
         bd = bound(site_bytes * n_pad, node_bwd_flops(S, C) * n_pad,
                    FP32_FLOPS)
-        acc_shared, resident = plf_grad._mxu_plan(dev, S, C)
-        blocks, _ = plf_grad.node_bwd_mxu_blocks(n_pad, resident)
+        acc_shared, resident, ts = plf_grad._mxu_plan(dev, S, C)
+        blocks, _ = plf_grad.node_bwd_mxu_blocks(n_pad, resident, ts)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        check((ts, acc_shared) == ((32, True) if S == 20 else (8, False)),
+              f"kernel 3m planned {ts}-site tiles, accumulators "
+              f"{'shared' if acc_shared else 'in device memory'} at S={S}")
         phase("kernel3s", f"S={S} C={C}, {n} sites ({int(sc.sum())} "
               f"rescued): gx1/gx2 == plain; gl/gr/ge within {err:.2e} "
               f"of scale of plain (max abs {abs_err:.3g}), bit-identical run "
-              f"to run; {blocks} blocks, accumulators in "
+              f"to run; {blocks} blocks ({resident // sms} per SM) of "
+              f"{ts}-site tiles, accumulators in "
               f"{'shared' if acc_shared else 'device'} memory; kernel "
               f"{ms_k:.4f} ms ({site_bytes * n_pad / (ms_k * 1e-3) / 1e9:.0f}"
               f" GB/s at {site_bytes} B/site; bound {bd['bound_ms']:.4f} ms "
@@ -2574,13 +2586,13 @@ def kernel3m_on_main_path(pm, fn, t0, dev, label):
     S, C = pm.config.states, pm.config.categories
     args = node_residuals(fn, t0, dev)
     err, abs_err = kernel3m_against_plain(args, S, C, label)
-    acc_shared, resident = plf_grad._mxu_plan(dev, S, C)
-    blocks, per = plf_grad.node_bwd_mxu_blocks(pm.n_pad, resident)
+    acc_shared, resident, ts = plf_grad._mxu_plan(dev, S, C)
+    blocks, per = plf_grad.node_bwd_mxu_blocks(pm.n_pad, resident, ts)
     phase("kernel_train", f"{label}: kernel 3m on the residuals of the node "
           f"with the most rescued sites ({int(args[3].sum())}), n_pad "
-          f"{pm.n_pad}, {blocks} blocks of {per} tiles: gx1/gx2 == plain, "
-          f"gl/gr/ge within {err:.2e} of scale (max abs {abs_err:.3g}), "
-          f"bit-identical run to run")
+          f"{pm.n_pad}, {blocks} blocks of {per} {ts}-site tiles: gx1/gx2 "
+          f"== plain, gl/gr/ge within {err:.2e} of scale (max abs "
+          f"{abs_err:.3g}), bit-identical run to run")
     del args
 
 
@@ -2602,8 +2614,10 @@ def kernel_train_phase(ptree, ptips, codon, dev):
     max|g|); kernel 3m against its plain version on one node's residuals
     of each "kernel" step (kernel3m_on_main_path); the protein gradient
     against float64 central differences; both protein steps timed in
-    turns; auto takes "kernel" for both and "tree" for the 4,096-site
-    sub-alignment (optimize.KERNEL_MIN_NODE_SITES);
+    turns; auto takes "tree" for both models and the protein's 4,096-site
+    sub-alignment (optimize.KERNEL_MIN_NODES, KERNEL_MIN_NODE_SITES: the
+    "kernel" step won only from 255 nodes x 131,072 protein sites and 127
+    nodes x 4,096 codons);
     optimize_branch_lengths on "kernel"."""
     lg = empirical_protein("lg")
     cfg = PLFConfig(states=20, kernel_variant="vpu")
@@ -2627,7 +2641,7 @@ def kernel_train_phase(ptree, ptips, codon, dev):
         fns[backend] = functools.partial(_grad_step, fn, t0, dev)
     (v_k, g_k, mem_k, c_k), (v_t, g_t, mem_t, c_t) = out["kernel"], out["tree"]
     auto = tree_loglik_fn(pm)[0].engine
-    check(auto == "kernel", f"auto took {auto!r} for the vpu protein model")
+    check(auto == "tree", f"auto took {auto!r} for the vpu protein model")
     rel = abs(v_k - v_t) / abs(v_t)
     check(rel < 1e-5, f"protein kernel value {v_k} vs tree {v_t}")
     err = _grad_bar(g_k, g_t)
@@ -2696,7 +2710,7 @@ def kernel_train_phase(ptree, ptips, codon, dev):
     check(c_k == {"plf_node_mxu": Ec, "plf_node_bwd_mxu": Ec},
           f"codon kernel step launched {c_k}")
     auto = tree_loglik_fn(cm)[0].engine
-    check(auto == "kernel", f"auto took {auto!r} for the vpu codon model")
+    check(auto == "tree", f"auto took {auto!r} for the vpu codon model")
     rel = abs(v_k - v_t) / abs(v_t)
     check(rel < 1e-5, f"codon kernel value {v_k} vs tree {v_t}")
     err = _grad_bar(g_k, g_t)

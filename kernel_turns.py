@@ -1,6 +1,6 @@
 """Time backward kernels of two checkouts in turns on one NVIDIA GPU.
 
-    python3 kernel_turns.py [--dna] PARENT_DIR CHANGE_DIR [MORE_DIRS ...]
+    python3 kernel_turns.py [--dna | --k3m2m] PARENT_DIR CHANGE_DIR [MORE ...]
 
 Each directory is the root of a checkout (for the parent commit, unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists, such
@@ -39,6 +39,22 @@ on random operands.  Each turn also gives kernel 4's chunking and its
 five times, kernel 8's plan, the blocks per SM of each kernel where its
 library reports them, and the registers and spills ptxas gave each
 kernel's C = 4 instances (from the build logs).
+
+``--k3m2m``: the median of five launches after one, each timed alone, of
+kernel 3m (``csrc/plf_node_bwd_mxu.cu``, the node backward at S != 4) at
+S = 20 on 2^21 - 77 sites and S = 61 on 2^18 - 5 (C = 4, random operands
+as ``chip_smoke.py``'s phase ``kernel3s`` makes them), and of kernel 2m
+(``csrc/plf_tree_mxu.cu``, the whole-tree forward of the matrix forms) in
+"mxu_3x", "mxu" and "mxu_bf16" on the protein workload (64 x 131,072)
+in "mxu_3x" and "mxu" on the codon workload (32 x 65,536, S = 61) and
+in all three on the DNA workload (160 x 2^20, HKY85 + Gamma4, S = 4),
+each with the model's own operator planes; the wall time (median of five
+after one) of the "kernel" and "tree" value-and-gradient steps of the
+"vpu" twins of both models, and of the default protein model's
+``log_likelihood()``.  Each turn also gives each kernel's plan (kernel
+3m: accumulators in shared memory, blocks per SM, site tile; kernel 2m:
+blocks per SM, threads per block, rows per job) and the registers and
+spills ptxas gave every instance of both kernels.
 """
 
 import json
@@ -358,6 +374,137 @@ print(json.dumps(out))
 '''
 
 
+K3M2M_LIBS = ["plf_node_mxu", "plf_node_bwd_mxu", "plf_tree_mxu",
+              "plf_tree_bwd_mxu"]
+K3M2M_TURN = TURN[:TURN.index("def kernels(pm, v, out, key")] + r'''
+import time
+from plf_tpu_torch.models import hky85
+from plf_tpu_torch.ops import plf_grad as G
+from plf_tpu_torch.ops import layout as L
+from plf_tpu_torch.ops.plf_grad import transpose_lane_constants as T
+
+
+def kernel3m(S, n, out):
+    # chip_smoke.py's kernel3s operands: every 4th site of x1 scaled by
+    # 1e-16, random positive operators, a normal cotangent
+    C = 4
+    rng = np.random.default_rng(30 + S)
+    consts = [torch.as_tensor(rng.random((S * C, S), dtype=np.float32),
+                              device="cuda") for _ in range(3)]
+    n_pad = L.sites_padding(n, 128)
+    gen = torch.Generator(device="cuda").manual_seed(30 + S)
+    a, b, g = (torch.rand((S * C, n_pad), generator=gen, device="cuda")
+               for _ in range(3))
+    a[:, 0::4] *= 1e-16
+    a[:, n:] = 0.0
+    b[:, n:] = 0.0
+    sc = (torch.arange(n_pad, device="cuda") % 4 == 0).to(torch.int32)[None]
+    args = (a, b, g - 0.5, sc, consts[0], consts[1],
+            *(T(t, S, C) for t in consts), n)
+    key = f"S{S}"
+    out["kernel3m_ms"][key] = ms(
+        lambda: G.plf_node_bwd(*args, states=S, categories=C),
+        out["samples"].setdefault(f"kernel3m_{key}", []))
+    plan = G._mxu_plan(torch.device("cuda"), S, C)
+    out["plan"][f"kernel3m_{key}"] = plan_of(plan)
+
+
+def kernel2m(pm, v, key, out):
+    S, C = pm.config.states, pm.config.categories
+    args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites)
+    kw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot, states=S,
+              categories=C, variant=v, planes=pm._planes())
+    out["kernel2m_ms"][f"{key}_{v}"] = ms(
+        lambda: TT.plf_tree_mxu(*args, **kw),
+        out["samples"].setdefault(f"kernel2m_{key}_{v}", []))
+    blocks = TT.plf_tree_mxu_occupancy(pm.codes.dtype, S, C,
+                                       pm.tip_table.shape[1], pm.n_slots, v)
+    # threads per block and rows per job: 128 and 4 before the library
+    # reported them
+    block = getattr(TT, "tree_mxu_block", lambda S, C: (128, 4))(S, C)
+    out["plan"][f"kernel2m_{key}_{v}"] = [blocks, *block]
+
+
+def wall(fn, out, key):
+    # median of five after one, wall ms, the device synchronised
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    out["step_ms"][key] = float(np.median(times))
+    out["samples"][f"step_{key}"] = [dict(ms=times, smi=smi())]
+
+
+def steps(pm, key, out):
+    for backend in ("kernel", "tree"):
+        fn, t0 = tree_loglik_fn(pm, backend=backend)
+
+        def step():
+            t = torch.tensor(t0, device="cuda", requires_grad=True)
+            fn(t).backward()
+        wall(step, out, f"{key}_vpu_{backend}")
+
+
+out = {"ptxas": {"kernel3m": ptxas("plf_node_bwd_mxu",
+                                   "plf_node_bwd_mxu_kernel"),
+                 "kernel2m": ptxas("plf_tree_mxu", "plf_tree_mxu_kernel")},
+       "kernel3m_ms": {}, "kernel2m_ms": {}, "step_ms": {}, "plan": {},
+       "samples": {}}
+kernel3m(20, (1 << 21) - 77, out)
+kernel3m(61, (1 << 18) - 5, out)
+torch.cuda.empty_cache()
+tree = random_tree(64, seed=1)
+p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
+tips = np.random.default_rng(64).choice(
+    np.arange(-1, 23, dtype=np.int8), size=(64, 1 << 17), p=p / p.sum())
+lg = empirical_protein("lg")
+for v in ("mxu_3x", "mxu", "mxu_bf16"):
+    pm = PhyloModel(tree, lg, tips, alpha=0.5,
+                    config=PLFConfig(states=20, kernel_variant=v))
+    kernel2m(pm, v, "protein", out)
+    if v == "mxu_3x":
+        wall(pm.log_likelihood, out, "protein_log_likelihood")
+    del pm
+pm = PhyloModel(tree, lg, tips, alpha=0.5,
+                config=PLFConfig(states=20, kernel_variant="vpu"))
+steps(pm, "protein", out)
+del pm
+torch.cuda.empty_cache()
+rng = np.random.default_rng(7)
+codons = rng.integers(0, 61, size=(32, 1 << 16))
+codons[rng.random(codons.shape) < 0.02] = 61
+gy = codon_gy94(kappa=2.0, omega=0.3)
+for v in ("mxu_3x", "mxu", "vpu"):
+    pm = PhyloModel(random_tree(32, seed=3), gy, codons, alpha=0.7,
+                    config=PLFConfig(states=61, kernel_variant=v))
+    if v == "vpu":
+        steps(pm, "codon", out)
+    else:
+        kernel2m(pm, v, "codon", out)
+    del pm
+    torch.cuda.empty_cache()
+# DNA in the matrix forms (S = 4): chip_smoke.py's 160 x 2^20 HKY85 + G4
+# workload, random codes with gaps and IUPAC codes
+del codons
+p = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
+tips = np.random.default_rng(1).choice(
+    np.arange(-1, 14, dtype=np.int8), size=(160, 1 << 20), p=p / p.sum())
+tree = random_tree(160, seed=1)
+for v in ("mxu_3x", "mxu", "mxu_bf16"):
+    pm = PhyloModel(tree, hky85(2.0), tips, alpha=0.5,
+                    config=PLFConfig(kernel_variant=v))
+    kernel2m(pm, v, "dna", out)
+    del pm
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+'''
+
+
 def smi():
     """The card's SM clock (MHz) and power draw (W), as nvidia-smi reads
     them, around a turn."""
@@ -372,6 +519,8 @@ def main():
     turn, libs = TURN, PROTEIN_LIBS
     if args[:1] == ["--dna"]:
         args, turn, libs = args[1:], DNA_TURN, DNA_LIBS
+    elif args[:1] == ["--k3m2m"]:
+        args, turn, libs = args[1:], K3M2M_TURN, K3M2M_LIBS
     if len(args) < 2:
         sys.exit(__doc__)
     roots = [os.path.abspath(a) for a in args]

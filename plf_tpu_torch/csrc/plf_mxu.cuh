@@ -37,6 +37,11 @@
 // rows o0 .. o0+KB-1, so each loaded src value feeds KB outputs and each
 // operator load is a float4 over 4 consecutive q (V = 4, S % 4 == 0) at an
 // address uniform over the TS threads of the job (a broadcast from L1).
+// A stage has C * ceil(S / KB) jobs for the block's T / TS job slots: the
+// job shape (KB, and the block size the kernel launches with) decides in
+// how many rounds they run.  KB is a template parameter (default kKB = 4,
+// the shape of kernels 1m, 4m, 7m, 8m and 9); the job's arithmetic, each
+// output's sum in q order, does not depend on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,7 +53,7 @@ namespace plf_mxu {
 constexpr int MODE_F32 = 0;
 constexpr int MODE_BF16X3 = 1;
 constexpr int MODE_BF16 = 2;
-constexpr int KB = 4;  // output rows per job
+constexpr int kKB = 4;  // output rows per job (the default job shape)
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));  // round to nearest even
@@ -68,7 +73,7 @@ __device__ __forceinline__ void load_k(const float* p, float (&k)[V]) {
 // out[j] = sum_q src[(q*C+c)*TS + s] * K[((o0+j)*C+c)*S + q] for o0+j < S, in
 // the arithmetic of MODE.  kh/kl: the operator's hi and lo planes (kl is read
 // in MODE_BF16X3 only).
-template <int MODE, int V>
+template <int MODE, int V, int KB = kKB>
 __device__ __forceinline__ void stage_block(const float* src, int TS, int s,
                                             const float* kh, const float* kl,
                                             int S, int C, int c, int o0,
@@ -119,7 +124,7 @@ __device__ __forceinline__ void stage_block(const float* src, int TS, int s,
 // site where some |x3| >= 2^-32 (or is NaN); the caller clears s_big before
 // its own barrier ahead of this call and applies the rescale afterwards.
 // Begins and ends with the block at a barrier.
-template <int MODE, int V>
+template <int MODE, int V, int KB = kKB>
 __device__ __forceinline__ void node_tile(const float* A, const float* B,
                                           float* P, float* O, const float* lh,
                                           const float* ll, const float* rh,
@@ -132,8 +137,8 @@ __device__ __forceinline__ void node_tile(const float* A, const float* B,
   for (int j = threadIdx.x / TS; j < jobs; j += nj) {
     const int c = j % C, o0 = (j / C) * KB;
     float u1[KB], u2[KB];
-    stage_block<MODE, V>(A, TS, s, lh, ll, S, C, c, o0, u1);
-    stage_block<MODE, V>(B, TS, s, rh, rl, S, C, c, o0, u2);
+    stage_block<MODE, V, KB>(A, TS, s, lh, ll, S, C, c, o0, u1);
+    stage_block<MODE, V, KB>(B, TS, s, rh, rl, S, C, c, o0, u2);
 #pragma unroll
     for (int k = 0; k < KB; ++k)
       if (o0 + k < S) P[((o0 + k) * C + c) * TS + s] = __fmul_rn(u1[k], u2[k]);
@@ -143,7 +148,7 @@ __device__ __forceinline__ void node_tile(const float* A, const float* B,
   for (int j = threadIdx.x / TS; j < jobs; j += nj) {
     const int c = j % C, o0 = (j / C) * KB;
     float x3[KB];
-    stage_block<MODE, V>(P, TS, s, eh, el, S, C, c, o0, x3);
+    stage_block<MODE, V, KB>(P, TS, s, eh, el, S, C, c, o0, x3);
 #pragma unroll
     for (int a = 0; a < KB; ++a) {
       if (o0 + a < S) {

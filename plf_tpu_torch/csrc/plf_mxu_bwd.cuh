@@ -1,6 +1,8 @@
 // The reverse sweep of the matrix-form backward kernels, shared by kernel 4m
 // (plf_tree_bwd_mxu.cu, the whole tree), kernel 8m (plf_tree_seg_bwd_mxu.cu,
-// segment by segment) and kernel 3m (plf_node_bwd_mxu.cu, one node).
+// segment by segment) and kernel 3m (plf_node_bwd_mxu.cu, one node, fp32
+// only): all three sweep tiles of bwd_tile(S) sites with bwd_threads
+// threads, sum with tile_sums and place their accumulators by bwd_plan.
 //
 // One PLF step of the sweep, for one tile of TS sites of a node whose
 // children x1, x2 and parent adjoint g_y (already multiplied by the rescale
@@ -19,7 +21,7 @@
 // run in another order than the plain version's, and are held to it by a
 // tolerance.  No float atomics: two runs are bit-identical.
 //
-// The sums of kernels 4m and 8m (tile_sums) are, for each (m, c), a GEMM
+// The sums (tile_sums) are, for each (m, c), a GEMM
 // G[o][q] += sum_k gout[o*C+c][k] * in[q*C+c][k] with K = the tile's sites,
 // cut into units of 16 x 32 entries (o, q) that the block's warps take in
 // turn, each unit four 16 x 8 mma fragments:
@@ -50,14 +52,13 @@
 // private row of device memory (bwd_plan): shared at S = 20 (19 KB beside
 // 61 KB of tiles), device memory at S = 61 (178 KB).  flush_edge writes them
 // into the block's row of partial sums once the edge is done, and
-// plf::colsum adds the rows up in a fixed order.  Tried on an H100 and slower (PERF.md, PR 11): hh and hl + lh in
-// two sets of accumulators combined once per edge (S = 61: 170 against 92
-// ms), the accumulators in the fragments' own order in device memory, 16-
-// site tiles at S = 20, and more blocks per SM under a register cap.
-//
-// Kernel 3m keeps the 8-site tiles and the scalar sums it had (sweep_sums
-// with tile_dot: every entry re-reads and, in the bf16 modes, re-splits its
-// two rows), so its timing and KERNEL_MIN_NODE_SITES stay as measured.
+// plf::colsum adds the rows up in a fixed order (kernel 3m's block sums
+// one edge, so its accumulators in device memory are its row itself).
+// Tried on an H100 and slower (PERF.md): hh and hl + lh in two sets
+// of accumulators combined once per edge (S = 61: 170 against 92 ms), the
+// accumulators in the fragments' own order in device memory, 16-site tiles
+// at S = 20, and more blocks per SM under a register cap.
+
 #pragma once
 
 #include <stdint.h>
@@ -67,14 +68,8 @@
 
 namespace plf_mxu {
 
-// Threads per block (a compile-time constant in every loop below: with the
-// block size read at run time instead, kernel 4m's fp32 and bf16 modes ran
-// 22-29% slower on an H100), and kernel 3m's sites per tile.
-constexpr int kBwdThreads = 128;
-constexpr int kBwdSites = 8;
-
-// The site tile of kernels 4m and 8m (bwd_tile): 32 sites with float4 plane
-// loads for S <= 32 with S % 4 == 0 (S = 20: each stage's 20 jobs of 4
+// The site tile of kernels 4m, 8m and 3m (bwd_tile): 32 sites with float4
+// plane loads for S <= 32 with S % 4 == 0 (S = 20: each stage's 20 jobs of 4
 // rows, and a warp reads one operator address at a time), else 8 (S = 61:
 // 64 jobs fill 128 threads in 4 rounds; six tiles take 47 KB, four blocks
 // per SM where 16 sites allow two).  Measured on an H100 (PERF.md, PR 11):
@@ -84,10 +79,12 @@ __host__ __device__ constexpr int bwd_tile(int S) {
   return S <= 32 && S % 4 == 0 ? 32 : 8;
 }
 
-// Threads per block of kernels 4m and 8m on tiles of TS sites, and the
-// blocks per SM their registers must allow (__launch_bounds__).  On 32-site
-// tiles, 320 threads take each stage's 20 jobs of 4 rows at S = 20 in two
-// rounds; 10 warps a block, two blocks per SM (at most 102 registers).  On
+// Threads per block of kernels 4m, 8m and 3m on tiles of TS sites (a
+// compile-time constant in every loop below: with the block size read at
+// run time instead, kernel 4m's fp32 and bf16 modes ran 22-29% slower on an
+// H100), and the blocks per SM their registers must allow
+// (__launch_bounds__).  On 32-site tiles, 320 threads take each stage's 20
+// jobs of 4 rows at S = 20 in two rounds; 10 warps a block, two blocks per SM (at most 102 registers).  On
 // an H100 this ran kernel 4m's "mxu_3x" at 74-75 ms where 128 threads (3
 // blocks) took 130 and 160 (3 blocks) 99-100; without the register cap
 // kernel 8m's fp32 form kept one block per SM (PERF.md, PR 11).  8-site
@@ -97,42 +94,6 @@ __host__ __device__ constexpr int bwd_threads(int TS) {
 }
 __host__ __device__ constexpr int bwd_min_blocks(int TS) {
   return TS == 32 ? 2 : 4;
-}
-
-// One kernel-3m tile row (kBwdSites = 8 floats, 32-byte aligned) as two
-// float4 loads.
-__device__ __forceinline__ void load_row(const float* p,
-                                         float (&v)[kBwdSites]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// Kernel 3m: sum over the tile's sites of in[s] * go[s] in the arithmetic
-// of MODE.
-template <int MODE>
-__device__ __forceinline__ float tile_dot(const float* in_row,
-                                          const float* go_row) {
-  float in[kBwdSites], go[kBwdSites];
-  load_row(in_row, in);
-  load_row(go_row, go);
-  float hh = -0.0f, hl = -0.0f, lh = -0.0f;  // -0 + x == x
-#pragma unroll
-  for (int s = 0; s < kBwdSites; ++s) {
-    if constexpr (MODE == MODE_F32) {
-      hh = __fadd_rn(hh, __fmul_rn(in[s], go[s]));
-    } else if constexpr (MODE == MODE_BF16) {
-      hh = __fadd_rn(hh, __fmul_rn(bf16r(in[s]), bf16r(go[s])));
-    } else {
-      const float ih = bf16r(in[s]), il = bf16r(__fsub_rn(in[s], ih));
-      const float gh = bf16r(go[s]), gl = bf16r(__fsub_rn(go[s], gh));
-      hh = __fadd_rn(hh, __fmul_rn(gh, ih));
-      hl = __fadd_rn(hl, __fmul_rn(gh, il));
-      lh = __fadd_rn(lh, __fmul_rn(gl, ih));
-    }
-  }
-  return MODE == MODE_BF16X3 ? __fadd_rn(hh, __fadd_rn(hl, lh)) : hh;
 }
 
 // dst[i] = a tile of rows rows x TS from src, whose rows are `stride`
@@ -217,22 +178,22 @@ __device__ __forceinline__ void load_adjoint(const float* adj, size_t stride,
 // u1, u2, g_p of one tile from x1 (tA), x2 (tB) and g_y (tG), and from them
 // g_u1 (tU1), g_u2 (tU2) and p (tP).  lh..rl: the edge's operator planes;
 // eTh/eTl: the transposed EV planes.  Ends at a barrier.
-template <int MODE, int V, int TS = kBwdSites, int NT = kBwdThreads>
+template <int MODE, int V, int TS, int NT>
 __device__ __forceinline__ void sweep_products(
     const float* tA, const float* tB, const float* tG, float* tU1, float* tU2,
     float* tP, const float* lh, const float* ll, const float* rh,
     const float* rl, const float* eTh, const float* eTl, int S, int C) {
   const int s = threadIdx.x % TS;
   const int nj = NT / TS;
-  const int jobs = C * ((S + KB - 1) / KB);
+  const int jobs = C * ((S + kKB - 1) / kKB);
   for (int jb = threadIdx.x / TS; jb < jobs; jb += nj) {
-    const int c = jb % C, o0 = (jb / C) * KB;
-    float u1[KB], u2[KB], gp[KB];
+    const int c = jb % C, o0 = (jb / C) * kKB;
+    float u1[kKB], u2[kKB], gp[kKB];
     stage_block<MODE, V>(tA, TS, s, lh, ll, S, C, c, o0, u1);
     stage_block<MODE, V>(tB, TS, s, rh, rl, S, C, c, o0, u2);
     stage_block<MODE, V>(tG, TS, s, eTh, eTl, S, C, c, o0, gp);
 #pragma unroll
-    for (int k = 0; k < KB; ++k) {
+    for (int k = 0; k < kKB; ++k) {
       if (o0 + k < S) {
         const int idx = ((o0 + k) * C + c) * TS + s;
         tU1[idx] = __fmul_rn(gp[k], u2[k]);
@@ -244,28 +205,7 @@ __device__ __forceinline__ void sweep_products(
   __syncthreads();
 }
 
-// Kernel 3m: acc[ent] += the tile's sum of entry ent = m*RS + q*R + r of the
-// three operator gradients, (x1, g_u1), (x2, g_u2), (p, g_y) for m = 0, 1,
-// 2.  A thread owns the entries tid + k * kBwdThreads, r fastest: a warp
-// then reads C input rows (broadcast) and consecutive gradient rows, where q
-// fastest would put its input rows q*C + r%C, 32 floats apart, on one bank.
-template <int MODE>
-__device__ __forceinline__ void sweep_sums(const float* tA, const float* tB,
-                                           const float* tP, const float* tU1,
-                                           const float* tU2, const float* tG,
-                                           float* acc, int S, int C) {
-  const int R = S * C, RS = R * S;
-  for (int ent = threadIdx.x; ent < 3 * RS; ent += kBwdThreads) {
-    const int m = ent / RS, rem = ent - m * RS;
-    const int q = rem / R, r = rem - q * R;
-    const float* in = (m == 0 ? tA : m == 1 ? tB : tP) +
-                      (q * C + r % C) * kBwdSites;
-    const float* go = (m == 0 ? tU1 : m == 1 ? tU2 : tG) + r * kBwdSites;
-    acc[ent] = __fadd_rn(acc[ent], tile_dot<MODE>(in, go));
-  }
-}
-
-// ---- kernels 4m and 8m: the operator-gradient sums of a tile ----
+// ---- the operator-gradient sums of a tile ----
 
 // Two bf16 values in one register, a in the low half (the fragment order).
 __device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
@@ -454,7 +394,7 @@ __device__ __forceinline__ void tile_sums(const float* tA, const float* tB,
 // edge's transposed planes); a null destination (a tip child, whose
 // adjoint is never formed) is skipped.  Both sides share each job's (c, o0)
 // loop, as the sweep's other stages do.
-template <int MODE, int V, int TS = kBwdSites, int NT = kBwdThreads>
+template <int MODE, int V, int TS, int NT>
 __device__ __forceinline__ void adjoint_to(const float* tU1, const float* tU2,
                                            const float* lTh, const float* lTl,
                                            const float* rTh, const float* rTl,
@@ -463,10 +403,10 @@ __device__ __forceinline__ void adjoint_to(const float* tU1, const float* tU2,
   if (!dl && !dr) return;
   const int s = threadIdx.x % TS;
   const int nj = NT / TS;
-  const int jobs = C * ((S + KB - 1) / KB);
+  const int jobs = C * ((S + kKB - 1) / kKB);
   for (int jb = threadIdx.x / TS; jb < jobs; jb += nj) {
-    const int c = jb % C, o0 = (jb / C) * KB;
-    float o[KB];
+    const int c = jb % C, o0 = (jb / C) * kKB;
+    float o[kKB];
     for (int side = 0; side < 2; ++side) {
       float* dst = side ? dr : dl;
       if (!dst) continue;
@@ -474,7 +414,7 @@ __device__ __forceinline__ void adjoint_to(const float* tU1, const float* tU2,
                            side ? rTl : lTl, S, C, c, o0, o);
       const size_t stride = side ? sr : sl;
 #pragma unroll
-      for (int k = 0; k < KB; ++k)
+      for (int k = 0; k < kKB; ++k)
         if (o0 + k < S) dst[(size_t)((o0 + k) * C + c) * stride + s] = o[k];
     }
   }
@@ -507,8 +447,7 @@ __device__ __forceinline__ void flush_edge(float* acc, float* part, int E,
 // Dynamic shared memory of one block: six tiles of TS sites (x1, x2, g_y,
 // g_u1, g_u2, p), the rescale flags and cotangent of a tile, the grr sums
 // and, when acc_shared, the 3*R*S accumulators.
-inline size_t bwd_smem_bytes(int R, int S, bool acc_shared,
-                             int TS = kBwdSites) {
+inline size_t bwd_smem_bytes(int R, int S, bool acc_shared, int TS) {
   return sizeof(float) * ((size_t)6 * R * TS + 2 * TS + R +
                           (acc_shared ? (size_t)3 * R * S : 0));
 }
@@ -542,13 +481,12 @@ int bwd_fit(K kernel, int R, int S, bool acc_shared, int TS, int NT,
 
 // The plan of a launch: the accumulators in shared memory when two blocks
 // with them fit an SM, else in device memory (at S = 61 they are 178 KB: one
-// block per SM could not hide the latency of its sums).  Kernel 3m plans
-// with its 8-site tiles of 128 threads; kernels 4m and 8m with their
-// bwd_tile(S) and bwd_threads, which keep shared memory at S = 20 (two
-// blocks of 320 threads) and take device memory at S = 61.
+// block per SM could not hide the latency of its sums).  Each kernel plans
+// with its bwd_tile(S) and bwd_threads, which keep shared memory at S = 20
+// (two blocks of 320 threads) and take device memory at S = 61.
 template <typename K>
-int bwd_plan(K kernel, int R, int S, int* acc_shared, int* blocks,
-             int TS = kBwdSites, int NT = kBwdThreads) {
+int bwd_plan(K kernel, int R, int S, int* acc_shared, int* blocks, int TS,
+             int NT) {
   const int err = bwd_fit(kernel, R, S, true, TS, NT, blocks);
   if (err != 0) return err;
   *acc_shared = *blocks >= 2;

@@ -13,13 +13,24 @@
 // at 64 taxa, S = 20, C = 4) and three times the products in bf16x3 mode.
 // The arena caps the resident blocks per SM (plf_tree_mxu_occupancy).
 // Design:
-//  * a block of 128 threads owns kSites = 8 sites (narrow tiles leave room
-//    for more resident blocks: 8 per SM at 64 taxa, S = 20, C = 4, where
-//    16- and 32-site tiles allowed 5 and 2 and ran slower) and walks the
-//    int32 schedule of
-//    compile_register_schedule, one node_tile per op, with a barrier between
-//    the phases of an op (operands ready, products ready, parent written,
-//    rescale applied);
+//  * a block owns kSites = 8 sites (narrow tiles leave room for more
+//    resident blocks: 8 per SM at 64 taxa, S = 20, C = 4, where 16- and
+//    32-site tiles allowed 5 and 2 and ran slower) and walks the int32
+//    schedule of compile_register_schedule, one node_tile per op, with a
+//    barrier between the phases of an op (operands ready, products ready,
+//    parent written, rescale applied);
+//  * its threads are the stage's jobs (block_threads; plf_tree_mxu_block
+//    reports them): each of an op's stages has C * ceil(S / KB) jobs of KB
+//    output rows (job_rows: 4 where S % 4 == 0, else 5), and the block
+//    has 8 threads (one job slot) per job, so that every stage runs in one
+//    round (S = 20, C = 4: 20 jobs, 160 threads; S = 61: 52 jobs, 416
+//    threads), and in the fewest rounds of at most 64 slots where the jobs
+//    exceed 64: 16 slots at S = 20 would run a second round of 4 jobs on
+//    one warp while three wait at the barrier, and at S = 61 shared memory
+//    holds two blocks an SM, which need many warps each.  On an H100
+//    (PERF.md): 5-row jobs ran the S = 61 fp32 forward 22% faster than
+//    4-row jobs (bf16x3 2% slower) and S = 20 2-4% slower; splitting each
+//    source value once per stage ran 2% slower;
 //  * shared memory holds the tip table and root row vector, the n_slots live
 //    internal CLVs as [row][site] tiles, two tiles for tip operands and one
 //    for the stage-2 products.  A tip is expanded into its tile from the
@@ -38,11 +49,26 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSites = 8;  // TS
+constexpr int kSites = 8;         // TS
+constexpr int kMaxThreads = 512;  // threads per block, a multiple of kSites
+
+// KB, output rows per job, by the operator loads' width V (4 where S % 4 ==
+// 0, else 5).
+__host__ __device__ constexpr int job_rows(int V) { return V == 4 ? 4 : 5; }
+
+// Threads per block: one job slot of kSites threads per job of a stage
+// (C * ceil(S / KB) jobs), in the fewest rounds of at most kMaxThreads /
+// kSites jobs, every round full but the last, which lacks fewer jobs than
+// there are rounds.
+int block_threads(int S, int C, int KB) {
+  const int jobs = C * ((S + KB - 1) / KB);
+  const int slots = kMaxThreads / kSites;
+  const int rounds = (jobs + slots - 1) / slots;
+  return kSites * ((jobs + rounds - 1) / rounds);
+}
 
 template <int MODE, int V, typename CodeT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 plf_tree_mxu_kernel(const CodeT* codes, const int* sched, int n_edges,
                     const float* lh, const float* ll, const float* rh,
                     const float* rl, const float* eh, const float* el,
@@ -97,10 +123,10 @@ plf_tree_mxu_kernel(const CodeT* codes, const int* sched, int n_edges,
     if (!lf) expand(ls, tip_l);
     if (!rf) expand(rs, tip_r);
     __syncthreads();
-    plf_mxu::node_tile<MODE, V>(lf ? arena + (size_t)ls * tile : tip_l,
-                                rf ? arena + (size_t)rs * tile : tip_r, prod,
-                                out, lh + e, ll + e, rh + e, rl + e, eh, el,
-                                S, C, kSites, s_big);
+    plf_mxu::node_tile<MODE, V, job_rows(V)>(
+        lf ? arena + (size_t)ls * tile : tip_l,
+        rf ? arena + (size_t)rs * tile : tip_r, prod, out, lh + e, ll + e,
+        rh + e, rl + e, eh, el, S, C, kSites, s_big);
     for (int j = tid; j < tile; j += blockDim.x) {
       const int s = j % kSites;
       if (!s_big[s] && site0 + s < n)
@@ -139,23 +165,25 @@ int launch(const void* codes, const int* sched, int n_edges, const float* lh,
            const float* el, const float* ttab, int ncols, const float* rr,
            int n_slots, int root_slot, float* lik, int* sc, int n, int n_pad,
            int S, int C, cudaStream_t st) {
+  const int threads = block_threads(S, C, job_rows(V));
   const size_t smem = smem_bytes(S * C, ncols, n_slots);
   cudaError_t err = prepare<MODE, V, CodeT>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_pad + kSites - 1) / kSites);
-  plf_tree_mxu_kernel<MODE, V, CodeT><<<grid, kThreads, smem, st>>>(
+  plf_tree_mxu_kernel<MODE, V, CodeT><<<grid, threads, smem, st>>>(
       static_cast<const CodeT*>(codes), sched, n_edges, lh, ll, rh, rl, eh, el,
       ttab, ncols, rr, n_slots, root_slot, lik, sc, n, n_pad, S, C);
   return (int)cudaGetLastError();
 }
 
 template <int MODE, int V, typename CodeT>
-int occupancy(int rows, int ncols, int n_slots, int* blocks) {
-  const size_t smem = smem_bytes(rows, ncols, n_slots);
+int occupancy(int S, int C, int ncols, int n_slots, int* blocks) {
+  const size_t smem = smem_bytes(S * C, ncols, n_slots);
   cudaError_t err = prepare<MODE, V, CodeT>(smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, plf_tree_mxu_kernel<MODE, V, CodeT>, kThreads, smem);
+      blocks, plf_tree_mxu_kernel<MODE, V, CodeT>,
+      block_threads(S, C, job_rows(V)), smem);
 }
 
 }  // namespace
@@ -165,7 +193,9 @@ int occupancy(int rows, int ncols, int n_slots, int* blocks) {
 // lh/ll, rh/rl: (E, S*C, S) fp32 hi and lo planes of the per-edge lane
 // constants; eh/el: (S*C, S); ttab: (S*C, ncols), already rounded for the
 // variant; rr: (S*C,); lik: (n_pad,) fp32; sc: (n_pad,) int32.
-// mode: 0 fp32, 1 bf16x3, 2 bf16.  Returns cudaGetLastError().
+// mode: 0 fp32, 1 bf16x3, 2 bf16; the block's threads and each job's rows
+// follow from states and categories (plf_tree_mxu_block).
+// Returns cudaGetLastError().
 extern "C" int plf_tree_mxu_launch(const void* codes, int code_bytes,
                                    const int* sched, int n_edges,
                                    const float* lh, const float* ll,
@@ -196,20 +226,30 @@ extern "C" int plf_tree_mxu_launch(const void* codes, int code_bytes,
   return (int)cudaErrorInvalidValue;
 }
 
+// Threads per block and output rows per job of kernel 2m at this state and
+// category count (160 and 4 at S = 20, C = 4; 416 and 5 at S = 61, C = 4).
+extern "C" int plf_tree_mxu_block(int states, int categories, int* threads,
+                                  int* rows) {
+  if (states < 1 || categories < 1) return (int)cudaErrorInvalidValue;
+  *rows = job_rows(states % 4 == 0 ? 4 : 1);
+  *threads = block_threads(states, categories, *rows);
+  return (int)cudaSuccess;
+}
+
 // Resident blocks per SM of the launch plf_tree_mxu_launch would make with
 // these arguments (registers and shared memory both counted by the runtime).
 extern "C" int plf_tree_mxu_occupancy(int code_bytes, int states,
                                       int categories, int ncols, int n_slots,
                                       int mode, int* blocks) {
-  const int rows = states * categories;
+  if (states < 1 || categories < 1) return (int)cudaErrorInvalidValue;
   if (code_bytes == 4) {
     PLF_MXU_DISPATCH(mode, states,
-                     return occupancy<M_, V_, int32_t>(rows, ncols, n_slots,
-                                                       blocks));
+                     return occupancy<M_, V_, int32_t>(
+                         states, categories, ncols, n_slots, blocks));
   } else if (code_bytes == 1) {
     PLF_MXU_DISPATCH(mode, states,
-                     return occupancy<M_, V_, int8_t>(rows, ncols, n_slots,
-                                                      blocks));
+                     return occupancy<M_, V_, int8_t>(
+                         states, categories, ncols, n_slots, blocks));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -35,9 +35,10 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
 ``"auto"`` takes ``"torch"`` for a model on the CPU, and for a model
 whose config chose ``Backend.TORCH``.  For a "vpu" model at S != 4 on a
 CUDA device it takes ``"kernel"`` from the size at which that was
-measured faster than "tree" (``_kernel_wins``: nodes x padded sites at
-least 63 x 131,072 for LG+G4 proteins, 31 x 4,096 for GY94+G4 codons)
-while the per-node residuals fit half the free device memory, as the
+measured faster than "tree" (``_kernel_wins``: at least 255 nodes and
+255 x 131,072 node-sites for LG+G4 proteins, 127 nodes and 127 x 4,096
+node-sites for GY94+G4 codons) while the per-node residuals fit half the
+free device memory, as the
 JAX package takes "pallas" on the TPU where they fit.
 Otherwise, on a CUDA device it takes, when the forward kernel admits the
 tree (``PhyloModel.can_fuse``), ``"segmented"`` for a DNA "vpu" model
@@ -109,36 +110,40 @@ def _free_bytes(dev) -> int:
             - torch.cuda.memory_allocated(dev))
 
 
-#: The fewest node-sites (PLF nodes x padded sites) at which a "kernel"
-#: step on a "vpu" model beat "tree" on an H100, by (S, C): the smallest
-#: measured winner (``backend_turns.py``, PERF.md).  At S = 20, C = 4
-#: "tree" won at every shape up to 4,177,920 (255 nodes x 16,384 sites)
-#: and "kernel" from 8,257,536 (63 x 131,072) up; at S = 61 "tree" won at
-#: 61,440 (15 x 4,096 codons) and "kernel" from 126,976 (31 x 4,096) up.
-#: Other (S, C) were not measured and keep "tree".
-KERNEL_MIN_NODE_SITES = {(20, 4): 63 * 131_072, (61, 4): 31 * 4_096}
+#: Where a "kernel" step on a "vpu" model beat "tree" on an H100, by
+#: (S, C): the fewest PLF nodes and the fewest node-sites (nodes x padded
+#: sites) of the shapes it won at (``backend_turns.py``, PERF.md), both
+#: of which a model must reach.  At S = 20, C = 4 "tree" won or tied at
+#: every shape up to 255 nodes x 65,536 sites and at 63 x 131,072 (54.8-
+#: 55.3 against 55.0 ms), "kernel" at 255 x 131,072 (204.5-204.8 against
+#: 227.7-229.6 ms).  At S = 61 "tree" won at every 15- and 31-node shape
+#: (up to 31 x 65,536 codons: 367 against 401 ms), "kernel" at 127 nodes
+#: from 1,500 codons on (158 against 266 ms).  Other (S, C) were not
+#: measured and keep "tree".
+KERNEL_MIN_NODES = {(20, 4): 255, (61, 4): 127}
+KERNEL_MIN_NODE_SITES = {(20, 4): 255 * 131_072, (61, 4): 127 * 4_096}
 
 
 def _kernel_wins(pm, free: Optional[int] = None) -> bool:
     """Whether a step on the card takes "kernel" (kernels 1m + 3m once per
     node) for a "vpu" model at S != 4: where it was measured faster than
-    "tree" (:data:`KERNEL_MIN_NODE_SITES`: the model's nodes x n_pad at
-    least that of the smallest shape "kernel" won at for its S and C), and
-    its per-node residuals, the two child CLVs of every node (``3 * E *
-    S*C * n_pad * 4`` bytes, the JAX package's count,
+    "tree" (the model's nodes and nodes x n_pad at least
+    :data:`KERNEL_MIN_NODES` and :data:`KERNEL_MIN_NODE_SITES` for its S
+    and C), and its per-node residuals, the two child CLVs of every node
+    (``3 * E * S*C * n_pad * 4`` bytes, the JAX package's count,
     ``plf_tpu/models/optimize.py:104-111``), fit half the ``free`` device
     memory (default: :func:`_free_bytes`).  Measured on an H100 in turns
     (``backend_turns.py``, PERF.md): a "kernel" step pays a cost per node
-    that sites hardly change (29-46 ms, 0.46-0.73 ms a node, at 64
-    protein taxa x 4,096 sites, where "tree" takes 4.9-5.5 ms), which
-    only many sites amortise (64 x 131,072: "kernel" 72.2 against 81.3-81.5
-    ms); at S = 61 kernel 4m's cost grows faster than the nodes (128 codon
-    taxa x 16,384: 421-423 against 1,297-1,313 ms), so "kernel" won from
-    32 taxa at every size measured (1,500 to 65,536 codons)."""
+    that sites hardly change (28-37 ms at 64 protein taxa x 4,096 sites,
+    where "tree" takes 4.4 ms), which only many sites amortise; kernel 4m's
+    cost grows faster than the nodes (128 codon taxa x 16,384: "kernel"
+    410 against "tree" 961-962 ms), so at S = 61 "kernel" wins at 128 taxa
+    and not at 32."""
     cfg = pm.config
-    least = KERNEL_MIN_NODE_SITES.get((cfg.states, cfg.categories))
+    key = (cfg.states, cfg.categories)
+    least = KERNEL_MIN_NODE_SITES.get(key)
     E = len(pm.schedule)
-    if least is None or E * pm.n_pad < least:
+    if least is None or E < KERNEL_MIN_NODES[key] or E * pm.n_pad < least:
         return False
     if free is None:
         free = _free_bytes(pm.device)

@@ -21,8 +21,10 @@ device memory: 324 bytes per site at S = C = 4 (x1, x2, g and the flags
 read, gx1 and gx2 written).  At S != 4 kernel 3m (``csrc/
 plf_node_bwd_mxu.cu``, :func:`plf_node_bwd_mxu`) computes the same
 function in fp32 on ``[row][site]`` shared-memory tiles, kernel 4m's
-reverse sweep for one node: a site's rows and its ``3*S*C*S`` gradient
-slots no longer fit a thread's registers.
+reverse sweep for one node on kernel 4m's tile and plan (32 sites and
+320 threads at S = 20, 8 and 128 at S = 61; its library says which): a
+site's rows and its ``3*S*C*S`` gradient slots no longer fit a thread's
+registers.
 
 :func:`plf_node_bwd` dispatches on S first (S != 4 goes to kernel 3m),
 then on the device of its tensors: a CPU tensor takes the plain version
@@ -47,7 +49,7 @@ from .plf_node import SMEM_BLOCK_BYTES, _tile_rows, plf_node, stage
 __all__ = ["transpose_lane_constants", "op_grad", "plf_node_bwd",
            "plf_node_bwd_torch", "plf_node_bwd_mxu", "make_plf_diff",
            "node_bwd_blocks", "node_bwd_mxu_blocks", "GRAD_THREADS",
-           "MAX_GRAD_BLOCKS", "NODE_BWD_MXU_SITES"]
+           "MAX_GRAD_BLOCKS"]
 
 #: Threads per block of the backward kernels, and sites per tile
 #: (``csrc/plf_grad.cuh::kGradThreads``); ``n_pad`` must be a multiple.
@@ -56,9 +58,6 @@ GRAD_THREADS = 128
 #: Most blocks a backward launch spreads its sites over; each block writes
 #: one row of operator-gradient partials.
 MAX_GRAD_BLOCKS = 1024
-
-#: Sites per tile of kernel 3m (``plf_mxu_bwd.cuh::kBwdSites``).
-NODE_BWD_MXU_SITES = 8
 
 
 def transpose_lane_constants(lc, states: int = 4, categories: int = 4):
@@ -220,10 +219,10 @@ def _lib_mxu():
     from ._build import load_library
     lib = load_library("plf_node_bwd_mxu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.plf_node_bwd_mxu_launch.argtypes = [vp] * 13 + [ci, ci, vp] + [
+    lib.plf_node_bwd_mxu_launch.argtypes = [vp] * 12 + [ci] * 3 + [vp] + [
         ci] * 4 + [vp]
     lib.plf_node_bwd_mxu_launch.restype = ci
-    lib.plf_node_bwd_mxu_plan.argtypes = [ci, ci] + [ctypes.POINTER(ci)] * 2
+    lib.plf_node_bwd_mxu_plan.argtypes = [ci, ci] + [ctypes.POINTER(ci)] * 3
     lib.plf_node_bwd_mxu_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -232,30 +231,33 @@ def _lib_mxu():
 
 @functools.cache
 def _mxu_plan(device: torch.device, states: int, categories: int):
-    """``(acc_shared, resident)`` of kernel 3m, as its library decides
-    them (``plf_node_bwd_mxu_plan``, kernel 4m's rule): the accumulators in
-    shared memory when two blocks with them fit an SM (S = 20), else in a
-    row of device memory per block (S = 61); and the blocks resident on
-    the whole card at once."""
+    """``(acc_shared, resident, sites)`` of kernel 3m, as its library
+    decides them (``plf_node_bwd_mxu_plan``, kernel 4m's rule and tile):
+    the accumulators in shared memory when two blocks with them fit an SM
+    (S = 20), else in each block's row of partial sums in device memory
+    (S = 61); the blocks resident on the whole card at once (0 when a
+    block's tiles exceed its shared memory); and the sites per tile (32 at
+    S = 20, 8 at S = 61)."""
     lib = _lib_mxu()
-    acc_shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    acc_shared, blocks, sites = (ctypes.c_int(0) for _ in range(3))
     with torch.cuda.device(device):
         err = lib.plf_node_bwd_mxu_plan(states, categories,
                                         ctypes.byref(acc_shared),
-                                        ctypes.byref(blocks))
-    if err != 0 or blocks.value < 1:
+                                        ctypes.byref(blocks),
+                                        ctypes.byref(sites))
+    if err != 0:
         raise RuntimeError(f"plf_node_bwd_mxu occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return bool(acc_shared.value), blocks.value * sms
+    return bool(acc_shared.value), blocks.value * sms, sites.value
 
 
-def node_bwd_mxu_blocks(n_sites: int, resident: int):
+def node_bwd_mxu_blocks(n_sites: int, resident: int, sites: int):
     """``(n_blocks, tiles_per_block)`` of a kernel-3m launch over
-    ``n_sites`` (a multiple of :data:`NODE_BWD_MXU_SITES`): at most one
-    wave of ``resident`` blocks and :data:`MAX_GRAD_BLOCKS`, each with at
-    least one tile."""
-    tiles = n_sites // NODE_BWD_MXU_SITES
+    ``n_sites`` in tiles of ``sites`` (its plan's tile, which divides the
+    128-site padding unit): at most one wave of ``resident`` blocks and
+    :data:`MAX_GRAD_BLOCKS`, each with at least one tile."""
+    tiles = n_sites // sites
     per = -(-tiles // max(1, min(resident, MAX_GRAD_BLOCKS)))
     return -(-tiles // per), per
 
@@ -277,11 +279,6 @@ def plf_node_bwd_mxu(x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n: int, *,
                          f"{x1.device}")
     S, C = states, categories
     rows = S * C
-    tiles_bytes = 4 * (6 * rows * NODE_BWD_MXU_SITES
-                       + 2 * NODE_BWD_MXU_SITES + rows)
-    if tiles_bytes > SMEM_BLOCK_BYTES:
-        raise ValueError(f"plf_node_bwd_mxu: {rows} rows do not fit one "
-                         f"block's shared memory ({SMEM_BLOCK_BYTES} bytes)")
     if not all(t.is_contiguous() for t in (x1, x2, g, sc, *consts)):
         raise ValueError("plf_node_bwd_mxu: tensors must be contiguous")
     if S % 4 == 0 and any(t.data_ptr() % 16 for t in consts):
@@ -294,21 +291,24 @@ def plf_node_bwd_mxu(x1, x2, g, sc, lc, rc, lcT, rcT, ecT, n: int, *,
                          f"0 <= n={n} <= n_pad")
     lib = _lib_mxu()
     dev = x1.device
-    acc_shared, resident = _mxu_plan(dev, S, C)
-    n_blocks, per = node_bwd_mxu_blocks(n_pad, resident)
+    acc_shared, resident, ts = _mxu_plan(dev, S, C)
+    if resident < 1:
+        raise ValueError(f"plf_node_bwd_mxu: {rows} rows in tiles of {ts} "
+                         f"sites do not fit one block's shared memory "
+                         f"({SMEM_BLOCK_BYTES} bytes)")
+    n_blocks, per = node_bwd_mxu_blocks(n_pad, resident, ts)
     gx1 = torch.empty_like(x1)
     gx2 = torch.empty_like(x1)
     partial = torch.empty((n_blocks, 3 * rows * S), dtype=torch.float32,
                           device=dev)
-    acc = None if acc_shared else torch.empty_like(partial)
     gops = torch.empty((3, rows, S), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.plf_node_bwd_mxu_launch(
             x1.data_ptr(), x2.data_ptr(), g.data_ptr(), sc.data_ptr(),
             *(t.data_ptr() for t in consts), gx1.data_ptr(), gx2.data_ptr(),
-            partial.data_ptr(), None if acc is None else acc.data_ptr(),
-            n_blocks, per, gops.data_ptr(), int(n), n_pad, S, C, stream)
+            partial.data_ptr(), int(acc_shared), n_blocks, per,
+            gops.data_ptr(), int(n), n_pad, S, C, stream)
     if err != 0:
         raise RuntimeError(f"plf_node_bwd_mxu kernel launch failed: "
                            f"{lib.plf_error_string(err).decode()}")

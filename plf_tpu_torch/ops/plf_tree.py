@@ -32,9 +32,12 @@ per-node path.  At S = C = 4 that admits ``n_slots <= 28``; a random
 Kernel 2m (``csrc/plf_tree_mxu.cu``) is the matrix ("MXU") form of the
 same two TPU kernels (``_plf_node_mxu`` per op, ``_expand_tip(dot=)`` per
 tip) for the "mxu", "mxu_3x" and "mxu_bf16" variants, and the "vpu"
-variant at S != 4.  :func:`plf_tree` dispatches to it.  A block of 128
-threads owns a tile of :data:`TREE_MXU_SITES` = 8 sites and all ``S*C``
-rows; its capacity rule (:func:`tree_mxu_fits`) admits a tree whose
+variant at S != 4.  :func:`plf_tree` dispatches to it.  A block owns a
+tile of :data:`TREE_MXU_SITES` = 8 sites and all ``S*C`` rows, with one
+job slot of 8 threads per job of a stage, as its library decides
+(:func:`tree_mxu_block`: 160 threads at S = 20, C = 4; 416 at S = 61,
+whose jobs take 5 output rows), so that every stage runs its jobs in one
+round; its capacity rule (:func:`tree_mxu_fits`) admits a tree whose
 ``n_slots + 3`` tiles fit shared memory; a tree that does not fit takes
 the per-node path.  At S = 20, C = 4 with all 24 tip codes that admits
 ``n_slots <= 84``.  Narrow tiles leave room for more resident blocks
@@ -59,7 +62,7 @@ __all__ = ["plf_tree", "plf_tree_torch", "plf_tree_occupancy", "root_reduce",
            "pack_branch_constants", "tree_block_threads", "tree_smem_bytes",
            "SMEM_BLOCK_BYTES", "TREE_THREADS", "plf_tree_mxu",
            "plf_tree_mxu_occupancy", "tree_mxu_fits", "tree_mxu_smem_bytes",
-           "TREE_MXU_SITES"]
+           "tree_mxu_block", "TREE_MXU_SITES"]
 
 #: Thread-block size of the tree kernel: four warps, which leaves room for
 #: several blocks per SM at the arena sizes of real trees.
@@ -418,6 +421,8 @@ def _lib_mxu():
     lib.plf_tree_mxu_launch.restype = ci
     lib.plf_tree_mxu_occupancy.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
     lib.plf_tree_mxu_occupancy.restype = ci
+    lib.plf_tree_mxu_block.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 2
+    lib.plf_tree_mxu_block.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
@@ -482,9 +487,9 @@ plf_tree_mxu.launches = 0
 def plf_tree_mxu_occupancy(code_dtype: torch.dtype, states: int,
                            categories: int, n_codes: int, n_slots: int,
                            variant: str) -> int:
-    """Thread blocks of :func:`plf_tree_mxu` resident on one SM for this
-    tree shape, as the CUDA runtime computes it; builds the kernel on
-    first use and needs a CUDA device."""
+    """Thread blocks of :func:`plf_tree_mxu` (of :func:`tree_mxu_block`'s
+    threads) resident on one SM for this tree shape, as the CUDA runtime
+    computes it; builds the kernel on first use and needs a CUDA device."""
     code_bytes = {torch.int32: 4, torch.int8: 1}[code_dtype]
     if not tree_mxu_fits(n_slots, states * categories, n_codes):
         raise ValueError(f"a {n_slots}-slot arena does not fit")
@@ -497,3 +502,19 @@ def plf_tree_mxu_occupancy(code_dtype: torch.dtype, states: int,
         raise RuntimeError(f"plf_tree_mxu occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     return blocks.value
+
+
+def tree_mxu_block(states: int, categories: int) -> Tuple[int, int]:
+    """``(threads, rows)`` of kernel 2m at this state and category count,
+    as its library decides them (``plf_tree_mxu_block``): threads per
+    block, one job slot of :data:`TREE_MXU_SITES` threads per job of a
+    stage in the fewest rounds of at most 64 jobs, and output rows per
+    job (4 where S % 4 == 0, else 5).  Builds the kernel on first use."""
+    lib = _lib_mxu()
+    threads, rows = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.plf_tree_mxu_block(states, categories, ctypes.byref(threads),
+                                 ctypes.byref(rows))
+    if err != 0:
+        raise RuntimeError(f"plf_tree_mxu block query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return threads.value, rows.value

@@ -21,12 +21,12 @@ from plf_tpu_torch.models import (PhyloModel, codon_gy94,  # noqa: E402
                                   simulate_alignment)
 from plf_tpu_torch.ops import layout as L  # noqa: E402
 from plf_tpu_torch.ops.plf_mxu import (plf_node_mxu,  # noqa: E402
-                                       plf_node_mxu_torch)
+                                       plf_node_mxu_torch, uses_mxu_kernels)
 from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch  # noqa: E402
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,  # noqa: E402
                                         plf_tree_mxu_occupancy,
                                         plf_tree_occupancy, plf_tree_torch,
-                                        reorder_schedule)
+                                        reorder_schedule, tree_mxu_block)
 from plf_tpu_torch.ops import plf_grad as G  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_grad as TG  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_seg as SG  # noqa: E402
@@ -441,13 +441,20 @@ def test_kernel9_rejects_what_it_cannot_run(cuda):
         plf_node_gen(lc, rc.cpu(), ec, states=20)
 
 
-@pytest.mark.parametrize("S,C", [(20, 4), (20, 5), (61, 4), (13, 3)])
-def test_kernel3m_matches_plain(cuda, S, C):
+@pytest.mark.parametrize("S,C,n", [(20, 4, 40 * 128 - 37),
+                                   (20, 5, 40 * 128 - 37),
+                                   (61, 4, 40 * 128 - 37),
+                                   (13, 3, 40 * 128 - 37),
+                                   (20, 4, 40 * 128 + 1),
+                                   (61, 4, 40 * 128 + 1)])
+def test_kernel3m_matches_plain(cuda, S, C, n):
     """Kernel 3m (plf_node_bwd at S != 4): gx1/gx2 == plain bit for bit,
     zero on padding sites; the operator sums within 1e-4 of scale of the
     plain version and bit-identical run to run; plf_node_bwd_mxu counts
-    the launches, plf_node_bwd none."""
-    n = 40 * 128 - 37
+    the launches, plf_node_bwd none.  Its plan is kernel 4m's: 32-site
+    tiles with the accumulators in shared memory at S = 20, 8-site tiles
+    with them in device memory at S = 61; n = 40 * 128 + 1 puts one site
+    in the last tile."""
     n_pad = L.sites_padding(n, 128)
     rng = np.random.default_rng(S)
     lc, rc, ec = _gen_consts(cuda, S, C, seed=S)
@@ -477,6 +484,10 @@ def test_kernel3m_matches_plain(cuda, S, C):
         assert torch.equal(k1[i], k2[i])       # run to run, bit for bit
     for i in (2, 3, 4):
         _sums_close(k1[i], p[i])
+    acc_shared, resident, ts = G._mxu_plan(a.device, S, C)
+    assert ts == (32 if S == 20 else 8) and resident > 0
+    if C == 4:
+        assert acc_shared == (S == 20)
 
 
 def test_kernel3m_rejects_what_it_cannot_run(cuda):
@@ -590,7 +601,7 @@ def _underflow_case_s(n, S, C, seed):
 
 
 def _protein_model(device, variant, n_leaves=24, n_sites=1000, states=20,
-                   p_inv=None, tip_dtype="int32"):
+                   p_inv=None, tip_dtype="int32", categories=4):
     rng = np.random.default_rng(4)
     tips = rng.integers(-1, states + 3, size=(n_leaves, n_sites))
     model = (empirical_protein("lg") if states == 20
@@ -599,27 +610,59 @@ def _protein_model(device, variant, n_leaves=24, n_sites=1000, states=20,
                       p_inv=p_inv,
                       config=PLFConfig(states=states, block_sites=128,
                                        kernel_variant=variant,
-                                       tip_dtype=tip_dtype),
+                                       tip_dtype=tip_dtype,
+                                       categories=categories),
                       device=device)
+
+
+#: Kernel 2m's block at each (S, C) of test_kernel2m_equals_plain, as its
+#: library reports it (tree_mxu_block): (threads, rows per job).
+TREE_MXU_BLOCKS = {(20, 4): (160, 4), (20, 5): (200, 4), (61, 4): (416, 5),
+                   (13, 3): (72, 5), (61, 5): (264, 5), (52, 5): (264, 4),
+                   (4, 4): (32, 4), (4, 1): (8, 4), (20, 1): (40, 4),
+                   (61, 8): (416, 5)}
+
+
+def test_kernel2m_block_takes_every_job_in_whole_rounds(cuda):
+    """The library's block for kernel 2m (tree_mxu_block) at each pinned
+    (S, C): test_torch_mxu.py::test_kernel2m_job_slots_take_every_job_once
+    walks node_tile's job loop over these values on the CPU."""
+    for (S, C), want in TREE_MXU_BLOCKS.items():
+        assert tree_mxu_block(S, C) == want, (S, C)
 
 
 @pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
 @pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
                                           (20, {"tip_dtype": "int8"}),
-                                          (61, {})])
+                                          (61, {}), (13, {"categories": 3}),
+                                          (61, {"p_inv": 0.2}),
+                                          (52, {"p_inv": 0.2}),
+                                          (4, {"n_leaves": 32}),
+                                          (4, {"categories": 1}),
+                                          (20, {"categories": 1})])
 def test_kernel2m_equals_plain(cuda, variant, states, extra):
     """Kernel 2m == its plain version bit for bit (site likelihoods and
-    rescale counts) for every variant, with +I (C = 5), int8 tips and at
-    S = 61, with its operators split in the wrapper or by the model."""
-    pm = _protein_model(cuda, variant, states=states, n_leaves=12,
-                        n_sites=700, **extra)
+    rescale counts) for every variant, with +I (C = 5), int8 tips, at S =
+    61, at S = 13, C = 3, at S = 4 (DNA in the matrix forms; "vpu" there
+    is kernel 2's, so 2m is called directly) and at C = 1, with its
+    operators split in the wrapper or by the model.  Its blocks take one
+    job slot per job of a stage, as TREE_MXU_BLOCKS pins them: one round
+    at S = 20 (160 threads; 200 at C = 5, 40 at C = 1), S = 13 (72; jobs
+    of 5 rows), S = 61 (416) and S = 4 (32; 8 at C = 1); two at S = 61, C
+    = 5 and at S = 52, C = 5, whose second rounds lack a job (65 jobs, 264
+    threads)."""
+    kw = {"n_leaves": 12, "n_sites": 700, "states": states}
+    kw.update(extra)
+    pm = _protein_model(cuda, variant, **kw)
+    C = pm.config.categories
+    run = plf_tree if uses_mxu_kernels(variant, states) else plf_tree_mxu
     args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
             pm.root_rows[0], pm.n_sites)
     kwt = dict(n_slots=pm.n_slots, root_slot=pm.root_slot, states=states,
-               categories=pm.config.categories, variant=variant)
+               categories=C, variant=variant)
     before = plf_tree_mxu.launches
-    lik, sc = plf_tree(*args, **kwt)
-    lik_m, sc_m = plf_tree(*args, **kwt, planes=pm._planes())
+    lik, sc = run(*args, **kwt)
+    lik_m, sc_m = run(*args, **kwt, planes=pm._planes())
     assert plf_tree_mxu.launches == before + 2
     lik_p, sc_p = plf_tree_torch(*args, **kwt)
     torch.cuda.synchronize()

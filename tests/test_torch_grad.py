@@ -226,9 +226,9 @@ def test_node_bwd_mxu_wrapper_dispatch_and_checks():
     with pytest.raises(ValueError):
         G.plf_node_bwd(t(x1), t(x2), t(g)[:, :128], sc, *consts, 200,
                        states=S)
-    assert G.node_bwd_mxu_blocks(1 << 21, 660) == (659, 398)
-    assert G.node_bwd_mxu_blocks(256, 660) == (32, 1)
-    assert G.node_bwd_mxu_blocks(1 << 21, 5000) == (1024, 256)
+    assert G.node_bwd_mxu_blocks(1 << 21, 660, 32) == (656, 100)
+    assert G.node_bwd_mxu_blocks(256, 660, 32) == (8, 1)
+    assert G.node_bwd_mxu_blocks(1 << 21, 5000, 32) == (1024, 64)
 
 
 @pytest.mark.parametrize("states", [20, 61])

@@ -361,6 +361,38 @@ def test_tip_rounding_asymmetry(variant, monkeypatch):
             seen["tips"][0].numpy(), ttab[:, pt.codes[leaf].long().numpy()])
 
 
+@pytest.mark.parametrize("S,C,threads,rows,rounds", [
+    (20, 4, 160, 4, 1), (20, 5, 200, 4, 1), (61, 4, 416, 5, 1),
+    (13, 3, 72, 5, 1), (4, 4, 32, 4, 1), (61, 5, 264, 5, 2),
+    (52, 5, 264, 4, 2), (61, 8, 416, 5, 2), (20, 1, 40, 4, 1)])
+def test_kernel2m_job_slots_take_every_job_once(S, C, threads, rows, rounds):
+    """Kernel 2m's block (``threads`` and ``rows`` per job, as its library
+    reports them through tree_mxu_block; test_torch_cuda.py holds the
+    library to these values on the card) has one job slot of 8 threads
+    per job of a stage, in the fewest rounds of at most 64 slots.  Walking
+    node_tile's loop as the card does (thread t: site t % 8, jobs t // 8,
+    t // 8 + slots, ...) takes every (site, category, block of ``rows``
+    output rows) exactly once, in ``rounds`` rounds, every round full but
+    the last, which lacks fewer jobs than there are rounds."""
+    TS = 8
+    assert threads % TS == 0 and threads <= 512
+    slots, blocks = threads // TS, -(-S // rows)
+    jobs = C * blocks
+    taken, most = {}, 0
+    for t in range(threads):
+        s, n_jobs = t % TS, 0
+        for j in range(t // TS, jobs, slots):
+            key = (s, j % C, (j // C) * rows)
+            taken[key] = taken.get(key, 0) + 1
+            n_jobs += 1
+        most = max(most, n_jobs)
+    want = {(s, c, rows * b) for s in range(TS) for c in range(C)
+            for b in range(blocks)}
+    assert set(taken) == want and set(taken.values()) == {1}
+    assert most == rounds == -(-jobs // 64)
+    assert 0 <= rounds * slots - jobs < rounds
+
+
 def test_kernel2m_capacity_rule(monkeypatch):
     """Kernel 2m's rule: an arena of n_slots 8-site tiles plus three work
     tiles fits one block's shared memory; past it the model takes the

@@ -1,9 +1,11 @@
-"""The operator-gradient sums of kernels 4m and 8m, held on the CPU.
+"""The operator-gradient sums of kernels 4m, 8m and 3m, held on the CPU.
 
 Kernels 4m and 8m (``csrc/plf_mxu_bwd.cuh``) sum the lane-constant
 operator gradients ``g[o*C+c][q] = sum_s in[q*C+c][s] * gout[o*C+c][s]``
 tile by tile: in "mxu_3x" and "mxu_bf16" on the tensor cores (bf16
-operands, fp32 accumulation), in "mxu" register-blocked fp32.  These tests
+operands, fp32 accumulation), in "mxu" register-blocked fp32.  Kernel 3m
+(the node backward at S != 4, fp32 only) sums one node's three matrices
+with the same fp32 code, on the same tiles and plan.  These tests
 pin what that design rests on and what it does to the sums before the card
 runs it:
 
@@ -15,7 +17,8 @@ runs it:
   per tile, tile sums added to fp32 accumulators, the blocks' rows added
   in fixed order) lands well inside the bars the card holds the kernels to
   against ``mxu_op_grad`` (``SUM_RTOL`` 1e-4 for 4m, ``SEG_MXU_SUM_RTOL``
-  3e-6 for 8m in ``chip_smoke.py``);
+  3e-6 for 8m in ``chip_smoke.py``), and kernel 3m's, with its plan's
+  blocks, inside ``SUM_RTOL`` of the plain ``op_grad``;
 * the Python planning that reads the site tile from the library's plan.
 """
 
@@ -25,6 +28,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from plf_tpu_torch.ops import plf_grad as G
 from plf_tpu_torch.ops import plf_tree_grad as TG
 from plf_tpu_torch.ops import plf_tree_seg as SG
 from plf_tpu_torch.ops.plf_mxu import bf16_round, bf16_split, mxu_op_grad
@@ -90,7 +94,8 @@ def _entries(inp, gout, S, C):
     return qi[order], r[order]
 
 
-def emulate_sums(inp, gout, variant, S, C, ts, n_blocks, fp64_rows):
+def emulate_sums(inp, gout, variant, S, C, ts, n_blocks, fp64_rows,
+                 per=None):
     """The kernels' operator-gradient sums of one edge, in their order, in
     numpy: sites cut into ``n_blocks`` runs of whole ``ts``-site tiles (the
     launch's one wave), each tile's sums formed from zero (k steps of 16
@@ -98,7 +103,9 @@ def emulate_sums(inp, gout, variant, S, C, ts, n_blocks, fp64_rows):
     "mxu" an fp32 fma chain over the sites, each lane's from a site of its
     own), added to fp32 accumulators; "mxu_3x" forms hh and hl + lh in two
     fragments and adds each tile's hh + (hl + lh) to the accumulators;
-    the blocks' rows added in order, in fp64 (8m) or fp32 (4m).  Rounding
+    the blocks' rows added in order, in fp64 (8m) or fp32 (4m, 3m); each
+    block takes ``per`` tiles (default: the fewest that ``n_blocks``
+    cover).  Rounding
     is to nearest throughout (the tensor cores' own additions inside a k
     step are modelled as exact, then rounded)."""
     qi, r = _entries(inp, gout, S, C)
@@ -112,7 +119,7 @@ def emulate_sums(inp, gout, variant, S, C, ts, n_blocks, fp64_rows):
     ent = np.arange(r.size)
     n = inp.shape[1]
     tiles = n // ts
-    per = -(-tiles // n_blocks)
+    per = per or -(-tiles // n_blocks)
     mode = {"mxu": 0, "vpu": 0, "mxu_3x": 1, "mxu_bf16": 2}[variant]
     t = lambda a: torch.as_tensor(a)
     if mode == 1:
@@ -198,6 +205,27 @@ def test_emulated_sums_on_a_protein_column(variant):
     for fp64_rows, bar in ((False, SUM_RTOL), (True, SEG_MXU_SUM_RTOL)):
         got = emulate_sums(inp, gout, variant, S, C, 32, n_blocks, fp64_rows)
         assert _scale_err(got, want) <= bar / MARGIN
+
+
+@pytest.mark.parametrize("S,C,n,resident", [(20, 4, 1 << 17, 2 * 132),
+                                            (61, 4, 1 << 13, 4 * 132),
+                                            (13, 3, 1 << 12, 4 * 132)])
+def test_emulated_kernel3m_sums_sit_inside_the_bar(S, C, n, resident):
+    """Kernel 3m's order: one node's sites cut into its plan's blocks
+    (node_bwd_mxu_blocks over bwd_tile(S)-site tiles: 32 at S = 20, 8 at S
+    = 61 and 13; one wave of ``resident`` blocks, 2 or 4 a SM on 132 SMs),
+    each tile's sums an fmaf chain per lane from a site of its own
+    (unit_f32), added to fp32 accumulators with __fadd_rn, the blocks'
+    rows added in order in fp32 (plf::colsum): within a tenth of the
+    on-card bar (SUM_RTOL of scale) of the plain op_grad, for each of the
+    node's three matrices' (in, gout) pairs."""
+    ts = 32 if S <= 32 and S % 4 == 0 else 8
+    n_blocks, per = G.node_bwd_mxu_blocks(n, resident, ts)
+    assert n_blocks * per * ts >= n > (n_blocks - 1) * per * ts
+    inp, gout = _operands(np.random.default_rng(S * C), S, C, n)
+    want = G.op_grad(torch.as_tensor(inp), torch.as_tensor(gout), S, C)
+    got = emulate_sums(inp, gout, "mxu", S, C, ts, n_blocks, False, per=per)
+    assert _scale_err(got, want) <= SUM_RTOL / MARGIN
 
 
 # ------------------------------------------------------------ planning --

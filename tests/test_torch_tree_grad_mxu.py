@@ -434,12 +434,13 @@ def test_tree_bwd_mxu_wrapper_dispatch_and_checks():
 
 def test_auto_takes_kernel_where_measured_faster(monkeypatch):
     """On the card "auto" takes "kernel" (kernels 1m + 3m per node) for a
-    "vpu" model at S != 4 from the nodes x padded sites at which it was
-    measured faster than "tree" (optimize.KERNEL_MIN_NODE_SITES: 63 x
-    131,072 at S = 20, 31 x 4,096 at S = 61, C = 4), while its per-node
-    residuals, 3 * E * S*C * n_pad * 4 bytes, fit half the free memory;
-    below that size, at an unmeasured (S, C), past the memory and for
-    every MXU variant the rule stays "tree"."""
+    "vpu" model at S != 4 from the nodes and nodes x padded sites at which
+    it was measured faster than "tree" (optimize.KERNEL_MIN_NODES and
+    KERNEL_MIN_NODE_SITES: 255 nodes and 255 x 131,072 at S = 20, 127
+    and 127 x 4,096 at S = 61, C = 4), while its per-node residuals, 3 * E *
+    S*C * n_pad * 4 bytes, fit half the free memory; below that size, at
+    an unmeasured (S, C), past the memory and for every MXU variant the
+    rule stays "tree"."""
     from types import SimpleNamespace
     pt = _port_of(_jax_protein("vpu"), 20, "vpu")
 
@@ -451,14 +452,27 @@ def test_auto_takes_kernel_where_measured_faster(monkeypatch):
 
     big = 1 << 40
     for S, C, E, n_pad, want in (
-            (20, 4, 63, 131_072, True), (20, 4, 255, 65_536, True),
+            (20, 4, 63, 131_072, False), (20, 4, 255, 65_536, False),
             (20, 4, 255, 16_384, False), (20, 4, 63, 65_536, False),
-            (20, 4, 15, 131_072, False), (61, 4, 31, 4_096, True),
-            (61, 4, 15, 16_384, True), (61, 4, 15, 4_096, False),
-            (20, 1, 255, 131_072, False), (2, 4, 255, 131_072, False)):
+            (20, 4, 15, 131_072, False), (61, 4, 31, 4_096, False),
+            (61, 4, 15, 16_384, False), (61, 4, 15, 4_096, False),
+            (20, 1, 255, 131_072, False), (2, 4, 255, 131_072, False),
+            (20, 4, 255, 131_072, True), (20, 4, 63, 1 << 20, False),
+            (61, 4, 31, 16_384, False), (61, 4, 127, 4_096, True),
+            (61, 4, 15, 65_536, False), (61, 4, 31, 65_536, False),
+            (61, 4, 127, 2_048, False)):
         assert TO._kernel_wins(stand(S, C, E, n_pad), free=big) is want
     card = stand(20, 4, 63, 131_072)
     resid = 3 * 63 * 80 * 131_072 * 4
+    assert not TO._kernel_wins(card, free=2 * resid)
+    assert not TO._kernel_wins(card, free=2 * resid - 2)
+    for free, vpu, want in ((2 * resid, True, "tree"),
+                            (2 * resid - 2, True, "tree"),
+                            (2 * resid, False, "tree")):
+        monkeypatch.setattr(TO, "_free_bytes", lambda dev, f=free: f)
+        assert TO._auto_backend(card, True, vpu) == want
+    card = stand(20, 4, 255, 131_072)          # the smallest winner
+    resid = 3 * 255 * 80 * 131_072 * 4
     assert TO._kernel_wins(card, free=2 * resid)
     assert not TO._kernel_wins(card, free=2 * resid - 2)
     for free, vpu, want in ((2 * resid, True, "kernel"),
