@@ -21,7 +21,11 @@ and the protein serving path at 64 taxa x 131,072 sites, LG + Gamma4:
 ``PhyloModel(...).log_likelihood()`` with the default config (on the card,
 "mxu_3x": kernel 2m; the per-node path, kernel 1m), checked against each
 other and a float64 brute force, and kernels 1m and 2m in each MXU variant
-against their plain versions.  Then the protein and codon training path:
+against their plain versions (kernel 1m also at its edge shapes: a
+site past a tile, odd row lengths and ones not a multiple of 4 or 8,
+S = 13 with C = 3 and S = 61, in place over either child; each launch's
+plan printed).  Then the protein and
+codon training path:
 
 * kernel 4m (the checkpointed tree backward in the matrix forms) against
   its plain version in each variant on the protein workload and at S=61;
@@ -44,7 +48,9 @@ once) and a "segmented" training step (kernels 7 + 8 once each) against
 
 The segmented engine's matrix forms (protein and codon): kernel 7m
 against kernel 2m and its plain version in each variant at 64 taxa x
-131,072 sites and at S = 61, kernel 8m against its plain version (and on
+131,072 sites, at S = 61 and at S = 4 (160 x 2^20; plain on 8,192 sites),
+with its block (kernel 2m's job shape) and blocks per SM printed, kernel
+8m against its plain version (and on
 plans cut at three caps), ``log_likelihood(method="segmented")`` (kernel
 7m once), "segmented" training steps (kernels 7m + 8m once each) against
 "tree" at 64 x 131,072 and at 1,024 x 131,072 with int8 tips, where
@@ -55,8 +61,9 @@ bf16 CLV storage (``PLFConfig(dtype="bfloat16")``, phase ``bf16``): each
 bf16 storage form through its main path (``PLFEngine.plf`` for kernels 1
 and 1m; ``log_likelihood(method="segmented")`` and a "segmented" step for
 kernels 7 + 8 at 160 x 2^20 and 7m + 8m at 64 x 131,072) and against its
-plain version bit for bit (kernel 1 at 2^24 sites, 1m at 2^21, S = 61 at
-8,192 codons), its results against the fp32 model's within the JAX
+plain version bit for bit (kernel 1 at 2^24 sites, 1m at 2^21 and at its
+edge shapes, S = 61 at 8,192 codons), its results against the fp32
+model's within the JAX
 package's bf16 classes, timed beside its fp32 form.
 
 The last two kernels' paths: kernel 9, the compute-only probe, at
@@ -111,7 +118,8 @@ from plf_tpu_torch.ops._build import (BUILD_DIR, build_libraries,
                                       build_log, storage_library)
 from plf_tpu_torch.ops.plf_grad import (plf_node_bwd, plf_node_bwd_torch,
                                         transpose_lane_constants)
-from plf_tpu_torch.ops.plf_mxu import plf_node_mxu, plf_node_mxu_torch
+from plf_tpu_torch.ops.plf_mxu import (node_mxu_plan, plf_node_mxu,
+                                       plf_node_mxu_torch)
 from plf_tpu_torch.ops.plf_node import (gen_flops, plf_node,
                                         plf_node_gen, plf_node_gen_torch,
                                         plf_node_torch)
@@ -131,8 +139,10 @@ from plf_tpu_torch.ops.plf_tree_seg import (plf_tree_seg, plf_tree_seg_bwd,
                                             plf_tree_seg_bwd_mxu,
                                             plf_tree_seg_bwd_torch,
                                             plf_tree_seg_mxu,
+                                            plf_tree_seg_mxu_occupancy,
                                             plf_tree_seg_torch,
-                                            segment_program)
+                                            segment_program,
+                                            tree_seg_mxu_block)
 from plf_tpu_torch.reference import plf_reference
 
 N_TAXA = 160
@@ -157,6 +167,13 @@ NODE_MXU_SITES = (1 << 21) - 77
 NODE_MXU_GOLDEN = 1 << 16     # kernel 1m's fp32 mode vs the golden model
 NODE_MXU_S61 = (1 << 18) - 5  # one S = 61 case at 244 rows
 MXU_VARIANTS = ("mxu", "mxu_3x", "mxu_bf16")
+#: Edge shapes of kernel 1m: (S, C, n, n_pad): n one site past a 32-site
+#: tile; n_pad % 4 != 0, % 8 != 0 and odd (rows not 16- or 4-byte
+#: aligned); S = 61 and S = 13 with C = 3 (five-row jobs).
+NODE_MXU_EDGES = ((20, 4, 33, 128), (20, 4, 4001, 4002), (20, 4, 4001, 4001),
+                  (61, 4, 33, 36), (61, 4, 3001, 3003), (13, 3, 4097, 4100),
+                  (13, 3, 4097, 4099))
+DNA_SEG_SLICE = 8192          # kernel 7m vs its plain version at S = 4
 
 # The codon workload (benchmarks/r05_bwd2.py:103-116: 32 taxa x 65,536
 # codons, GY94 kappa=2 omega=0.3 + Gamma4 alpha=0.7, random codes), kernel
@@ -808,11 +825,60 @@ def _mxu_case(dev, n, S, C, seed):
     return a, b, (left, right, ev), lane_constants(left, right, ev, dev, S, C)
 
 
+def node_plan_text(S, C, variant, bf16, n_pad):
+    """Kernel 1m's launch shape as its library plans it, in words."""
+    ts, threads, blocks = node_mxu_plan(S, C, variant, bf16)
+    return (f"{ts}-site tiles, {threads} threads, {blocks} blocks per SM, "
+            f"grid {-(-n_pad // ts)}")
+
+
+def kernel1m_edges(dev, dtype, name):
+    """Kernel 1m at NODE_MXU_EDGES in every MXU variant and ``dtype``
+    storage: == the plain version bit for bit, out of place and in place
+    over x1 and over x2; prints under phase ``name``."""
+    for S, C, n, n_pad in NODE_MXU_EDGES:
+        rng = np.random.default_rng(S * 1000 + n_pad)
+        left, right = (rng.random((C, S, S), dtype=np.float32)
+                       for _ in range(2))
+        ev = rng.random((S, S), dtype=np.float32)
+        lc, rc, ec = lane_constants(left, right, ev, dev, S, C)
+        g = torch.Generator(device=dev).manual_seed(n_pad)
+        a, b = (torch.rand((S * C, n_pad), generator=g, device=dev)
+                for _ in range(2))
+        a[:, 0::4] *= 1e-16
+        a, b = a.to(dtype), b.to(dtype)
+        flags = []
+        for variant in MXU_VARIANTS:
+            kw = dict(states=S, categories=C, variant=variant)
+            x3p, scp = plf_node_mxu_torch(a, b, lc, rc, ec, n, **kw)
+            runs = [plf_node_mxu(a, b, lc, rc, ec, n, **kw)]
+            for which in (1, 2):
+                a2, b2 = a.clone(), b.clone()
+                dst = a2 if which == 1 else b2
+                runs.append(plf_node_mxu(a2, b2, lc, rc, ec, n, out=dst,
+                                         **kw))
+                check(runs[-1][0].data_ptr() == dst.data_ptr(),
+                      f"kernel 1m in place over x{which} wrote elsewhere")
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, x3p) and torch.equal(f, scp)
+                      for x, f in runs) and int(scp.sum()) > 0
+                  and not scp[0, n:].any(),
+                  f"kernel 1m ({variant}, {dtype}) != plain at S={S} C={C}"
+                  f" n={n} n_pad={n_pad}")
+            flags.append(int(scp.sum()))
+        phase(name, f"edge S={S} C={C}, n={n}, n_pad={n_pad} "
+              f"({node_plan_text(S, C, 'mxu', dtype == BF16, n_pad)}"
+              f"): == plain in {', '.join(MXU_VARIANTS)}, out of place "
+              f"and in place over x1 and x2 ({flags} rescaled)")
+        del a, b
+
+
 def kernel1m_phase(dev):
     """Kernel 1m in each MXU variant at S = 20, C = 4 on 2^21 sites:
     equal to its plain version (out of place and in place), fp32 mode also
     to the golden model on a 65,536-site slice; timed against a same-run
-    2R+1W probe; then each variant at S = 61, C = 4 on 2^18 sites."""
+    2R+1W probe; then each variant at S = 61, C = 4 on 2^18 sites; then
+    the edge shapes.  Prints each launch's plan."""
     S, C = 20, 4
     n = NODE_MXU_SITES
     a, b, ops, (lc, rc, ec) = _mxu_case(dev, n, S, C, 21)
@@ -863,8 +929,9 @@ def kernel1m_phase(dev):
         gbs = site_bytes * n_pad / (ms_k * 1e-3) / 1e9
         flops, rate = node_work(S, C, variant)
         bd = bound(site_bytes * n_pad, flops * n_pad, rate)
-        phase("kernel1m", f"{variant}, S={S} C={C}, {n} sites: == plain out "
-              f"of place and in place ({n_flag} rescaled){golden}; kernel "
+        phase("kernel1m", f"{variant}, S={S} C={C}, {n} sites "
+              f"({node_plan_text(S, C, variant, False, n_pad)}): == plain "
+              f"out of place and in place ({n_flag} rescaled){golden}; kernel "
               f"{ms_k:.4f} ms ({gbs:.0f} GB/s at {site_bytes} B/site, "
               f"{100 * gbs / probe_gbs:.1f}% of a same-run 2R+1W probe at "
               f"{probe_gbs:.0f} GB/s; bound {bd['bound_ms']:.4f} ms by "
@@ -887,10 +954,12 @@ def kernel1m_phase(dev):
         ms_k = cuda_ms(lambda: plf_node_mxu(a, b, lc, rc, ec, NODE_MXU_S61,
                                             **kw), reps=5)
         phase("kernel1m", f"{variant}, S={S} C={C}, {NODE_MXU_S61} sites "
-              f"({S * C} rows): == plain ({int(sck.sum())} rescaled); "
-              f"kernel {ms_k:.4f} ms")
+              f"({S * C} rows; "
+              f"{node_plan_text(S, C, variant, False, a.shape[1])}): == "
+              f"plain ({int(sck.sum())} rescaled); kernel {ms_k:.4f} ms")
     del a, b, x3k, x3p
     torch.cuda.empty_cache()
+    kernel1m_edges(dev, torch.float32, "kernel1m")
     return res
 
 
@@ -1761,9 +1830,15 @@ def kernel7m_against(pm, label, plain=True, name="kernel7m"):
     bd = seg_fwd_bound(pm, plan)
     same = (f"{cfg.dtype} boundaries, lik != kernel 2m's" if rounded
             else "lik and sc == kernel 2m")
+    threads, rows = tree_seg_mxu_block(cfg.states, cfg.categories,
+                                       kw["dtype"])
+    blocks = plf_tree_seg_mxu_occupancy(
+        pm.codes.dtype, cfg.states, cfg.categories, pm.tip_table.shape[1],
+        fwd[2], kw["variant"], kw["dtype"])
     phase(name, f"{label}, {kw['variant']}: {pm.tree.n_leaves} taxa x "
           f"{pm.n_sites} sites, S={cfg.states}: {len(plan.segments)} "
           f"segments (at most {plan.seg_ops} ops), {fwd[2]} arena slots; "
+          f"blocks of {threads} threads ({rows}-row jobs), {blocks} per SM; "
           f"{same}{note}, bit for bit ({int(sc.sum())} "
           f"rescales); kernel {ms:.3f} ms (kernel 2m {ms2:.3f} ms; bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']})"
@@ -1771,11 +1846,13 @@ def kernel7m_against(pm, label, plain=True, name="kernel7m"):
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, **bd)
 
 
-def kernel7m_phase(models, codon, dev):
+def kernel7m_phase(models, codon, dna, dev):
     """Kernel 7m == kernel 2m == its plain version, bit for bit, on the
-    protein workload in each variant, and at S = 61: on the codon
-    workload against kernel 2m, on its first 8,192 codons against the
-    plain version too."""
+    protein workload in each variant; at S = 61 on the codon workload
+    against kernel 2m, on its first 8,192 codons against the plain version
+    too; and at S = 4 (DNA in the matrix forms, blocks of 32 threads) on
+    the 160 x 2^20 workload in each variant against kernel 2m, on its
+    first 8,192 sites against the plain version too."""
     res = {v: kernel7m_against(models[v], "protein")
            for v in ("mxu_3x", "mxu", "mxu_bf16")}
     tree, tips, gy, cmodels = codon
@@ -1787,6 +1864,14 @@ def kernel7m_phase(models, codon, dev):
         kernel7m_against(pm, "codon")
         del pm
     torch.cuda.empty_cache()
+    tree, tips = dna
+    for v in MXU_VARIANTS:
+        for label, t in (("dna", tips), ("dna", tips[:, :DNA_SEG_SLICE])):
+            pm = PhyloModel(tree, hky85(2.0), t, alpha=0.5, device=dev,
+                            config=PLFConfig(kernel_variant=v))
+            kernel7m_against(pm, label, plain=t is not tips)
+            del pm
+            torch.cuda.empty_cache()
     return res
 
 
@@ -2186,13 +2271,15 @@ def bf16_kernel1m(dev):
     flops, rate = node_work(S, C, "mxu_3x")
     bd = bound(site_bytes * n_pad, flops * n_pad, rate)
     phase("bf16", f"kernel 1m, bf16 storage, mxu_3x, S={S} C={C}, {n} "
-          f"sites: == plain out of place and in place ({n_flag} rescaled); "
+          f"sites ({node_plan_text(S, C, 'mxu_3x', True, n_pad)}): == plain "
+          f"out of place and in place ({n_flag} rescaled); "
           f"PLFEngine.plf on {m} sites: bf16 kernel 1m once ({ran16}), == "
           f"it; kernel {ms16:.4f} ms (bound {bd['bound_ms']:.4f} ms by "
           f"{bd['bound_by']} at {site_bytes} B/site); fp32 form "
           f"{ms32:.4f} ms; plain {ms_plain:.3f} ms")
     del a, b, a16, b16, x3k, sck
     torch.cuda.empty_cache()
+    kernel1m_edges(dev, BF16, "bf16")
     return dict(launches=ran16["plf_node_mxu"], ms=ms16, plain_ms=ms_plain,
                 max_abs_err=0.0, **bd)
 
@@ -2614,10 +2701,11 @@ def kernel_train_phase(ptree, ptips, codon, dev):
     max|g|); kernel 3m against its plain version on one node's residuals
     of each "kernel" step (kernel3m_on_main_path); the protein gradient
     against float64 central differences; both protein steps timed in
-    turns; auto takes "tree" for both models and the protein's 4,096-site
-    sub-alignment (optimize.KERNEL_MIN_NODES, KERNEL_MIN_NODE_SITES: the
-    "kernel" step won only from 255 nodes x 131,072 protein sites and 127
-    nodes x 4,096 codons);
+    turns; auto takes "tree" for the protein model and its 4,096-site
+    sub-alignment and "kernel" for the codon model
+    (optimize.KERNEL_MIN_NODES, KERNEL_MIN_NODE_SITES: the "kernel" step
+    won from 255 nodes x 131,072 protein sites, and from 15 nodes and 31
+    x 16,384 codon node-sites);
     optimize_branch_lengths on "kernel"."""
     lg = empirical_protein("lg")
     cfg = PLFConfig(states=20, kernel_variant="vpu")
@@ -2710,7 +2798,7 @@ def kernel_train_phase(ptree, ptips, codon, dev):
     check(c_k == {"plf_node_mxu": Ec, "plf_node_bwd_mxu": Ec},
           f"codon kernel step launched {c_k}")
     auto = tree_loglik_fn(cm)[0].engine
-    check(auto == "tree", f"auto took {auto!r} for the vpu codon model")
+    check(auto == "kernel", f"auto took {auto!r} for the vpu codon model")
     rel = abs(v_k - v_t) / abs(v_t)
     check(rel < 1e-5, f"codon kernel value {v_k} vs tree {v_t}")
     err = _grad_bar(g_k, g_t)
@@ -2817,7 +2905,7 @@ def main():
     kt_launches, _ = kernel_train_phase(ptree, ptips, codon, dev)
     launches["plf_node_bwd_mxu"] = kt_launches["plf_node_bwd_mxu"]
     codon_phase(codon, dev)
-    k7m = kernel7m_phase(models, codon, dev)
+    k7m = kernel7m_phase(models, codon, (tree, tips), dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))
     k16 = bf16_phase(dev, tree, tips, pm, node_case, models, codon)

@@ -1,6 +1,7 @@
-"""Time backward kernels of two checkouts in turns on one NVIDIA GPU.
+"""Time kernels of two checkouts in turns on one NVIDIA GPU.
 
-    python3 kernel_turns.py [--dna | --k3m2m] PARENT_DIR CHANGE_DIR [MORE ...]
+    python3 kernel_turns.py [--dna | --k3m2m | --k7m1m | --k1m] PARENT_DIR
+                            CHANGE_DIR [MORE ...]
 
 Each directory is the root of a checkout (for the parent commit, unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists, such
@@ -55,6 +56,24 @@ after one) of the "kernel" and "tree" value-and-gradient steps of the
 3m: accumulators in shared memory, blocks per SM, site tile; kernel 2m:
 blocks per SM, threads per block, rows per job) and the registers and
 spills ptxas gave every instance of both kernels.
+
+``--k7m1m``: the median of five launches after one, each timed alone, of
+kernel 7m (``csrc/plf_tree_seg_mxu.cu``, the segmented forward of the
+matrix forms, on the model's own plan) in "mxu_3x", "mxu" and "mxu_bf16"
+on the protein workload (64 x 131,072) with fp32 and with bf16
+boundaries (keys ending ``:bf16``), in "mxu" and "mxu_3x" on the codon workload (32 x 65,536, S =
+61) and in all three on the DNA workload (160 x 2^20, S = 4); and of
+kernel 1m (``csrc/plf_node_mxu.cu``) in every mode at S = 20 on 2^21 - 77
+sites and at S = 61 on 2^18 - 5 (C = 4, random operands as
+``chip_smoke.py``'s phase ``kernel1m`` makes them), in fp32 and in bf16
+storage (``:bf16``); the wall time (median of five after one) of the "segmented"
+protein step in "mxu_3x" and "mxu" and of the "vpu" protein "kernel" step.
+Each turn also gives each kernel's plan (kernel 7m: blocks per SM,
+threads per block, rows per job; kernel 1m: sites per tile, threads per
+block, blocks per SM, tiles: its grid is one block per tile) and the registers and spills ptxas gave every
+instance of both kernels in both storage forms.  Directories past the
+first two are probes of kernel 1m: their turns time kernel 1m alone.
+``--k1m`` makes every directory such a probe.
 """
 
 import json
@@ -66,6 +85,7 @@ TURN = r'''
 import json
 import re
 import subprocess
+import time
 import numpy as np
 import torch
 from plf_tpu_torch import PLFConfig
@@ -93,7 +113,6 @@ def ms(fn, samples):
     # median of 5 launches, each timed alone by CUDA events, after one;
     # host_ms: the host's time from the first event to the second, which
     # exceeds the device's only where the host held the launch up
-    import time
     fn()
     times, host = [], []
     for _ in range(5):
@@ -129,6 +148,20 @@ def ptxas(lib, kernel):
         if m and int(m.group(1)):
             out[key + ":spill"] = int(m.group(1))
     return out
+
+
+def wall(fn, out, key):
+    # median of five after one, wall ms, the device synchronised
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    out["step_ms"][key] = float(np.median(times))
+    out["samples"][f"step_{key}"] = [dict(ms=times, smi=smi())]
 
 
 def glik_of(pm, v):
@@ -186,7 +219,6 @@ def kernels(pm, v, out, key, seg=True):
 def steps(pm, v, out):
     # one "tree" and one "segmented" value-and-gradient step (wall ms,
     # median of 5 after one)
-    import time
     for backend in ("tree", "segmented"):
         fn, t0 = tree_loglik_fn(pm, backend=backend)
 
@@ -377,7 +409,6 @@ print(json.dumps(out))
 K3M2M_LIBS = ["plf_node_mxu", "plf_node_bwd_mxu", "plf_tree_mxu",
               "plf_tree_bwd_mxu"]
 K3M2M_TURN = TURN[:TURN.index("def kernels(pm, v, out, key")] + r'''
-import time
 from plf_tpu_torch.models import hky85
 from plf_tpu_torch.ops import plf_grad as G
 from plf_tpu_torch.ops import layout as L
@@ -424,20 +455,6 @@ def kernel2m(pm, v, key, out):
     # reported them
     block = getattr(TT, "tree_mxu_block", lambda S, C: (128, 4))(S, C)
     out["plan"][f"kernel2m_{key}_{v}"] = [blocks, *block]
-
-
-def wall(fn, out, key):
-    # median of five after one, wall ms, the device synchronised
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-    out["step_ms"][key] = float(np.median(times))
-    out["samples"][f"step_{key}"] = [dict(ms=times, smi=smi())]
 
 
 def steps(pm, key, out):
@@ -505,6 +522,152 @@ print(json.dumps(out))
 '''
 
 
+K7M1M_LIBS = ["plf_tree_mxu", "plf_tree_seg_mxu", "plf_tree_seg_mxu_bf16",
+              "plf_node_mxu", "plf_node_mxu_bf16", "plf_node_bwd_mxu",
+              "plf_tree_bwd_mxu", "plf_tree_seg_bwd_mxu"]
+K7M1M_TURN = TURN[:TURN.index("def kernels(pm, v, out, key")] + r'''
+from plf_tpu_torch.models import hky85
+from plf_tpu_torch.ops import layout as L
+from plf_tpu_torch.ops import plf_mxu as M
+
+BF16 = torch.bfloat16
+
+
+def kernel7m(pm, v, key, out, dtypes=(torch.float32, BF16)):
+    # kernel 7m on the model's own plan, fp32 and bf16 boundaries, with
+    # its plan: [blocks per SM, threads per block, rows per job]
+    S, C = pm.config.states, pm.config.categories
+    plan, prog, segs, n_slots = pm._segmented_inputs()
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites)
+    for dtype in dtypes:
+        name = f"{key}_{v}" + (":bf16" if dtype == BF16 else "")
+        kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots, states=S,
+                  categories=C, variant=v, planes=pm._planes(), dtype=dtype)
+        out["kernel7m_ms"][name] = ms(
+            lambda: SG.plf_tree_seg_mxu(*args, **kw),
+            out["samples"].setdefault(f"kernel7m_{name}", []))
+        # threads and rows: 128 and 4 before the library reported them
+        block = (SG.tree_seg_mxu_block(S, C, dtype)
+                 if hasattr(SG, "tree_seg_mxu_block") else (128, 4))
+        blocks = (SG.plf_tree_seg_mxu_occupancy(
+            pm.codes.dtype, S, C, pm.tip_table.shape[1], n_slots, v, dtype)
+            if hasattr(SG, "plf_tree_seg_mxu_occupancy") else None)
+        out["plan"][f"kernel7m_{name}"] = [blocks, *block]
+
+
+def node_case(S, n, seed):
+    # chip_smoke.py's kernel1m operands: every 4th site of x1 scaled by
+    # 1e-16, random positive operators
+    C = 4
+    rng = np.random.default_rng(seed)
+    consts = [torch.as_tensor(a, device="cuda") for a in (
+        L.branch_to_lane_constants(rng.random((C, S, S), dtype=np.float32),
+                                   S, C),
+        L.branch_to_lane_constants(rng.random((C, S, S), dtype=np.float32),
+                                   S, C),
+        L.ev_to_lane_constants(rng.random((S, S), dtype=np.float32), S, C))]
+    n_pad = L.sites_padding(n, 128)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand((S * C, n_pad), generator=g, device="cuda")
+    b = torch.rand((S * C, n_pad), generator=g, device="cuda")
+    a[:, 0::4] *= 1e-16
+    a[:, n:] = 0.0
+    b[:, n:] = 0.0
+    return a, b, consts
+
+
+def kernel1m(S, n, seed, out):
+    # kernel 1m in every mode, fp32 and bf16 storage, with its plan:
+    # [sites per tile, threads per block, blocks per SM, tiles]
+    a, b, consts = node_case(S, n, seed)
+    tiles = lambda ts: -(-a.shape[1] // ts)
+    for dtype in (torch.float32, BF16):
+        x1, x2 = a.to(dtype), b.to(dtype)
+        for v in ("mxu", "mxu_3x", "mxu_bf16"):
+            name = f"S{S}_{v}" + (":bf16" if dtype == BF16 else "")
+            kw = dict(states=S, categories=4, variant=v)
+            out["kernel1m_ms"][name] = ms(
+                lambda: M.plf_node_mxu(x1, x2, *consts, n, **kw),
+                out["samples"].setdefault(f"kernel1m_{name}", []))
+            if hasattr(M, "node_mxu_plan"):
+                ts, threads, blocks = M.node_mxu_plan(S, 4, v,
+                                                      dtype == BF16)
+                plan = [ts, threads, blocks, tiles(ts)]
+            else:  # one 128-thread block per 32-site tile
+                plan = [32, 128, None, tiles(32)]
+            out["plan"][f"kernel1m_{name}"] = plan
+        del x1, x2
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def step(pm, backend, out, key):
+    fn, t0 = tree_loglik_fn(pm, backend=backend)
+
+    def one():
+        t = torch.tensor(t0, device="cuda", requires_grad=True)
+        fn(t).backward()
+    wall(one, out, key)
+
+
+out = {"ptxas": {k: ptxas(lib, "plf_node_mxu_kernel" if "node" in lib
+                          else "plf_tree_seg_mxu_kernel")
+                 for k, lib in (("kernel1m", "plf_node_mxu"),
+                                ("kernel1m_bf16", "plf_node_mxu_bf16"),
+                                ("kernel7m", "plf_tree_seg_mxu"),
+                                ("kernel7m_bf16", "plf_tree_seg_mxu_bf16"))},
+       "kernel7m_ms": {}, "kernel1m_ms": {}, "step_ms": {}, "plan": {},
+       "samples": {}}
+kernel1m(20, (1 << 21) - 77, 21, out)
+kernel1m(61, (1 << 18) - 5, 22, out)
+if not PROBE:
+    tree = random_tree(64, seed=1)
+    p = np.concatenate([[0.04], np.full(20, 0.0475), np.full(3, 0.01)])
+    tips = np.random.default_rng(64).choice(
+        np.arange(-1, 23, dtype=np.int8), size=(64, 1 << 17), p=p / p.sum())
+    lg = empirical_protein("lg")
+    for v in ("mxu_3x", "mxu", "mxu_bf16"):
+        pm = PhyloModel(tree, lg, tips, alpha=0.5,
+                        config=PLFConfig(states=20, kernel_variant=v))
+        kernel7m(pm, v, "protein", out)
+        if v != "mxu_bf16":
+            step(pm, "segmented", out, f"protein_segmented_{v}")
+        del pm
+        torch.cuda.empty_cache()
+    pm = PhyloModel(tree, lg, tips, alpha=0.5,
+                    config=PLFConfig(states=20, kernel_variant="vpu"))
+    step(pm, "kernel", out, "protein_vpu_kernel")
+    del pm
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(7)
+    codons = rng.integers(0, 61, size=(32, 1 << 16))
+    codons[rng.random(codons.shape) < 0.02] = 61
+    gy = codon_gy94(kappa=2.0, omega=0.3)
+    for v in ("mxu", "mxu_3x"):
+        pm = PhyloModel(random_tree(32, seed=3), gy, codons, alpha=0.7,
+                        config=PLFConfig(states=61, kernel_variant=v))
+        kernel7m(pm, v, "codon", out, dtypes=(torch.float32,))
+        del pm
+        torch.cuda.empty_cache()
+    # DNA in the matrix forms (S = 4): chip_smoke.py's 160 x 2^20 HKY85 +
+    # G4 workload, random codes with gaps and IUPAC codes
+    del codons
+    p = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
+    tips = np.random.default_rng(1).choice(
+        np.arange(-1, 14, dtype=np.int8), size=(160, 1 << 20),
+        p=p / p.sum())
+    tree = random_tree(160, seed=1)
+    for v in ("mxu_3x", "mxu", "mxu_bf16"):
+        pm = PhyloModel(tree, hky85(2.0), tips, alpha=0.5,
+                        config=PLFConfig(kernel_variant=v))
+        kernel7m(pm, v, "dna", out, dtypes=(torch.float32,))
+        del pm
+        torch.cuda.empty_cache()
+print(json.dumps(out))
+'''
+
+
 def smi():
     """The card's SM clock (MHz) and power draw (W), as nvidia-smi reads
     them, around a turn."""
@@ -516,11 +679,15 @@ def smi():
 
 def main():
     args = sys.argv[1:]
-    turn, libs = TURN, PROTEIN_LIBS
+    turn, libs, probes_from = TURN, PROTEIN_LIBS, 2
     if args[:1] == ["--dna"]:
         args, turn, libs = args[1:], DNA_TURN, DNA_LIBS
     elif args[:1] == ["--k3m2m"]:
         args, turn, libs = args[1:], K3M2M_TURN, K3M2M_LIBS
+    elif args[:1] in (["--k7m1m"], ["--k1m"]):
+        if args[0] == "--k1m":   # every directory a probe of kernel 1m
+            probes_from = 0
+        args, turn, libs = args[1:], K7M1M_TURN, K7M1M_LIBS
     if len(args) < 2:
         sys.exit(__doc__)
     roots = [os.path.abspath(a) for a in args]
@@ -538,8 +705,11 @@ def main():
     order = list(range(len(roots))) + list(range(len(roots)))[::-1]
     for i in order:
         before = smi()
-        run = subprocess.run([sys.executable, "-c",
-                              f"LIBS = {libs!r}\n" + turn], cwd=roots[i],
+        # a probe (a directory past the first two) of --k7m1m times kernel
+        # 1m alone
+        head = f"LIBS = {libs!r}\nPROBE = {i >= probes_from}\n"
+        run = subprocess.run([sys.executable, "-c", head + turn],
+                             cwd=roots[i],
                              env=dict(os.environ, PYTHONPATH=roots[i]),
                              capture_output=True, text=True, timeout=900)
         if run.returncode:

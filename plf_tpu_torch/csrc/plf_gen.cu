@@ -27,16 +27,18 @@
 // (S*C, 4) constant matrices as float4 rows in shared memory, kernel 1's
 // stage code (plf_common.cuh).  x2 is the same in every iteration; an empty
 // asm statement makes the compiler treat it as new, so each iteration
-// computes both branch products as _gen_kernel does.  S != 4: kernel 1m's
-// [row][site] tiles of 32 sites in shared memory and its fp32-mode node_tile
-// (plf_mxu.cuh), the parent written over x1's tile, one thread per site
-// summing the rows; the operators stay in device memory.
+// computes both branch products as _gen_kernel does.  S != 4: blocks of 128
+// threads on [row][site] tiles of 32 sites in shared memory (the block kernel
+// 1m had before its redesign for the H100, kept here so that the probe stays
+// the yardstick it was) running plf_mxu.cuh's fp32-mode node_tile with
+// 4-row jobs, the parent written over x1's tile, one thread per site summing
+// the rows; the operators stay in device memory.
 #include "plf_mxu.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;      // S = 4: sites per block
-constexpr int kTileThreads = 128;  // S != 4: kernel 1m's block
+constexpr int kTileThreads = 128;  // S != 4: threads per 32-site tile
 constexpr int kTileSites = 32;
 
 __device__ __forceinline__ float gen_x1(int s, int r) {

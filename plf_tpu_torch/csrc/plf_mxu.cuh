@@ -1,6 +1,7 @@
 // The matrix ("MXU") forms of one PLF node on a tile of sites in shared
-// memory, shared by kernel 1m (plf_node_mxu.cu) and kernel 2m
-// (plf_tree_mxu.cu).
+// memory, shared by kernel 1m (plf_node_mxu.cu), kernel 2m
+// (plf_tree_mxu.cu), kernel 7m (plf_tree_seg_mxu.cu) and the sweeps of
+// kernels 3m, 4m and 8m (plf_mxu_bwd.cuh).
 //
 // The TPU kernels run each PLF stage as a (rows, rows) @ (rows, sites) matrix
 // product against block operators that are zero across categories
@@ -40,8 +41,18 @@
 // A stage has C * ceil(S / KB) jobs for the block's T / TS job slots: the
 // job shape (KB, and the block size the kernel launches with) decides in
 // how many rounds they run.  KB is a template parameter (default kKB = 4,
-// the shape of kernels 1m, 4m, 7m, 8m and 9); the job's arithmetic, each
-// output's sum in q order, does not depend on it.
+// the shape of kernels 4m, 8m and 9; kernels 1m, 2m and 7m take the job
+// shape below); the job's arithmetic, each output's sum in q order, does
+// not depend on it.
+//
+// The job shape of kernels 1m, 2m and 7m (block_threads, job_rows): KB = 4
+// output rows per job where S % 4 == 0, else 5, and one job slot of TS
+// threads per job of a stage, in the fewest rounds of at most kMaxThreads /
+// TS slots (S = 20, C = 4 on kSites = 8-site tiles: 20 jobs, 160 threads,
+// one round; S = 61: 52 five-row jobs, 416 threads; S = 4: 4 jobs, 32
+// threads).  On an H100 (PERF.md) this ran kernel 2m's "mxu_3x" 24.6
+// ms at 64 x 131,072 where 128 threads of 4-row jobs ran 31.9, and 5-row
+// jobs the S = 61 fp32 forward 22% faster than 4-row jobs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +65,24 @@ constexpr int MODE_F32 = 0;
 constexpr int MODE_BF16X3 = 1;
 constexpr int MODE_BF16 = 2;
 constexpr int kKB = 4;  // output rows per job (the default job shape)
+constexpr int kSites = 8;         // TS of kernels 2m and 7m
+constexpr int kMaxThreads = 512;  // threads per block, a multiple of any TS
+
+// KB, output rows per job, by the operator loads' width V (4 where S % 4 ==
+// 0, else 5).
+__host__ __device__ constexpr int job_rows(int V) { return V == 4 ? 4 : 5; }
+
+// Threads per block on tiles of TS sites: one job slot of TS threads per job
+// of a stage (C * ceil(S / KB) jobs), in the fewest rounds of at most
+// kMaxThreads / TS jobs, every round full but the last, which lacks fewer
+// jobs than there are rounds.
+__host__ __device__ constexpr int block_threads(int S, int C, int KB,
+                                                int TS = kSites) {
+  const int jobs = C * ((S + KB - 1) / KB);
+  const int slots = kMaxThreads / TS;
+  const int rounds = (jobs + slots - 1) / slots;
+  return TS * ((jobs + rounds - 1) / rounds);
+}
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));  // round to nearest even

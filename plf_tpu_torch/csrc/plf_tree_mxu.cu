@@ -19,9 +19,10 @@
 //    schedule of compile_register_schedule, one node_tile per op, with a
 //    barrier between the phases of an op (operands ready, products ready,
 //    parent written, rescale applied);
-//  * its threads are the stage's jobs (block_threads; plf_tree_mxu_block
-//    reports them): each of an op's stages has C * ceil(S / KB) jobs of KB
-//    output rows (job_rows: 4 where S % 4 == 0, else 5), and the block
+//  * its threads are the stage's jobs (block_threads in plf_mxu.cuh;
+//    plf_tree_mxu_block reports them): each of an op's stages has C *
+//    ceil(S / KB) jobs of KB output rows (job_rows: 4 where S % 4 == 0,
+//    else 5), and the block
 //    has 8 threads (one job slot) per job, so that every stage runs in one
 //    round (S = 20, C = 4: 20 jobs, 160 threads; S = 61: 52 jobs, 416
 //    threads), and in the fewest rounds of at most 64 slots where the jobs
@@ -49,23 +50,12 @@
 
 namespace {
 
-constexpr int kSites = 8;         // TS
-constexpr int kMaxThreads = 512;  // threads per block, a multiple of kSites
-
-// KB, output rows per job, by the operator loads' width V (4 where S % 4 ==
-// 0, else 5).
-__host__ __device__ constexpr int job_rows(int V) { return V == 4 ? 4 : 5; }
-
-// Threads per block: one job slot of kSites threads per job of a stage
-// (C * ceil(S / KB) jobs), in the fewest rounds of at most kMaxThreads /
-// kSites jobs, every round full but the last, which lacks fewer jobs than
-// there are rounds.
-int block_threads(int S, int C, int KB) {
-  const int jobs = C * ((S + KB - 1) / KB);
-  const int slots = kMaxThreads / kSites;
-  const int rounds = (jobs + slots - 1) / slots;
-  return kSites * ((jobs + rounds - 1) / rounds);
-}
+// The job shape (kSites-site tiles, block_threads, job_rows) is plf_mxu.cuh's
+// rule, which kernel 7m takes too.
+using plf_mxu::block_threads;
+using plf_mxu::job_rows;
+using plf_mxu::kMaxThreads;
+using plf_mxu::kSites;
 
 template <int MODE, int V, typename CodeT>
 __global__ void __launch_bounds__(kMaxThreads)

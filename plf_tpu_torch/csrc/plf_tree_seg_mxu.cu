@@ -30,6 +30,14 @@
 // It is latency-bound at the occupancy its arena allows, as kernel 2m is;
 // the arena holds only the slots live in one segment.
 //
+// Block: kernel 2m's job shape (plf_mxu.cuh's block_threads and job_rows;
+// plf_tree_seg_mxu_block reports it): 8-site tiles and one job slot of 8
+// threads per job of a stage, 160 threads at S = 20, C = 4, 416 at S = 61
+// (five-row jobs), 32 at S = 4.  The loops that move whole tiles (bring,
+// the rescale, the boundary export) stride by blockDim.x, and the root
+// reduction and the count take the kSites threads tid < kSites, which
+// every block size of the rule holds (at least one job slot).
+//
 // bf16 boundaries (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): the
 // root tile is narrowed as it is exported and a boundary tile widened as it
 // is brought in, as the TPU kernel's bf16 landing scratch does (:452-484,
@@ -40,11 +48,13 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSites = 8;  // TS, as kernel 2m
+using plf_mxu::block_threads;
+using plf_mxu::job_rows;
+using plf_mxu::kMaxThreads;
+using plf_mxu::kSites;
 
 template <int MODE, int V, typename CodeT, typename BT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
                         const int* segs, int n_seg, const float* lh,
                         const float* ll, const float* rh, const float* rl,
@@ -112,10 +122,10 @@ plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
       if (lf != 1) bring(ls, lf, tip_l);
       if (rf != 1) bring(rs, rf, tip_r);
       __syncthreads();
-      plf_mxu::node_tile<MODE, V>(lf == 1 ? arena + (size_t)ls * tile : tip_l,
-                                  rf == 1 ? arena + (size_t)rs * tile : tip_r,
-                                  prod, out, lh + e, ll + e, rh + e, rl + e,
-                                  eh, el, S, C, kSites, s_big);
+      plf_mxu::node_tile<MODE, V, job_rows(V)>(
+          lf == 1 ? arena + (size_t)ls * tile : tip_l,
+          rf == 1 ? arena + (size_t)rs * tile : tip_r, prod, out, lh + e,
+          ll + e, rh + e, rl + e, eh, el, S, C, kSites, s_big);
       for (int j = tid; j < tile; j += blockDim.x) {
         const int ss = j % kSites;
         if (!s_big[ss] && site0 + ss < n)
@@ -153,22 +163,38 @@ size_t smem_bytes(int rows, int ncols, int n_slots) {
 }
 
 template <int MODE, int V, typename CodeT, typename BT>
+cudaError_t prepare(size_t smem) {
+  return cudaFuncSetAttribute(plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int MODE, int V, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* const* pl, const float* ttab, int ncols,
            const float* rr, void* bbuf, float* lik, int* sc, int n_slots,
            int n, int n_pad, int S, int C, cudaStream_t st) {
   auto kern = plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>;
   const size_t smem = smem_bytes(S * C, ncols, n_slots);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = prepare<MODE, V, CodeT, BT>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n_pad + kSites - 1) / kSites);
-  kern<<<grid, kThreads, smem, st>>>(
+  kern<<<grid, block_threads(S, C, job_rows(V)), smem, st>>>(
       static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, pl[0],
       pl[1], pl[2], pl[3], pl[4], pl[5], ttab, ncols, rr,
       static_cast<BT*>(bbuf), lik, sc,
       n_slots, n, n_pad, S, C);
   return (int)cudaGetLastError();
+}
+
+template <int MODE, int V, typename CodeT, typename BT>
+int occupancy(int S, int C, int ncols, int n_slots, int* blocks) {
+  const size_t smem = smem_bytes(S * C, ncols, n_slots);
+  cudaError_t err = prepare<MODE, V, CodeT, BT>(smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>,
+      block_threads(S, C, job_rows(V)), smem);
 }
 
 }  // namespace
@@ -204,6 +230,37 @@ extern "C" int plf_tree_seg_mxu_launch(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
                          bbuf, lik, sc, n_slots, n, n_pad, states, categories,
                          st)));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Threads per block and output rows per job of kernel 7m at this state and
+// category count: kernel 2m's (plf_tree_mxu_block), from the same rule.
+extern "C" int plf_tree_seg_mxu_block(int states, int categories,
+                                      int* threads, int* rows) {
+  if (states < 1 || categories < 1) return (int)cudaErrorInvalidValue;
+  *rows = job_rows(states % 4 == 0 ? 4 : 1);
+  *threads = block_threads(states, categories, *rows);
+  return (int)cudaSuccess;
+}
+
+// Resident blocks per SM of the launch plf_tree_seg_mxu_launch would make
+// with these arguments (registers and shared memory both counted by the
+// runtime); bf16 names the library's boundary storage, as in the launch.
+extern "C" int plf_tree_seg_mxu_occupancy(int code_bytes, int states,
+                                          int categories, int ncols,
+                                          int n_slots, int mode, int bf16,
+                                          int* blocks) {
+  if (states < 1 || categories < 1 || n_slots < 1)
+    return (int)cudaErrorInvalidValue;
+  if (code_bytes == 4) {
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return occupancy<M_, V_, int32_t, T_>(
+                         states, categories, ncols, n_slots, blocks)));
+  } else if (code_bytes == 1) {
+    PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                     return occupancy<M_, V_, int8_t, T_>(
+                         states, categories, ncols, n_slots, blocks)));
   }
   return (int)cudaErrorInvalidValue;
 }

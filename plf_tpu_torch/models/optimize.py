@@ -36,7 +36,7 @@ from ``.backward()``.  Its backends follow ``config.py``'s names:
 whose config chose ``Backend.TORCH``.  For a "vpu" model at S != 4 on a
 CUDA device it takes ``"kernel"`` from the size at which that was
 measured faster than "tree" (``_kernel_wins``: at least 255 nodes and
-255 x 131,072 node-sites for LG+G4 proteins, 127 nodes and 127 x 4,096
+255 x 131,072 node-sites for LG+G4 proteins, 15 nodes and 31 x 16,384
 node-sites for GY94+G4 codons) while the per-node residuals fit half the
 free device memory, as the
 JAX package takes "pallas" on the TPU where they fit.
@@ -113,15 +113,19 @@ def _free_bytes(dev) -> int:
 #: Where a "kernel" step on a "vpu" model beat "tree" on an H100, by
 #: (S, C): the fewest PLF nodes and the fewest node-sites (nodes x padded
 #: sites) of the shapes it won at (``backend_turns.py``, PERF.md), both
-#: of which a model must reach.  At S = 20, C = 4 "tree" won or tied at
-#: every shape up to 255 nodes x 65,536 sites and at 63 x 131,072 (54.8-
-#: 55.3 against 55.0 ms), "kernel" at 255 x 131,072 (204.5-204.8 against
-#: 227.7-229.6 ms).  At S = 61 "tree" won at every 15- and 31-node shape
-#: (up to 31 x 65,536 codons: 367 against 401 ms), "kernel" at 127 nodes
-#: from 1,500 codons on (158 against 266 ms).  Other (S, C) were not
-#: measured and keep "tree".
-KERNEL_MIN_NODES = {(20, 4): 255, (61, 4): 127}
-KERNEL_MIN_NODE_SITES = {(20, 4): 255 * 131_072, (61, 4): 127 * 4_096}
+#: of which a model must reach.  At S = 20, C = 4 "tree" won at every
+#: shape up to 255 nodes x 65,536 sites (116.1 against 134.8-135.6 ms
+#: there), "kernel" at 255 x 131,072 (192.2-192.3 against 224.6-225.1 ms)
+#: and, since kernel 1m's redesign, at 63 x 131,072 (52.1-52.8 against
+#: 54.7-54.9 ms), which these two minima cannot admit without 255 x
+#: 65,536: proteins keep 255 nodes.  At S = 61 "kernel" won from 15 nodes
+#: x 65,536 codons (160.8-161.1 against 171.2-171.5 ms), 31 x 16,384
+#: (83.1-84.1 against 98.6-98.7) and at 127 nodes from 1,500 codons;
+#: "tree" at every shape below 31 x 16,384 node-sites (15 x 16,384:
+#: 46.8-46.9 against 56.3 ms).  Other (S, C) were not measured and keep
+#: "tree".
+KERNEL_MIN_NODES = {(20, 4): 255, (61, 4): 15}
+KERNEL_MIN_NODE_SITES = {(20, 4): 255 * 131_072, (61, 4): 31 * 16_384}
 
 
 def _kernel_wins(pm, free: Optional[int] = None) -> bool:

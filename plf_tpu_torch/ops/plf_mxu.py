@@ -24,6 +24,8 @@ takes the plain version :func:`plf_node_mxu_torch`, a CUDA tensor launches
 ``csrc/plf_node_mxu.cu`` or raises.  ``plf_node_mxu.launches`` counts
 kernel launches, ``plf_node_mxu.bf16_launches`` those of the bf16 CLV
 storage form (bf16 child and parent rows, fp32 arithmetic) among them.
+The kernel's launch shape (site tile, threads, resident blocks per SM)
+is its library's: :func:`node_mxu_plan`.
 On the card set ``torch.backends.cuda.matmul.allow_tf32 = False`` before
 calling the dense forms: the kernel's plain version uses no matmul.
 """
@@ -38,21 +40,17 @@ import torch
 
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .plf_grad import op_grad, transpose_lane_constants
-from .plf_node import (SMEM_BLOCK_BYTES, _check, _valid, count_launch,
-                       stage)
+from .plf_node import _check, _valid, count_launch, stage
 
 __all__ = ["MODES", "uses_mxu_kernels", "bf16_round", "bf16_split",
            "dot_bf16x3", "make_mxu_dots", "operator_planes", "node_planes",
            "transpose_planes", "mxu_op_grad", "mxu_stage", "node_mxu_plain",
            "round_tip_table", "plf_node_mxu", "plf_node_mxu_torch",
-           "NODE_MXU_SITES"]
+           "node_mxu_plan"]
 
 #: Kernel arithmetic mode of each variant: 0 fp32, 1 bf16x3, 2 bf16.  "vpu"
 #: at S != 4 runs in fp32 mode, the same arithmetic as the golden model.
 MODES = {"vpu": 0, "mxu": 0, "mxu_3x": 1, "mxu_bf16": 2}
-
-#: Sites per block of kernel 1m (its tiles are rows x NODE_MXU_SITES).
-NODE_MXU_SITES = 32
 
 
 def uses_mxu_kernels(variant: str, states: int) -> bool:
@@ -247,13 +245,6 @@ def plf_node_mxu_torch(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
     return x3, mask.to(torch.int32)[None, :]
 
 
-def node_mxu_smem_bytes(rows: int) -> int:
-    """Dynamic shared memory of one kernel-1m block: three rows x 32-site
-    tiles (two children and the products; the parent reuses the first)
-    and the rescale flags."""
-    return 4 * (3 * rows * NODE_MXU_SITES + NODE_MXU_SITES)
-
-
 @functools.cache
 def _lib(bf16: bool = False):
     """Build (first use) and load csrc/plf_node_mxu.cu's library for fp32
@@ -263,9 +254,39 @@ def _lib(bf16: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_node_mxu_launch.argtypes = [vp] * 10 + [ci] * 6 + [vp]
     lib.plf_node_mxu_launch.restype = ci
+    lib.plf_node_mxu_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+    lib.plf_node_mxu_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _plan(device: torch.device, states: int, categories: int, mode: int,
+          bf16: bool):
+    lib = _lib(bf16)
+    ts, threads, blocks = (ctypes.c_int(0) for _ in range(3))
+    with torch.cuda.device(device):
+        err = lib.plf_node_mxu_plan(states, categories, mode, int(bf16),
+                                    ctypes.byref(ts), ctypes.byref(threads),
+                                    ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"plf_node_mxu plan query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return ts.value, threads.value, blocks.value
+
+
+def node_mxu_plan(states: int, categories: int, variant: str = "mxu_3x",
+                  bf16: bool = False, device=None):
+    """``(sites, threads, blocks)`` of kernel 1m's launch, as its library
+    launches them (``plf_node_mxu_plan``): sites per tile (32), threads
+    per block (plf_mxu.cuh's job shape on that tile: 320 at S = 20, C = 4;
+    416 at S = 61) and resident blocks per SM.  The grid is one block per
+    tile.  Builds the kernel on first use and needs a CUDA device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _plan(dev, states, categories, _mode(variant), bool(bf16))
 
 
 def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
@@ -288,10 +309,6 @@ def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
                                   variant=variant, planes=planes)
     if x1.device.type != "cuda":
         raise ValueError(f"plf_node_mxu: no kernel for device {x1.device}")
-    rows = states * categories
-    if node_mxu_smem_bytes(rows) > SMEM_BLOCK_BYTES:
-        raise ValueError(f"plf_node_mxu: {rows} rows do not fit one block's "
-                         f"shared memory ({SMEM_BLOCK_BYTES} bytes)")
     ts = [x1, x2, lc, rc, ec] + ([] if out is None else [out])
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("plf_node_mxu: tensors must be contiguous")

@@ -119,7 +119,8 @@ __all__ = ["plan_segments", "SegPlan", "Segment", "segment_program",
            "seg_mxu_site_bytes", "plf_tree_seg", "plf_tree_seg_torch",
            "plf_tree_seg_mxu", "plf_tree_seg_bwd", "plf_tree_seg_bwd_torch",
            "plf_tree_seg_bwd_mxu", "make_tree_diff_segmented", "SEG_SITES",
-           "SEG_BLOCKS_PER_SM", "SEG_MXU_CAPS"]
+           "SEG_BLOCKS_PER_SM", "SEG_MXU_CAPS", "tree_seg_mxu_block",
+           "plf_tree_seg_mxu_occupancy"]
 
 #: Sites per tile (threads per block) of kernel 8 (``kSites`` in
 #: ``csrc/plf_tree_seg_bwd.cu``); ``n_pad`` must be a multiple.
@@ -760,6 +761,10 @@ def _lib_mxu(bf16: bool = False):
         [vp, ci, vp, ci, vp, ci] + [vp] * 7 + [ci, vp, vp, vp, vp]
         + [ci] * 7 + [vp])
     lib.plf_tree_seg_mxu_launch.restype = ci
+    lib.plf_tree_seg_mxu_block.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 2
+    lib.plf_tree_seg_mxu_block.restype = ci
+    lib.plf_tree_seg_mxu_occupancy.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
+    lib.plf_tree_seg_mxu_occupancy.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
@@ -818,6 +823,50 @@ def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
 
 
 plf_tree_seg_mxu.launches = plf_tree_seg_mxu.bf16_launches = 0
+
+
+def tree_seg_mxu_block(states: int, categories: int,
+                       dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """``(threads, rows)`` of kernel 7m at this state and category count,
+    as its library decides them (``plf_tree_seg_mxu_block``): kernel 2m's
+    job shape (:func:`.plf_tree.tree_mxu_block`), from the one rule of
+    ``csrc/plf_mxu.cuh``.  Builds the ``dtype`` boundary storage's library
+    on first use."""
+    _check_storage(dtype)
+    lib = _lib_mxu(dtype == torch.bfloat16)
+    threads, rows = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.plf_tree_seg_mxu_block(states, categories,
+                                     ctypes.byref(threads),
+                                     ctypes.byref(rows))
+    if err != 0:
+        raise RuntimeError(f"plf_tree_seg_mxu block query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return threads.value, rows.value
+
+
+def plf_tree_seg_mxu_occupancy(code_dtype: torch.dtype, states: int,
+                               categories: int, n_codes: int, n_slots: int,
+                               variant: str,
+                               dtype: torch.dtype = torch.float32) -> int:
+    """Thread blocks of :func:`plf_tree_seg_mxu` (of
+    :func:`tree_seg_mxu_block`'s threads) resident on one SM for a segment
+    arena of ``n_slots`` slots, as the CUDA runtime computes it, with
+    ``dtype`` boundaries; builds the kernel on first use and needs a CUDA
+    device."""
+    _check_storage(dtype)
+    code_bytes = {torch.int32: 4, torch.int8: 1}[code_dtype]
+    if not tree_mxu_fits(n_slots, states * categories, n_codes):
+        raise ValueError(f"a {n_slots}-slot segment arena does not fit")
+    bf16 = dtype == torch.bfloat16
+    lib = _lib_mxu(bf16)
+    blocks = ctypes.c_int(0)
+    err = lib.plf_tree_seg_mxu_occupancy(code_bytes, states, categories,
+                                         n_codes, n_slots, MODES[variant],
+                                         int(bf16), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"plf_tree_seg_mxu occupancy query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return blocks.value
 
 
 @functools.cache

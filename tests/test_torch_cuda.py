@@ -20,8 +20,9 @@ from plf_tpu_torch.models import (PhyloModel, codon_gy94,  # noqa: E402
                                   random_gtr, random_tree,
                                   simulate_alignment)
 from plf_tpu_torch.ops import layout as L  # noqa: E402
-from plf_tpu_torch.ops.plf_mxu import (plf_node_mxu,  # noqa: E402
-                                       plf_node_mxu_torch, uses_mxu_kernels)
+from plf_tpu_torch.ops.plf_mxu import (node_mxu_plan,  # noqa: E402
+                                       plf_node_mxu, plf_node_mxu_torch,
+                                       uses_mxu_kernels)
 from plf_tpu_torch.ops.plf_node import plf_node, plf_node_torch  # noqa: E402
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,  # noqa: E402
                                         plf_tree_mxu_occupancy,
@@ -589,6 +590,70 @@ def test_kernel1m_equals_plain(cuda, variant, S, C):
         assert torch.equal(x3i, x3p) and torch.equal(sci, scp)
 
 
+#: Kernel 1m's plan at each (S, C), as its library reports it
+#: (node_mxu_plan): (sites per tile, threads per block).
+NODE_MXU_PLANS = {(20, 4): (32, 320), (61, 4): (32, 416), (13, 3): (32, 288),
+                  (20, 5): (32, 416), (4, 4): (32, 128)}
+
+
+def test_kernel1m_plan(cuda):
+    """Kernel 1m's launch shape in every mode and storage: the pinned tile
+    and threads (plf_mxu.cuh's job shape on that tile), and at least one
+    resident block per SM."""
+    for (S, C), want in NODE_MXU_PLANS.items():
+        for variant in MXU_VARIANTS:
+            for bf16 in (False, True):
+                ts, threads, blocks = node_mxu_plan(S, C, variant, bf16)
+                assert (ts, threads) == want and blocks >= 1, (S, C, variant)
+
+
+#: Edge shapes of kernel 1m: (S, C, n, n_pad).  n one site past a 32-site
+#: tile; n_pad % 4 != 0, % 8 != 0 and odd (rows not 16- or 4-byte
+#: aligned); S = 61; S = 13 with C = 3 (V = 1, five-row jobs).
+NODE_MXU_EDGES = [(20, 4, 33, 128), (20, 4, 301, 302), (20, 4, 301, 301),
+                  (20, 4, 1997, 2000), (61, 4, 33, 36), (61, 4, 700, 701),
+                  (13, 3, 295, 300), (13, 3, 97, 99)]
+
+
+@pytest.mark.parametrize("variant", MXU_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,C,n,n_pad", NODE_MXU_EDGES)
+def test_kernel1m_edges_equal_plain(cuda, variant, dtype, S, C, n, n_pad):
+    """Kernel 1m at its edge shapes: x3 and the flags equal the plain
+    version's bit for bit, out of place and in place over x1 and over x2;
+    "mxu" in fp32 storage also equals the golden model."""
+    x1, x2, left, right, ev = _underflow_case_s(n, S, C, 23)
+    lane = lambda x: torch.as_tensor(np.pad(
+        L.to_lane_major(x, S, C), ((0, 0), (0, n_pad - n))),
+        device=cuda).to(dtype).contiguous()
+    consts = [torch.as_tensor(a, device=cuda) for a in (
+        L.branch_to_lane_constants(left, S, C),
+        L.branch_to_lane_constants(right, S, C),
+        L.ev_to_lane_constants(ev, S, C))]
+    a, b = lane(x1), lane(x2)
+    kw = dict(states=S, categories=C, variant=variant)
+    x3p, scp = plf_node_mxu_torch(a, b, *consts, n, **kw)
+    before = plf_node_mxu.launches
+    x3, sc = plf_node_mxu(a, b, *consts, n, **kw)
+    runs = [(x3, sc)]
+    for which in (0, 1):
+        ops = [a.clone(), b.clone()]
+        x3i, sci = plf_node_mxu(*ops, *consts, n, out=ops[which], **kw)
+        assert x3i.data_ptr() == ops[which].data_ptr()
+        runs.append((x3i, sci))
+    torch.cuda.synchronize()
+    assert plf_node_mxu.launches == before + len(runs)
+    for x3k, sck in runs:
+        assert x3k.dtype == dtype
+        assert torch.equal(x3k, x3p) and torch.equal(sck, scp)
+    assert int(sc.sum()) > 0 and not sc[0, n:].any()
+    if variant == "mxu" and dtype == torch.float32:
+        x3_ref, _, _ = plf_reference(x1, x2, left, right, ev, states=S,
+                                     categories=C)
+        np.testing.assert_array_equal(
+            L.from_lane_major(x3.cpu().numpy(), S, C, n=n), x3_ref)
+
+
 def _underflow_case_s(n, S, C, seed):
     rng = np.random.default_rng(seed)
     ev = rng.random((S, S), dtype=np.float32)
@@ -722,6 +787,21 @@ def _bsched(pm):
     sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
     return torch.as_tensor(TG.backward_schedule(sched, pm.tree.n_leaves),
                            device=pm.device)
+
+
+def test_kernel7m_block_is_kernel2m_block(cuda):
+    """Kernel 7m's library reports kernel 2m's job shape (one rule in
+    csrc/plf_mxu.cuh) for both boundary storages at every pinned (S, C),
+    and its blocks fit an SM at the test models' arenas."""
+    for (S, C), want in TREE_MXU_BLOCKS.items():
+        for dtype in (torch.float32, BF16):
+            assert SG.tree_seg_mxu_block(S, C, dtype) == want, (S, C, dtype)
+    for dtype in (torch.float32, BF16):
+        for code_dtype in (torch.int32, torch.int8):
+            assert SG.plf_tree_seg_mxu_occupancy(
+                code_dtype, 20, 4, 24, 8, "mxu_3x", dtype) >= 1
+    assert SG.plf_tree_seg_mxu_occupancy(torch.int32, 61, 4, 64, 4, "mxu",
+                                         torch.float32) >= 1
 
 
 @pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
@@ -1057,28 +1137,34 @@ def _forced_underflow(pm):
 @pytest.mark.parametrize("variant", MXU_VARIANTS + ["vpu"])
 @pytest.mark.parametrize("states,extra", [(20, {}), (20, {"p_inv": 0.2}),
                                           (20, {"tip_dtype": "int8"}),
-                                          (61, {}), (20, {"underflow": 1})])
+                                          (61, {}), (20, {"underflow": 1}),
+                                          (4, {"n_leaves": 32}),
+                                          (4, {"n_leaves": 32,
+                                               "tip_dtype": "int8"})])
 def test_kernel7m_equals_kernel2m_and_plain(cuda, variant, states, extra):
     """Kernel 7m's lik and sc equal kernel 2m's bit for bit, and its lik,
     sc and every boundary CLV equal its plain version's, in every mode, at
-    S = 20 (C = 4, C = 5 with +I, int8 tips, and the forced-underflow tips)
-    and S = 61; its operators split by the wrapper or by the model."""
+    S = 20 (C = 4, C = 5 with +I, int8 tips, and the forced-underflow tips),
+    S = 61 and S = 4 (DNA in the matrix forms, blocks of 32 threads; "vpu"
+    there is kernel 7's, so 7m and 2m are called directly); its operators
+    split by the wrapper or by the model."""
     underflow = extra.pop("underflow", 0)
     pm, plan, (fwd, _) = _seg_mxu_case(cuda, variant, states=states, **extra)
     prog, segs, n_slots = fwd
     ttab, codes = _forced_underflow(pm) if underflow else (None, None)
     args = _seg_mxu_args(pm, prog, segs, ttab, codes)
     S, C = states, pm.config.categories
+    mxu = uses_mxu_kernels(variant, S)
+    run = SG.plf_tree_seg if mxu else SG.plf_tree_seg_mxu
     kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots, states=S,
               categories=C, variant=variant)
     before = SG.plf_tree_seg_mxu.launches
-    lik, sc, bbuf = SG.plf_tree_seg(*args, pm.n_sites, **kw)
-    lik_m, sc_m, bbuf_m = SG.plf_tree_seg(*args, pm.n_sites,
-                                          planes=pm._planes(), **kw)
+    lik, sc, bbuf = run(*args, pm.n_sites, **kw)
+    lik_m, sc_m, bbuf_m = run(*args, pm.n_sites, planes=pm._planes(), **kw)
     assert SG.plf_tree_seg_mxu.launches == before + 2
-    ref = plf_tree(args[0], pm.sched, *args[3:], pm.n_sites,
-                   n_slots=pm.n_slots, root_slot=pm.root_slot, states=S,
-                   categories=C, variant=variant)
+    ref = (plf_tree if mxu else plf_tree_mxu)(
+        args[0], pm.sched, *args[3:], pm.n_sites, n_slots=pm.n_slots,
+        root_slot=pm.root_slot, states=S, categories=C, variant=variant)
     plain = SG.plf_tree_seg_torch(*args, pm.n_sites, **kw)
     torch.cuda.synchronize()
     assert torch.equal(lik, ref[0]) and torch.equal(sc, ref[1])

@@ -1,7 +1,10 @@
 """The port's matrix ("MXU") forms and protein serving path against the JAX
 package: block-matrix layouts, the empirical protein models and
 ``encode_protein``, kernel 1m's plain version against
-``plf_pallas_lane_major`` (interpret mode) in every variant at S = 20, the
+``plf_pallas_lane_major`` (interpret mode) in every variant at S = 20 and
+at the kernel's edge shapes (S = 13 and 61, a site past a tile, odd row
+lengths), models of the job shape (kernels 1m, 2m, 7m) and of kernel 1m's
+grid of one block per tile, the
 protein ``PhyloModel`` fused and per-node against JAX's, the tip-rounding
 asymmetry of the two paths, the training guards, and the "cuda" default
 device of the entry points.
@@ -44,6 +47,7 @@ from plf_tpu_torch.ops import plf_mxu as M  # noqa: E402
 from plf_tpu_torch.ops.plf_node import plf_node  # noqa: E402
 from plf_tpu_torch.ops.plf_tree_seg import plf_tree_seg  # noqa: E402
 from tests.conftest import make_random_case  # noqa: E402
+from test_torch_tree_grad_mxu import tpu_bf16_pass  # noqa: E402,F401
 
 S = 20
 BLOCK = 128
@@ -212,6 +216,84 @@ def test_node_plain_matches_jax(variant, C):
         np.testing.assert_array_equal(got_sc[:, :n], emu_sc)
         np.testing.assert_allclose(got, ref, rtol=2e-2, atol=1e-4)
     np.testing.assert_array_equal(got_sc[0, :n], sv)
+
+
+#: Edge shapes of kernel 1m for its plain version: (S, C, n, n_pad): n one
+#: site past a 32-site tile, and an odd n_pad (JAX's copy is padded to its
+#: 128-site block).
+NODE_EDGES = [(13, 3, 33, 35), (61, 4, 33, 37), (20, 4, 33, 35),
+              (13, 3, 97, 99)]
+
+
+def _edge_case(S, C, n, seed):
+    """Random positive inputs, every 4th site of x1 scaled by 1e-16 so that
+    they rescale at S = 13 to 61."""
+    rng = np.random.default_rng(seed)
+    left = rng.random((C, S, S), dtype=np.float32)
+    right = rng.random((C, S, S), dtype=np.float32)
+    ev = rng.random((S, S), dtype=np.float32)
+    x1 = rng.random((n, C, S), dtype=np.float32)
+    x2 = rng.random((n, C, S), dtype=np.float32)
+    x1[0::4] *= np.float32(1e-16)
+    return x1, x2, left, right, ev
+
+
+def _rescaled(x3, sc, n):
+    """x3 with its rescales counted in (float64): continuous where a flag
+    flips between two arithmetics."""
+    x3 = np.asarray(x3, np.float64)[:, :n]
+    return x3 * np.exp2(-32.0 * np.asarray(sc, np.float64)[0, :n])
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("S,C,n,n_pad", NODE_EDGES)
+def test_node_plain_edges_match_jax(variant, S, C, n, n_pad, request):
+    """Kernel 1m's plain version at the kernel's edge shapes
+    (S = 13 with C = 3, S = 61, n one site past a tile, an odd n_pad)
+    against plf_pallas_lane_major (interpret mode) in every variant.
+
+    "mxu": x3 and the flags equal the golden model bit for bit, and JAX's
+    x3 (rescales counted in) within S * 2^-23 relative, the bound of a sum
+    of S positive fp32 terms taken in another order (XLA:CPU's blocked,
+    FMA-contracted dots).  "mxu_3x" and "mxu_bf16" (JAX's one-pass dots as
+    the TPU runs them): within the variant's class on this input, twice the
+    largest distance of JAX's result from the port's "mxu" one, measured
+    here, never closer than the "mxu" bar; both relative to the "mxu"
+    result with the rescales counted in."""
+    if variant == "mxu_bf16":
+        request.getfixturevalue("tpu_bf16_pass")
+    x1, x2, left, right, ev = _edge_case(S, C, n, 40 + S + n)
+    t = torch.as_tensor
+    lc = [t(L.branch_to_lane_constants(m, S, C)) for m in (left, right)]
+    ec = t(L.ev_to_lane_constants(ev, S, C))
+    pad = lambda x, w: np.pad(L.to_lane_major(x, S, C), ((0, 0), (0, w - n)))
+
+    def port(v):
+        x3, sc = plf_node(t(pad(x1, n_pad)), t(pad(x2, n_pad)), *lc, ec, n,
+                          states=S, categories=C, variant=v)
+        assert x3.shape == (S * C, n_pad) and not sc[0, n:].any()
+        return x3.numpy(), sc.numpy()
+
+    got, got_sc = port(variant)
+    assert got_sc.sum() > 0
+    f32 = _rescaled(*port("mxu"), n)
+    x3j, scj = plf_pallas_lane_major(
+        pad(x1, BLOCK), pad(x2, BLOCK), JL.branch_to_block_matrix(left, S, C),
+        JL.branch_to_block_matrix(right, S, C), JL.ev_to_block_matrix(ev, S, C),
+        n, states=S, categories=C, block_sites=BLOCK, interpret=True,
+        variant=variant)
+    want = _rescaled(x3j, scj, n)
+    bar = S * 2.0 ** -23
+    if variant == "mxu":
+        golden, sv, _ = plf_reference(x1, x2, left, right, ev, states=S,
+                                      categories=C)
+        np.testing.assert_array_equal(L.from_lane_major(got, S, C, n=n),
+                                      golden)
+        np.testing.assert_array_equal(got_sc[0, :n], sv)
+    else:
+        bar = max(bar, 2 * np.max(np.abs(want - f32) / np.abs(f32)))
+    assert np.max(np.abs(_rescaled(got, got_sc, n) - want)
+                  / np.abs(f32)) <= bar
 
 
 def test_dense_dots_match_jax():
@@ -391,6 +473,87 @@ def test_kernel2m_job_slots_take_every_job_once(S, C, threads, rows, rounds):
     assert set(taken) == want and set(taken.values()) == {1}
     assert most == rounds == -(-jobs // 64)
     assert 0 <= rounds * slots - jobs < rounds
+
+
+def _block_threads(S, C, rows, ts):
+    """csrc/plf_mxu.cuh's block_threads: one job slot of ``ts`` threads
+    per job of a stage, in the fewest rounds of at most 512 / ``ts``
+    slots, every round full but the last."""
+    jobs = C * -(-S // rows)
+    rounds = -(-jobs // (512 // ts))
+    return ts * -(-jobs // rounds)
+
+
+@pytest.mark.parametrize("kernel,S,C,TS,threads,rows,rounds", [
+    ("7m", 4, 4, 8, 32, 4, 1), ("7m", 20, 4, 8, 160, 4, 1),
+    ("7m", 61, 4, 8, 416, 5, 1), ("7m", 4, 1, 8, 8, 4, 1),
+    ("1m", 20, 4, 32, 320, 4, 2), ("1m", 20, 5, 32, 416, 4, 2),
+    ("1m", 61, 4, 32, 416, 5, 4), ("1m", 13, 3, 32, 288, 5, 1),
+    ("1m", 4, 4, 32, 128, 4, 1)])
+def test_job_shape_takes_every_job_once(kernel, S, C, TS, threads, rows,
+                                        rounds):
+    """Kernels 7m and 1m take kernel 2m's job shape (one rule,
+    csrc/plf_mxu.cuh's block_threads and job_rows: 5-row jobs where S % 4
+    != 0), 7m on 8-site tiles and 1m on its plan's tile (test_torch_cuda.py
+    holds the libraries to these values on the card).  Walking node_tile's
+    loop as the card does (thread t: site t % TS, jobs t // TS, t // TS +
+    slots, ...) takes every (site, category, block of ``rows`` output rows)
+    exactly once, in ``rounds`` rounds, every round full but the last,
+    which lacks fewer jobs than there are rounds."""
+    assert rows == (4 if S % 4 == 0 else 5)
+    assert threads == _block_threads(S, C, rows, TS) <= 512
+    slots, blocks = threads // TS, -(-S // rows)
+    jobs = C * blocks
+    taken, most = {}, 0
+    for t in range(threads):
+        s, n_jobs = t % TS, 0
+        for j in range(t // TS, jobs, slots):
+            key = (s, j % C, (j // C) * rows)
+            taken[key] = taken.get(key, 0) + 1
+            n_jobs += 1
+        most = max(most, n_jobs)
+    want = {(s, c, rows * b) for s in range(TS) for c in range(C)
+            for b in range(blocks)}
+    assert set(taken) == want and set(taken.values()) == {1}
+    assert most == rounds == -(-jobs // (512 // TS))
+    assert 0 <= rounds * slots - jobs < rounds
+
+
+@pytest.mark.parametrize("S,C,n_pad", [
+    (20, 4, 17), (20, 4, 128), (20, 4, 2000), (20, 4, 4001), (61, 4, 20),
+    (61, 4, 701), (13, 3, 99), (13, 3, 300)])
+def test_kernel1m_grid_takes_every_site_once(S, C, n_pad):
+    """A model of kernel 1m's grid (csrc/plf_node_mxu.cu): one block per
+    32-site tile, its threads (the job shape's) striding over the tile's
+    rows x sites.  Each (row, site) below n_pad is read from both children
+    and written to the parent exactly once, by one block, and each site's
+    flag once; sites past n_pad are zero-filled and never read or written.
+    A block writes only what it read itself, after its barrier, so in place
+    over x1 or x2 no block reads a site that another has written."""
+    ts, rows = 32, S * C
+    threads = _block_threads(S, C, 4 if S % 4 == 0 else 5, ts)
+    tile = rows * ts
+    reads, writes, flags = {}, {}, {}
+    for block in range(-(-n_pad // ts)):
+        site0, own = block * ts, set()
+        for tid in range(threads):
+            for i in range(tid, tile, threads):
+                site = site0 + i % ts
+                if site < n_pad:   # else the tile's entry is zero-filled
+                    key = (i // ts, site)
+                    reads[key] = reads.get(key, 0) + 1
+                    own.add(key)
+        for tid in range(threads):   # after the barrier and node_tile
+            for i in range(tid, tile, threads):
+                key = (i // ts, site0 + i % ts)
+                if key[1] < n_pad:
+                    assert key in own
+                    writes[key] = writes.get(key, 0) + 1
+            if tid < ts and site0 + tid < n_pad:
+                flags[site0 + tid] = flags.get(site0 + tid, 0) + 1
+    want = {(r, s): 1 for r in range(rows) for s in range(n_pad)}
+    assert reads == want and writes == want
+    assert flags == {s: 1 for s in range(n_pad)}
 
 
 def test_kernel2m_capacity_rule(monkeypatch):

@@ -436,8 +436,8 @@ def test_auto_takes_kernel_where_measured_faster(monkeypatch):
     """On the card "auto" takes "kernel" (kernels 1m + 3m per node) for a
     "vpu" model at S != 4 from the nodes and nodes x padded sites at which
     it was measured faster than "tree" (optimize.KERNEL_MIN_NODES and
-    KERNEL_MIN_NODE_SITES: 255 nodes and 255 x 131,072 at S = 20, 127
-    and 127 x 4,096 at S = 61, C = 4), while its per-node residuals, 3 * E *
+    KERNEL_MIN_NODE_SITES: 255 nodes and 255 x 131,072 at S = 20, 15
+    and 31 x 16,384 at S = 61, C = 4), while its per-node residuals, 3 * E *
     S*C * n_pad * 4 bytes, fit half the free memory; below that size, at
     an unmeasured (S, C), past the memory and for every MXU variant the
     rule stays "tree"."""
@@ -458,9 +458,9 @@ def test_auto_takes_kernel_where_measured_faster(monkeypatch):
             (61, 4, 15, 16_384, False), (61, 4, 15, 4_096, False),
             (20, 1, 255, 131_072, False), (2, 4, 255, 131_072, False),
             (20, 4, 255, 131_072, True), (20, 4, 63, 1 << 20, False),
-            (61, 4, 31, 16_384, False), (61, 4, 127, 4_096, True),
-            (61, 4, 15, 65_536, False), (61, 4, 31, 65_536, False),
-            (61, 4, 127, 2_048, False)):
+            (61, 4, 31, 16_384, True), (61, 4, 127, 4_096, True),
+            (61, 4, 15, 65_536, True), (61, 4, 31, 65_536, True),
+            (61, 4, 127, 2_048, False), (61, 4, 7, 131_072, False)):
         assert TO._kernel_wins(stand(S, C, E, n_pad), free=big) is want
     card = stand(20, 4, 63, 131_072)
     resid = 3 * 63 * 80 * 131_072 * 4

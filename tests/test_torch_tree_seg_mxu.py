@@ -52,12 +52,15 @@ def _caterpillar(n_leaves):
 #: name -> (states, categories, tree, n_sites, cap_ops): S = 20 (8 leaves x
 #: 256 sites, LG), S = 61 (5 leaves x 128 codons simulated under GY94, C =
 #: 2: random codons cancel their eigen coordinates below the fp32 paths'
-#: resolution) and a 14-leaf caterpillar at S = 20 whose sites rescale (the
-#: forced-underflow case).  Each cap cuts the tree into several segments.
+#: resolution), a 14-leaf caterpillar at S = 20 whose sites rescale (the
+#: forced-underflow case), and S = 13 with C = 3 (a random GTR model; five-
+#: row jobs in kernel 7m) on 129 sites, one past a tile.  Each cap cuts the
+#: tree into several segments.
 CASES = {
     "s20": (20, 4, lambda: jrt(8, seed=9), 256, 4),
     "s61": (61, 2, lambda: jrt(5, seed=0), 128, 2),
     "underflow": (20, 2, lambda: _caterpillar(14), 128, 4),
+    "s13": (13, 3, lambda: jrt(7, seed=4), 129, 3),
 }
 
 
@@ -66,7 +69,7 @@ def _tips(S, tree, n_sites, seed):
         return simulate_alignment(tree, JS.codon_gy94(2.0, 0.4), n_sites,
                                   alpha=0.5, seed=seed)
     tips = np.random.default_rng(seed).integers(
-        -1, 23, size=(tree.n_leaves, n_sites))
+        -1, 23 if S == 20 else S, size=(tree.n_leaves, n_sites))
     tips[:, 4] = -1                                     # a gap column
     return tips
 
@@ -74,7 +77,9 @@ def _tips(S, tree, n_sites, seed):
 def _jax_model(case, variant):
     S, C, make_tree, n_sites, _ = CASES[case]
     tree = make_tree()
-    model = JS.empirical_protein("lg") if S == 20 else JS.codon_gy94(2.0, 0.4)
+    model = (JS.empirical_protein("lg") if S == 20
+             else JS.codon_gy94(2.0, 0.4) if S == 61
+             else JS.random_gtr(S, seed=5))
     return JPM(tree, model, _tips(S, tree, n_sites, seed=S + len(case)),
                alpha=0.5, config=JCfg(states=S, categories=C,
                                       block_sites=128, interpret=True,
