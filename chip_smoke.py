@@ -120,14 +120,14 @@ from plf_tpu_torch.ops.plf_grad import (plf_node_bwd, plf_node_bwd_torch,
                                         transpose_lane_constants)
 from plf_tpu_torch.ops.plf_mxu import (node_mxu_plan, plf_node_mxu,
                                        plf_node_mxu_torch)
-from plf_tpu_torch.ops.plf_node import (gen_flops, plf_node,
+from plf_tpu_torch.ops.plf_node import (gen_flops, gen_plan, plf_node,
                                         plf_node_gen, plf_node_gen_torch,
                                         plf_node_torch)
 from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,
                                         plf_tree_mxu_occupancy,
                                         plf_tree_occupancy, plf_tree_torch,
                                         reorder_schedule, TREE_MXU_SITES,
-                                        tree_mxu_block)
+                                        tree_mxu_block, tree_plan)
 from plf_tpu_torch.ops.plf_tree_grad import (backward_schedule,
                                              plf_tree_bwd,
                                              plf_tree_bwd_mxu,
@@ -538,13 +538,16 @@ def tree_workload(dev):
 
 
 def kernel2_phase(pm):
-    """Kernel 2 against the plain tree forward on the card."""
+    """Kernel 2 on the model's carried program against the plain tree
+    forward on the card, with its plan and its share of the uncontracted
+    fp32 ceiling."""
     cfg = pm.config
     args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
             pm.root_rows[0], pm.n_sites)
     kw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot,
               states=cfg.states, categories=cfg.categories)
-    lik_k, sc_k = plf_tree(*args, **kw)
+    prog = pm.tree_program
+    lik_k, sc_k = plf_tree(*args, **kw, program=prog)
     lik_p, sc_p = plf_tree_torch(*args, **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(lik_k).all()) and bool((lik_k > 0).all()),
@@ -553,12 +556,21 @@ def kernel2_phase(pm):
     check(torch.equal(sc_k, sc_p), "kernel 2 scaler counts != plain")
     check(torch.equal(lik_k, lik_p), "kernel 2 site likelihoods != plain "
           f"(max abs diff {max_err:g})")
-    ms_k = cuda_ms(lambda: plf_tree(*args, **kw), reps=10)
+    ms_k = cuda_ms(lambda: plf_tree(*args, **kw, program=prog), reps=10)
     ms_p = cuda_ms(lambda: plf_tree_torch(*args, **kw), reps=2, warmup=1)
+    plan = tree_plan(pm.codes.dtype, cfg.categories, pm.tip_table.shape[1],
+                     pm.carry_slots)
+    fwd, _ = node_work(cfg.states, cfg.categories)
+    ceiling = 2 * len(pm.schedule) * fwd * pm.n_pad / FP32_FLOPS * 1e3
     phase("kernel2", f"{len(pm.schedule)} nodes x {pm.n_sites} sites: "
           f"== plain (site likelihoods and {int(sc_k.sum())} rescales); "
-          f"kernel {ms_k:.3f} ms ({1e3 / ms_k:.1f} tree evals/s), plain "
-          f"{ms_p:.3f} ms")
+          f"kernel {ms_k:.3f} ms ({1e3 / ms_k:.1f} tree evals/s, "
+          f"{100 * ceiling / ms_k:.1f}% of the uncontracted fp32 ceiling "
+          f"{ceiling:.4f} ms, twice the 67 TFLOP/s bound), plain "
+          f"{ms_p:.3f} ms; plan: {plan['threads']} threads x "
+          f"{plan['sites_per_thread']} site(s) a block, {plan['slots']} "
+          f"arena slots carried ({pm.n_slots} uncarried), "
+          f"{plan['blocks_per_sm']} blocks per SM")
     return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=max_err)
 
 
@@ -580,7 +592,8 @@ def kernel4_phase(pm):
             T(pm.ec), pm.tip_table, pm.root_rows[0])
     lik, _ = plf_tree(pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec,
                       pm.tip_table, pm.root_rows[0], pm.n_sites,
-                      n_slots=pm.n_slots, root_slot=pm.root_slot)
+                      n_slots=pm.n_slots, root_slot=pm.root_slot,
+                      program=pm.tree_program)
     glik = (pm.wgt_pad.to(torch.float32) / lik).contiguous()
     n = pm.n_sites
     k1 = plf_tree_bwd(*args, glik, n)
@@ -1527,7 +1540,8 @@ def kernel7_phase(dev, pm):
         lik, sc, bbuf = plf_tree_seg(*args, **kw)
         kargs = (m.codes, m.sched, m.lcs, m.rcs, m.ec, m.fused_tip_table,
                  m.root_rows[0], m.n_sites)
-        kkw = dict(n_slots=m.n_slots, root_slot=m.root_slot)
+        kkw = dict(n_slots=m.n_slots, root_slot=m.root_slot,
+                   program=m.tree_program)
         ref = plf_tree(*kargs, **kkw)
         plain, plain_ms = timed(lambda: plf_tree_seg_torch(*args, **kw))
         check(torch.equal(lik, ref[0]) and torch.equal(sc, ref[1]),
@@ -2463,7 +2477,8 @@ def profile_phase(pm):
             pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
             pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
             root_slot=pm.root_slot, states=cfg.states,
-            categories=cfg.categories)
+            categories=cfg.categories,
+            program=pm.tree_program)
 
     def copies():
         lik, sc = state["out"]
@@ -2514,20 +2529,26 @@ def profile_phase(pm):
     # fewer blocks fit an SM; the results must not change.
     ref = state["out"]
     n_codes = pm.tip_table.shape[1]
-    for n_slots in sorted({pm.n_slots, 9, 13, 28}):
-        blocks = plf_tree_occupancy(pm.codes.dtype, cfg.categories, n_codes,
-                                    n_slots)
+    fwd, _ = node_work(cfg.states, cfg.categories)
+    ceiling = 2 * len(pm.schedule) * fwd * pm.n_pad / FP32_FLOPS * 1e3
+    for n_slots in sorted({pm.carry_slots, 6, 9, 13, 28}):
+        plan = tree_plan(pm.codes.dtype, cfg.categories, n_codes, n_slots)
+        blocks = plan["blocks_per_sm"]
         args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
                 pm.root_rows[0], pm.n_sites)
-        kw = dict(n_slots=n_slots, root_slot=pm.root_slot,
-                  states=cfg.states, categories=cfg.categories)
+        kw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot,
+                  states=cfg.states, categories=cfg.categories,
+                  program=(pm.tree_program[0], n_slots))
         lik, sc = plf_tree(*args, **kw)
         check(torch.equal(lik, ref[0]) and torch.equal(sc, ref[1]),
               f"kernel 2 with a {n_slots}-slot arena changed its result")
         ms = cuda_ms(lambda: plf_tree(*args, **kw), reps=10)
+        warps = blocks * plan["threads"] // 32
         phase("profile", f"kernel 2 with a {n_slots}-slot arena: {blocks} "
-              f"blocks of 128 threads per SM ({blocks * 4} warps), "
-              f"{ms:.3f} ms")
+              f"blocks of {plan['threads']} threads x "
+              f"{plan['sites_per_thread']} site(s) per SM ({warps} warps), "
+              f"{ms:.3f} ms ({100 * ceiling / ms:.1f}% of the uncontracted "
+              f"fp32 ceiling)")
 
 
 # ---------------------------------- kernel 9 and kernel 3m (S != 4) --
@@ -2563,6 +2584,7 @@ def kernel9_phase(dev):
         node_sites = n * GEN_ITERS
         flops = gen_flops(S, C) * node_sites
         bd = bound(4 * n, flops, FP32_FLOPS)
+        plan = gen_plan(S, C)
         phase("kernel9", f"S={S} C={C}, {n} sites x {GEN_ITERS} nodes: == "
               f"plain ({n_fin} of {n} checksums finite); kernel {ms_k:.4f} "
               f"ms ({node_sites / ms_k / 1e6:.3f} Gnode-sites/s, "
@@ -2570,7 +2592,14 @@ def kernel9_phase(dev):
               f"per node-site; bound {bd['bound_ms']:.4f} ms by "
               f"{bd['bound_by']} at 67 TFLOP/s, which counts an FMA as two: "
               f"under -fmad=false the uncontracted ceiling is half, "
-              f"{2 * bd['bound_ms']:.4f} ms), plain {ms_p:.3f} ms")
+              f"{2 * bd['bound_ms']:.4f} ms, {200 * bd['bound_ms'] / ms_k:.1f}"
+              f"% of it), plain {ms_p:.3f} ms; plan: {plan['threads']} "
+              f"threads a block, {plan['tile_sites']}-site tiles, "
+              f"{plan['job_rows']} rows x {plan['job_sites']} site(s) a "
+              f"thread's job, operators in "
+              f"{'shared' if plan['ops_shared'] else 'device'} memory, "
+              f"{plan['smem_bytes']} bytes of dynamic shared memory, "
+              f"{plan['blocks_per_sm']} blocks per SM")
         res[S] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=err, **bd)
         del k, p
     torch.cuda.empty_cache()

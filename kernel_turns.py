@@ -1,7 +1,7 @@
 """Time kernels of two checkouts in turns on one NVIDIA GPU.
 
-    python3 kernel_turns.py [--dna | --k3m2m | --k7m1m | --k1m] PARENT_DIR
-                            CHANGE_DIR [MORE ...]
+    python3 kernel_turns.py [--dna | --k3m2m | --k7m1m | --k1m | --k9k2 |
+                             --sass] PARENT_DIR CHANGE_DIR [MORE ...]
 
 Each directory is the root of a checkout (for the parent commit, unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists, such
@@ -74,10 +74,35 @@ block, blocks per SM, tiles: its grid is one block per tile) and the registers a
 instance of both kernels in both storage forms.  Directories past the
 first two are probes of kernel 1m: their turns time kernel 1m alone.
 ``--k1m`` makes every directory such a probe.
+
+``--k9k2``: the median of five launches after one, each timed alone, of
+kernel 9 (``csrc/plf_gen.cu``, the compute-only probe) at bench_gen's
+shape (8,192-site blocks x 256, 8 chained nodes; C = 4) at S = 4, 20 and
+61 on ``chip_smoke.py``'s constants, and of kernel 2 (``csrc/plf_tree.cu``,
+the DNA whole-tree forward) at 160 taxa x 2^20 patterns with int32 tips
+and 256 x 2^22 with int8 tips (HKY85 + Gamma4, ``chip_smoke.py``'s
+workloads); the wall time (median of five after one) of the DNA
+``log_likelihood()`` and of a "tree" value-and-gradient step at 160 x
+2^20.  Each turn also gives each kernel's plan (kernel 9: threads per
+block, tile sites, output rows x sites per job, operators in shared
+memory, blocks per SM; kernel 2: sites and threads per block, sites per
+thread, arena slots, blocks per SM), the registers and spills ptxas gave
+every instance of both kernels, and the SM clock and power draw after
+each kernel's five launches, and (``b2b_ms``) each kernel's mean over 20
+launches back to back (3 at S = 61), ``chip_smoke.py``'s timer.
+Directories past the first two are probes that time the two kernels
+alone (no steps, no 256 x 2^22 model).
+
+``--sass``: no timing; for each directory, the static instruction mix of
+kernel 2's C = 4 int32-code instance and of kernel 9's C = 4 instances
+(``cuobjdump -sass`` on the libraries built from that checkout): one JSON
+line per directory of opcode counts by kernel, opcodes without their
+modifiers (FMUL, FADD, LDS, LDG, STS, LDGSTS, BAR, ...).
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -668,6 +693,150 @@ print(json.dumps(out))
 '''
 
 
+K9K2_LIBS = ["plf_gen", "plf_tree", "plf_tree_bwd"]
+K9K2_TURN = TURN[:TURN.index("def kernels(pm, v, out, key")] + r'''
+from plf_tpu_torch.models import hky85
+from plf_tpu_torch.ops import layout as L
+from plf_tpu_torch.ops import plf_node as N
+
+GEN_BLOCK, GEN_BLOCKS, GEN_ITERS = 8192, 256, 8   # bench_gen, bench.py:272
+
+
+def b2b(fn, reps=20):
+    # mean device ms of reps launches back to back after two, by CUDA
+    # events (chip_smoke.py's timer): steadier than single launches for a
+    # kernel of a fraction of a millisecond
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def kernel9(S, out):
+    # chip_smoke.py's kernel9 constants; the plan as the library gives it
+    # (the parent's S != 4 block: 128 threads on 32-site tiles, 4-row jobs
+    # of one site, operators in device memory)
+    C = 4
+    rng = np.random.default_rng(0)
+    lc, rc, ec = [torch.as_tensor(a, device="cuda") for a in (
+        L.branch_to_lane_constants(rng.random((C, S, S), np.float32), S, C),
+        L.branch_to_lane_constants(rng.random((C, S, S), np.float32), S, C),
+        L.ev_to_lane_constants(rng.random((S, S), np.float32), S, C))]
+    kw = dict(states=S, categories=C, block_sites=GEN_BLOCK,
+              n_blocks=GEN_BLOCKS, inner_iters=GEN_ITERS)
+    key = f"S{S}"
+    out["kernel9_ms"][key] = ms(
+        lambda: N.plf_node_gen(lc, rc, ec, **kw),
+        out["samples"].setdefault(f"kernel9_{key}", []))
+    out["b2b_ms"][f"kernel9_{key}"] = b2b(
+        lambda: N.plf_node_gen(lc, rc, ec, **kw), 20 if S < 61 else 3)
+    if hasattr(N, "gen_plan"):
+        plan = N.gen_plan(S, C)
+    elif S == 4:
+        plan = dict(threads=256, tile_sites=256, job_rows=16, job_sites=1,
+                    ops_shared=1)
+    else:
+        plan = dict(threads=128, tile_sites=32, job_rows=4, job_sites=1,
+                    ops_shared=0)
+    out["plan"][f"kernel9_{key}"] = plan
+
+
+def dna_model(taxa, sites, seed, tree_seed, **kw):
+    p = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
+    tips = np.random.default_rng(seed).choice(
+        np.arange(-1, 14, dtype=np.int8), size=(taxa, sites), p=p / p.sum())
+    return PhyloModel(random_tree(taxa, seed=tree_seed), hky85(2.0), tips,
+                      alpha=0.5, device="cuda", **kw)
+
+
+def kernel2(pm, key, out):
+    cfg = pm.config
+    kw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot)
+    slots = pm.n_slots
+    if hasattr(pm, "tree_program"):
+        kw["program"] = pm.tree_program
+        slots = pm.carry_slots
+    args = (pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+            pm.root_rows[0], pm.n_sites)
+    out["kernel2_ms"][key] = ms(
+        lambda: TT.plf_tree(*args, **kw),
+        out["samples"].setdefault(f"kernel2_{key}", []))
+    out["b2b_ms"][f"kernel2_{key}"] = b2b(lambda: TT.plf_tree(*args, **kw))
+    n_codes = pm.tip_table.shape[1]
+    if hasattr(TT, "tree_plan"):
+        plan = TT.tree_plan(pm.codes.dtype, cfg.categories, n_codes, slots)
+    else:
+        plan = dict(sites=128, threads=128, sites_per_thread=1, slots=slots,
+                    blocks_per_sm=TT.plf_tree_occupancy(
+                        pm.codes.dtype, cfg.categories, n_codes, slots))
+    out["plan"][f"kernel2_{key}"] = plan
+
+
+out = {"ptxas": {"kernel9_S4": ptxas("plf_gen", "plf_gen_kernel"),
+                 "kernel9": ptxas("plf_gen", "plf_gen_tile_kernel"),
+                 "kernel2": ptxas("plf_tree", "plf_tree_kernel")},
+       "kernel9_ms": {}, "kernel2_ms": {}, "b2b_ms": {}, "step_ms": {},
+       "plan": {}, "samples": {}}
+for S in (4, 20, 61):
+    kernel9(S, out)
+torch.cuda.empty_cache()
+pm = dna_model(160, 1 << 20, 1, 1)
+kernel2(pm, "160x2^20_int32", out)
+if not PROBE:
+    wall(pm.log_likelihood, out, "dna_log_likelihood")
+    fn, t0 = tree_loglik_fn(pm, backend="tree")
+
+    def step():
+        t = torch.tensor(t0, device="cuda", requires_grad=True)
+        fn(t).backward()
+    wall(step, out, "dna_tree_step")
+    del pm, fn
+    torch.cuda.empty_cache()
+    big = dna_model(256, 1 << 22, 256, 4, config=PLFConfig(tip_dtype="int8"))
+    kernel2(big, "256x2^22_int8", out)
+print(json.dumps(out))
+'''
+
+
+def sass_mix(root, lib):
+    """{kernel instance: {opcode: count}} of the C = 4 instances in
+    ``lib`` built from checkout ``root`` (cuobjdump -sass)."""
+    code = ("from plf_tpu_torch.ops._build import build_log; "
+            f"print(build_log({lib!r}).with_suffix('.so'))")
+    so = subprocess.run([sys.executable, "-c", code], cwd=root,
+                        env=dict(os.environ, PYTHONPATH=root),
+                        capture_output=True, text=True,
+                        check=True).stdout.strip()
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    mixes, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            keep = re.search(r"\d+(plf_\w*?kernel)(I\w*?E)E?v", fn)
+            name = None
+            if keep and ("ILi4E" in keep.group(2) or "ILb" in keep.group(2)):
+                name = keep.group(1) + keep.group(2)
+                mixes[name] = {}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9]*)", line)
+        if name and m:
+            op = m.group(1)
+            mixes[name][op] = mixes[name].get(op, 0) + 1
+    return mixes
+
+
 def smi():
     """The card's SM clock (MHz) and power draw (W), as nvidia-smi reads
     them, around a turn."""
@@ -684,6 +853,18 @@ def main():
         args, turn, libs = args[1:], DNA_TURN, DNA_LIBS
     elif args[:1] == ["--k3m2m"]:
         args, turn, libs = args[1:], K3M2M_TURN, K3M2M_LIBS
+    elif args[:1] == ["--k9k2"]:
+        args, turn, libs = args[1:], K9K2_TURN, K9K2_LIBS
+    elif args[:1] == ["--sass"]:
+        for root in map(os.path.abspath, args[1:]):
+            subprocess.run(
+                [sys.executable, "-c", "from plf_tpu_torch.ops._build import "
+                 "build_libraries; build_libraries(['plf_gen', 'plf_tree'])"],
+                cwd=root, env=dict(os.environ, PYTHONPATH=root), check=True)
+            print(json.dumps({"dir": root, **{
+                lib: sass_mix(root, lib) for lib in ("plf_tree", "plf_gen")}}),
+                flush=True)
+        return
     elif args[:1] in (["--k7m1m"], ["--k1m"]):
         if args[0] == "--k1m":   # every directory a probe of kernel 1m
             probes_from = 0

@@ -7,49 +7,81 @@
 // Bound: latency at the occupancy the arena allows.  Device-memory traffic
 // is small: the tip codes (n_leaves * 4 bytes per site as int32, a quarter
 // of that as int8) plus 8 bytes of output per site.  Each schedule op does
-// ~23 fp32 operations per CLV element and moves ~192 bytes per site through
-// shared memory, both well under the card's peak rates.  The arena
-// (n_slots * S*C * 4 bytes per thread) caps the resident blocks per SM
+// ~23 fp32 operations per CLV element, well under the card's peak rate.  The
+// arena (n_slots * S*C * 4 bytes per site) caps the resident blocks per SM
 // (plf_tree_occupancy reports them), and on an H100 the time grows as that
-// cap falls: padding the arena so that 3, 2 or 1 blocks fit instead of 4
-// costs 17%, 53% or 168% at 160 taxa x 2^20 sites (chip_smoke.py, profile
-// phase).  Warp-scheduler slot use and shared-memory throughput are not
-// measured (no hardware-counter profiler).
+// cap falls (chip_smoke.py, profile phase, times the kernel with the arena
+// padded so that fewer blocks fit).  Warp-scheduler slot use and
+// shared-memory throughput are not measured (no hardware-counter profiler).
 // Design:
-//  * one thread per site walks the schedule of compile_register_schedule
-//    (plf_tpu_torch/ops/plf_tree.py): int32 arrays that every thread reads
-//    alike, so each read is one broadcast;
-//  * the arena of live CLVs is in shared memory, laid out [slot][row][thread]
+//  * one thread per site walks the carried program of carry_program
+//    (plf_tpu_torch/ops/plf_tree.py), derived from compile_register_schedule:
+//    int32 arrays that every thread reads alike, so each read is one
+//    broadcast.  An operand is a tip (flag 0), an arena slot (flag 1) or the
+//    output of the op evaluated just before (flag 2), which stays in the
+//    registers that computed it; an op stores its output (oslot >= 0) only
+//    when a later op other than the next one reads it, so the arena holds
+//    only those outputs (5 slots instead of 6 at 160 taxa, one block more per
+//    SM).  The root op's output stays in registers for the root reduction.
+//    The kernel also runs an uncarried schedule (no flag 2, every output
+//    stored) to the same result;
+//  * the next op's schedule entries and tip codes are read while the current
+//    op computes, so the codes' device-memory latency is off the op chain;
+//  * the arena of stored CLVs is in shared memory, laid out [slot][row][site]
 //    so a warp's access to one row touches 32 consecutive words (no bank
-//    conflicts).  It holds only the n_slots internal-node CLVs (O(log taxa)
-//    after the taller-child-first reordering): tips are expanded on demand
-//    from the int32 or int8 codes through the tip table, one exact matched
-//    column, never preloaded (the TPU kernel's preload is a Mosaic workaround);
+//    conflicts).  It holds O(log taxa) slots after the taller-child-first
+//    reordering: tips are expanded on demand from the int32 or int8 codes
+//    through the tip table, one exact matched column, never preloaded (the
+//    TPU kernel's preload is a Mosaic workaround);
 //  * the output slot may be an operand's slot, freed by the same op: safe,
-//    because a thread reads both operands into registers before it writes;
-//  * per-edge operators are read from device memory as one float4 per row at
-//    an address uniform over the block (cached broadcast); the eigenvector
+//    because a thread reads both operands into registers before it writes,
+//    and a thread touches only its own sites' column of the arena;
+//  * per-edge operators: op i+1's lc and rc rows (2 * S*C float4) are
+//    copied from device memory into a shared-memory double buffer with
+//    cp.async while op i computes, one barrier an op (the block's threads
+//    walk the program in lockstep); reading them from device memory at an
+//    address uniform over the block (the design before) took 6.8 ms where
+//    this takes 4.0 at 160 taxa x 2^20 on an H100 (PERF.md).  The eigenvector
 //    constants, tip table and root row vector are staged in shared memory;
 //  * the root reduction lik = rr[0]*x[0] + rr[1]*x[1] + ... is sequential,
 //    with separately rounded products and sums, as the TPU kernels do
 //    (plf_tpu/ops/plf_tree_pallas.py:470-474).
-// The host picks the block size so the arena fits shared memory
-// (tree_block_threads in plf_tree.py) and passes it as `threads`.
+// The host picks the block's sites so the arena fits shared memory
+// (tree_fused_threads in plf_tree.py) and passes them as `block_sites`.
 #include "plf_common.cuh"
 
 namespace {
 
+constexpr int kCarried = 2;  // operand flag: the previous op's output
+
+// Dynamic shared memory of one block (tree_fused_smem_bytes in
+// plf_tree.py): the EV constants, two buffers of an op's operators, the tip
+// table, the root row vector and the arena.
+template <int C>
+size_t smem_bytes(int ncols, int n_slots, int block_sites) {
+  constexpr int R = plf::S * C;
+  return sizeof(float) * ((size_t)R * plf::S + (size_t)R * ncols + R +
+                          (size_t)n_slots * R * block_sites) +
+         sizeof(float4) * 4 * R;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
 template <int C, typename CodeT>
-__global__ void plf_tree_kernel(const CodeT* codes, const int* sched,
+__global__ void plf_tree_kernel(const CodeT* codes, const int* prog,
                                 int n_edges, const float* lcs,
                                 const float* rcs, const float* ec,
                                 const float* ttab, int ncols, const float* rr,
-                                int root_slot, float* lik, int* sc, int n,
-                                int n_pad) {
+                                float* lik, int* sc, int n, int n_pad) {
   constexpr int R = plf::S * C;
   extern __shared__ float4 smem4[];
   float4* s_ec = smem4;                                    // R float4
-  float* s_tt = reinterpret_cast<float*>(smem4 + R);       // R * ncols
+  float4* s_ops = smem4 + R;                               // 2 x (lc, rc)
+  float* s_tt = reinterpret_cast<float*>(s_ops + 4 * R);   // R * ncols
   float* s_rr = s_tt + R * ncols;                          // R
   float* arena = s_rr + R;                                 // n_slots * R * T
   const int T = blockDim.x;
@@ -59,25 +91,45 @@ __global__ void plf_tree_kernel(const CodeT* codes, const int* sched,
     s_rr[i] = rr[i];
   }
   for (int i = tid; i < R * ncols; i += T) s_tt[i] = ttab[i];
+  const int* lsrc = prog;
+  const int* lflag = prog + n_edges;
+  const int* rsrc = prog + 2 * n_edges;
+  const int* rflag = prog + 3 * n_edges;
+  const int* oslot = prog + 4 * n_edges;
+  const int* eidx = prog + 5 * n_edges;
+  // op i's lc and rc rows into buffer i % 2, one float4 a thread
+  auto stage_ops = [&](int i) {
+    if (tid < 2 * R) {
+      const float* k = tid < R ? lcs : rcs;
+      const int e = __ldg(eidx + i);
+      cp_async16(s_ops + (i & 1) * 2 * R + tid,
+                 reinterpret_cast<const float4*>(k) + (size_t)e * R +
+                     tid % R);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage_ops(0);
   __syncthreads();
 
+  // A thread past n_pad (in a block's last sites) stays for the barriers:
+  // it reads site n_pad - 1 and stores nothing.
   const int site = blockIdx.x * T + tid;
-  if (site >= n_pad) return;
   const bool valid = site < n;
-  const int* lsrc = sched;
-  const int* lflag = sched + n_edges;
-  const int* rsrc = sched + 2 * n_edges;
-  const int* rflag = sched + 3 * n_edges;
-  const int* oslot = sched + 4 * n_edges;
-  const int* eidx = sched + 5 * n_edges;
-
-  auto load = [&](int src, int flag, float (&x)[R]) {
-    if (flag) {  // arena slot
+  const int at = min(site, n_pad - 1);
+  float out[R];  // the output of the op evaluated last
+  // this site's code of a tip operand (flag 0), else unread
+  auto code_of = [&](int src, int flag) {
+    return flag == 0 ? (int)codes[(size_t)src * n_pad + at] : 0;
+  };
+  auto load = [&](int src, int flag, int code, float (&x)[R]) {
+    if (flag == kCarried) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) x[r] = out[r];
+    } else if (flag) {  // arena slot
       const float* s = arena + (size_t)src * R * T + tid;
 #pragma unroll
       for (int r = 0; r < R; ++r) x[r] = s[r * T];
-    } else {     // tip: the table column of this site's code
-      const int code = (int)codes[(size_t)src * n_pad + site];
+    } else {            // tip: the table column of this site's code
       const bool ok = code >= 0 && code < ncols;  // else no column: zeros
       const int col = ok ? code : 0;
 #pragma unroll
@@ -89,88 +141,100 @@ __global__ void plf_tree_kernel(const CodeT* codes, const int* sched,
   };
 
   int count = 0;
-  float a[R], b[R], out[R];
+  int ls = __ldg(lsrc), lf = __ldg(lflag), rs = __ldg(rsrc), rf = __ldg(rflag);
+  int lcode = code_of(ls, lf), rcode = code_of(rs, rf);
   for (int i = 0; i < n_edges; ++i) {
-    load(__ldg(lsrc + i), __ldg(lflag + i), a);
-    load(__ldg(rsrc + i), __ldg(rflag + i), b);
-    const int e = __ldg(eidx + i);
-    const float4* lc = reinterpret_cast<const float4*>(lcs) + (size_t)e * R;
-    const float4* rc = reinterpret_cast<const float4*>(rcs) + (size_t)e * R;
-    count += plf::plf_site<C>(a, b, lc, rc, s_ec, valid, out);
-    float* d = arena + (size_t)__ldg(oslot + i) * R * T + tid;
+    float a[R], b[R];
+    load(ls, lf, lcode, a);
+    load(rs, rf, rcode, b);
+    const int o = __ldg(oslot + i);
+    if (i + 1 < n_edges) {  // the next op's entries and codes, in flight
+      ls = __ldg(lsrc + i + 1);
+      lf = __ldg(lflag + i + 1);
+      rs = __ldg(rsrc + i + 1);
+      rf = __ldg(rflag + i + 1);
+      lcode = code_of(ls, lf);
+      rcode = code_of(rs, rf);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // op i's operators landed; op i-1's buffer is free
+    if (i + 1 < n_edges) stage_ops(i + 1);
+    const float4* lc = s_ops + (i & 1) * 2 * R;
+    count += plf::plf_site<C>(a, b, lc, lc + R, s_ec, valid, out);
+    if (o >= 0) {
+      float* d = arena + (size_t)o * R * T + tid;
 #pragma unroll
-    for (int r = 0; r < R; ++r) d[r * T] = out[r];
+      for (int r = 0; r < R; ++r) d[r * T] = out[r];
+    }
   }
 
-  const float* x = arena + (size_t)root_slot * R * T + tid;
-  float l = __fmul_rn(s_rr[0], x[0]);
+  float l = __fmul_rn(s_rr[0], out[0]);
 #pragma unroll
-  for (int r = 1; r < R; ++r) l = __fadd_rn(l, __fmul_rn(s_rr[r], x[r * T]));
-  lik[site] = l;
-  sc[site] = count;
-}
-
-// Dynamic shared memory of one block (tree_smem_bytes in plf_tree.py).
-template <int C>
-size_t smem_bytes(int ncols, int n_slots, int threads) {
-  constexpr int R = plf::S * C;
-  return sizeof(float) * ((size_t)R * plf::S + (size_t)R * ncols + R +
-                          (size_t)n_slots * R * threads);
+  for (int r = 1; r < R; ++r) l = __fadd_rn(l, __fmul_rn(s_rr[r], out[r]));
+  if (site < n_pad) {
+    lik[site] = l;
+    sc[site] = count;
+  }
 }
 
 template <int C, typename CodeT>
-int launch(const void* codes, const int* sched, int n_edges, const float* lcs,
+int launch(const void* codes, const int* prog, int n_edges, const float* lcs,
            const float* rcs, const float* ec, const float* ttab, int ncols,
-           const float* rr, int n_slots, int root_slot, float* lik, int* sc,
-           int n, int n_pad, int threads, cudaStream_t st) {
-  const size_t smem = smem_bytes<C>(ncols, n_slots, threads);
+           const float* rr, int n_slots, float* lik, int* sc, int n,
+           int n_pad, int block_sites, cudaStream_t st) {
+  const size_t smem = smem_bytes<C>(ncols, n_slots, block_sites);
   auto kern = plf_tree_kernel<C, CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_pad + threads - 1) / threads);
-  kern<<<grid, threads, smem, st>>>(static_cast<const CodeT*>(codes), sched,
-                                    n_edges, lcs, rcs, ec, ttab, ncols, rr,
-                                    root_slot, lik, sc, n, n_pad);
+  const dim3 grid((n_pad + block_sites - 1) / block_sites);
+  kern<<<grid, block_sites, smem, st>>>(static_cast<const CodeT*>(codes),
+                                        prog, n_edges, lcs, rcs, ec, ttab,
+                                        ncols, rr, lik, sc, n, n_pad);
   return (int)cudaGetLastError();
 }
 
 template <int C, typename CodeT>
-int occupancy(int ncols, int n_slots, int threads, int* blocks) {
-  const size_t smem = smem_bytes<C>(ncols, n_slots, threads);
+int occupancy(int ncols, int n_slots, int block_sites, int* blocks) {
+  const size_t smem = smem_bytes<C>(ncols, n_slots, block_sites);
   auto kern = plf_tree_kernel<C, CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
-                                                            threads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, block_sites, smem);
 }
 
 }  // namespace
 
 // codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (code_bytes 1);
-// sched: (6, n_edges) int32 rows lsrc, lflag, rsrc, rflag, oslot, eidx;
-// lcs, rcs: (E, S*C, S) fp32; ec: (S*C, S); ttab: (S*C, ncols); rr: (S*C,);
-// lik: (n_pad,) fp32; sc: (n_pad,) int32.  Returns cudaGetLastError().
+// prog: (6, n_edges) int32 rows lsrc, lflag, rsrc, rflag, oslot, eidx, flag
+// 0 a tip, 1 an arena slot, 2 the previous op's output, oslot -1 for an
+// output kept in registers only (carry_program in plf_tree.py; a schedule
+// of compile_register_schedule runs too); lcs, rcs: (E, S*C, S) fp32; ec:
+// (S*C, S); ttab: (S*C, ncols); rr: (S*C,); n_slots: the program's arena
+// slots; lik: (n_pad,) fp32; sc: (n_pad,) int32; block_sites: sites (one
+// a thread) per block.  Returns cudaGetLastError().
 extern "C" int plf_tree_launch(const void* codes, int code_bytes,
-                               const int* sched, int n_edges, const float* lcs,
+                               const int* prog, int n_edges, const float* lcs,
                                const float* rcs, const float* ec,
                                const float* ttab, int ncols, const float* rr,
-                               int n_slots, int root_slot, float* lik, int* sc,
-                               int n, int n_pad, int categories, int threads,
+                               int n_slots, float* lik, int* sc, int n,
+                               int n_pad, int categories, int block_sites,
                                void* stream) {
-  if (n_pad <= 0 || n_edges <= 0 || threads <= 0) return (int)cudaErrorInvalidValue;
+  if (n_pad <= 0 || n_edges <= 0 || block_sites <= 0 || n_slots < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
     PLF_DISPATCH_C(categories, return launch<C_, int32_t>(
-                                   codes, sched, n_edges, lcs, rcs, ec, ttab,
-                                   ncols, rr, n_slots, root_slot, lik, sc, n,
-                                   n_pad, threads, st));
+                                   codes, prog, n_edges, lcs, rcs, ec, ttab,
+                                   ncols, rr, n_slots, lik, sc, n, n_pad,
+                                   block_sites, st));
   } else if (code_bytes == 1) {
     PLF_DISPATCH_C(categories, return launch<C_, int8_t>(
-                                   codes, sched, n_edges, lcs, rcs, ec, ttab,
-                                   ncols, rr, n_slots, root_slot, lik, sc, n,
-                                   n_pad, threads, st));
+                                   codes, prog, n_edges, lcs, rcs, ec, ttab,
+                                   ncols, rr, n_slots, lik, sc, n, n_pad,
+                                   block_sites, st));
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -178,13 +242,26 @@ extern "C" int plf_tree_launch(const void* codes, int code_bytes,
 // Resident blocks per SM of the launch plf_tree_launch would make with these
 // arguments (registers and shared memory both counted by the runtime).
 extern "C" int plf_tree_occupancy(int code_bytes, int categories, int ncols,
-                                  int n_slots, int threads, int* blocks) {
+                                  int n_slots, int block_sites, int* blocks) {
   if (code_bytes == 4) {
     PLF_DISPATCH_C(categories, return occupancy<C_, int32_t>(
-                                   ncols, n_slots, threads, blocks));
+                                   ncols, n_slots, block_sites, blocks));
   } else if (code_bytes == 1) {
     PLF_DISPATCH_C(categories, return occupancy<C_, int8_t>(
-                                   ncols, n_slots, threads, blocks));
+                                   ncols, n_slots, block_sites, blocks));
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Threads per block, sites per thread and dynamic shared memory bytes of the
+// launch plf_tree_launch makes for a block of block_sites sites.
+extern "C" int plf_tree_plan(int categories, int ncols, int n_slots,
+                             int block_sites, int* threads,
+                             int* sites_per_thread, int* smem) {
+  if (block_sites <= 0 || n_slots < 0) return (int)cudaErrorInvalidValue;
+  *threads = block_sites;
+  *sites_per_thread = 1;
+  PLF_DISPATCH_C(categories,
+                 *smem = (int)smem_bytes<C_>(ncols, n_slots, block_sites));
+  return 0;
 }

@@ -31,7 +31,7 @@ buffer in bf16; the fused and per-node paths ignore ``dtype`` and stay
 fp32, as the JAX package's do.
 
 ``auto`` takes the fused path whenever the GPU capacity rule of the
-model's kernel (``ops/plf_tree.py::tree_block_threads`` or
+model's kernel (``ops/plf_tree.py::tree_fused_threads`` or
 ``tree_mxu_fits``) admits the tree, then the segmented path
 (:meth:`PhyloModel.can_segment`), then per-node.  The log and the sum
 over sites run on the host in float64.
@@ -62,9 +62,9 @@ from ..ops import layout as L
 from ..ops.plf_mxu import operator_planes, round_tip_table, uses_mxu_kernels
 from ..ops.plf_node import plf_node
 from ..ops.plf_torch import plf_torch
-from ..ops.plf_tree import (compile_register_schedule, plf_tree,
-                            reorder_schedule, root_reduce,
-                            tree_block_threads, tree_mxu_fits)
+from ..ops.plf_tree import (carry_program, compile_register_schedule,
+                            plf_tree, reorder_schedule, root_reduce,
+                            tree_fused_threads, tree_mxu_fits)
 from ..ops.plf_tree_seg import plan_segments, plf_tree_seg, segment_program
 from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
@@ -269,11 +269,25 @@ class PhyloModel(nn.Module):
             sched, tree.n_leaves)
         self.register_buffer("sched", torch.as_tensor(np.stack(arrs),
                                                       device=device))
+        # kernel 2's program: operands of the op before from registers
+        self._carry = carry_program(arrs)
+        self.carry_slots = self._carry[1]
         self._seg_cache = None
 
     @property
     def device(self) -> torch.device:
         return self.codes.device
+
+    @property
+    def tree_program(self):
+        """Kernel 2's ``(program, n_slots)`` (``ops/plf_tree.py::
+        carry_program`` of ``sched``), the program on the model's device,
+        built once per device."""
+        prog, slots = self._carry
+        if not torch.is_tensor(prog) or prog.device != self.device:
+            self._carry = (torch.as_tensor(np.asarray(prog),
+                                           device=self.device), slots)
+        return self._carry
 
     def _planes(self, e: Optional[int] = None):
         """The operator planes of edge ``e`` (of every edge if None) for
@@ -398,7 +412,7 @@ class PhyloModel(nn.Module):
         n_codes = self.tip_table.shape[1]
         if uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states):
             return tree_mxu_fits(self.n_slots, cfg.rows, n_codes)
-        return tree_block_threads(self.n_slots, cfg.rows, n_codes,
+        return tree_fused_threads(self.carry_slots, cfg.rows, n_codes,
                                   cfg.states) is not None
 
     def _kernel_path(self, name: str):
@@ -415,7 +429,8 @@ class PhyloModel(nn.Module):
             self.fused_tip_table, self.root_rows[0], self.n_sites,
             n_slots=self.n_slots, root_slot=self.root_slot,
             states=cfg.states, categories=cfg.categories,
-            variant=cfg.resolved_kernel_variant, planes=self._planes())
+            variant=cfg.resolved_kernel_variant, planes=self._planes(),
+            program=self.tree_program)
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 

@@ -22,7 +22,10 @@ Kernel 9, :func:`plf_node_gen`, is the compute-only probe that replaces
 ``plf_pallas.py::_gen_kernel`` (``plf_pallas_gen``, ``:436``;
 ``csrc/plf_gen.cu``): it builds its CLVs on the card and chains PLF nodes
 over them, so it moves no CLV through device memory and is bound by
-operations.  ``plf_node_gen.launches`` counts its launches.
+operations.  At S != 4 it takes the operators transposed
+(:func:`gen_operators`); its library decides its launch and whether it
+can run at all (:func:`gen_plan`).  ``plf_node_gen.launches`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from . import layout as L
 
 __all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
            "node_plain", "stage", "count_launch", "plf_node_gen",
-           "plf_node_gen_torch", "gen_flops", "SMEM_BLOCK_BYTES"]
+           "plf_node_gen_torch", "gen_flops", "gen_operators", "gen_plan",
+           "SMEM_BLOCK_BYTES"]
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -295,15 +299,57 @@ def plf_node_gen_torch(lc, rc, ec, *, states: int = 4, categories: int = 4,
 
 @functools.cache
 def _lib_gen():
-    """Build (first use) and load csrc/plf_gen.cu, with its C prototype."""
+    """Build (first use) and load csrc/plf_gen.cu, with its C prototypes."""
     from ._build import load_library
     lib = load_library("plf_gen")
     lib.plf_gen_launch.argtypes = [_c_void_p] * 4 + [_c_int] * 5 + [
         _c_void_p]
     lib.plf_gen_launch.restype = _c_int
+    lib.plf_gen_plan.argtypes = [_c_int] * 2 + [ctypes.POINTER(_c_int)] * 8
+    lib.plf_gen_plan.restype = _c_int
     lib.plf_error_string.argtypes = [_c_int]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_GEN_PLAN = ("threads", "tile_sites", "job_rows", "job_sites", "sp",
+             "smem_bytes", "ops_shared", "blocks_per_sm")
+
+
+def gen_plan(states: int, categories: int) -> dict:
+    """Kernel 9's launch at this state and category count, as its library
+    (``plf_gen_plan`` in ``csrc/plf_gen.cu``, the one owner of the rule)
+    decides it: ``threads`` per block, ``tile_sites`` per block tile,
+    ``job_rows`` x ``job_sites`` outputs per thread and stage job, the
+    operators' padded row count ``sp``, dynamic shared memory
+    ``smem_bytes``, ``ops_shared`` (the operators staged in shared
+    memory, else read from device memory) and ``blocks_per_sm``.  Raises
+    ValueError where the kernel cannot run (its tiles do not fit one
+    block's shared memory; C outside 1..8 at S = 4).  Builds the kernel on
+    first use and needs a CUDA device."""
+    lib = _lib_gen()
+    vals = [_c_int(0) for _ in _GEN_PLAN]
+    err = lib.plf_gen_plan(states, categories,
+                           *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        what = ("C in 1..8 at S = 4" if states == 4 else
+                f"{states * categories} rows whose tiles fit one block's "
+                f"shared memory ({SMEM_BLOCK_BYTES} bytes)")
+        raise ValueError(f"plf_node_gen takes {what}: "
+                         f"{lib.plf_error_string(err).decode()}")
+    return dict(zip(_GEN_PLAN, (v.value for v in vals)))
+
+
+def gen_operators(lc, rc, ec, sp: int, *, states: int, categories: int):
+    """The operators as kernel 9 takes them at S != 4: ``(3, C, S, sp)``
+    fp32, ``[k][c][q][o] = K[o*C + c][q]`` for ``K`` = lc, rc, ec (lane
+    constants, ``(S*C, S)``), rows ``o >= S`` zero, so that one float4 is
+    one ``q``'s values for 4 consecutive output rows."""
+    S, C = states, categories
+    kt = torch.zeros((3, C, S, sp), dtype=torch.float32, device=lc.device)
+    for i, k in enumerate((lc, rc, ec)):
+        kt[i, :, :, :S] = k.reshape(S, C, S).permute(1, 2, 0)
+    return kt
 
 
 def plf_node_gen(lc, rc, ec, *, states: int = 4, categories: int = 4,
@@ -344,16 +390,14 @@ def plf_node_gen(lc, rc, ec, *, states: int = 4, categories: int = 4,
         return plf_node_gen_torch(lc, rc, ec, **kw)
     if lc.device.type != "cuda":
         raise ValueError(f"plf_node_gen: no kernel for device {lc.device}")
-    if S == 4 and not 1 <= C <= 8:
-        raise ValueError(f"plf_node_gen takes C in 1..8 at S = 4, got C={C}")
-    # at S != 4 a block holds kernel 1m's three rows x 32-site tiles
-    if S != 4 and 4 * (3 * rows * 32 + 32) > SMEM_BLOCK_BYTES:
-        raise ValueError(f"plf_node_gen: {rows} rows do not fit one block's "
-                         f"shared memory ({SMEM_BLOCK_BYTES} bytes)")
+    plan = gen_plan(S, C)
     if not all(t.is_contiguous() for t in (lc, rc, ec)):
         raise ValueError("plf_node_gen: lc/rc/ec must be contiguous")
-    if S % 4 == 0 and any(t.data_ptr() % 16 for t in (lc, rc, ec)):
+    if S == 4 and any(t.data_ptr() % 16 for t in (lc, rc, ec)):
         raise ValueError("plf_node_gen: lc/rc/ec must be 16-byte aligned")
+    if S != 4:
+        lc = rc = ec = gen_operators(lc, rc, ec, plan["sp"], states=S,
+                                     categories=C)
     lib = _lib_gen()
     out = torch.empty((1, n), dtype=torch.float32, device=lc.device)
     with torch.cuda.device(lc.device):

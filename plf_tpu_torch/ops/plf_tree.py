@@ -5,9 +5,12 @@ Replaces ``plf_tpu/ops/plf_tree_pallas.py::_tree_kernel`` (``:209``,
 schedule unrolled at trace time, used for <= 96 nodes) and
 ``::_tree_kernel_dynamic`` (``:424``, the register machine).  One CUDA
 kernel, ``csrc/plf_tree.cu``, serves both: one thread per site walks the
-int32 arrays of :func:`compile_register_schedule`, expands tips on demand
-from their codes, keeps the live internal CLVs in a shared-memory arena,
-and ends with the sequential root reduction.  Device-memory traffic is
+int32 arrays of :func:`carry_program` (the arrays of
+:func:`compile_register_schedule`, with each operand that the op before
+produced taken from registers and only the outputs that a later op but
+the next one reads stored), expands tips on demand from their codes,
+keeps those stored CLVs in a shared-memory arena, and ends with the
+sequential root reduction on the root op's registers.  Device-memory traffic is
 only the tip codes and 8 bytes of output per site; what bounds the
 kernel is latency at the occupancy its shared-memory arena allows
 (:func:`plf_tree_occupancy`; ``chip_smoke.py``'s profile phase times it at
@@ -22,12 +25,15 @@ Capacity rule.  The JAX kernels fit an arena of ``n_leaves + n_slots``
 CLV slots for a whole site block into ~10 MiB of TPU VMEM
 (``ARENA_VMEM_BUDGET``/``fit_block_sites``, ``FUSED_MAX_LIVE``,
 ``FUSED_UNROLL_MAX_NODES``).  Here tips are never stored, the arena holds
-``n_slots`` slots of ``S*C`` floats per thread, and one block must fit
-the card's shared memory: a block of :data:`TREE_THREADS` threads, whose
-arena (plus the staged constants) must fit :data:`SMEM_BLOCK_BYTES`
-(:func:`tree_block_threads`); a tree that does not fit takes the
-per-node path.  At S = C = 4 that admits ``n_slots <= 28``; a random
-1000-taxon tree needs well under 16.
+``n_slots`` slots of ``S*C`` floats per site (kernel 2: the slots of
+:func:`carry_program`, 5 for a random 160-taxon tree where
+:func:`compile_register_schedule` has 6), and one block must fit the
+card's shared memory: a block of :data:`TREE_THREADS` sites, whose arena
+(plus the staged constants) must fit :data:`SMEM_BLOCK_BYTES`
+(:func:`tree_fused_threads`; :func:`tree_block_threads`, the same rule
+without kernel 2's operator buffers, is kernel 7's); a tree that does not
+fit takes the per-node path.  At S = C = 4 that admits ``n_slots <=
+28``; a random 1000-taxon tree needs well under 16.
 
 Kernel 2m (``csrc/plf_tree_mxu.cu``) is the matrix ("MXU") form of the
 same two TPU kernels (``_plf_node_mxu`` per op, ``_expand_tip(dot=)`` per
@@ -59,13 +65,16 @@ from .plf_node import SMEM_BLOCK_BYTES
 
 __all__ = ["plf_tree", "plf_tree_torch", "plf_tree_occupancy", "root_reduce",
            "reorder_schedule", "schedule_depth", "compile_register_schedule",
+           "carry_program", "CARRIED", "tree_plan", "tree_fused_threads",
+           "tree_fused_smem_bytes",
            "pack_branch_constants", "tree_block_threads", "tree_smem_bytes",
            "SMEM_BLOCK_BYTES", "TREE_THREADS", "plf_tree_mxu",
            "plf_tree_mxu_occupancy", "tree_mxu_fits", "tree_mxu_smem_bytes",
            "tree_mxu_block", "TREE_MXU_SITES"]
 
-#: Thread-block size of the tree kernel: four warps, which leaves room for
-#: several blocks per SM at the arena sizes of real trees.
+#: Sites per block of the tree kernel (one a thread: :func:`tree_plan`),
+#: four warps, which leaves room for several blocks per SM at the arena
+#: sizes of real trees.
 TREE_THREADS = 128
 
 
@@ -81,8 +90,30 @@ def tree_smem_bytes(n_slots: int, rows: int, n_codes: int, threads: int,
 def tree_block_threads(n_slots: int, rows: int, n_codes: int,
                        states: int = 4) -> Optional[int]:
     """:data:`TREE_THREADS` if that block's arena fits
-    :data:`SMEM_BLOCK_BYTES`, or None if the tree does not fuse."""
+    :data:`SMEM_BLOCK_BYTES`, or None if it does not (kernel 7's rule for
+    a segment's arena)."""
     if tree_smem_bytes(n_slots, rows, n_codes, TREE_THREADS, states) \
+            <= SMEM_BLOCK_BYTES:
+        return TREE_THREADS
+    return None
+
+
+def tree_fused_smem_bytes(n_slots: int, rows: int, n_codes: int,
+                          states: int = 4) -> int:
+    """Dynamic shared memory of one kernel-2 block of :data:`TREE_THREADS`
+    sites: :func:`tree_smem_bytes` (whose arena rule kernel 7 shares)
+    plus two buffers of one op's ``lc`` and ``rc`` rows, into which the
+    kernel copies the next op's operators while it computes."""
+    return (tree_smem_bytes(n_slots, rows, n_codes, TREE_THREADS, states)
+            + 4 * 4 * rows * states)
+
+
+def tree_fused_threads(n_slots: int, rows: int, n_codes: int,
+                       states: int = 4) -> Optional[int]:
+    """Kernel 2's capacity rule: :data:`TREE_THREADS` sites a block if its
+    ``n_slots``-slot arena (the slots of :func:`carry_program`) fits
+    :data:`SMEM_BLOCK_BYTES`, or None if the tree does not fuse."""
+    if tree_fused_smem_bytes(n_slots, rows, n_codes, states) \
             <= SMEM_BLOCK_BYTES:
         return TREE_THREADS
     return None
@@ -211,6 +242,61 @@ def compile_register_schedule(schedule: Sequence[Tuple], n_leaves: int):
     return arrs, n_slots, root_slot
 
 
+#: Operand flag of :func:`carry_program`: the output of the op evaluated
+#: just before (flag 0 is a tip, 1 an arena slot).
+CARRIED = 2
+
+
+def carry_program(arrs) -> Tuple[np.ndarray, int]:
+    """Kernel 2's program from the arrays of
+    :func:`compile_register_schedule` ``(lsrc, lflag, rsrc, rflag, oslot,
+    edge)``.
+
+    An operand that op ``i - 1`` produced gets flag :data:`CARRIED` (the
+    kernel keeps it in registers); op ``j``'s output gets an arena slot
+    only when a later op other than ``j + 1`` reads it, else ``oslot`` -1
+    (the root op's output too: the root reduction reads it from
+    registers).  Slots are allocated as in
+    :func:`compile_register_schedule`, freed when read, so there are never
+    more.  Returns ``((6, E) int32, n_slots)``.
+    """
+    lsrc, lflag, rsrc, rflag, oslot, eidx = (np.asarray(a) for a in arrs)
+    E = len(eidx)
+    producer = {}   # arena slot -> the op whose output it holds
+    src_op = np.full((2, E), -1)
+    for i in range(E):
+        for side, (src, flag) in enumerate(((lsrc[i], lflag[i]),
+                                            (rsrc[i], rflag[i]))):
+            if flag:
+                src_op[side, i] = producer[int(src)]
+        producer[int(oslot[i])] = i
+    reader = np.full(E, -1)
+    for side in range(2):
+        for i in np.flatnonzero(src_op[side] >= 0):
+            reader[src_op[side, i]] = i
+    stored = (reader >= 0) & (reader != np.arange(E) + 1)
+    prog = np.stack([lsrc, lflag, rsrc, rflag, np.full(E, -1), eidx]
+                    ).astype(np.int32)
+    slot_of, free, n_slots = {}, [], 0
+    for i in range(E):
+        for side in range(2):
+            j = src_op[side, i]
+            if j < 0:
+                continue
+            if stored[j]:
+                prog[2 * side, i] = slot_of[j]
+                free.append(slot_of.pop(j))
+            else:
+                prog[2 * side, i], prog[2 * side + 1, i] = 0, CARRIED
+        if stored[i]:
+            if free:
+                slot_of[i] = free.pop()
+            else:
+                slot_of[i], n_slots = n_slots, n_slots + 1
+            prog[4, i] = slot_of[i]
+    return prog, n_slots
+
+
 def pack_branch_constants(branches, states: int = 4, categories: int = 4):
     """Stack per-edge branch constants lane-dense: (rows, E*S); column
     ``e*S + a`` is ``layout.branch_to_lane_constants(branch_e)[:, a]``."""
@@ -234,21 +320,28 @@ def root_reduce(rr, x):
 
 
 def plf_tree_torch(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
-                   n_slots: int, root_slot: int, states: int = 4,
-                   categories: int = 4, variant: str = "vpu", planes=None):
+                   n_slots: int, root_slot: Optional[int] = None,
+                   states: int = 4, categories: int = 4,
+                   variant: str = "vpu", planes=None):
     """Plain version of kernels 2 and 2m (same arguments and results as
     :func:`plf_tree`), on the device of its inputs, in the kernels' op
     order: tips as table columns, :func:`plf_mxu.node_mxu_plain` per op
     (in fp32 mode it is :func:`plf_node.node_plain`), a sequential root
-    reduction."""
+    reduction of the last op's output (the root; ``root_slot`` holds it
+    in a schedule of :func:`compile_register_schedule`).  ``sched`` may
+    also be a program of :func:`carry_program` (flag :data:`CARRIED`,
+    ``oslot`` -1), interpreted as kernel 2 runs it."""
     pl = None if planes is None else node_planes(lcs, rcs, ec, variant,
                                                  planes)
     n_pad = codes.shape[-1]
     valid = torch.arange(n_pad, device=codes.device) < n
     lsrc, lflag, rsrc, rflag, oslot, eidx = sched.cpu().tolist()
     arena: List[Optional[torch.Tensor]] = [None] * n_slots
+    x3 = None
 
     def operand(src, flag):
+        if flag == CARRIED:
+            return x3
         if flag:
             return arena[src]
         return ttab[:, codes[src].long()]
@@ -261,9 +354,10 @@ def plf_tree_torch(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
             rcs[e], ec, valid, states, categories, variant,
             None if pl is None else (pl[0][e], pl[1][e], pl[2][e], pl[3][e],
                                      pl[4], pl[5]))
-        arena[oslot[i]] = x3
+        if oslot[i] >= 0:
+            arena[oslot[i]] = x3
         scaler += mask.to(torch.int32)
-    return root_reduce(rr, arena[root_slot])[None, :], scaler[None, :]
+    return root_reduce(rr, x3)[None, :], scaler[None, :]
 
 
 def _check(codes, sched, lcs, rcs, ec, ttab, rr, n_slots, root_slot,
@@ -299,20 +393,37 @@ def _lib():
     lib = load_library("plf_tree")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_launch.argtypes = [
-        vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, ci, ci, vp, vp, ci, ci, ci,
-        ci, vp]
+        vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, ci, vp, vp, ci, ci, ci, ci,
+        vp]
     lib.plf_tree_launch.restype = ci
     lib.plf_tree_occupancy.argtypes = [ci, ci, ci, ci, ci,
                                        ctypes.POINTER(ci)]
     lib.plf_tree_occupancy.restype = ci
+    lib.plf_tree_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+    lib.plf_tree_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _program(program, sched, E, device):
+    """Kernel 2's ``(program, n_slots)``: ``program`` as given (checked),
+    or :func:`carry_program` of ``sched`` (read back from the device)."""
+    if program is None:
+        prog, n_slots = carry_program(sched.cpu().numpy())
+        return torch.as_tensor(prog, device=device), n_slots
+    prog, n_slots = program
+    if tuple(prog.shape) != (6, E) or prog.dtype != torch.int32 \
+            or prog.device != device or not prog.is_contiguous():
+        raise ValueError(f"program must be a contiguous (6, {E}) int32 "
+                         f"tensor on {device}, got {tuple(prog.shape)} "
+                         f"{prog.dtype} on {prog.device}")
+    return prog, int(n_slots)
+
+
 def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
              root_slot: int, states: int = 4, categories: int = 4,
-             variant: str = "vpu", planes=None):
+             variant: str = "vpu", planes=None, program=None):
     """Fused whole-tree likelihood on register-machine arrays.
 
     Args:
@@ -330,6 +441,11 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
         rounds (:func:`plf_mxu.round_tip_table`).
       planes: kernel 2m only: ``lcs``/``rcs``/``ec`` already split for
         ``variant`` (:func:`plf_mxu.node_planes`).
+      program: kernel 2 only: ``(prog, n_slots)``, :func:`carry_program`
+        of ``sched`` with ``prog`` on the device of ``codes`` (a caller
+        that evaluates one tree again and again builds it once, as
+        ``PhyloModel`` does); derived from ``sched`` when None, which
+        reads ``sched`` back to the host.
 
     Returns:
       ``(site_lik, scaler_counts)``: ``(1, n_pad)`` fp32 and int32.
@@ -357,14 +473,15 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
         raise ValueError("plf_tree: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (lcs, rcs, ec)):
         raise ValueError("plf_tree: lcs/rcs/ec must be 16-byte aligned")
+    prog, slots = _program(program, sched, lcs.shape[0], codes.device)
     rows = states * categories
     n_codes = ttab.shape[1]
-    threads = tree_block_threads(n_slots, rows, n_codes, states)
-    if threads is None:
+    block_sites = tree_fused_threads(slots, rows, n_codes, states)
+    if block_sites is None:
         raise ValueError(
-            f"plf_tree: a {n_slots}-slot arena of {rows} rows does not fit "
+            f"plf_tree: a {slots}-slot arena of {rows} rows does not fit "
             f"{SMEM_BLOCK_BYTES} bytes of shared memory at {TREE_THREADS} "
-            f"threads; use the per-node path")
+            f"sites; use the per-node path")
     n_pad = codes.shape[-1]
     if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
         raise ValueError(f"plf_tree: bad n={n} for n_pad={n_pad}")
@@ -374,11 +491,10 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.plf_tree_launch(
-            codes.data_ptr(), codes.element_size(), sched.data_ptr(),
+            codes.data_ptr(), codes.element_size(), prog.data_ptr(),
             lcs.shape[0], lcs.data_ptr(), rcs.data_ptr(), ec.data_ptr(),
-            ttab.data_ptr(), n_codes, rr.data_ptr(), n_slots, root_slot,
-            lik.data_ptr(), sc.data_ptr(), int(n), n_pad, categories,
-            threads, stream)
+            ttab.data_ptr(), n_codes, rr.data_ptr(), slots, lik.data_ptr(),
+            sc.data_ptr(), int(n), n_pad, categories, block_sites, stream)
     if err != 0:
         raise RuntimeError(f"plf_tree kernel launch failed: "
                            f"{lib.plf_error_string(err).decode()}")
@@ -391,9 +507,10 @@ plf_tree.launches = 0
 
 def plf_tree_occupancy(code_dtype: torch.dtype, categories: int,
                        n_codes: int, n_slots: int) -> int:
-    """Thread blocks of :func:`plf_tree` resident on one SM for this tree
-    shape, as the CUDA runtime computes it (registers and shared memory);
-    builds the kernel on first use and needs a CUDA device."""
+    """Thread blocks of :func:`plf_tree` resident on one SM for an arena
+    of ``n_slots`` slots (the program's: :func:`carry_program`), as the
+    CUDA runtime computes it (registers and shared memory); builds the
+    kernel on first use and needs a CUDA device."""
     code_bytes = {torch.int32: 4, torch.int8: 1}[code_dtype]
     lib = _lib()
     blocks = ctypes.c_int(0)
@@ -403,6 +520,29 @@ def plf_tree_occupancy(code_dtype: torch.dtype, categories: int,
         raise RuntimeError(f"plf_tree occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     return blocks.value
+
+
+def tree_plan(code_dtype: torch.dtype, categories: int, n_codes: int,
+              n_slots: int) -> dict:
+    """Kernel 2's launch for an arena of ``n_slots`` slots: ``sites`` per
+    block (:data:`TREE_THREADS`), and as its library decides them
+    (``plf_tree_plan``) ``threads`` per block, ``sites_per_thread`` and
+    dynamic ``smem_bytes`` (:func:`tree_fused_smem_bytes` restates
+    them); the arena ``slots`` and ``blocks_per_sm``
+    (:func:`plf_tree_occupancy`).  Needs a CUDA device."""
+    lib = _lib()
+    threads, per, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.plf_tree_plan(categories, n_codes, n_slots, TREE_THREADS,
+                            ctypes.byref(threads), ctypes.byref(per),
+                            ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"plf_tree plan query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return dict(sites=TREE_THREADS, threads=threads.value,
+                sites_per_thread=per.value, slots=n_slots,
+                smem_bytes=smem.value,
+                blocks_per_sm=plf_tree_occupancy(code_dtype, categories,
+                                                 n_codes, n_slots))
 
 
 # ------------------------------------------------------------ kernel 2m --

@@ -68,7 +68,7 @@ from .plf_grad import GRAD_THREADS, op_grad, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
 from .plf_node import node_plain, stage
-from .plf_tree import compile_register_schedule, plf_tree
+from .plf_tree import carry_program, compile_register_schedule, plf_tree
 
 __all__ = ["compile_backward_schedule", "backward_schedule",
            "tree_bwd_scratch_bytes", "tree_bwd_chunk_sites",
@@ -569,11 +569,12 @@ class _TreeDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, codes, lcs, rcs, ec, ttab, rr, sched, bsched, n,
-                n_slots, root_slot, states, categories, variant, planes):
+                n_slots, root_slot, states, categories, variant, planes,
+                program):
         lik, sc = plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n,
                            n_slots=n_slots, root_slot=root_slot,
                            states=states, categories=categories,
-                           variant=variant, planes=planes)
+                           variant=variant, planes=planes, program=program)
         ctx.save_for_backward(codes, bsched, lcs, rcs, ec, ttab, rr)
         ctx.n, ctx.states, ctx.categories = n, states, categories
         ctx.variant, ctx.planes = variant, planes
@@ -595,7 +596,7 @@ class _TreeDiff(torch.autograd.Function):
             gl, gr, gec, grr = plf_tree_bwd(
                 codes, bsched, lcs, rcs, lcsT, rcsT, ec, ecT, ttab, rr,
                 glik.contiguous(), ctx.n, states=S, categories=C)
-        return (None, gl, gr, gec, None, grr) + (None,) * 9
+        return (None, gl, gr, gec, None, grr) + (None,) * 10
 
 
 def make_tree_diff(schedule: Sequence[Tuple], n_leaves: int, *,
@@ -616,18 +617,20 @@ def make_tree_diff(schedule: Sequence[Tuple], n_leaves: int, *,
     """
     arrs, n_slots, root_slot = compile_register_schedule(schedule, n_leaves)
     fwd_np = np.stack(arrs)
+    carry_np, carry_slots = carry_program(arrs)
     bwd_np = backward_schedule(schedule, n_leaves)
     on_device = {}
 
     def fn(codes, lcs, rcs, ec, ttab, rr, n, planes=None):
         dev = codes.device
         if dev not in on_device:
-            on_device[dev] = (torch.as_tensor(fwd_np, device=dev),
-                              torch.as_tensor(bwd_np, device=dev))
-        sched, bsched = on_device[dev]
+            on_device[dev] = tuple(torch.as_tensor(a, device=dev)
+                                   for a in (fwd_np, bwd_np, carry_np))
+        sched, bsched, carry = on_device[dev]
         if planes is not None:
             planes = tuple(p.detach() for p in planes)
         return _TreeDiff.apply(codes, lcs, rcs, ec, ttab, rr, sched, bsched,
                                int(n), n_slots, root_slot, states,
-                               categories, variant, planes)
+                               categories, variant, planes,
+                               (carry, carry_slots))
     return fn

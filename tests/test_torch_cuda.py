@@ -29,6 +29,7 @@ from plf_tpu_torch.ops.plf_tree import (plf_tree, plf_tree_mxu,  # noqa: E402
                                         plf_tree_occupancy, plf_tree_torch,
                                         reorder_schedule, tree_mxu_block)
 from plf_tpu_torch.ops import plf_grad as G  # noqa: E402
+from plf_tpu_torch.ops import plf_tree as TT  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_grad as TG  # noqa: E402
 from plf_tpu_torch.ops import plf_tree_seg as SG  # noqa: E402
 from plf_tpu_torch.models import optimize as TO  # noqa: E402
@@ -440,6 +441,102 @@ def test_kernel9_rejects_what_it_cannot_run(cuda):
     lc, rc, ec = _gen_consts(cuda, 20, 4)
     with pytest.raises(ValueError, match="one device"):
         plf_node_gen(lc, rc.cpu(), ec, states=20)
+
+
+@pytest.mark.parametrize("S,C", [(4, 4), (4, 5), (20, 4), (13, 3),
+                                 (61, 4)])
+def test_kernel9_odd_shapes_equal_plain(cuda, S, C):
+    """The probe == its plain version bit for bit where a site's block
+    index wraps inside a tile and the last tile (and, at S = 4, the last
+    block) is cut short: odd block_sites, n a multiple of neither 32 nor
+    256; S = 13 takes padded operator rows (Sp = 16)."""
+    from plf_tpu_torch.ops.plf_node import plf_node_gen, plf_node_gen_torch
+    consts = _gen_consts(cuda, S, C, seed=S + C)
+    for block_sites, n_blocks in ((37, 5), (1023, 3)):
+        kw = dict(states=S, categories=C, block_sites=block_sites,
+                  n_blocks=n_blocks, inner_iters=3)
+        got = plf_node_gen(*consts, **kw)
+        want = plf_node_gen_torch(*consts, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (1, block_sites * n_blocks)
+        assert torch.equal(got, want), (block_sites, n_blocks)
+
+
+#: Kernel 9's plan by (S, C): threads per block, tile sites, dynamic shared
+#: memory bytes, operators in shared memory (plf_gen_plan, csrc/plf_gen.cu):
+#: one thread per 4-row x 4-site job of a stage on 32-site tiles with the
+#: operators staged where tiles and operators fit half a block's shared
+#: memory, else 4 x 8 jobs on 64-site tiles (32 and 4 where those do not
+#: fit: S = 61, C = 9, 1,152 jobs in three rounds), the operators read from
+#: device memory.
+GEN_PLANS = {(4, 4): (128, 256, 0, 1), (20, 4): (160, 32, 49920, 1),
+             (61, 4): (512, 64, 187392, 0), (13, 3): (96, 32, 22464, 1),
+             (20, 8): (320, 32, 99840, 1), (61, 9): (384, 32, 210816, 0)}
+
+
+def test_kernel9_plan(cuda):
+    """The library's plan (gen_plan) as GEN_PLANS pins it, with at least
+    two blocks an SM at S = 20."""
+    from plf_tpu_torch.ops.plf_node import gen_plan
+    for (S, C), want in GEN_PLANS.items():
+        plan = gen_plan(S, C)
+        got = (plan["threads"], plan["tile_sites"], plan["smem_bytes"],
+               plan["ops_shared"])
+        assert got == want, (S, C, plan)
+        assert plan["blocks_per_sm"] >= 1
+    assert gen_plan(20, 4)["blocks_per_sm"] >= 2
+    assert gen_plan(20, 4)["sp"] == 20 and gen_plan(13, 3)["sp"] == 16
+
+
+@pytest.mark.parametrize("tip_dtype", ["int32", "int8"])
+@pytest.mark.parametrize("categories,p_inv", [(1, None), (4, 0.2)])
+@pytest.mark.parametrize("shape", ["left", "right", "balanced", "random"])
+def test_kernel2_carried_program_equals_plain(cuda, shape, categories, p_inv,
+                                              tip_dtype):
+    """Kernel 2 runs the model's carried program (operands of the op
+    before from registers, only outputs a later op but the next reads
+    stored) and == its plain version bit for bit, site likelihoods and
+    scaler counts: on caterpillars carrying the left or the right child
+    (no slot at all), a balanced and a random 64-taxon tree, C = 1 and 5
+    (+I), int32 and int8 tips, padding sites past n, and n_pad a multiple
+    of no block; also on the uncarried schedule.  One launch a call."""
+    tree = _shaped_tree(shape)
+    n_sites = 3 * 128 + 77
+    tips = np.random.default_rng(13).integers(-1, 14, size=(tree.n_leaves,
+                                                             n_sites))
+    pm = PhyloModel(tree, hky85(2.0), tips, alpha=0.5, p_inv=p_inv,
+                    device=cuda, config=PLFConfig(
+                        categories=categories, tip_dtype=tip_dtype,
+                        block_sites=128))
+    C = pm.lcs.shape[1] // 4
+    assert C == (5 if p_inv else 1)
+    assert pm.carry_slots <= pm.n_slots
+    if shape in ("left", "right"):
+        assert pm.carry_slots == 0
+    kw = dict(n_slots=pm.n_slots, root_slot=pm.root_slot, categories=C)
+    for n_pad in (pm.n_pad, n_sites + 5):
+        codes = pm.codes[:, :n_pad].contiguous()
+        args = (codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+                pm.root_rows[0], pm.n_sites)
+        before = plf_tree.launches
+        lik, sc = plf_tree(*args, **kw,
+                           program=pm.tree_program)
+        assert plf_tree.launches == before + 1
+        lik_u, sc_u = plf_tree(*args, **kw)   # derived from pm.sched
+        lik_p, sc_p = plf_tree_torch(*args, **kw)
+        torch.cuda.synchronize()
+        assert lik.shape == (1, n_pad)
+        assert torch.equal(lik, lik_p) and torch.equal(sc, sc_p)
+        assert torch.equal(lik_u, lik_p) and torch.equal(sc_u, sc_p)
+        if shape != "balanced":
+            assert int(sc.sum()) > 0
+    plan = TT.tree_plan(pm.codes.dtype, C, pm.tip_table.shape[1],
+                        pm.carry_slots)
+    assert plan["slots"] == pm.carry_slots and plan["sites"] == 128
+    assert plan["threads"] * plan["sites_per_thread"] == 128
+    assert plan["blocks_per_sm"] >= 1
+    assert plan["smem_bytes"] == TT.tree_fused_smem_bytes(
+        pm.carry_slots, 4 * C, pm.tip_table.shape[1])
 
 
 @pytest.mark.parametrize("S,C,n", [(20, 4, 40 * 128 - 37),

@@ -98,3 +98,55 @@ def test_gen_dispatch_and_checks():
         N.plf_node_gen(lc, rc.to("meta"), ec, **kw)
     with pytest.raises(ValueError, match="bad"):
         N.plf_node_gen(lc, rc, ec, **dict(kw, n_blocks=0))
+
+
+def test_gen_operators_layout():
+    """At S != 4 kernel 9 takes the operators transposed and padded,
+    ``[k][c][q][o] = K[o*C + c][q]`` with rows o >= S zero, so that one
+    float4 holds one q's values for 4 consecutive output rows."""
+    S, C, sp = 13, 3, 16
+    consts = [torch.as_tensor(a) for a in _consts(S, C, seed=5)]
+    kt = N.gen_operators(*consts, sp, states=S, categories=C)
+    assert kt.shape == (3, C, S, sp) and kt.dtype == torch.float32
+    assert kt.is_contiguous()
+    for i, k in enumerate(consts):
+        for o in range(S):
+            for c in range(C):
+                assert torch.equal(kt[i, c, :, o], k[o * C + c])
+    assert not kt[..., S:].any()
+
+
+class _FakeGenLib:
+    """Stands in for csrc/plf_gen.cu's library: plf_gen_plan writes the
+    plan it is given, or fails as the library does where the tiles do not
+    fit one block's shared memory."""
+
+    def __init__(self, plans):
+        self.plans = plans
+
+    def plf_gen_plan(self, states, categories, *ptrs):
+        plan = self.plans.get((states, categories))
+        if plan is None:
+            return 1          # cudaErrorInvalidValue
+        for p, v in zip(ptrs, plan):
+            p._obj.value = v
+        return 0
+
+    def plf_error_string(self, err):
+        return b"invalid argument"
+
+
+def test_gen_plan_is_the_library_rule(monkeypatch):
+    """The wrapper restates no shared-memory rule: gen_plan reports the
+    library's plan field by field and turns the library's refusal into a
+    ValueError naming the shared memory (the on-card tests pin the plans
+    themselves)."""
+    plan = (160, 32, 4, 4, 20, 50688, 1, 4)
+    monkeypatch.setattr(N, "_lib_gen", lambda: _FakeGenLib({(20, 4): plan}))
+    assert N.gen_plan(20, 4) == dict(
+        threads=160, tile_sites=32, job_rows=4, job_sites=4, sp=20,
+        smem_bytes=50688, ops_shared=1, blocks_per_sm=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        N.gen_plan(61, 10)
+    with pytest.raises(ValueError, match="C in 1..8"):
+        N.gen_plan(4, 9)

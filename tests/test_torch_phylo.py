@@ -221,7 +221,7 @@ def test_auto_falls_back_to_per_node_past_capacity(spies, monkeypatch):
     seg_spy = _Spy(TP.plf_tree_seg)
     monkeypatch.setattr(TP, "plf_tree_seg", seg_spy)
     pt = _port_of(_jax_model("gamma"))
-    monkeypatch.setattr(TP, "tree_block_threads", lambda *a: None)
+    monkeypatch.setattr(TP, "tree_fused_threads", lambda *a: None)
     assert not pt.can_fuse() and pt.can_segment()
     pt.log_likelihood()
     assert (tree_spy.calls, seg_spy.calls, node_spy.calls) == (0, 1, 0)
