@@ -39,8 +39,10 @@ codon training path:
   alignment, which must recover the omega and kappa it was simulated
   under.
 
-The segmented engine (DNA): kernel 7 against its plain version and kernel
-2 at 160 taxa x 2^20 and 512 x 262,144, kernel 8 against its plain
+The segmented engine (DNA): kernel 7 on the model's carried program
+(with its launch plan and the mean of 20 launches beside kernel 2's)
+against its plain version and kernel 2 at 160 taxa x 2^20 and 512 x
+262,144, kernel 8 against its plain
 version at 160 x 2^20, ``log_likelihood(method="segmented")`` (kernel 7
 once) and a "segmented" training step (kernels 7 + 8 once each) against
 "tree", timed, with both backends' checkpoints, at 160 x 2^20 and 256 x
@@ -142,6 +144,7 @@ from plf_tpu_torch.ops.plf_tree_seg import (plf_tree_seg, plf_tree_seg_bwd,
                                             plf_tree_seg_mxu_occupancy,
                                             plf_tree_seg_torch,
                                             segment_program,
+                                            carry_segment_program,
                                             tree_seg_mxu_block)
 from plf_tpu_torch.reference import plf_reference
 
@@ -1479,9 +1482,12 @@ def codon_phase(codon, dev):
 
 
 def seg_inputs(pm):
-    """The model's segment plan, kernel 7's program (cached on the model)
-    and kernel 8's, on the card."""
+    """The model's segment plan, the forward's program (cached on the
+    model: kernel 7's carried one, ``carry_segment_program``, or kernel
+    7m's) and kernel 8's (8m's), on the card."""
     plan, prog, segs, n_slots = pm._segmented_inputs()
+    if pm.segmented_program is not None:
+        prog, n_slots = pm.segmented_program
     sched = reorder_schedule(pm.schedule, pm.tree.n_leaves)
     bprog, bsegs, _ = segment_program(plan, sched, reuse_slots=False)
     bwd = tuple(torch.as_tensor(a, device=pm.device) for a in (bprog, bsegs))
@@ -1517,12 +1523,29 @@ def seg_bwd_bound(pm, plan):
 
 
 def _seg_args(pm, fwd):
+    """Kernel 7's arguments on a model's carried program ``fwd``, for its
+    plain version (which interprets the program) and for kernel7()."""
     prog, segs, n_slots = fwd
     return ((pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
              pm.root_rows[0], pm.n_sites),
             dict(n_boundaries=pm._segmented_inputs()[0].n_boundaries,
                  n_slots=n_slots, categories=pm.config.categories,
                  dtype=getattr(torch, pm.config.dtype)))
+
+
+def kernel7(*args, **kw):
+    """plf_tree_seg on the carried program of ``_seg_args``: the program
+    is passed as such, so kernel 7 runs it as the model does."""
+    return plf_tree_seg(*args, program=(args[1], kw["n_slots"]), **kw)
+
+
+def seg_late_reads(fwd):
+    """Ops of kernel 7's program that read the boundary the op right
+    before them exports: kernel 7 reads those rows at the op, not an op
+    ahead (csrc/plf_tree_seg.cu, the ordering rule)."""
+    prog, segs = (t.cpu().numpy() for t in fwd[:2])
+    return sum(any(prog[2 * s + 1, end] == 2 and prog[2 * s, end] == gout
+                   for s in range(2)) for end, gout in segs[:-1])
 
 
 def kernel7_phase(dev, pm):
@@ -1537,7 +1560,7 @@ def kernel7_phase(dev, pm):
     for m in (pm, wide):
         plan, fwd, _ = seg_inputs(m)
         args, kw = _seg_args(m, fwd)
-        lik, sc, bbuf = plf_tree_seg(*args, **kw)
+        lik, sc, bbuf = kernel7(*args, **kw)
         kargs = (m.codes, m.sched, m.lcs, m.rcs, m.ec, m.fused_tip_table,
                  m.root_rows[0], m.n_sites)
         kkw = dict(n_slots=m.n_slots, root_slot=m.root_slot,
@@ -1549,16 +1572,24 @@ def kernel7_phase(dev, pm):
         check(all(torch.equal(a, b) for a, b in zip((lik, sc, bbuf), plain)),
               f"kernel 7 != its plain version at {m.tree.n_leaves} taxa")
         del plain, bbuf
-        ms = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=5)
-        ms2 = cuda_ms(lambda: plf_tree(*kargs, **kkw), reps=5)
+        ms = cuda_ms(lambda: kernel7(*args, **kw), reps=20)
+        ms2 = cuda_ms(lambda: plf_tree(*kargs, **kkw), reps=20)
         bd = seg_fwd_bound(m, plan)
         gb = plan.n_boundaries * 4 * m.config.rows * m.n_pad / 1e9
+        kp = seg_mod.plf_tree_seg_plan(m.codes.dtype, m.config.categories,
+                                       m.fused_tip_table.shape[1], fwd[2])
+        late = seg_late_reads(fwd)
         phase("kernel7", f"{m.tree.n_leaves} taxa x {m.n_sites} sites: "
               f"{len(plan.segments)} segments (at most {plan.seg_ops} ops), "
-              f"{plan.n_boundaries} boundaries ({gb:.3f} GB), {fwd[2]} arena "
-              f"slots; lik and sc == kernel 2 and lik, "
+              f"{plan.n_boundaries} boundaries ({gb:.3f} GB), {late} read "
+              f"right after their export; carried program: {fwd[2]} arena "
+              f"slots; plan: {kp['threads']} threads, {kp['blocks_per_sm']} "
+              f"blocks per SM, {kp['registers']} registers, "
+              f"{kp['smem_bytes']} bytes of shared memory; lik and sc == "
+              f"kernel 2 and lik, "
               f"sc, boundaries == plain, bit for bit ({int(sc.sum())} "
-              f"rescales); kernel {ms:.3f} ms (kernel 2 {ms2:.3f} ms, bound "
+              f"rescales); kernel {ms:.3f} ms (kernel 2 {ms2:.3f} ms; means "
+              f"of 20 back to back; bound "
               f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}), plain "
               f"{plain_ms:.1f} ms")
         if res is None:
@@ -1585,7 +1616,7 @@ def kernel8_against(pm, name="kernel8"):
     under phase ``name``; returns its entry and the cotangent."""
     plan, fwd, (bprog, bsegs) = seg_inputs(pm)
     args, kw = _seg_args(pm, fwd)
-    lik, _, bbuf = plf_tree_seg(*args, **kw)
+    lik, _, bbuf = kernel7(*args, **kw)
     glik = (pm.wgt_pad.to(torch.float32) / lik).contiguous()
     bargs = (pm.codes, bprog, bsegs, pm.lcs, pm.rcs, pm.ec,
              pm.fused_tip_table, pm.root_rows[0], glik, bbuf, pm.n_sites)
@@ -1645,19 +1676,19 @@ def seg_cap_probe(pm, glik):
             plan = seg_mod.plan_segments(pos, pm.tree.n_leaves,
                                          rows=pm.config.rows,
                                          n_codes=pm.fused_tip_table.shape[1])
-            progs = [segment_program(plan, sched, reuse_slots=r)
-                     for r in (True, False)]
-            (fp, fs, n_slots), (bp, bs, _) = [
-                (torch.as_tensor(a, device=pm.device),
-                 torch.as_tensor(b, device=pm.device), c) for a, b, c in progs]
+            prog, segs, _ = segment_program(plan, sched, reuse_slots=True)
+            cprog, n_slots = carry_segment_program(prog, segs)
+            bprog, bsegs, _ = segment_program(plan, sched, reuse_slots=False)
+            fp, fs, bp, bs = (torch.as_tensor(a, device=pm.device)
+                              for a in (cprog, segs, bprog, bsegs))
             args = (pm.codes, fp, fs, pm.lcs, pm.rcs, pm.ec,
                     pm.fused_tip_table, pm.root_rows[0], pm.n_sites)
             kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots)
-            _, _, bbuf = plf_tree_seg(*args, **kw)
+            _, _, bbuf = kernel7(*args, **kw)
             bargs = (pm.codes, bp, bs, pm.lcs, pm.rcs, pm.ec,
                      pm.fused_tip_table, pm.root_rows[0], glik, bbuf,
                      pm.n_sites)
-            ms7 = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=3)
+            ms7 = cuda_ms(lambda: kernel7(*args, **kw), reps=3)
             ms8 = cuda_ms(lambda: plf_tree_seg_bwd(*bargs,
                                                    seg_ops=plan.seg_ops),
                           reps=3, warmup=1)
@@ -1775,12 +1806,12 @@ def segmented_phase(dev, pm):
         if m is not pm:
             plan_b, fwd, (bprog, bsegs) = seg_inputs(m)
             args, kw = _seg_args(m, fwd)
-            lik, _, bbuf = plf_tree_seg(*args, **kw)
+            lik, _, bbuf = kernel7(*args, **kw)
             glik = (m.wgt_pad.to(torch.float32) / lik).contiguous()
             bargs = (m.codes, bprog, bsegs, m.lcs, m.rcs, m.ec,
                      m.fused_tip_table, m.root_rows[0], glik, bbuf,
                      m.n_sites)
-            ms7 = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=3)
+            ms7 = cuda_ms(lambda: kernel7(*args, **kw), reps=3)
             ms8 = cuda_ms(lambda: plf_tree_seg_bwd(*bargs,
                                                    seg_ops=plan_b.seg_ops),
                           reps=3, warmup=1)
@@ -2353,13 +2384,13 @@ def bf16_dna_segmented(dev, tree, tips, pm):
           f"bf16 segmented ll {seg16.log_likelihood} vs fp32 {ll32}")
     plan, fwd, _ = seg_inputs(pm16)
     args, kw = _seg_args(pm16, fwd)
-    lik, sc, bbuf = plf_tree_seg(*args, **kw)
+    lik, sc, bbuf = kernel7(*args, **kw)
     plain, plain_ms = timed(lambda: plf_tree_seg_torch(*args, **kw))
     check(bbuf.dtype == BF16 and all(
         torch.equal(a, b) for a, b in zip((lik, sc, bbuf), plain)),
         "kernel 7 (bf16) != its plain version")
     del plain, lik, sc
-    ms = cuda_ms(lambda: plf_tree_seg(*args, **kw), reps=5)
+    ms = cuda_ms(lambda: kernel7(*args, **kw), reps=20)
     bd = seg_fwd_bound(pm16, plan)
     phase("bf16", f"{pm16.tree.n_leaves} taxa x {pm16.n_sites} sites (model "
           f"built in {built:.1f} s): log_likelihood(method='segmented') "

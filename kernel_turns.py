@@ -1,7 +1,7 @@
 """Time kernels of two checkouts in turns on one NVIDIA GPU.
 
     python3 kernel_turns.py [--dna | --k3m2m | --k7m1m | --k1m | --k9k2 |
-                             --sass] PARENT_DIR CHANGE_DIR [MORE ...]
+                             --k7 | --sass] PARENT_DIR CHANGE_DIR [MORE ...]
 
 Each directory is the root of a checkout (for the parent commit, unpack
 ``git archive <commit>`` into a directory that ``.gitignore`` lists, such
@@ -93,11 +93,27 @@ launches back to back (3 at S = 61), ``chip_smoke.py``'s timer.
 Directories past the first two are probes that time the two kernels
 alone (no steps, no 256 x 2^22 model).
 
+``--k7``: the median of five launches after one, each timed alone, and
+(``b2b_ms``) the mean of 20 back to back, of kernel 7
+(``csrc/plf_tree_seg.cu``, the DNA segmented forward, on the model's own
+plan and program: the carried one where the checkout has it) with fp32
+and with bf16 boundaries (keys ending ``:bf16``) at 160 taxa x 2^20
+patterns with int32 tips and 256 x 2^22 with int8 tips (HKY85 +
+Gamma4, ``--k9k2``'s models); the wall time (median of five after one)
+of ``log_likelihood(method="segmented")`` at 160 x 2^20 and of a
+"segmented" value-and-gradient step (kernels 7 + 8) at both shapes.
+Each turn also gives the plan (segments, boundaries; kernel 7's threads,
+arena slots, shared memory, blocks per SM and registers where the
+checkout's library reports them) and the registers and spills ptxas gave
+every instance of kernel 7 in both storage forms.  Directories past the
+first two are probes that time kernel 7 alone (no steps).
+
 ``--sass``: no timing; for each directory, the static instruction mix of
-kernel 2's C = 4 int32-code instance and of kernel 9's C = 4 instances
-(``cuobjdump -sass`` on the libraries built from that checkout): one JSON
-line per directory of opcode counts by kernel, opcodes without their
-modifiers (FMUL, FADD, LDS, LDG, STS, LDGSTS, BAR, ...).
+the C = 4 int32-code instances of kernels 2 and 7 (fp32 boundaries) and
+of kernel 9's C = 4 instances (``cuobjdump -sass`` on the libraries built
+from that checkout): one JSON line per directory of opcode counts by
+kernel, opcodes without their modifiers (FMUL, FADD, LDS, LDG, STS,
+LDGSTS, BAR, ...).
 """
 
 import json
@@ -694,12 +710,8 @@ print(json.dumps(out))
 
 
 K9K2_LIBS = ["plf_gen", "plf_tree", "plf_tree_bwd"]
-K9K2_TURN = TURN[:TURN.index("def kernels(pm, v, out, key")] + r'''
+DNA_HEAD = TURN[:TURN.index("def kernels(pm, v, out, key")] + r'''
 from plf_tpu_torch.models import hky85
-from plf_tpu_torch.ops import layout as L
-from plf_tpu_torch.ops import plf_node as N
-
-GEN_BLOCK, GEN_BLOCKS, GEN_ITERS = 8192, 256, 8   # bench_gen, bench.py:272
 
 
 def b2b(fn, reps=20):
@@ -717,6 +729,22 @@ def b2b(fn, reps=20):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def dna_model(taxa, sites, seed, tree_seed, **kw):
+    p = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
+    tips = np.random.default_rng(seed).choice(
+        np.arange(-1, 14, dtype=np.int8), size=(taxa, sites), p=p / p.sum())
+    return PhyloModel(random_tree(taxa, seed=tree_seed), hky85(2.0), tips,
+                      alpha=0.5, device="cuda", **kw)
+
+
+'''
+K9K2_TURN = DNA_HEAD + r'''
+from plf_tpu_torch.ops import layout as L
+from plf_tpu_torch.ops import plf_node as N
+
+GEN_BLOCK, GEN_BLOCKS, GEN_ITERS = 8192, 256, 8   # bench_gen, bench.py:272
 
 
 def kernel9(S, out):
@@ -746,14 +774,6 @@ def kernel9(S, out):
         plan = dict(threads=128, tile_sites=32, job_rows=4, job_sites=1,
                     ops_shared=0)
     out["plan"][f"kernel9_{key}"] = plan
-
-
-def dna_model(taxa, sites, seed, tree_seed, **kw):
-    p = np.concatenate([[0.04], np.full(4, 0.22), np.full(10, 0.008)])
-    tips = np.random.default_rng(seed).choice(
-        np.arange(-1, 14, dtype=np.int8), size=(taxa, sites), p=p / p.sum())
-    return PhyloModel(random_tree(taxa, seed=tree_seed), hky85(2.0), tips,
-                      alpha=0.5, device="cuda", **kw)
 
 
 def kernel2(pm, key, out):
@@ -801,6 +821,66 @@ if not PROBE:
     torch.cuda.empty_cache()
     big = dna_model(256, 1 << 22, 256, 4, config=PLFConfig(tip_dtype="int8"))
     kernel2(big, "256x2^22_int8", out)
+print(json.dumps(out))
+'''
+
+
+K7_LIBS = ["plf_tree_seg", "plf_tree_seg_bf16", "plf_tree_seg_bwd"]
+K7_TURN = DNA_HEAD + r'''
+def kernel7(pm, key, out):
+    # kernel 7 on the model's program (the carried one where the checkout
+    # has it), fp32 and bf16 boundaries, with its plan
+    plan, prog, segs, n_slots = pm._segmented_inputs()
+    kw = dict(n_boundaries=plan.n_boundaries, n_slots=n_slots)
+    if hasattr(pm, "segmented_program"):
+        prog, n_slots = kw["program"] = pm.segmented_program
+    args = (pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites)
+    for dt in (torch.float32, torch.bfloat16):
+        k = key + (":bf16" if dt == torch.bfloat16 else "")
+        run = lambda: SG.plf_tree_seg(*args, dtype=dt, **kw)
+        out["kernel7_ms"][k] = ms(run, out["samples"].setdefault(
+            f"kernel7_{k}", []))
+        out["b2b_ms"][f"kernel7_{k}"] = b2b(run)
+        torch.cuda.empty_cache()
+        if hasattr(SG, "plf_tree_seg_plan"):
+            out["plan"][f"kernel7_{k}"] = SG.plf_tree_seg_plan(
+                pm.codes.dtype, pm.config.categories,
+                pm.fused_tip_table.shape[1], n_slots, dt)
+        else:
+            out["plan"][f"kernel7_{k}"] = dict(threads=128, slots=n_slots)
+    out["plan"][f"segments_{key}"] = dict(
+        segments=len(plan.segments), seg_ops=plan.seg_ops,
+        boundaries=plan.n_boundaries)
+
+
+def step(pm, key, out):
+    # one "segmented" value-and-gradient step (kernels 7 + 8), wall
+    fn, t0 = tree_loglik_fn(pm, backend="segmented")
+
+    def run():
+        t = torch.tensor(t0, device="cuda", requires_grad=True)
+        fn(t).backward()
+    wall(run, out, f"segmented_step_{key}")
+
+
+out = {"ptxas": {"kernel7": ptxas("plf_tree_seg", "plf_tree_seg_kernel"),
+                 "kernel7:bf16": ptxas("plf_tree_seg_bf16",
+                                       "plf_tree_seg_kernel")},
+       "kernel7_ms": {}, "b2b_ms": {}, "step_ms": {}, "plan": {},
+       "samples": {}}
+pm = dna_model(160, 1 << 20, 1, 1)
+kernel7(pm, "160x2^20_int32", out)
+if not PROBE:
+    wall(lambda: pm.log_likelihood(method="segmented"), out,
+         "dna_segmented_log_likelihood")
+    step(pm, "160x2^20_int32", out)
+del pm
+torch.cuda.empty_cache()
+big = dna_model(256, 1 << 22, 256, 4, config=PLFConfig(tip_dtype="int8"))
+kernel7(big, "256x2^22_int8", out)
+if not PROBE:
+    step(big, "256x2^22_int8", out)
 print(json.dumps(out))
 '''
 
@@ -855,15 +935,17 @@ def main():
         args, turn, libs = args[1:], K3M2M_TURN, K3M2M_LIBS
     elif args[:1] == ["--k9k2"]:
         args, turn, libs = args[1:], K9K2_TURN, K9K2_LIBS
+    elif args[:1] == ["--k7"]:
+        args, turn, libs = args[1:], K7_TURN, K7_LIBS
     elif args[:1] == ["--sass"]:
+        sass_libs = ["plf_gen", "plf_tree", "plf_tree_seg"]
         for root in map(os.path.abspath, args[1:]):
             subprocess.run(
                 [sys.executable, "-c", "from plf_tpu_torch.ops._build import "
-                 "build_libraries; build_libraries(['plf_gen', 'plf_tree'])"],
+                 f"build_libraries; build_libraries({sass_libs!r})"],
                 cwd=root, env=dict(os.environ, PYTHONPATH=root), check=True)
             print(json.dumps({"dir": root, **{
-                lib: sass_mix(root, lib) for lib in ("plf_tree", "plf_gen")}}),
-                flush=True)
+                lib: sass_mix(root, lib) for lib in sass_libs}}), flush=True)
         return
     elif args[:1] in (["--k7m1m"], ["--k1m"]):
         if args[0] == "--k1m":   # every directory a probe of kernel 1m

@@ -112,6 +112,35 @@ __device__ __forceinline__ void stage(const float (&x)[S * C], const float4* k,
   }
 }
 
+// 16 bytes from device memory into shared memory, asynchronously (L2 only).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Wait until every cp.async group this thread committed has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The operators of a whole-tree kernel's op (kernels 2 and 7): edge e's lc
+// and rc rows (S*C float4 each, of the (E, S*C, S) stacks) copied by
+// cp.async into buf[0, 2*S*C), one float4 a thread of the first 2*S*C
+// threads; every thread commits a group, so cp_async_wait_all and a barrier
+// later make the buffer visible to the block.
+template <int C>
+__device__ __forceinline__ void stage_ops(float4* buf, const float* lcs,
+                                          const float* rcs, int e, int tid) {
+  constexpr int R = S * C;
+  if (tid < 2 * R) {
+    const float* k = tid < R ? lcs : rcs;
+    cp_async16(buf + tid,
+               reinterpret_cast<const float4*>(k) + (size_t)e * R + tid % R);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 }  // namespace plf
 
 // Name of a CUDA error code returned by a launch entry point.

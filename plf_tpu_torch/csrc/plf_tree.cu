@@ -65,12 +65,6 @@ size_t smem_bytes(int ncols, int n_slots, int block_sites) {
          sizeof(float4) * 4 * R;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
 template <int C, typename CodeT>
 __global__ void plf_tree_kernel(const CodeT* codes, const int* prog,
                                 int n_edges, const float* lcs,
@@ -99,14 +93,8 @@ __global__ void plf_tree_kernel(const CodeT* codes, const int* prog,
   const int* eidx = prog + 5 * n_edges;
   // op i's lc and rc rows into buffer i % 2, one float4 a thread
   auto stage_ops = [&](int i) {
-    if (tid < 2 * R) {
-      const float* k = tid < R ? lcs : rcs;
-      const int e = __ldg(eidx + i);
-      cp_async16(s_ops + (i & 1) * 2 * R + tid,
-                 reinterpret_cast<const float4*>(k) + (size_t)e * R +
-                     tid % R);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
+    plf::stage_ops<C>(s_ops + (i & 1) * 2 * R, lcs, rcs, __ldg(eidx + i),
+                      tid);
   };
   stage_ops(0);
   __syncthreads();
@@ -156,7 +144,7 @@ __global__ void plf_tree_kernel(const CodeT* codes, const int* prog,
       lcode = code_of(ls, lf);
       rcode = code_of(rs, rf);
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    plf::cp_async_wait_all();
     __syncthreads();  // op i's operators landed; op i-1's buffer is free
     if (i + 1 < n_edges) stage_ops(i + 1);
     const float4* lc = s_ops + (i & 1) * 2 * R;

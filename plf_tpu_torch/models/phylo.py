@@ -65,7 +65,8 @@ from ..ops.plf_torch import plf_torch
 from ..ops.plf_tree import (carry_program, compile_register_schedule,
                             plf_tree, reorder_schedule, root_reduce,
                             tree_fused_threads, tree_mxu_fits)
-from ..ops.plf_tree_seg import plan_segments, plf_tree_seg, segment_program
+from ..ops.plf_tree_seg import (carry_segment_program, plan_segments,
+                                plf_tree_seg, segment_program)
 from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
 from .tree import Tree
@@ -447,7 +448,8 @@ class PhyloModel(nn.Module):
         and cached on the model: the plan of the reordered schedule
         (:func:`ops.plf_tree_seg.plan_segments`, the JAX package's cut, at
         the cap of the capacity rule of the kernels that run) and its
-        register-allocated program on the model's device."""
+        register-allocated program on the model's device; for kernel 7
+        also its carried program (:attr:`segmented_program`)."""
         if self._seg_cache is None:
             self._kernel_path("segmented")
             cfg = self.config
@@ -465,7 +467,21 @@ class PhyloModel(nn.Module):
             self._seg_cache = (plan, torch.as_tensor(prog, device=self.device),
                                torch.as_tensor(segs, device=self.device),
                                n_slots)
+            self._seg_program = None
+            if not uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states):
+                cprog, slots = carry_segment_program(prog, segs)
+                self._seg_program = (torch.as_tensor(cprog,
+                                                     device=self.device),
+                                     slots)
         return self._seg_cache
+
+    @property
+    def segmented_program(self):
+        """Kernel 7's ``(program, n_slots)`` (``ops/plf_tree_seg.py::
+        carry_segment_program`` of the cached segment program, built with
+        it, on the model's device), or None for a model on kernel 7m."""
+        self._segmented_inputs()
+        return self._seg_program
 
     def log_likelihood_segmented(self) -> TreeLikelihoodResult:
         """Segmented whole-tree evaluation (kernel 7 or 7m, one launch):
@@ -482,7 +498,7 @@ class PhyloModel(nn.Module):
             n_boundaries=plan.n_boundaries, n_slots=n_slots,
             states=cfg.states, categories=cfg.categories,
             variant=cfg.resolved_kernel_variant, planes=self._planes(),
-            dtype=getattr(torch, cfg.dtype))
+            dtype=getattr(torch, cfg.dtype), program=self.segmented_program)
         return self._finalise_ll(lik[0].cpu().numpy(), sc[0].cpu().numpy(),
                                  self._scaler_total(sc[0]))
 

@@ -30,9 +30,9 @@ CLV slots for a whole site block into ~10 MiB of TPU VMEM
 :func:`compile_register_schedule` has 6), and one block must fit the
 card's shared memory: a block of :data:`TREE_THREADS` sites, whose arena
 (plus the staged constants) must fit :data:`SMEM_BLOCK_BYTES`
-(:func:`tree_fused_threads`; :func:`tree_block_threads`, the same rule
-without kernel 2's operator buffers, is kernel 7's); a tree that does not
-fit takes the per-node path.  At S = C = 4 that admits ``n_slots <=
+(:func:`tree_fused_threads`, which kernel 7 shares for a segment arena
+and its landing slots); a tree that does not fit takes the per-node
+path.  At S = C = 4 that admits ``n_slots <=
 28``; a random 1000-taxon tree needs well under 16.
 
 Kernel 2m (``csrc/plf_tree_mxu.cu``) is the matrix ("MXU") form of the
@@ -67,7 +67,7 @@ __all__ = ["plf_tree", "plf_tree_torch", "plf_tree_occupancy", "root_reduce",
            "reorder_schedule", "schedule_depth", "compile_register_schedule",
            "carry_program", "CARRIED", "tree_plan", "tree_fused_threads",
            "tree_fused_smem_bytes",
-           "pack_branch_constants", "tree_block_threads", "tree_smem_bytes",
+           "pack_branch_constants", "tree_smem_bytes",
            "SMEM_BLOCK_BYTES", "TREE_THREADS", "plf_tree_mxu",
            "plf_tree_mxu_occupancy", "tree_mxu_fits", "tree_mxu_smem_bytes",
            "tree_mxu_block", "TREE_MXU_SITES"]
@@ -87,31 +87,23 @@ def tree_smem_bytes(n_slots: int, rows: int, n_codes: int, threads: int,
                 + n_slots * rows * threads)
 
 
-def tree_block_threads(n_slots: int, rows: int, n_codes: int,
-                       states: int = 4) -> Optional[int]:
-    """:data:`TREE_THREADS` if that block's arena fits
-    :data:`SMEM_BLOCK_BYTES`, or None if it does not (kernel 7's rule for
-    a segment's arena)."""
-    if tree_smem_bytes(n_slots, rows, n_codes, TREE_THREADS, states) \
-            <= SMEM_BLOCK_BYTES:
-        return TREE_THREADS
-    return None
-
-
 def tree_fused_smem_bytes(n_slots: int, rows: int, n_codes: int,
                           states: int = 4) -> int:
-    """Dynamic shared memory of one kernel-2 block of :data:`TREE_THREADS`
-    sites: :func:`tree_smem_bytes` (whose arena rule kernel 7 shares)
-    plus two buffers of one op's ``lc`` and ``rc`` rows, into which the
-    kernel copies the next op's operators while it computes."""
+    """Dynamic shared memory of one kernel-2 (or kernel-7) block of
+    :data:`TREE_THREADS` sites: :func:`tree_smem_bytes` plus two buffers
+    of one op's ``lc`` and ``rc`` rows, into which the kernel copies the
+    next op's operators while it computes."""
     return (tree_smem_bytes(n_slots, rows, n_codes, TREE_THREADS, states)
             + 4 * 4 * rows * states)
 
 
 def tree_fused_threads(n_slots: int, rows: int, n_codes: int,
                        states: int = 4) -> Optional[int]:
-    """Kernel 2's capacity rule: :data:`TREE_THREADS` sites a block if its
-    ``n_slots``-slot arena (the slots of :func:`carry_program`) fits
+    """Kernel 2's capacity rule, and kernel 7's for a segment arena:
+    :data:`TREE_THREADS` sites a block if its ``n_slots``-slot arena (the
+    slots of :func:`carry_program`, or of
+    :func:`.plf_tree_seg.carry_segment_program` with kernel 7's landing
+    slots) fits
     :data:`SMEM_BLOCK_BYTES`, or None if the tree does not fuse."""
     if tree_fused_smem_bytes(n_slots, rows, n_codes, states) \
             <= SMEM_BLOCK_BYTES:

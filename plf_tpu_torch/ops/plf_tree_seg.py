@@ -18,12 +18,17 @@ earlier segments (boundary CLVs); the planner (:class:`Segment`,
 packages cut a tree into the same segments for the same cap.
 
 * Kernel 7: one thread per site walks every segment in order, as kernel 2
-  walks the whole tree: tips expanded on demand from their codes, boundary
-  CLVs read from the boundary buffer ``bbuf`` ``(n_boundaries, S*C,
-  n_pad)``, each segment's ops in a shared-memory arena of register-
-  allocated slots, the segment's root written to ``bbuf``.  The last
-  segment's root gives the site likelihood: ``lik`` and ``sc`` equal
-  kernel 2's bit for bit.
+  walks the whole tree, on kernel 2's design: the carried program
+  (:func:`carry_segment_program`: the previous op's output from
+  registers, an arena slot only for an output that a later op but the
+  next one reads, in shared memory), op i+1's operators copied by
+  ``cp.async`` into a shared double buffer during op i, the next op's
+  entries and tip codes read ahead.  One boundary CLV an op, from the
+  boundary buffer ``bbuf`` ``(n_boundaries, S*C, n_pad)``, lands an op
+  ahead by ``cp.async`` in a shared slot, unless the op before exports
+  that boundary itself; a segment's root is written to ``bbuf`` from
+  registers.  The last segment's root gives the site likelihood: ``lik``
+  and ``sc`` equal kernel 2's bit for bit.
 * Kernel 8: one thread per site, a one-warp block owns its tiles of
   :data:`SEG_SITES` sites and walks the segments in reverse, each over
   all its tiles: phase 1 recomputes the segment's ops into a
@@ -67,11 +72,14 @@ one warp's operator-gradient staging area and the constants in shared
 memory.  At :data:`SEG_SITES` = 32 sites a DNA op takes 2.5 KB.
 ``cap_ops`` is chosen so that :data:`SEG_BLOCKS_PER_SM` blocks fit one
 SM's shared memory (8 ops at S = C = 4); a plan that does not fit at
-``cap_ops=1`` raises.  Kernel 7's arena is kernel 2's: the most slots
-live in any one segment, at 128 threads
-(:func:`.plf_tree.tree_block_threads`).  That rule admits no op at all
-at S = 20 or 61 (its fixed part alone is 41 KB and 245 KB), so the
-matrix forms have their own (:func:`seg_mxu_cap_ops`):
+``cap_ops=1`` raises.  Kernel 7's block is kernel 2's: an arena of the
+carried program's slots (the most live in any one segment), two buffers
+of one op's operators and, in slots of the arena's size,
+:data:`SEG_LANDING_SLOTS` landing slots for boundary rows, at 128
+threads (:func:`.plf_tree.tree_fused_threads` on the arena's and the
+landing slots; :func:`plf_tree_seg_plan` gives the launch).  That rule
+admits no op at all at S = 20 or 61 (its fixed part alone is 41 KB and
+245 KB), so the matrix forms have their own (:func:`seg_mxu_cap_ops`):
 kernel 8m keeps its op checkpoint in device memory, as kernel 4m does, so
 its shared memory does not grow with the segment; what a cap buys is
 device memory, ``seg_ops`` checkpoint slots of ``S*C*4 + 1`` bytes per
@@ -110,11 +118,14 @@ from .plf_grad import GRAD_THREADS, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
 from .plf_node import SMEM_BLOCK_BYTES, count_launch
-from .plf_tree import root_reduce, tree_block_threads, tree_mxu_fits
+from .plf_tree import (CARRIED, carry_program, root_reduce,
+                       tree_fused_threads, tree_mxu_fits)
 from .plf_tree_grad import (acc_floats, tree_bwd_chunk_sites,
                             tree_bwd_mxu_blocks, tree_bwd_scratch_bytes)
 
 __all__ = ["plan_segments", "SegPlan", "Segment", "segment_program",
+           "carry_segment_program", "SEG_CARRIED", "SEG_LANDING_SLOTS",
+           "plf_tree_seg_plan",
            "seg_bwd_smem_bytes", "seg_cap_ops", "seg_mxu_cap_ops",
            "seg_mxu_site_bytes", "plf_tree_seg", "plf_tree_seg_torch",
            "plf_tree_seg_mxu", "plf_tree_seg_bwd", "plf_tree_seg_bwd_torch",
@@ -469,6 +480,45 @@ def segment_program(plan: SegPlan, schedule: Sequence[Tuple], *,
     return prog, np.asarray(segs, np.int32), n_slots
 
 
+#: Kernel 7's landing slots (``kLanding`` in ``csrc/plf_tree_seg.cu``):
+#: one boundary row an op lands ahead of it, double-buffered by op parity,
+#: in slots of the arena's size, which its capacity rule counts.
+SEG_LANDING_SLOTS = 2
+
+#: Operand flag of :func:`carry_segment_program`: the output of the op
+#: evaluated just before, in the same segment (flags 0, 1 and 2 are a
+#: tip, an arena slot and a boundary, as in :func:`segment_program`).
+SEG_CARRIED = 3
+
+
+def carry_segment_program(prog, segs) -> Tuple[np.ndarray, int]:
+    """Kernel 7's program from :func:`segment_program`'s
+    ``(prog, segs)`` with ``reuse_slots=True``, built as
+    :func:`.plf_tree.carry_program` builds kernel 2's.
+
+    An operand that op ``i - 1`` produced gets flag :data:`SEG_CARRIED`
+    (the kernel keeps it in registers); op ``j``'s output gets an arena
+    slot only when a later op other than ``j + 1`` reads it, else
+    ``oslot`` -1.  A segment's root is read only through the boundary
+    buffer (flag 2), so it never gets a slot and nothing is carried across
+    a segment's end: a bf16 consumer reads the rounded row back.  Slots
+    are allocated as :func:`segment_program` allocates them, freed when
+    read, so there are never more.  ``segs`` is unchanged; returns
+    ``((6, E) int32, n_slots)``."""
+    prog = np.asarray(prog)
+    ends = np.asarray(segs)[:, 0]
+    boundary = prog[[1, 3]] == 2
+    slots_only = prog.copy()
+    slots_only[[1, 3]] = np.where(boundary, 0, prog[[1, 3]])
+    out, n_slots = carry_program(slots_only)
+    flags = np.where(out[[1, 3]] == CARRIED, SEG_CARRIED, out[[1, 3]])
+    out[[1, 3]] = np.where(boundary, 2, flags)
+    starts = np.concatenate([[0], ends[:-1]])
+    assert not (out[[1, 3]][:, starts] == SEG_CARRIED).any(), \
+        "an operand carried across a segment's end"
+    return out, n_slots
+
+
 # --------------------------------------------------------- plain versions --
 
 
@@ -490,7 +540,10 @@ def plf_tree_seg_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     the arithmetic of ``variant`` (in fp32 mode it is
     :func:`.plf_node.node_plain`), tips as columns of ``ttab`` (the
     variant's rounded table), the sequential root reduction; boundaries
-    stored in ``dtype`` (assigning a root to a bf16 row rounds it)."""
+    stored in ``dtype`` (assigning a root to a bf16 row rounds it).
+    ``prog`` may also be a program of :func:`carry_segment_program` (flag
+    :data:`SEG_CARRIED`, ``oslot`` -1), interpreted as kernel 7 runs it:
+    each segment's root is its last op's output."""
     S, C = states, categories
     pl = node_planes(lcs, rcs, ec, variant, planes)
     n_pad = codes.shape[-1]
@@ -500,22 +553,28 @@ def plf_tree_seg_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     bbuf = torch.empty((n_boundaries, S * C, n_pad), dtype=dtype, device=dev)
     arena: List[Optional[torch.Tensor]] = [None] * n_slots
     scaler = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    x3 = None
+
+    def operand(src, flag):
+        if flag == SEG_CARRIED:
+            return x3
+        return _operand(src, flag, codes, ttab, bbuf, arena)
+
     start = 0
     for end, gout in segs.cpu().tolist():
         for i in range(start, end):
             e = edge[i]
             x3, mask = node_mxu_plain(
-                _operand(lsrc[i], lflag[i], codes, ttab, bbuf, arena),
-                _operand(rsrc[i], rflag[i], codes, ttab, bbuf, arena),
+                operand(lsrc[i], lflag[i]), operand(rsrc[i], rflag[i]),
                 lcs[e], rcs[e], ec, valid, S, C, variant,
                 (pl[0][e], pl[1][e], pl[2][e], pl[3][e], pl[4], pl[5]))
-            arena[oslot[i]] = x3
+            if oslot[i] >= 0:
+                arena[oslot[i]] = x3
             scaler += mask.to(torch.int32)
-        root = arena[oslot[end - 1]]
         if gout >= 0:
-            bbuf[gout] = root
+            bbuf[gout] = x3
         start = end
-    return root_reduce(rr, root)[None, :], scaler[None, :], bbuf
+    return root_reduce(rr, x3)[None, :], scaler[None, :], bbuf
 
 
 def plf_tree_seg_bwd_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
@@ -665,15 +724,34 @@ def _lib(bf16: bool = False):
         [vp, ci, vp, ci, vp, ci] + [vp] * 4 + [ci, vp, vp, vp, vp]
         + [ci] * 6 + [vp])
     lib.plf_tree_seg_launch.restype = ci
+    lib.plf_tree_seg_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ci)] * 3
+    lib.plf_tree_seg_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _seg_program(program, prog, segs, E, device):
+    """Kernel 7's ``(program, n_slots)``: ``program`` as given (checked),
+    or :func:`carry_segment_program` of ``prog`` and ``segs`` (read back
+    from the device)."""
+    if program is None:
+        cprog, n_slots = carry_segment_program(prog.cpu().numpy(),
+                                               segs.cpu().numpy())
+        return torch.as_tensor(cprog, device=device), n_slots
+    cprog, n_slots = program
+    if tuple(cprog.shape) != (6, E) or cprog.dtype != torch.int32 \
+            or cprog.device != device or not cprog.is_contiguous():
+        raise ValueError(f"program must be a contiguous (6, {E}) int32 "
+                         f"tensor on {device}, got {tuple(cprog.shape)} "
+                         f"{cprog.dtype} on {cprog.device}")
+    return cprog, int(n_slots)
+
+
 def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
                  n_boundaries: int, n_slots: int, states: int = 4,
                  categories: int = 4, variant: str = "vpu", planes=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, program=None):
     """Kernel 7 (or 7m): the segmented whole-tree likelihood.
 
     Args:
@@ -690,6 +768,13 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
       planes: kernel 7m only: ``lcs``/``rcs``/``ec`` already split for
         ``variant`` (:func:`.plf_mxu.node_planes`).
       dtype: the boundary storage, ``torch.float32`` or ``torch.bfloat16``.
+      program: kernel 7 only: ``(prog, n_slots)``,
+        :func:`carry_segment_program` of ``prog`` and ``segs`` with its
+        ``prog`` on the device of ``codes`` (a caller that evaluates one
+        tree again and again builds it once, as ``PhyloModel`` does);
+        derived from ``prog`` when None, which reads ``prog`` and
+        ``segs`` back to the host.  Kernel 7 runs it on the card and the
+        plain version on the CPU; ``n_slots`` is then ``prog``'s alone.
 
     Returns:
       ``(lik, sc, bbuf)``: ``(1, n_pad)`` fp32 site likelihoods and int32
@@ -698,6 +783,9 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
       ``dtype`` (the VJP's residual).
     """
     if uses_mxu_kernels(variant, states):
+        if program is not None:
+            raise ValueError("plf_tree_seg: a carried program is for "
+                             "kernel 7, not the matrix-form kernel")
         return plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n,
                                 n_boundaries=n_boundaries, n_slots=n_slots,
                                 states=states, categories=categories,
@@ -708,9 +796,12 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     _check(codes, prog, segs, lcs, rcs, ec, ttab, rr, states, categories,
            variant)
     _check_storage(dtype)
-    args = (codes, prog, segs, lcs, rcs, ec, ttab, rr)
     if codes.device.type == "cpu":
-        return plf_tree_seg_torch(*args, n, n_boundaries=n_boundaries,
+        if program is not None:
+            prog, n_slots = _seg_program(program, prog, segs, lcs.shape[0],
+                                         codes.device)
+        return plf_tree_seg_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr,
+                                  n, n_boundaries=n_boundaries,
                                   n_slots=n_slots, states=states,
                                   categories=categories, dtype=dtype)
     if codes.device.type != "cuda":
@@ -718,13 +809,19 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     if not 1 <= categories <= 8:
         raise ValueError(f"plf_tree_seg: the CUDA kernel takes C in 1..8, "
                          f"got C={categories}")
+    prog, n_slots = _seg_program(program, prog, segs, lcs.shape[0],
+                                 codes.device)
+    args = (codes, prog, segs, lcs, rcs, ec, ttab, rr)
     _on_card("plf_tree_seg", args, (lcs, rcs, ec))
     rows = states * categories
     n_codes = ttab.shape[1]
-    threads = tree_block_threads(n_slots, rows, n_codes, states)
+    threads = tree_fused_threads(n_slots + SEG_LANDING_SLOTS, rows, n_codes,
+                                 states)
     if threads is None:
-        raise ValueError(f"plf_tree_seg: a {n_slots}-slot segment arena does "
-                         f"not fit {SMEM_BLOCK_BYTES} bytes of shared memory")
+        raise ValueError(f"plf_tree_seg: a {n_slots}-slot segment arena "
+                         f"does not fit {SMEM_BLOCK_BYTES} bytes of shared "
+                         f"memory beside kernel 7's operator buffers and "
+                         f"landing slots")
     n_pad = codes.shape[-1]
     if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
         raise ValueError(f"plf_tree_seg: bad n={n} for n_pad={n_pad}")
@@ -748,6 +845,36 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
 
 
 plf_tree_seg.launches = plf_tree_seg.bf16_launches = 0
+
+
+def plf_tree_seg_plan(code_dtype: torch.dtype, categories: int,
+                      n_codes: int, n_slots: int,
+                      dtype: torch.dtype = torch.float32) -> dict:
+    """Kernel 7's launch for a carried program of ``n_slots`` arena slots
+    (:func:`carry_segment_program`), as its library decides it
+    (``plf_tree_seg_plan``): ``threads`` per block (one site each,
+    :func:`.plf_tree.tree_fused_threads` on the arena and
+    :data:`SEG_LANDING_SLOTS` landing slots), the arena ``slots``, dynamic
+    ``smem_bytes``, ``blocks_per_sm`` (registers and shared memory both
+    counted by the CUDA runtime) and ``registers`` per thread, for
+    boundaries stored in ``dtype``.  Builds the kernel on first use and
+    needs a CUDA device."""
+    threads = tree_fused_threads(n_slots + SEG_LANDING_SLOTS, 4 * categories,
+                                 n_codes)
+    if threads is None:
+        raise ValueError(f"a {n_slots}-slot segment arena does not fit")
+    code_bytes = {torch.int32: 4, torch.int8: 1}[code_dtype]
+    bf16 = dtype == torch.bfloat16
+    lib = _lib(bf16)
+    smem, blocks, regs = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.plf_tree_seg_plan(code_bytes, categories, n_codes, n_slots,
+                                threads, int(bf16), ctypes.byref(smem),
+                                ctypes.byref(blocks), ctypes.byref(regs))
+    if err != 0:
+        raise RuntimeError(f"plf_tree_seg plan query failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    return dict(threads=threads, slots=n_slots, smem_bytes=smem.value,
+                blocks_per_sm=blocks.value, registers=regs.value)
 
 
 @functools.cache
@@ -1167,7 +1294,8 @@ plf_tree_seg_bwd_mxu.last_scratch = None
 class _SegDiff(torch.autograd.Function):
     """Kernel 7 (7m) forward, kernel 8 (8m) backward; the residual is the
     boundary buffer in its storage type (and the small operand arrays and
-    operator planes), never an op CLV."""
+    operator planes), never an op CLV.  ``fwd`` is ``(prog, segs,
+    program)``, ``program`` kernel 7's carried program or None (7m)."""
 
     @staticmethod
     def forward(ctx, codes, lcs, rcs, ec, ttab, rr, fwd, bwd, n, plan,
@@ -1176,7 +1304,7 @@ class _SegDiff(torch.autograd.Function):
             codes, fwd[0], fwd[1], lcs, rcs, ec, ttab, rr, n,
             n_boundaries=plan.n_boundaries, n_slots=n_slots, states=states,
             categories=categories, variant=variant, planes=planes,
-            dtype=dtype)
+            dtype=dtype, program=fwd[2])
         ctx.seg_ops = plan.seg_ops
         ctx.save_for_backward(codes, bwd[0], bwd[1], lcs, rcs, ec, ttab, rr,
                               bbuf)
@@ -1205,9 +1333,10 @@ def make_tree_diff_segmented(schedule: Sequence[Tuple], n_leaves: int, *,
     of :func:`.plf_tree_grad.make_tree_diff`: ``fn(codes, lcs, rcs, ec,
     ttab, rr, n, planes=None) -> (lik, sc)``, operators by original edge,
     ``rr`` ``(S*C,)``; differentiable in lcs, rcs, ec and rr.  "vpu" at
-    S = 4 runs kernel 7 forward and kernel 8 backward ("planes" must be
-    None), every other ``variant`` kernels 7m and 8m on ``planes`` (split
-    here when None); one launch each.  ``dtype="bfloat16"`` stores the
+    S = 4 runs kernel 7 forward (on :func:`carry_segment_program`, built
+    once) and kernel 8 backward ("planes" must be None), every other
+    ``variant`` kernels 7m and 8m on ``planes`` (split here when None);
+    one launch each.  ``dtype="bfloat16"`` stores the
     boundary CLVs and their adjoints in bf16 (the JAX function's
     ``dtype``).  ``fn.plan`` is the plan, cut by the capacity rule of the
     kernels that run (the JAX package's plan for the same schedule and
@@ -1224,14 +1353,18 @@ def make_tree_diff_segmented(schedule: Sequence[Tuple], n_leaves: int, *,
     fwd_np = segment_program(plan, schedule, reuse_slots=True)
     bwd_np = segment_program(plan, schedule, reuse_slots=False)
     n_slots = fwd_np[2]
+    carried = (None if uses_mxu_kernels(variant, states)
+               else carry_segment_program(*fwd_np[:2]))
     on_device = {}
 
     def fn(codes, lcs, rcs, ec, ttab, rr, n, planes=None):
         dev = codes.device
         if dev not in on_device:
-            on_device[dev] = tuple(
-                tuple(torch.as_tensor(a, device=dev) for a in p[:2])
-                for p in (fwd_np, bwd_np))
+            fwd, bwd = (tuple(torch.as_tensor(a, device=dev) for a in p[:2])
+                        for p in (fwd_np, bwd_np))
+            program = None if carried is None else (
+                torch.as_tensor(carried[0], device=dev), carried[1])
+            on_device[dev] = (fwd + (program,), bwd)
         fwd, bwd = on_device[dev]
         if planes is not None:
             planes = tuple(p.detach() for p in planes)

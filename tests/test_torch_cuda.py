@@ -1038,34 +1038,110 @@ def _seg_case(device, cap=None, n_leaves=60, n_sites=3000, **kw):
     return pm, plan, progs
 
 
-def _seg_fwd(pm, plan, fwd, fn=SG.plf_tree_seg):
+def _seg_fwd(pm, plan, fwd, fn=SG.plf_tree_seg, codes=None, n=None):
     prog, segs, n_slots = fwd
-    return fn(pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
-              pm.root_rows[0], pm.n_sites, n_boundaries=plan.n_boundaries,
+    return fn(pm.codes if codes is None else codes, prog, segs, pm.lcs,
+              pm.rcs, pm.ec, pm.tip_table, pm.root_rows[0],
+              pm.n_sites if n is None else n, n_boundaries=plan.n_boundaries,
               n_slots=n_slots, categories=pm.config.categories)
 
 
-@pytest.mark.parametrize("tip_dtype,cap,extra", [
-    ("int32", None, {}), ("int8", None, {}), ("int32", 4, {}),
-    ("int32", None, {"p_inv": 0.2})])
-def test_kernel7_equals_kernel2_and_plain(cuda, tip_dtype, cap, extra):
-    """lik and sc equal kernel 2's bit for bit, and lik, sc and every
-    boundary CLV equal the plain version's."""
+def _seg_carried(fwd):
+    """Kernel 7's carried program of ``fwd`` (segment_program's, on the
+    card), in ``fwd``'s form ``(prog, segs, n_slots)``."""
+    prog, segs, _ = fwd
+    cprog, slots = SG.carry_segment_program(prog.cpu().numpy(),
+                                            segs.cpu().numpy())
+    return torch.as_tensor(cprog, device=prog.device), segs, slots
+
+
+def _hazards(fwd):
+    """Ops of a program that read the boundary the op right before them
+    exports (kernel 7 reads those rows late)."""
+    prog, segs = (t.cpu().numpy() for t in fwd[:2])
+    return sum(any(prog[2 * s + 1, end] == 2 and prog[2 * s, end] == gout
+                   for s in range(2)) for end, gout in segs[:-1])
+
+
+def _with_program(cfwd):
+    """plf_tree_seg given the carried program ``cfwd`` explicitly."""
+    return lambda *a, **k: SG.plf_tree_seg(*a, program=(cfwd[0], cfwd[2]),
+                                           **k)
+
+
+@pytest.mark.parametrize("tip_dtype,cap,extra,shape", [
+    ("int32", None, {}, None), ("int8", None, {}, None),
+    ("int32", 4, {}, None), ("int32", None, {"p_inv": 0.2}, None),
+    ("int8", None, {}, "ragged"), ("int32", 16, {}, "one segment")])
+def test_kernel7_equals_kernel2_and_plain(cuda, tip_dtype, cap, extra, shape):
+    """Kernel 7 on the carried program: lik and sc equal kernel 2's bit for
+    bit, and lik, sc and every boundary CLV equal the plain version's, on
+    the carried program and on segment_program's; the wrapper derives the
+    same carried program when given none.  The default 60-taxon plan has
+    an op that reads the boundary the op before it exports; "ragged" cuts
+    the codes to an odd n_pad, not a multiple of the 128-site block;
+    "one segment" is an 8-taxon tree in one segment (no boundary)."""
+    n_leaves = 8 if shape == "one segment" else 60
     pm, plan, (fwd, _) = _seg_case(
-        cuda, cap, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128),
-        **extra)
-    assert len(plan.segments) > 1
+        cuda, cap, n_leaves=n_leaves,
+        config=PLFConfig(tip_dtype=tip_dtype, block_sites=128), **extra)
+    codes, n = pm.codes, pm.n_sites
+    if shape == "ragged":
+        codes, n = pm.codes[:, :2899].contiguous(), 2890
+        assert codes.shape[1] % 128 and n < pm.n_sites
+    if shape == "one segment":
+        assert len(plan.segments) == 1 and plan.n_boundaries == 0
+    else:
+        assert len(plan.segments) > 1
+    if cap is None and shape is None:
+        assert _hazards(fwd) > 0
+    cfwd = _seg_carried(fwd)
+    assert cfwd[2] <= fwd[2]
     before = SG.plf_tree_seg.launches
-    lik, sc, bbuf = _seg_fwd(pm, plan, fwd)
+    lik, sc, bbuf = _seg_fwd(pm, plan, cfwd, _with_program(cfwd), codes, n)
     assert SG.plf_tree_seg.launches == before + 1
-    ref = plf_tree(pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
-                   pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
+    derived = _seg_fwd(pm, plan, fwd, codes=codes, n=n)
+    ref = plf_tree(codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+                   pm.root_rows[0], n, n_slots=pm.n_slots,
                    root_slot=pm.root_slot, categories=pm.config.categories)
-    plain = _seg_fwd(pm, plan, fwd, SG.plf_tree_seg_torch)
+    plain = _seg_fwd(pm, plan, cfwd, SG.plf_tree_seg_torch, codes, n)
+    uncarried = _seg_fwd(pm, plan, fwd, SG.plf_tree_seg_torch, codes, n)
     torch.cuda.synchronize()
     assert torch.equal(lik, ref[0]) and torch.equal(sc, ref[1])
-    for a, b in zip((lik, sc, bbuf), plain):
+    for a, b, c, d in zip((lik, sc, bbuf), plain, uncarried, derived):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+
+
+def test_kernel7_capacity_rule(cuda):
+    """Kernel 7 takes kernel 2's rule (tree_fused_threads) on the carried
+    program's slots and its two landing slots: 26 arena slots of 16 rows
+    fit beside the operator buffers and launch, 27 do not and raise before
+    any launch; its plan gives 128 threads, the slots, the shared memory
+    of that rule, and the blocks per SM and registers of the library."""
+    pm, plan, (fwd, _) = _seg_case(cuda, n_sites=300)
+    cprog, segs, slots = _seg_carried(fwd)
+    n_codes = pm.tip_table.shape[1]
+    assert SG.SEG_LANDING_SLOTS == 2
+    assert TT.tree_fused_threads(28, 16, n_codes) == 128
+    assert TT.tree_fused_threads(29, 16, n_codes) is None
+    args = (pm.codes, fwd[0], segs, pm.lcs, pm.rcs, pm.ec, pm.tip_table,
+            pm.root_rows[0], pm.n_sites)
+    kw = dict(n_boundaries=plan.n_boundaries, n_slots=fwd[2])
+    want = SG.plf_tree_seg(*args, **kw)
+    got = SG.plf_tree_seg(*args, **kw, program=(cprog, 26))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
+    before = SG.plf_tree_seg.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        SG.plf_tree_seg(*args, **kw, program=(cprog, 27))
+    assert SG.plf_tree_seg.launches == before
+    for dt in (torch.float32, BF16):
+        p = SG.plf_tree_seg_plan(pm.codes.dtype, 4, n_codes, slots, dt)
+        assert p["threads"] == 128 and p["slots"] == slots
+        assert p["smem_bytes"] == TT.tree_fused_smem_bytes(
+            slots + SG.SEG_LANDING_SLOTS, 16, n_codes)
+        assert p["blocks_per_sm"] >= 1 and 0 < p["registers"] <= 255
 
 
 @pytest.mark.parametrize("tip_dtype,cap,extra", [
@@ -1185,7 +1261,13 @@ def test_segmented_wrappers_reject_what_they_cannot_run(cuda):
     with pytest.raises(ValueError, match="does not fit"):
         SG.plf_tree_seg(pm.codes, *fwd[:2], pm.lcs, pm.rcs, pm.ec,
                         pm.tip_table, pm.root_rows[0], pm.n_sites,
-                        n_boundaries=plan.n_boundaries, n_slots=40)
+                        n_boundaries=plan.n_boundaries, n_slots=fwd[2],
+                        program=(_seg_carried(fwd)[0], 40))
+    with pytest.raises(ValueError, match="program must be"):
+        SG.plf_tree_seg(pm.codes, *fwd[:2], pm.lcs, pm.rcs, pm.ec,
+                        pm.tip_table, pm.root_rows[0], pm.n_sites,
+                        n_boundaries=plan.n_boundaries, n_slots=fwd[2],
+                        program=(_seg_carried(fwd)[0].cpu(), 2))
 
 
 # ----------------------------------------------- kernels 7m and 8m (segmented)
@@ -1517,25 +1599,30 @@ def _seg_bf16(fn, **over):
 
 @pytest.mark.parametrize("tip_dtype,cap", [("int32", None), ("int8", 4)])
 def test_kernel7_kernel8_bf16_storage_equal_plain(cuda, tip_dtype, cap):
-    """Kernel 7 with bf16 boundaries: lik, sc and every (bf16) boundary
-    equal the plain version's bit for bit, and lik differs from the fp32
+    """Kernel 7 with bf16 boundaries on the carried program: lik, sc and
+    every (bf16) boundary equal the plain version's bit for bit, on the
+    carried program and on segment_program's (a boundary read right
+    after its export is read back rounded), and lik differs from the fp32
     form's.  Kernel 8 on them: the bf16 boundary adjoints equal the plain
     version's bit for bit, the site sums within 1e-6 of scale, two runs
     bit-identical; both launches counted as bf16 ones."""
     pm, plan, (fwd, (prog, segs, _)) = _seg_case(
         cuda, cap, config=PLFConfig(tip_dtype=tip_dtype, block_sites=128))
     assert plan.n_boundaries > 0
+    cfwd = _seg_carried(fwd)
     k7 = SG.plf_tree_seg.bf16_launches
-    lik, sc, bbuf = _seg_fwd(pm, plan, fwd, _seg_bf16(SG.plf_tree_seg,
-                                                      dtype=BF16))
+    lik, sc, bbuf = _seg_fwd(pm, plan, cfwd, _seg_bf16(_with_program(cfwd),
+                                                       dtype=BF16))
     assert SG.plf_tree_seg.bf16_launches == k7 + 1
-    plain = _seg_fwd(pm, plan, fwd, _seg_bf16(SG.plf_tree_seg_torch,
-                                              dtype=BF16))
+    plain = _seg_fwd(pm, plan, cfwd, _seg_bf16(SG.plf_tree_seg_torch,
+                                               dtype=BF16))
+    uncarried = _seg_fwd(pm, plan, fwd, _seg_bf16(SG.plf_tree_seg_torch,
+                                                  dtype=BF16))
     lik32 = _seg_fwd(pm, plan, fwd)[0]
     torch.cuda.synchronize()
     assert bbuf.dtype == BF16
-    for a, b in zip((lik, sc, bbuf), plain):
-        assert torch.equal(a, b)
+    for a, b, c in zip((lik, sc, bbuf), plain, uncarried):
+        assert torch.equal(a, b) and torch.equal(a, c)
     assert not torch.equal(lik, lik32)
     C = pm.config.categories
     glik = torch.randn((1, pm.n_pad), generator=torch.Generator(device=cuda)

@@ -91,14 +91,15 @@ def test_pack_branch_constants_identical():
 def test_capacity_rule():
     rows, n_codes = 16, 15
     assert TT.TREE_THREADS == 128
-    assert TT.tree_block_threads(6, rows, n_codes) == 128
-    # the largest arena that fits one 128-thread block, then none
+    assert TT.tree_fused_threads(6, rows, n_codes) == 128
+    # the largest arena that fits one 128-thread block beside the
+    # operator buffers, then none
     fits = [s for s in range(1, 200)
-            if TT.tree_smem_bytes(s, rows, n_codes, 128)
+            if TT.tree_fused_smem_bytes(s, rows, n_codes)
             <= TT.SMEM_BLOCK_BYTES]
     assert max(fits) == 28
-    assert TT.tree_block_threads(28, rows, n_codes) == 128
-    assert TT.tree_block_threads(29, rows, n_codes) is None
+    assert TT.tree_fused_threads(28, rows, n_codes) == 128
+    assert TT.tree_fused_threads(29, rows, n_codes) is None
     assert TT.tree_smem_bytes(6, rows, n_codes, 128) == 4 * (
         rows * 4 + rows * n_codes + rows + 6 * rows * 128)
 
@@ -109,7 +110,7 @@ def test_big_random_trees_fit_one_block(n_leaves):
     sched = TT.reorder_schedule(tree.schedule(), n_leaves)
     _, n_slots, _ = TT.compile_register_schedule(sched, n_leaves)
     assert n_slots <= TT.schedule_depth(sched, n_leaves)
-    assert TT.tree_block_threads(n_slots, 16, 15) == 128
+    assert TT.tree_fused_threads(n_slots, 16, 15) == 128
 
 
 # ------------------------------------ plain tree forward vs JAX kernels --
