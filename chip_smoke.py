@@ -93,12 +93,15 @@ non-zero; without a CUDA device it fails at once and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -107,12 +110,16 @@ import torch
 
 from plf_tpu_torch import PLFConfig, PLFEngine
 from plf_tpu_torch.config import Backend
-from plf_tpu_torch.models import (PhyloModel, codon_gy94,
-                                  empirical_protein, fit_codon, hky85,
+from plf_tpu_torch.io.alignment import compress_patterns
+from plf_tpu_torch.models import (SENSE_CODONS, PhyloModel, codon_gy94,
+                                  empirical_protein, fit_codon, gtr, hky85,
                                   optimize_alpha, optimize_branch_lengths,
-                                  random_tree, simulate_alignment,
+                                  parse_newick, random_tree, rf_distance,
+                                  run_inference, simulate_alignment,
                                   tree_loglik_fn)
-from plf_tpu_torch.models.phylo import LIK_FLOOR
+from plf_tpu_torch.models import phylo as phylo_mod, search as search_mod
+from plf_tpu_torch.models.phylo import (LIK_FLOOR, batch_inputs,
+                                        batch_log_likelihood)
 from plf_tpu_torch.ops import layout as L
 from plf_tpu_torch.ops import plf_grad, plf_mxu, plf_tree_grad
 from plf_tpu_torch.ops import plf_node as node_mod, plf_tree as tree_mod
@@ -650,7 +657,8 @@ def _grad_step(fn, t0, dev):
 COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
            plf_tree_mxu, plf_tree_bwd_mxu, plf_tree_seg, plf_tree_seg_bwd,
            plf_tree_seg_mxu, plf_tree_seg_bwd_mxu, plf_node_gen,
-           plf_grad.plf_node_bwd_mxu)
+           plf_grad.plf_node_bwd_mxu, tree_mod.plf_tree_batch,
+           tree_mod.plf_tree_mxu_batch)
 
 
 #: The wrappers with a bf16 CLV storage form, which count its launches in
@@ -1479,6 +1487,373 @@ def codon_phase(codon, dev):
           f"{info['ll']:.3f} > omega=1 null {null.log_likelihood:.3f}; "
           f"{wall:.1f} s wall")
     return drift
+
+
+# ----------------------------------------------------------------- infer --
+
+INFER_TAXA = 128
+INFER_SITES = 1 << 14
+INFER_SEED = 17
+INFER_BOOTSTRAP = 10
+INFER_PROT_TAXA, INFER_PROT_SITES = 32, 4096
+INFER_CODON_TAXA, INFER_CODONS = 16, 512
+INFER_GTR_TAXA, INFER_GTR_SITES = 32, 4096
+#: A batch row against the candidate's own log_likelihood(): fp32 chunk
+#: sums of the per-site logs against the host's float64 sum.
+BATCH_LL_RTOL = 1e-6
+
+
+class RoundClock:
+    """Times the rounds of the searches run inside it, from this script
+    (the package is untouched): a round's wall runs from the generation of
+    its neighbourhood (``search.nni_neighbors``) to the return of its
+    scores (``search.batch_log_likelihood``, which reads them back to the
+    host), and CUDA events around the batched launch and its epilogue
+    (``phylo.batched_tree_loglik_parts``) give its device time.  The first
+    round's models are kept for the checks."""
+
+    def __init__(self):
+        self.starts, self.walls, self.sizes, self.events = [], [], [], []
+        self.first = None
+
+    def __enter__(self):
+        real = (search_mod.nni_neighbors, search_mod.batch_log_likelihood,
+                phylo_mod.batched_tree_loglik_parts)
+        self._real = real
+
+        def neighbours(*a, **k):
+            self.starts.append(time.perf_counter())
+            return real[0](*a, **k)
+
+        def score(pms):
+            if self.first is None:
+                self.first = list(pms)
+            out = real[1](pms)
+            self.walls.append(1e3 * (time.perf_counter() - self.starts[-1]))
+            self.sizes.append(len(pms))
+            return out
+
+        def device(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real[2](*a, **k)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        search_mod.nni_neighbors = neighbours
+        search_mod.batch_log_likelihood = score
+        phylo_mod.batched_tree_loglik_parts = device
+        return self
+
+    def __exit__(self, *exc):
+        (search_mod.nni_neighbors, search_mod.batch_log_likelihood,
+         phylo_mod.batched_tree_loglik_parts) = self._real
+        torch.cuda.synchronize()
+
+    def rounds(self):
+        """``(walls, device ms, host ms)`` of the rounds, in ms."""
+        dev_ms = [a.elapsed_time(b) for a, b in self.events]
+        return (self.walls, dev_ms,
+                [w - d for w, d in zip(self.walls, dev_ms)])
+
+
+def _batch_args(pms):
+    """``(args, kw)`` of one batched launch (plf_tree_batch) over
+    ``pms``."""
+    pm0 = pms[0]
+    cfg = pm0.config
+    progs, lcs, rcs, planes, n_slots = batch_inputs(pms)
+    kw = dict(n_slots=n_slots, states=cfg.states, categories=cfg.categories,
+              variant=cfg.resolved_kernel_variant, planes=planes)
+    return (pm0.codes, progs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+            pm0.root_rows[0], pm0.n_sites), kw
+
+
+def _batch_bound(pms):
+    """The bound of one batched launch over ``pms``: the codes read once,
+    B output rows written, B trees' operations."""
+    pm0 = pms[0]
+    cfg = pm0.config
+    flops, rate = node_work(cfg.states, cfg.categories,
+                            cfg.resolved_kernel_variant)
+    B, E, n_pad = len(pms), len(pm0.schedule), pm0.n_pad
+    code_bytes = pm0.codes.element_size() * pm0.tree.n_leaves
+    return bound((code_bytes + 8 * B) * n_pad, B * E * flops * n_pad, rate)
+
+
+def _batched_against(pms, counter, label, plain):
+    """One round's candidates in one batched launch (kernel 2 or 2m) ==
+    each candidate's single-tree launch bit for bit (likelihoods and
+    scaler counts), and batch_log_likelihood's rows within BATCH_LL_RTOL
+    of each candidate's own log_likelihood(); the round's first ``plain``
+    candidates in one batched launch == the same rows of the round's
+    launch and == the plain batch, bit for bit (the plain version takes
+    ~0.15-0.5 s a candidate here, so not all 253).  Returns the kernels
+    line's dict, measured on that batch of ``plain`` candidates (launch ms
+    of 5 back to back, the plain batch's ms, their bound), with the whole
+    round's launch ms and bound beside it, and its text."""
+    pm0 = pms[0]
+    S, C = pm0.config.states, pm0.config.categories
+    variant = pm0.config.resolved_kernel_variant
+    args, kw = _batch_args(pms)
+    lik, sc = tree_mod.plf_tree_batch(*args, **kw)
+    check(bool(torch.isfinite(lik).all()), f"{label}: non-finite rows")
+    for b, pm in enumerate(pms):
+        one, one_sc = plf_tree(
+            pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
+            root_slot=pm.root_slot, states=S, categories=C, variant=variant,
+            planes=pm._planes(),
+            program=None if pm._matrix_form else pm.tree_program)
+        check(torch.equal(lik[b], one[0]) and torch.equal(sc[b], one_sc[0]),
+              f"{label}: batched row {b} != the single-tree kernel")
+    lls = batch_log_likelihood(pms)
+    own = np.array([pm.log_likelihood().log_likelihood for pm in pms])
+    rel = float(np.max(np.abs(lls / own - 1)))
+    check(rel < BATCH_LL_RTOL, f"{label}: batch lls vs log_likelihood() "
+          f"rel {rel} >= {BATCH_LL_RTOL}")
+    round_ms = cuda_ms(lambda: tree_mod.plf_tree_batch(*args, **kw), reps=5,
+                       warmup=1)
+    round_bd = _batch_bound(pms)
+    sub = pms[:plain]
+    sargs, skw = _batch_args(sub)
+    lik_s, sc_s = tree_mod.plf_tree_batch(*sargs, **skw)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    lik_p, sc_p = tree_mod.plf_tree_batch_torch(*sargs, **skw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    err = float((lik_s - lik_p).abs().max())
+    check(torch.equal(lik_s, lik[:plain]) and torch.equal(sc_s, sc[:plain]),
+          f"{label}: a batch of {plain} != the round's first rows")
+    check(torch.equal(lik_s, lik_p) and torch.equal(sc_s, sc_p),
+          f"{label}: batched {counter.__name__} != plain (max abs {err:g})")
+    ms = cuda_ms(lambda: tree_mod.plf_tree_batch(*sargs, **skw), reps=5,
+                 warmup=1)
+    bd = _batch_bound(sub)
+    B, E = len(pms), len(pm0.schedule)
+    n_codes = pm0.tip_table.shape[1]
+    n_slots = kw["n_slots"]
+    if pm0._matrix_form:
+        plan = tree_mod.tree_mxu_plan(pm0.codes.dtype, S, C, n_codes,
+                                      n_slots, variant, pm0.n_pad, B)
+    else:
+        plan = tree_mod.tree_plan(pm0.codes.dtype, C, n_codes, n_slots,
+                                  pm0.n_pad, B)
+    text = (f"{B} candidates x {E} nodes x {pm0.n_sites} sites in one "
+            f"launch == {B} single-tree launches bit for bit "
+            f"({int(sc.sum())} rescales); batch lls within rel {rel:.1e} of "
+            f"each log_likelihood(); {args[2].shape[0]} operator pairs for "
+            f"{B * E} ops; grid {plan['grid']}, {plan['threads']} threads, "
+            f"{plan['slots']} slots, {plan['blocks_per_sm']} blocks per SM; "
+            f"the round's launch {round_ms:.3f} ms (bound "
+            f"{round_bd['bound_ms']:.4f} ms by {round_bd['bound_by']}, "
+            f"{round_bd['bound_ms'] / round_ms:.1%}); its first {plain} "
+            f"candidates in one launch == those rows == plain: kernel "
+            f"{ms:.3f} ms (bound {bd['bound_ms']:.4f} ms), plain batch "
+            f"{plain_ms:.1f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                round_ms=round_ms, round_bound_ms=round_bd["bound_ms"],
+                **bd), text
+
+
+def _variant_batch(pms, variant, dev):
+    """The same candidates as ``pms`` under another kernel variant."""
+    pm0 = pms[0]
+    cfg = PLFConfig(states=pm0.config.states, kernel_variant=variant)
+    kw = dict(wgt=pm0.wgt, rates=pm0.rates, config=cfg, device=dev)
+    first = PhyloModel(pm0.tree, pm0.model, pm0.tip_states, **kw)
+    return [first] + [PhyloModel(pm.tree, pm0.model, pm0.tip_states,
+                                 share_device_from=first, **kw)
+                      for pm in pms[1:]]
+
+
+def _cli_infer(argv, label):
+    """``python -m plf_tpu_torch infer`` through ``main()`` in this process
+    (so its launches count), its output kept: ``(exit code, output, wall
+    s, launches)``."""
+    from plf_tpu_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["infer", *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    check(rc == 0, f"{label}: infer exited {rc}:\n{text[-2000:]}")
+    return text, wall, {k: v for k, v in _counts().items() if v}
+
+
+def _fasta(path, rows, alphabet):
+    with open(path, "w") as f:
+        for i, row in enumerate(rows):
+            f.write(f">t{i}\n" + "".join(alphabet[c] for c in row) + "\n")
+
+
+def infer_phase(dev):
+    """The inference workflow (``run_inference``, ``python -m
+    plf_tpu_torch infer``), each run with every count set to 0 just
+    before it and read just after.
+
+    DNA at full width: HKY85+G4 (alpha 0.5) simulated on random_tree(128),
+    16,384 sites; NJ start, lengths, NNI search (each round one launch of
+    kernel 2 with a candidate axis: 253 candidates), alpha, lengths,
+    bootstrap 10.  One round's batched rows == single-tree kernel 2 bit
+    for bit (its first 16 candidates == the plain version too), its batch
+    lls within BATCH_LL_RTOL of
+    each log_likelihood(); the final ll within 1e-6 of the float64 brute
+    force and at least the NJ start's; RF to the true tree, rounds, host
+    and device ms a round, launches.  Protein: LG+G4 on 32 taxa x 4,096
+    sites, default config ("mxu_3x"): kernel 2m batched, its first round
+    == single 2m (and its first 8 candidates == plain) in every variant.  Codon and GTR through the
+    CLI: GY94 on 16 taxa x 512 codons (--model gy94: fit_codon, kernel 2m
+    at S = 61), GTR on 32 x 4,096 with --bootstrap 10 (fit_model on the
+    card), each newick parsed back."""
+    out = {}
+    true = random_tree(INFER_TAXA, seed=INFER_SEED)
+    model = hky85(2.0)
+    codes = simulate_alignment(true, model, INFER_SITES, alpha=0.5,
+                               seed=INFER_SEED)
+    names = true.leaf_names()
+    msgs = []
+    _reset_counts()
+    t0 = time.perf_counter()
+    with RoundClock() as clock:
+        res = run_inference(codes, names=names, model=model, alpha=0.5,
+                            search="nni", fit="lengths+alpha",
+                            bootstrap=INFER_BOOTSTRAP,
+                            progress=msgs.append, device=dev)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts().items() if v}
+    walls, dev_ms, host_ms = clock.rounds()
+    rounds = len(walls)
+    check(rounds >= 1 and counts.get("plf_tree_batch") == rounds,
+          f"DNA infer: {rounds} rounds, launches {counts}")
+    start = float(re.search(r"starting ll = (-?[0-9.]+)",
+                            "\n".join(msgs)).group(1))
+    pats, wgt = compress_patterns(codes)
+    order = [names.index(nm) for nm in res.tree.leaf_names()]
+    final = PhyloModel(res.tree, model, pats[order], wgt=wgt,
+                       alpha=res.alpha, device=dev)
+    ll = final.log_likelihood().log_likelihood
+    bf = final.log_likelihood_bruteforce()
+    rel_bf = abs(ll - bf) / abs(bf)
+    rf = rf_distance(res.tree, true)
+    check(abs(ll / res.log_likelihood - 1) < 1e-12 and rel_bf < 1e-6
+          and res.log_likelihood >= start,
+          f"DNA infer: final ll {res.log_likelihood} (model {ll}) vs "
+          f"float64 brute force {bf} (rel {rel_bf}), NJ start {start}")
+    parse_newick(res.newick)
+    phase("infer", f"DNA {INFER_TAXA} taxa x {INFER_SITES} sites "
+          f"({final.n_sites} patterns), HKY85+G4: run_inference (nni, "
+          f"lengths+alpha, bootstrap {INFER_BOOTSTRAP}) {wall:.1f} s wall; "
+          f"NJ start ll {start:.3f} -> final {res.log_likelihood:.3f} "
+          f"(alpha {res.alpha:.4f}; float64 brute force rel "
+          f"{rel_bf:.1e}); RF to the true tree {rf}; {rounds} rounds, "
+          f"{sum(clock.sizes)} candidates ({clock.sizes[0]} a round); a "
+          f"round's wall {np.median(walls):.1f} ms = host "
+          f"{np.median(host_ms):.1f} + device (kernel 2 batched and its "
+          f"epilogue) {np.median(dev_ms):.2f} ms (medians; host "
+          f"{min(host_ms):.1f}-{max(host_ms):.1f}); launches {counts}")
+    out["plf_tree_batch"], text = _batched_against(
+        clock.first, tree_mod.plf_tree_batch, "DNA round 1", plain=16)
+    out["plf_tree_batch"]["launches"] = counts["plf_tree_batch"]
+    out["dna"] = dict(wall_s=wall, rounds=rounds, rf=rf,
+                      host_ms=float(np.median(host_ms)),
+                      device_ms=float(np.median(dev_ms)), counts=counts)
+    phase("infer", f"DNA round 1: {text}")
+    del clock, final
+    torch.cuda.empty_cache()
+
+    ptrue = random_tree(INFER_PROT_TAXA, seed=INFER_SEED)
+    lg = empirical_protein("lg")
+    pcodes = simulate_alignment(ptrue, lg, INFER_PROT_SITES, alpha=0.5,
+                                seed=INFER_SEED)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with RoundClock() as clock:
+        pres = run_inference(pcodes, names=ptrue.leaf_names(), model=lg,
+                             alpha=0.5, search="nni", device=dev)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts().items() if v}
+    walls, dev_ms, host_ms = clock.rounds()
+    check(counts.get("plf_tree_mxu_batch") == len(walls) >= 1
+          and "plf_tree_batch" not in counts,
+          f"protein infer: {len(walls)} rounds, launches {counts}")
+    phase("infer", f"protein {INFER_PROT_TAXA} x {INFER_PROT_SITES}, LG+G4, "
+          f"default config ({clock.first[0].config.resolved_kernel_variant})"
+          f": {wall:.1f} s wall, ll {pres.log_likelihood:.3f}, RF to the "
+          f"true tree {rf_distance(pres.tree, ptrue)}; {len(walls)} rounds "
+          f"of {clock.sizes[0]}; a round's wall {np.median(walls):.1f} ms "
+          f"= host {np.median(host_ms):.1f} + device "
+          f"{np.median(dev_ms):.2f} ms (medians); launches {counts}")
+    for variant in MXU_VARIANTS + ("vpu",):
+        pms = (clock.first if variant == "mxu_3x"
+               else _variant_batch(clock.first, variant, dev))
+        r, text = _batched_against(pms, tree_mod.plf_tree_mxu_batch,
+                                   f"protein round 1, {variant}", plain=8)
+        phase("infer", f"protein round 1, {variant}: {text}")
+        if variant == "mxu_3x":
+            out["plf_tree_mxu_batch"] = dict(
+                r, launches=counts["plf_tree_mxu_batch"])
+        del pms
+    del clock
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctrue = random_tree(INFER_CODON_TAXA, seed=INFER_SEED,
+                            mean_branch=0.2)
+        ccodes = simulate_alignment(ctrue, codon_gy94(3.0, 0.3),
+                                    INFER_CODONS, seed=INFER_SEED)
+        fa, nwk = f"{tmp}/codon.fa", f"{tmp}/codon.nwk"
+        _fasta(fa, ccodes, SENSE_CODONS)
+        text, wall, counts = _cli_infer(
+            [fa, "--seq-type", "codon", "--model", "gy94", "--search",
+             "nni", "--out", nwk], "codon")
+        tree = parse_newick(open(nwk).read())
+        fit = re.search(r"GY94 fit: kappa=([0-9.]+) omega=([0-9.]+)", text)
+        check(sorted(tree.leaf_names()) == sorted(ctrue.leaf_names())
+              and fit is not None and counts.get("plf_tree_mxu_batch", 0) > 0,
+              f"codon infer: {fit}, launches {counts}")
+        phase("infer", f"python -m plf_tpu_torch infer --seq-type codon "
+              f"--model gy94 --search nni ({INFER_CODON_TAXA} taxa x "
+              f"{INFER_CODONS} GY94 codons, kappa 3, omega 0.3): exit 0 in "
+              f"{wall:.1f} s, kappa {fit.group(1)}, omega {fit.group(2)}, "
+              f"RF to the true tree {rf_distance(tree, ctrue)}, "
+              f"{re.search(r'final ll = (.*)', text).group(1).split()[0]}; "
+              f"launches {counts}")
+        out["codon"] = dict(wall_s=wall, counts=counts)
+
+        gtrue = random_tree(INFER_GTR_TAXA, seed=INFER_SEED)
+        gcodes = simulate_alignment(
+            gtrue, gtr([1.0, 3.0, 0.8, 1.2, 3.5, 1.0],
+                       [0.35, 0.15, 0.25, 0.25]),
+            INFER_GTR_SITES, alpha=0.5, seed=INFER_SEED)
+        fa, nwk = f"{tmp}/dna.fa", f"{tmp}/dna.nwk"
+        _fasta(fa, gcodes, "ACGT")
+        text, wall, counts = _cli_infer(
+            [fa, "--model", "gtr", "--alpha", "0.5", "--bootstrap",
+             str(INFER_BOOTSTRAP), "--out", nwk], "gtr")
+        tree = parse_newick(open(nwk).read())
+        labels = [int(n.name) for n in tree.nodes
+                  if not n.is_leaf and n.name]
+        check(sorted(tree.leaf_names()) == sorted(gtrue.leaf_names())
+              and "GTR fit" in text and labels
+              and all(0 <= x <= 100 for x in labels)
+              and counts.get("plf_tree_batch", 0) > 0,
+              f"gtr infer: labels {labels}, launches {counts}")
+        phase("infer", f"python -m plf_tpu_torch infer --model gtr --alpha "
+              f"0.5 --bootstrap {INFER_BOOTSTRAP} ({INFER_GTR_TAXA} x "
+              f"{INFER_GTR_SITES} GTR+G4 sites): exit 0 in {wall:.1f} s, "
+              f"{re.search(r'GTR fit: (.*)', text).group(1)}, "
+              f"{len(labels)} support labels "
+              f"({min(labels)}-{max(labels)}), RF to the true tree "
+              f"{rf_distance(tree, gtrue)}; launches {counts}")
+        out["gtr"] = dict(wall_s=wall, counts=counts)
+    return out
 
 
 def seg_inputs(pm):
@@ -2965,6 +3340,7 @@ def main():
     kt_launches, _ = kernel_train_phase(ptree, ptips, codon, dev)
     launches["plf_node_bwd_mxu"] = kt_launches["plf_node_bwd_mxu"]
     codon_phase(codon, dev)
+    inf = infer_phase(dev)
     k7m = kernel7m_phase(models, codon, (tree, tips), dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))
@@ -3016,6 +3392,11 @@ def main():
               dict(k9[4], launches=launches["plf_node_gen"])),
         entry("plf_node_bwd_mxu", "plf_node_bwd_mxu.cu",
               "plf_tpu/ops/plf_grad.py:120", k3s[20]),
+        entry("plf_tree:batched", "plf_tree.cu",
+              "plf_tpu/ops/plf_tree_pallas.py:628", inf["plf_tree_batch"]),
+        entry("plf_tree_mxu:batched", "plf_tree_mxu.cu",
+              "plf_tpu/ops/plf_tree_pallas.py:628",
+              inf["plf_tree_mxu_batch"]),
     ]
     replaces = {"plf_node": "plf_pallas.py:78",
                 "plf_node_mxu": "plf_pallas.py:233",

@@ -22,8 +22,16 @@ compute-only probe (``ops/plf_node.py::plf_node_gen``), instead.  Runs
 are on the card unless ``--device cpu`` asks for the plain versions;
 ``--sites`` is never capped.
 
-``infer`` (the JAX package's ML pipeline) needs ``fit_model``, tree search
-and the workflow modules, which are not ported (ROADMAP.md, Queue 1).
+Beyond the reference's benchmark program, ``infer`` runs the full ML
+pipeline on a real alignment (``models/pipeline.py``), on the card unless
+``--device cpu`` asks for the plain versions::
+
+    python -m plf_tpu_torch infer align.fasta [--model jc|hky|gtr|lg|...]
+        [--seq-type auto|dna|protein|codon] [--alpha A] [--pinv P]
+        [--search nni|spr|mixed|none] [--bootstrap N] [--out tree.nwk]
+
+Counterpart of ``plf_tpu/__main__.py::infer_main`` (``:56``); ``--model
+auto`` (AICc model selection, ``models/selection.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -60,10 +68,17 @@ def make_data(n, states, categories, seed=7):
 def _launches() -> str:
     """The kernel launches this process made, by wrapper (none on the
     CPU, where the plain versions run)."""
+    from .ops import plf_grad, plf_tree, plf_tree_grad, plf_tree_seg
     from .ops.plf_mxu import plf_node_mxu
     from .ops.plf_node import plf_node, plf_node_gen
-    counts = [f"{f.__name__} {f.launches}"
-              for f in (plf_node, plf_node_mxu, plf_node_gen) if f.launches]
+    wrappers = (plf_node, plf_node_mxu, plf_node_gen, plf_tree.plf_tree,
+                plf_tree.plf_tree_mxu, plf_tree.plf_tree_batch,
+                plf_tree.plf_tree_mxu_batch, plf_grad.plf_node_bwd,
+                plf_grad.plf_node_bwd_mxu, plf_tree_grad.plf_tree_bwd,
+                plf_tree_grad.plf_tree_bwd_mxu, plf_tree_seg.plf_tree_seg,
+                plf_tree_seg.plf_tree_seg_mxu, plf_tree_seg.plf_tree_seg_bwd,
+                plf_tree_seg.plf_tree_seg_bwd_mxu)
+    counts = [f"{f.__name__} {f.launches}" for f in wrappers if f.launches]
     return ", ".join(counts) or "none (plain versions)"
 
 
@@ -104,14 +119,150 @@ def _gen(cfg, args, device) -> int:
     return 0
 
 
+def infer_main(argv):
+    ap = argparse.ArgumentParser(prog="python -m plf_tpu_torch infer")
+    ap.add_argument("alignment",
+                    help="FASTA or PHYLIP file (DNA, or protein for "
+                         "--model lg/wag)")
+    ap.add_argument("--model", default="jc",
+                    choices=["auto", "jc", "hky", "gtr", "lg", "wag",
+                             "jtt", "dayhoff", "mtrev", "cprev",
+                             "gy94"],
+                    help="'gy94' fits omega/kappa by ML (fit_codon) "
+                         "directly; 'gtr' fits the GTR model (fit_model); "
+                         "'auto' (AICc model selection) is not ported")
+    ap.add_argument("--seq-type", default="auto",
+                    choices=["auto", "dna", "protein", "codon"],
+                    help="alignment alphabet; 'auto' treats the data as "
+                         "protein when >10%% of residues fall outside "
+                         "the DNA alphabet incl. IUPAC ambiguity codes")
+    ap.add_argument("--kappa", type=float, default=2.0,
+                    help="HKY transition/transversion ratio")
+    ap.add_argument("--alpha", type=float, default=None,
+                    help="initial gamma shape (enables +G)")
+    ap.add_argument("--pinv", type=float, default=None,
+                    help="initial invariant proportion (enables +I)")
+    ap.add_argument("--search", default="nni",
+                    choices=["nni", "spr", "mixed", "none"])
+    ap.add_argument("--fit", default="lengths+alpha",
+                    help="'+'-joined: lengths, alpha, pinv, model, none")
+    ap.add_argument("--bootstrap", type=int, default=0)
+    ap.add_argument("--out", default=None, help="write newick here")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default: the CUDA kernels) or 'cpu' "
+                         "(their plain versions)")
+    args = ap.parse_args(argv)
+    if args.model == "auto":
+        raise NotImplementedError(
+            "--model auto needs AICc model selection (models/selection.py),"
+            " which is not ported yet: ROADMAP.md, Queue 1 item 3 (python "
+            "-m plf_tpu infer runs it on JAX)")
+
+    from .models import empirical_protein, hky85, jc69, run_inference
+    from .models.substitution import BUILTIN_PROTEIN_MODELS
+
+    with open(args.alignment) as f:
+        text = f.read()
+    codon = args.seq_type == "codon" or args.model == "gy94"
+    if args.seq_type == "auto" and not codon:
+        protein = (args.model in BUILTIN_PROTEIN_MODELS
+                   or _detect_protein(text))
+    else:
+        protein = args.seq_type == "protein"
+    aln = _parse_alignment(text, protein=protein)
+    if codon:
+        # codon data arrives as in-frame DNA; encode to 61 states
+        from .io.alignment import Alignment
+        from .models.substitution import encode_codon_alignment
+        aln = Alignment(aln.names, encode_codon_alignment(aln.codes))
+        return _infer_codon(args, aln)
+    if args.model in BUILTIN_PROTEIN_MODELS:
+        model = empirical_protein(args.model)
+    else:
+        model = {"jc": jc69, "hky": lambda: hky85(args.kappa),
+                 "gtr": jc69}[args.model]()
+    fit = args.fit if args.model != "gtr" else args.fit + "+model"
+    res = run_inference(aln.codes, names=aln.names, model=model,
+                        alpha=args.alpha, p_inv=args.pinv,
+                        search=args.search, fit=fit,
+                        bootstrap=args.bootstrap, progress=log,
+                        device=args.device)
+    return _report(res, args.out, f"(alpha={res.alpha}, p_inv={res.p_inv}, "
+                                  f"{res.elapsed_s:.1f}s)")
+
+
+def _report(res, out, detail) -> int:
+    log(f"final ll = {res.log_likelihood:.6f}  {detail}")
+    log(res.newick)
+    if out:
+        with open(out, "w") as f:
+            f.write(res.newick + "\n")
+        log(f"wrote {out}")
+    log(f"kernel launches: {_launches()}")
+    return 0
+
+
+def _infer_codon(args, aln) -> int:
+    """Codon-model inference: GY94 omega/kappa ML fit, then the standard
+    pipeline under the fitted model."""
+    from .config import PLFConfig
+    from .models import nj_tree, run_inference
+    from .models.optimize import fit_codon
+
+    comp = aln.compressed()
+    cfg = PLFConfig(states=61, kernel_variant="auto", block_sites=1024)
+    start = nj_tree(comp.codes, comp.weights, states=61, device=args.device)
+    model, info = fit_codon(start, comp.codes, wgt=comp.weights, config=cfg,
+                            fit_alpha=args.alpha is not None, verbose=True,
+                            device=args.device)
+    log(f"GY94 fit: kappa={info['kappa']:.3f} omega={info['omega']:.4f} "
+        f"ll={info['ll']:.4f}")
+    res = run_inference(aln.codes, names=aln.names, model=model,
+                        alpha=info["alpha"], search=args.search,
+                        fit="lengths", bootstrap=args.bootstrap,
+                        progress=log, device=args.device)
+    return _report(res, args.out, f"({res.elapsed_s:.1f}s)")
+
+
+def _detect_protein(text: str) -> bool:
+    """Protein if a meaningful FRACTION of residues falls outside the
+    DNA alphabet (>10%): a stray X/ambiguity code in a DNA file must not
+    flip the whole alignment to the 20-state encoding (DNA alignments
+    are >~90% ACGTUN/IUPAC/gap).  The DNA set includes the IUPAC
+    nucleotide ambiguity codes (R/Y/S/W/K/M/B/D/H/V and X): an
+    ambiguity-rich DNA alignment is still DNA."""
+    from .io.alignment import parse_fasta, parse_phylip
+    if text.lstrip().startswith(">"):
+        _, seqs = parse_fasta(text)
+    else:
+        _, seqs = parse_phylip(text)
+    dna = set("ACGTUN-?.RYSWKMBDHVX")
+    dna |= set(c.lower() for c in dna)
+    total = nondna = 0
+    for seq in seqs:
+        for ch in seq:
+            total += 1
+            if ch not in dna:
+                nondna += 1
+    return total > 0 and nondna / total > 0.10
+
+
+def _parse_alignment(text: str, protein: bool = False):
+    from .io.alignment import (Alignment, parse_fasta, parse_phylip,
+                               encode_dna, encode_protein)
+    if text.lstrip().startswith(">"):
+        names, seqs = parse_fasta(text)
+    else:
+        names, seqs = parse_phylip(text)
+    enc = encode_protein if protein else encode_dna
+    return Alignment(names, enc(seqs))
+
+
 def main(argv=None):
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "infer":
-        raise NotImplementedError(
-            "python -m plf_tpu_torch infer needs fit_model, tree search and "
-            "the workflow modules, which are not ported yet: ROADMAP.md, "
-            "Queue 1 items 2-4 (python -m plf_tpu infer runs it on JAX)")
+        return infer_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m plf_tpu_torch")
     ap.add_argument("config", nargs="?", default=None,
                     help="config name (xclbin-filename analogue)")

@@ -88,6 +88,12 @@ class PLFConfig:
         """Rows of the canonical lane-major CLV layout."""
         return self.states * self.categories
 
+    @property
+    def exact(self) -> bool:
+        """Whether this config targets bit-exact golden-model equality."""
+        return self.dtype == "float32" and self.backend in (
+            Backend.KERNEL, Backend.REFERENCE)
+
     @classmethod
     def from_name(cls, name: str, **overrides) -> Tuple["PLFConfig", int]:
         """Parse a config name: the JAX package's (``plftpu_..._pallas_

@@ -46,8 +46,20 @@
 //  * the root reduction lik = rr[0]*x[0] + rr[1]*x[1] + ... is sequential,
 //    with separately rounded products and sums, as the TPU kernels do
 //    (plf_tpu/ops/plf_tree_pallas.py:470-474).
+//  * a candidate axis (blockIdx.y) for tree search: a launch scores a batch
+//    of trees over one alignment, each candidate with its own program
+//    (prog + y * 6 * n_edges) and its own rows of the outputs (y * n_pad),
+//    all sharing the tip codes, the EV constants, the tip table and one
+//    operator table that every program's eidx row indexes (the batch's
+//    distinct (left, right) operator pairs: batch_inputs in
+//    plf_tpu_torch/models/phylo.py).  The per-site arithmetic is the
+//    single-tree kernel's, so a candidate's row equals that tree's
+//    single-tree launch bit for bit; a single tree is a batch of one.
+//    Replaces plf_tpu/ops/plf_tree_pallas.py::batched_tree_loglik_parts
+//    (:628), which maps _tree_kernel_dynamic over the candidates in turn.
 // The host picks the block's sites so the arena fits shared memory
-// (tree_fused_threads in plf_tree.py) and passes them as `block_sites`.
+// (tree_fused_threads in plf_tree.py, at the batch's largest slot count)
+// and passes them as `block_sites`.
 #include "plf_common.cuh"
 
 namespace {
@@ -80,6 +92,9 @@ __global__ void plf_tree_kernel(const CodeT* codes, const int* prog,
   float* arena = s_rr + R;                                 // n_slots * R * T
   const int T = blockDim.x;
   const int tid = threadIdx.x;
+  prog += (size_t)blockIdx.y * 6 * n_edges;   // this candidate's program
+  lik += (size_t)blockIdx.y * n_pad;
+  sc += (size_t)blockIdx.y * n_pad;
   for (int i = tid; i < R; i += T) {
     s_ec[i] = reinterpret_cast<const float4*>(ec)[i];
     s_rr[i] = rr[i];
@@ -169,13 +184,13 @@ template <int C, typename CodeT>
 int launch(const void* codes, const int* prog, int n_edges, const float* lcs,
            const float* rcs, const float* ec, const float* ttab, int ncols,
            const float* rr, int n_slots, float* lik, int* sc, int n,
-           int n_pad, int block_sites, cudaStream_t st) {
+           int n_pad, int block_sites, int batch, cudaStream_t st) {
   const size_t smem = smem_bytes<C>(ncols, n_slots, block_sites);
   auto kern = plf_tree_kernel<C, CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_pad + block_sites - 1) / block_sites);
+  const dim3 grid((n_pad + block_sites - 1) / block_sites, batch);
   kern<<<grid, block_sites, smem, st>>>(static_cast<const CodeT*>(codes),
                                         prog, n_edges, lcs, rcs, ec, ttab,
                                         ncols, rr, lik, sc, n, n_pad);
@@ -196,33 +211,36 @@ int occupancy(int ncols, int n_slots, int block_sites, int* blocks) {
 }  // namespace
 
 // codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (code_bytes 1);
-// prog: (6, n_edges) int32 rows lsrc, lflag, rsrc, rflag, oslot, eidx, flag
+// prog: (batch, 6, n_edges) int32, each candidate's rows lsrc, lflag, rsrc,
+// rflag, oslot, eidx, flag
 // 0 a tip, 1 an arena slot, 2 the previous op's output, oslot -1 for an
 // output kept in registers only (carry_program in plf_tree.py; a schedule
-// of compile_register_schedule runs too); lcs, rcs: (E, S*C, S) fp32; ec:
-// (S*C, S); ttab: (S*C, ncols); rr: (S*C,); n_slots: the program's arena
-// slots; lik: (n_pad,) fp32; sc: (n_pad,) int32; block_sites: sites (one
-// a thread) per block.  Returns cudaGetLastError().
+// of compile_register_schedule runs too); lcs, rcs: (P, S*C, S) fp32, the
+// operators that eidx indexes (P = E, by original edge, for one tree); ec:
+// (S*C, S); ttab: (S*C, ncols); rr: (S*C,); n_slots: the largest arena of
+// the programs; lik: (batch, n_pad) fp32; sc: (batch, n_pad) int32;
+// block_sites: sites (one a thread) per block.  Returns cudaGetLastError().
 extern "C" int plf_tree_launch(const void* codes, int code_bytes,
                                const int* prog, int n_edges, const float* lcs,
                                const float* rcs, const float* ec,
                                const float* ttab, int ncols, const float* rr,
                                int n_slots, float* lik, int* sc, int n,
                                int n_pad, int categories, int block_sites,
-                               void* stream) {
-  if (n_pad <= 0 || n_edges <= 0 || block_sites <= 0 || n_slots < 0)
+                               int batch, void* stream) {
+  if (n_pad <= 0 || n_edges <= 0 || block_sites <= 0 || n_slots < 0 ||
+      batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
     PLF_DISPATCH_C(categories, return launch<C_, int32_t>(
                                    codes, prog, n_edges, lcs, rcs, ec, ttab,
                                    ncols, rr, n_slots, lik, sc, n, n_pad,
-                                   block_sites, st));
+                                   block_sites, batch, st));
   } else if (code_bytes == 1) {
     PLF_DISPATCH_C(categories, return launch<C_, int8_t>(
                                    codes, prog, n_edges, lcs, rcs, ec, ttab,
                                    ncols, rr, n_slots, lik, sc, n, n_pad,
-                                   block_sites, st));
+                                   block_sites, batch, st));
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -241,14 +259,19 @@ extern "C" int plf_tree_occupancy(int code_bytes, int categories, int ncols,
   return (int)cudaErrorInvalidValue;
 }
 
-// Threads per block, sites per thread and dynamic shared memory bytes of the
-// launch plf_tree_launch makes for a block of block_sites sites.
+// Threads per block, sites per thread, dynamic shared memory bytes and the
+// grid (site blocks x candidates) of the launch plf_tree_launch makes for
+// `batch` candidates of n_pad sites in blocks of block_sites sites.
 extern "C" int plf_tree_plan(int categories, int ncols, int n_slots,
-                             int block_sites, int* threads,
-                             int* sites_per_thread, int* smem) {
-  if (block_sites <= 0 || n_slots < 0) return (int)cudaErrorInvalidValue;
+                             int block_sites, int n_pad, int batch,
+                             int* threads, int* sites_per_thread, int* smem,
+                             int* grid_x, int* grid_y) {
+  if (block_sites <= 0 || n_slots < 0 || n_pad <= 0 || batch < 1)
+    return (int)cudaErrorInvalidValue;
   *threads = block_sites;
   *sites_per_thread = 1;
+  *grid_x = (n_pad + block_sites - 1) / block_sites;
+  *grid_y = batch;
   PLF_DISPATCH_C(categories,
                  *smem = (int)smem_bytes<C_>(ncols, n_slots, block_sites));
   return 0;

@@ -45,7 +45,16 @@
 //    each job's threads;
 //  * the rescale test is reduced over all rows of a site through a shared
 //    flag; the count per site stays in shared memory; the root reduction
-//    lik = rr[0]*x[0] + rr[1]*x[1] + ... is sequential, as in kernel 2.
+//    lik = rr[0]*x[0] + rr[1]*x[1] + ... is sequential, as in kernel 2, on
+//    the last op's output slot (the root's);
+//  * a candidate axis (blockIdx.y), as in kernel 2: a launch scores a batch
+//    of trees over one alignment, each with its own schedule (sched + y * 6
+//    * n_edges) and output rows, sharing the codes, the tip table and one
+//    table of operator planes that every schedule's eidx row indexes (the
+//    batch's distinct (left, right) operator pairs).  Per-site arithmetic
+//    is the single-tree kernel's, so each row equals that tree's launch bit
+//    for bit.  Replaces the MXU form of plf_tpu/ops/plf_tree_pallas.py::
+//    batched_tree_loglik_parts (:628).
 #include "plf_mxu.cuh"
 
 namespace {
@@ -63,8 +72,7 @@ plf_tree_mxu_kernel(const CodeT* codes, const int* sched, int n_edges,
                     const float* lh, const float* ll, const float* rh,
                     const float* rl, const float* eh, const float* el,
                     const float* ttab, int ncols, const float* rr, int n_slots,
-                    int root_slot, float* lik, int* sc, int n, int n_pad,
-                    int S, int C) {
+                    float* lik, int* sc, int n, int n_pad, int S, int C) {
   extern __shared__ float smem[];
   const int rows = S * C;
   const int tile = rows * kSites;
@@ -79,6 +87,9 @@ plf_tree_mxu_kernel(const CodeT* codes, const int* sched, int n_edges,
   float* prod = tip_r + tile;
   const int tid = threadIdx.x;
   const int site0 = blockIdx.x * kSites;
+  sched += (size_t)blockIdx.y * 6 * n_edges;  // this candidate's schedule
+  lik += (size_t)blockIdx.y * n_pad;
+  sc += (size_t)blockIdx.y * n_pad;
   for (int i = tid; i < rows * ncols; i += blockDim.x) s_tt[i] = ttab[i];
   for (int i = tid; i < rows; i += blockDim.x) s_rr[i] = rr[i];
   if (tid < kSites) s_cnt[tid] = 0;
@@ -127,6 +138,7 @@ plf_tree_mxu_kernel(const CodeT* codes, const int* sched, int n_edges,
   }
 
   if (tid < kSites && site0 + tid < n_pad) {
+    const int root_slot = __ldg(oslot + n_edges - 1);
     const float* x = arena + (size_t)root_slot * tile + tid;
     float l = __fmul_rn(s_rr[0], x[0]);
     for (int r = 1; r < rows; ++r)
@@ -153,16 +165,16 @@ template <int MODE, int V, typename CodeT>
 int launch(const void* codes, const int* sched, int n_edges, const float* lh,
            const float* ll, const float* rh, const float* rl, const float* eh,
            const float* el, const float* ttab, int ncols, const float* rr,
-           int n_slots, int root_slot, float* lik, int* sc, int n, int n_pad,
-           int S, int C, cudaStream_t st) {
+           int n_slots, float* lik, int* sc, int n, int n_pad, int S, int C,
+           int batch, cudaStream_t st) {
   const int threads = block_threads(S, C, job_rows(V));
   const size_t smem = smem_bytes(S * C, ncols, n_slots);
   cudaError_t err = prepare<MODE, V, CodeT>(smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_pad + kSites - 1) / kSites);
+  const dim3 grid((n_pad + kSites - 1) / kSites, batch);
   plf_tree_mxu_kernel<MODE, V, CodeT><<<grid, threads, smem, st>>>(
       static_cast<const CodeT*>(codes), sched, n_edges, lh, ll, rh, rl, eh, el,
-      ttab, ncols, rr, n_slots, root_slot, lik, sc, n, n_pad, S, C);
+      ttab, ncols, rr, n_slots, lik, sc, n, n_pad, S, C);
   return (int)cudaGetLastError();
 }
 
@@ -179,10 +191,13 @@ int occupancy(int S, int C, int ncols, int n_slots, int* blocks) {
 }  // namespace
 
 // codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (code_bytes 1);
-// sched: (6, n_edges) int32 rows lsrc, lflag, rsrc, rflag, oslot, eidx;
-// lh/ll, rh/rl: (E, S*C, S) fp32 hi and lo planes of the per-edge lane
-// constants; eh/el: (S*C, S); ttab: (S*C, ncols), already rounded for the
-// variant; rr: (S*C,); lik: (n_pad,) fp32; sc: (n_pad,) int32.
+// sched: (batch, 6, n_edges) int32, each candidate's rows lsrc, lflag, rsrc,
+// rflag, oslot, eidx (compile_register_schedule: the last op's oslot is the
+// root's slot); lh/ll, rh/rl: (P, S*C, S) fp32 hi and lo planes of the
+// lane constants that eidx indexes (P = E, by original edge, for one tree);
+// eh/el: (S*C, S); ttab: (S*C, ncols), already rounded for the variant; rr:
+// (S*C,); n_slots: the largest arena of the schedules; lik: (batch, n_pad)
+// fp32; sc: (batch, n_pad) int32.
 // mode: 0 fp32, 1 bf16x3, 2 bf16; the block's threads and each job's rows
 // follow from states and categories (plf_tree_mxu_block).
 // Returns cudaGetLastError().
@@ -192,26 +207,26 @@ extern "C" int plf_tree_mxu_launch(const void* codes, int code_bytes,
                                    const float* rh, const float* rl,
                                    const float* eh, const float* el,
                                    const float* ttab, int ncols,
-                                   const float* rr, int n_slots, int root_slot,
-                                   float* lik, int* sc, int n, int n_pad,
-                                   int states, int categories, int mode,
+                                   const float* rr, int n_slots, float* lik,
+                                   int* sc, int n, int n_pad, int states,
+                                   int categories, int mode, int batch,
                                    void* stream) {
   if (n_pad <= 0 || n_edges <= 0 || n_slots <= 0 || states < 1 ||
-      categories < 1)
+      categories < 1 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
     PLF_MXU_DISPATCH(mode, states,
                      return launch<M_, V_, int32_t>(
                          codes, sched, n_edges, lh, ll, rh, rl, eh, el, ttab,
-                         ncols, rr, n_slots, root_slot, lik, sc, n, n_pad,
-                         states, categories, st));
+                         ncols, rr, n_slots, lik, sc, n, n_pad, states,
+                         categories, batch, st));
   } else if (code_bytes == 1) {
     PLF_MXU_DISPATCH(mode, states,
                      return launch<M_, V_, int8_t>(
                          codes, sched, n_edges, lh, ll, rh, rl, eh, el, ttab,
-                         ncols, rr, n_slots, root_slot, lik, sc, n, n_pad,
-                         states, categories, st));
+                         ncols, rr, n_slots, lik, sc, n, n_pad, states,
+                         categories, batch, st));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -30,7 +30,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 __all__ = ["parse_fasta", "parse_phylip", "encode_dna", "encode_protein",
-           "compress_patterns", "AMBIGUITY",
+           "compress_patterns", "Alignment", "AMBIGUITY",
            "tip_expansion_table", "map_tip_codes"]
 
 DNA_CODE: Dict[str, int] = {"A": 0, "C": 1, "G": 2, "T": 3, "U": 3}
@@ -82,6 +82,35 @@ def map_tip_codes(tip_states, states: int) -> np.ndarray:
         (ts >= 0) & (ts < states), ts,
         np.where((ts >= states) & (ts < states + n_amb), ts + 1,
                  states)).astype(np.int32)
+
+
+class Alignment:
+    """Names + int8 state-code matrix (+ optional pattern weights)."""
+
+    def __init__(self, names: List[str], codes: np.ndarray,
+                 weights: np.ndarray | None = None):
+        self.names = names
+        self.codes = codes              # (n_seq, n_sites) int8
+        self.weights = (np.ones(codes.shape[1], np.int32)
+                        if weights is None else weights)
+
+    @property
+    def n_sequences(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def n_sites(self) -> int:
+        return self.codes.shape[1]
+
+    def compressed(self) -> "Alignment":
+        pats, wgt = compress_patterns(self.codes, self.weights)
+        return Alignment(self.names, pats, wgt)
+
+    def reorder(self, names: List[str]) -> "Alignment":
+        """Row order matching a tree's leaf order."""
+        idx = [self.names.index(n) for n in names]
+        return Alignment([self.names[i] for i in idx], self.codes[idx],
+                         self.weights)
 
 
 def parse_fasta(text: str) -> Tuple[List[str], List[str]]:

@@ -2,8 +2,7 @@
 
 Counterpart of ``plf_tpu/models/optimize.py``: :func:`tree_loglik_fn`,
 :func:`optimize_branch_lengths`, :func:`optimize_alpha`,
-:func:`optimize_pinv` and :func:`fit_codon`.  ``fit_model`` is not ported
-yet (ROADMAP.md, Queue 1).
+:func:`optimize_pinv`, :func:`fit_model` and :func:`fit_codon`.
 
 ``tree_loglik_fn`` builds ``(branch_lengths[, rates[, weights]]) ->
 log-likelihood`` as a function of torch tensors whose gradient comes
@@ -75,6 +74,9 @@ Every returned function carries ``.variant`` (the arithmetic of the
 kernels that run: "vpu" on the "kernel" backend) and ``.engine`` (the
 backend that runs).
 
+:func:`fit_model` fits GTR exchangeabilities, frequencies and branch
+lengths (and, between epochs, the gamma shape) by Adam through the
+"torch" core's traversal with the eigensystem inside the graph.
 :func:`fit_codon` fits the GY94 omega (dN/dS) and kappa on their profile
 likelihood, with branch lengths fitted through ``tree_loglik_fn``.
 """
@@ -92,12 +94,13 @@ from ..ops.plf_mxu import MODES, operator_planes, uses_mxu_kernels
 from ..ops.plf_tree import reorder_schedule, root_reduce
 from ..ops.plf_tree_grad import make_tree_diff, tree_bwd_scratch_bytes
 from ..config import Backend
+from ..io.alignment import AMBIGUITY
 from ..ops.plf_tree_seg import make_tree_diff_segmented
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .phylo import LIK_FLOOR, LOG_MINLIK, PhyloModel
 
 __all__ = ["tree_loglik_fn", "optimize_branch_lengths", "optimize_alpha",
-           "optimize_pinv", "fit_codon"]
+           "optimize_pinv", "fit_model", "fit_codon"]
 
 BACKENDS = ("auto", "tree", "kernel", "torch", "segmented")
 
@@ -307,6 +310,25 @@ def _model_tensors(pm):
             _f32(m.root_vector, dev))
 
 
+def _plf_stage(x1, x2, left, right, ev, S):
+    """Element-wise PLF on ``(n, C, S)`` eigen-coordinate CLVs, as the JAX
+    package's ``_plf_stage`` (``optimize.py:41-54``): per-branch ``(C, S,
+    S)`` factors ``left``/``right``, EV ``[k, a]``, 2^32 rescaling and its
+    per-site flags."""
+    ump1 = torch.zeros_like(x1)
+    ump2 = torch.zeros_like(x2)
+    for a in range(S):
+        ump1 = ump1 + x1[:, :, a:a + 1] * left[None, :, :, a]
+        ump2 = ump2 + x2[:, :, a:a + 1] * right[None, :, :, a]
+    p = ump1 * ump2
+    x3 = torch.zeros_like(p)
+    for k in range(S):
+        x3 = x3 + p[:, :, k:k + 1] * ev[None, None, k, :]
+    mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=2).all(dim=1)
+    x3 = torch.where(mask[:, None, None], x3 * float(TWO_TO_THE_32), x3)
+    return x3, mask.to(torch.int32)
+
+
 def _core_torch(pm):
     """Plain site-major traversal (the JAX "xla" backend, optimize.py:
     137-216) under torch autograd."""
@@ -324,20 +346,6 @@ def _core_torch(pm):
     asc, d0 = pm.ascertainment == "lewis", pm.n_sites_obs
     w_total = float(np.sum(pm.wgt))
 
-    def plf_stage(x1, x2, left, right):
-        ump1 = torch.zeros_like(x1)
-        ump2 = torch.zeros_like(x2)
-        for a in range(S):
-            ump1 = ump1 + x1[:, :, a:a + 1] * left[None, :, :, a]
-            ump2 = ump2 + x2[:, :, a:a + 1] * right[None, :, :, a]
-        p = ump1 * ump2
-        x3 = torch.zeros_like(p)
-        for k in range(S):
-            x3 = x3 + p[:, :, k:k + 1] * ev[None, None, k, :]
-        mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=2).all(dim=1)
-        x3 = torch.where(mask[:, None, None], x3 * float(TWO_TO_THE_32), x3)
-        return x3, mask.to(torch.int32)
-
     def core(t_vec, r_vec, w_vec):
         # (C, S, S) factor per branch: u[k, a] * exp(lam_a * t * r_c)
         e = torch.exp(lam * t_vec[:, None, None] * r_vec[None, :, None])
@@ -349,7 +357,8 @@ def _core_torch(pm):
                 if ch < n_leaves and ch not in clvs:
                     clvs[ch] = tbl[:, codes[ch]].t()[:, None, :] \
                         .expand(n, C, S)
-            x3, sv = plf_stage(clvs[l], clvs[r], branch[l], branch[r])
+            x3, sv = _plf_stage(clvs[l], clvs[r], branch[l], branch[r], ev,
+                                S)
             clvs[parent] = x3
             scaler_sites = scaler_sites + sv
         lik = (clvs[schedule[-1][0]] @ pi_u) @ w_vec
@@ -568,6 +577,182 @@ def optimize_pinv(pm: PhyloModel, alpha: Optional[float] = None,
 
     p_hat, ll1 = _golden_section(ll_of, bounds[0], bounds[1], iters)
     return float(p_hat), ll0, ll1
+
+
+# ---------------------------------------------------------------------------
+# Full model fitting: GTR exchangeabilities + base frequencies + branch
+# lengths, all by gradient ascent with the eigendecomposition inside the
+# graph (plf_tpu/models/optimize.py:694-800).  The gamma shape alpha stays
+# an outer-loop scalar (its discretisation uses a quantile function with no
+# stable gradient).
+# ---------------------------------------------------------------------------
+
+
+def _gtr_eigen_torch(log_rates, logits_pi, S: int):
+    """Differentiable reversible-Q eigensystem (``substitution._make`` in
+    torch; the JAX package's ``_gtr_eigen_jnp``, ``optimize.py:703``).
+
+    Returns ``(lam, u, w, pi)``.  Caution: exactly degenerate eigenvalues
+    (e.g. literal JC69) make eigh gradients NaN -- start from slightly
+    perturbed rates, as :func:`fit_model` does.
+    """
+    rates = torch.exp(log_rates)
+    pi = torch.softmax(logits_pi, dim=0)
+    i0, i1 = (torch.as_tensor(ix) for ix in np.triu_indices(S, 1))
+    qsym = torch.zeros((S, S), dtype=rates.dtype,
+                       device=rates.device).index_put((i0, i1), rates)
+    qsym = qsym + qsym.T
+    q = qsym * pi[None, :]
+    q = q - torch.diag(q.sum(dim=1))
+    rate = -(pi * torch.diagonal(q)).sum()
+    q = q / rate
+    d = torch.sqrt(pi)
+    b = (q * d[:, None]) / d[None, :]
+    b = 0.5 * (b + b.T)
+    lam, v = torch.linalg.eigh(b)
+    u = v / d[:, None]
+    w = v.T * d[None, :]
+    return lam, u, w, pi
+
+
+def _tip_table(w, S: int):
+    """``io/alignment.py::tip_expansion_table`` of a differentiable ``w``:
+    columns W.e_b, the gap column W.1, the ambiguity columns."""
+    cols = [w, w.sum(dim=1, keepdim=True)]
+    for members in AMBIGUITY.get(S, ()):
+        cols.append(w[:, list(members)].sum(dim=1, keepdim=True))
+    return torch.cat(cols, dim=1)
+
+
+def fit_model(pm: PhyloModel, steps: int = 150, learning_rate: float = 0.02,
+              min_length: float = 1e-6, fit_lengths: bool = True,
+              fit_alpha: bool = False, alpha_rounds: int = 2,
+              alpha_bounds=(0.02, 100.0), seed: int = 0):
+    """Maximum-likelihood fit of GTR rates, frequencies and branch lengths.
+
+    Starts from the PhyloModel's current model/lengths (rates jittered by
+    a seeded 1e-3 log-normal factor, ``seed``, to break eigh
+    degeneracies).  Returns ``(fitted SubstitutionModel, fitted lengths,
+    ll_before, ll_after)``.
+
+    The likelihood is the "torch" core's plain element-wise traversal on
+    ``pm.device`` (no kernel: the tip table depends on the fitted
+    eigenvectors, and the kernels' backward takes no tip-table
+    gradient), under torch autograd; the S x S eigensystem
+    (``torch.linalg.eigh``, fp32) runs on the host inside the graph.
+    Adam (``torch.optim.Adam`` with optax's defaults) updates log
+    exchangeabilities, frequency logits and log lengths together.
+
+    With ``fit_alpha`` the gamma shape is fitted too, by coordinate
+    descent: the adam steps split into ``alpha_rounds`` epochs with a
+    golden-section alpha line search after each.  With ``fit_alpha`` the
+    return gains a fifth element: ``(..., alpha_hat)``.
+    """
+    from .substitution import (discrete_gamma_rates, gamma_invariant_rates,
+                               gtr)
+
+    cfg = pm.config
+    S, C = cfg.states, cfg.categories
+    dev = pm.device
+    schedule = [(p, l, r) for (p, l, r, _, _) in pm.schedule]
+    n_leaves, n = pm.tree.n_leaves, pm.n_sites
+    codes = pm.codes[:, :n].long()
+    wgt = _f32(pm.wgt, dev)
+    wgt_i = torch.as_tensor(pm.wgt, dtype=torch.int32, device=dev)
+    cw = _f32(pm.rate_weights, dev)
+    asc, d0 = pm.ascertainment == "lewis", pm.n_sites_obs
+    w_total = float(np.sum(pm.wgt))
+
+    # Initial parameters from the current model: recover the
+    # exchangeabilities from Q = U diag(lam) W via qsym[i,j] = q[i,j]/pi[j].
+    m0 = pm.model
+    q0 = (m0.u * m0.eigenvalues[None, :]) @ m0.w
+    iu = np.triu_indices(S, 1)
+    ex0 = np.clip(q0[iu] / m0.pi[iu[1]], 1e-3, None)
+    rng = np.random.default_rng(seed)
+    ex0 = ex0 * np.exp(rng.normal(0, 1e-3, ex0.shape))  # break degeneracy
+    lengths = [pm.tree.nodes[i].length for i in range(pm.tree.n_nodes - 1)]
+    log_rates = torch.tensor(np.log(ex0), dtype=torch.float32,
+                             requires_grad=True)
+    logits_pi = torch.tensor(np.log(m0.pi), dtype=torch.float32,
+                             requires_grad=True)
+    log_t = torch.log(torch.clamp_min(_f32(lengths, dev), min_length)
+                      ).requires_grad_()
+
+    def loglik(rates_gamma):
+        lam, u, w, pi = (x.to(dev) for x in _gtr_eigen_torch(
+            log_rates, logits_pi, S))
+        t_vec = torch.exp(log_t) + min_length
+        if not fit_lengths:
+            t_vec = t_vec.detach()
+        wg = _tip_table(w, S)                     # (S, n_codes)
+
+        def branch_factor(t):                     # (C, S, S): [c, k, a]
+            e = torch.exp(lam[None, :] * t * rates_gamma[:, None])
+            return u[None, :, :] * e[:, None, :]
+
+        clvs = {leaf: wg[:, codes[leaf]].t()[:, None, :].expand(n, C, S)
+                for leaf in range(n_leaves)}
+        scaler_sites = torch.zeros(n, dtype=torch.int32, device=dev)
+        for parent, l, r in schedule:
+            x3, sv = _plf_stage(clvs[l], clvs[r], branch_factor(t_vec[l]),
+                                branch_factor(t_vec[r]), w.T, S)
+            clvs[parent] = x3
+            scaler_sites = scaler_sites + sv
+        lik = (clvs[schedule[-1][0]] @ (pi @ u)) @ cw
+        site_ll = torch.log(torch.clamp_min(lik, LIK_FLOOR))
+        scaler = (scaler_sites * wgt_i).sum().to(torch.float32)
+        ll = (site_ll * wgt).sum() + scaler * LOG_MINLIK
+        if asc:
+            log_pc = site_ll[d0:] + scaler_sites[d0:].to(torch.float32) \
+                * LOG_MINLIK
+            ll = ll - w_total * torch.log1p(-torch.exp(log_pc).sum())
+        return ll
+
+    def ll_at(rates_gamma) -> float:
+        with torch.no_grad():
+            return float(loglik(rates_gamma))
+
+    opt = torch.optim.Adam([log_rates, logits_pi, log_t], lr=learning_rate,
+                           betas=(0.9, 0.999), eps=1e-8)
+
+    def step(rates_gamma):
+        opt.zero_grad()
+        (-loglik(rates_gamma)).backward()
+        opt.step()
+
+    rg = _f32(pm.rates, dev)
+    ll0 = ll_at(rg)
+    alpha_hat = None
+    if fit_alpha:
+        def rates_of(alpha: float) -> np.ndarray:
+            if pm.p_inv is not None:
+                return gamma_invariant_rates(alpha, pm.p_inv, C - 1)[0]
+            return discrete_gamma_rates(alpha, C)
+
+        epochs = max(1, alpha_rounds)
+        per = max(1, steps // epochs)
+        for _ in range(epochs):
+            for _ in range(per):
+                step(rg)
+            la, _ = _golden_section(
+                lambda x: ll_at(_f32(rates_of(float(np.exp(x))), dev)),
+                np.log(alpha_bounds[0]), np.log(alpha_bounds[1]), iters=25)
+            alpha_hat = float(np.exp(la))
+            rg = _f32(rates_of(alpha_hat), dev)
+    else:
+        for _ in range(steps):
+            step(rg)
+    ll1 = ll_at(rg)
+
+    with torch.no_grad():
+        fitted = gtr(np.exp(log_rates.detach().numpy().astype(np.float64)),
+                     torch.softmax(logits_pi, dim=0).detach().numpy()
+                     .astype(np.float64))
+        t_opt = (torch.exp(log_t) + min_length).detach().cpu().numpy()
+    if fit_alpha:
+        return fitted, t_opt, ll0, ll1, alpha_hat
+    return fitted, t_opt, ll0, ll1
 
 
 # ---------------------------------------------------------------------------

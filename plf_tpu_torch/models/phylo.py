@@ -43,6 +43,12 @@ node by node (``can_fuse`` and ``can_segment`` are False and no kernel
 wrapper is called), on whatever device the model lives, the card
 included.
 
+:func:`batch_log_likelihood` scores a tree-search neighbourhood (models
+over one alignment that differ in topology and branch lengths) in one
+launch of kernel 2 or 2m with a candidate axis
+(``ops/plf_tree.py::plf_tree_batch``), where the batch fits the kernel's
+arena (:func:`batch_fits`).
+
 Log-likelihood:  ll = sum_s wgt_s * log( sum_c w_c rv . x_root[s,c,:] )
                      + scaler_total * log(2^-32)
 """
@@ -62,8 +68,10 @@ from ..ops import layout as L
 from ..ops.plf_mxu import operator_planes, round_tip_table, uses_mxu_kernels
 from ..ops.plf_node import plf_node
 from ..ops.plf_torch import plf_torch
-from ..ops.plf_tree import (carry_program, compile_register_schedule,
-                            plf_tree, reorder_schedule, root_reduce,
+from ..ops.plf_tree import (LIK_FLOOR, LOG_MINLIK,
+                            batched_tree_loglik_parts, carry_program,
+                            compile_register_schedule, plf_tree,
+                            reorder_schedule, root_reduce,
                             tree_fused_threads, tree_mxu_fits)
 from ..ops.plf_tree_seg import (carry_segment_program, plan_segments,
                                 plf_tree_seg, segment_program)
@@ -71,13 +79,8 @@ from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
 from .tree import Tree
 
-__all__ = ["PhyloModel", "TreeLikelihoodResult"]
-
-LOG_MINLIK = float(np.log(np.float64(2.0) ** -32))
-
-#: Site-likelihood floor before the log (a normal fp32 value, as in the
-#: JAX package; exact paths never go below it).
-LIK_FLOOR = 1.1754944e-38
+__all__ = ["PhyloModel", "TreeLikelihoodResult", "batch_log_likelihood",
+           "batch_log_likelihood_segmented", "batch_fits", "batch_inputs"]
 
 
 @dataclasses.dataclass
@@ -87,6 +90,13 @@ class TreeLikelihoodResult:
     scaler_total: int                 # wgt-weighted rescale count
     root_clv: Optional[torch.Tensor] = None  # lane-major root CLV (if kept)
     scaler_sites: Optional[np.ndarray] = None  # (n_sites,) per-site counts
+
+    def true_site_log_likelihood(self) -> np.ndarray:
+        """Per-site log-likelihood with 2^-32 rescale factors folded in
+        (what bootstrap/RELL resampling must weight)."""
+        if self.scaler_sites is None:
+            return self.site_log_likelihood
+        return self.site_log_likelihood + self.scaler_sites * LOG_MINLIK
 
 
 class PhyloModel(nn.Module):
@@ -184,6 +194,10 @@ class PhyloModel(nn.Module):
         self.n_pad = L.sites_padding(self.n_sites, cfg.block_sites)
         self.schedule = tree.schedule()
         device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # "cuda" is the current card: resolved, so that a model and
+            # its share_device_from donor compare equal
+            device = torch.device("cuda", torch.cuda.current_device())
 
         donor = share_device_from
         if donor is not None and (
@@ -238,8 +252,11 @@ class PhyloModel(nn.Module):
             n_codes = max(S + 1, int(codes.max()) + 1)
             codes = L.pad_to_multiple(codes, self.n_pad, axis=-1)
             codes[:, self.n_sites:] = S
-            codes = codes.astype(np.int8 if cfg.tip_dtype == "int8"
-                                 else np.int32)
+            # C order whatever the tip matrix's (a column selection such
+            # as compress_patterns' is Fortran-ordered): the kernels take
+            # contiguous codes
+            codes = np.ascontiguousarray(
+                codes, np.int8 if cfg.tip_dtype == "int8" else np.int32)
             self.register_buffer("codes", torch.as_tensor(codes,
                                                           device=device))
             wpad = L.pad_to_multiple(self.wgt.reshape(1, -1), self.n_pad,
@@ -268,11 +285,12 @@ class PhyloModel(nn.Module):
         sched = reorder_schedule(self.schedule, tree.n_leaves)
         arrs, self.n_slots, self.root_slot = compile_register_schedule(
             sched, tree.n_leaves)
-        self.register_buffer("sched", torch.as_tensor(np.stack(arrs),
+        self._sched_np = np.stack(arrs)
+        self.register_buffer("sched", torch.as_tensor(self._sched_np,
                                                       device=device))
         # kernel 2's program: operands of the op before from registers
-        self._carry = carry_program(arrs)
-        self.carry_slots = self._carry[1]
+        self._carry_np, self.carry_slots = carry_program(arrs)
+        self._carry = None
         self._seg_cache = None
 
     @property
@@ -284,10 +302,10 @@ class PhyloModel(nn.Module):
         """Kernel 2's ``(program, n_slots)`` (``ops/plf_tree.py::
         carry_program`` of ``sched``), the program on the model's device,
         built once per device."""
-        prog, slots = self._carry
-        if not torch.is_tensor(prog) or prog.device != self.device:
-            self._carry = (torch.as_tensor(np.asarray(prog),
-                                           device=self.device), slots)
+        if self._carry is None or self._carry[0].device != self.device:
+            self._carry = (torch.as_tensor(self._carry_np,
+                                           device=self.device),
+                           self.carry_slots)
         return self._carry
 
     def _planes(self, e: Optional[int] = None):
@@ -403,18 +421,34 @@ class PhyloModel(nn.Module):
 
     # -- fused whole-tree kernel (kernel 2) ----------------------------------
 
-    def can_fuse(self) -> bool:
+    def can_fuse(self, slots: Optional[int] = None) -> bool:
         """Whether the tree's register-machine arena fits one block's
         shared memory (the capacity rule of the model's tree kernel,
-        ops/plf_tree.py); False under ``Backend.TORCH``."""
+        ops/plf_tree.py), or an arena of ``slots`` slots of that kernel
+        (a batch's largest, :func:`batch_fits`); False under
+        ``Backend.TORCH``."""
         cfg = self.config
         if cfg.backend is Backend.TORCH:
             return False
+        if slots is None:
+            slots = self.fused_slots
         n_codes = self.tip_table.shape[1]
-        if uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states):
-            return tree_mxu_fits(self.n_slots, cfg.rows, n_codes)
-        return tree_fused_threads(self.carry_slots, cfg.rows, n_codes,
+        if self._matrix_form:
+            return tree_mxu_fits(slots, cfg.rows, n_codes)
+        return tree_fused_threads(slots, cfg.rows, n_codes,
                                   cfg.states) is not None
+
+    @property
+    def _matrix_form(self) -> bool:
+        """Whether the model runs the matrix-form kernels (2m, 1m, 7m)."""
+        return uses_mxu_kernels(self.config.resolved_kernel_variant,
+                                self.config.states)
+
+    @property
+    def fused_slots(self) -> int:
+        """Arena slots of the model's fused kernel: kernel 2's carried
+        program, or kernel 2m's register schedule."""
+        return self.n_slots if self._matrix_form else self.carry_slots
 
     def _kernel_path(self, name: str):
         if self.config.backend is Backend.TORCH:
@@ -534,7 +568,7 @@ class PhyloModel(nn.Module):
         """Site-sharded evaluation over several cards: not ported yet."""
         raise NotImplementedError(
             "multi-device site sharding is not ported yet: ROADMAP.md, "
-            "Queue 1 item 8")
+            "Queue 1 item 9")
 
     # -- brute-force oracle (tests) -----------------------------------------
 
@@ -569,3 +603,141 @@ class PhyloModel(nn.Module):
         root = partials[self.tree.root]
         lik = (root @ m.pi) @ self.rate_weights
         return float(np.sum(np.log(lik) * self.wgt))
+
+
+# -- batch scoring (tree search) ----------------------------------------------
+
+
+def _validate_batch_identity(pms) -> None:
+    """Same-ALIGNMENT/model validation for the batch scorers.
+
+    Shape equality alone is not enough: two models over different
+    alignments (or substitution models / rates) of identical shape would
+    pass a shape check and return silently wrong likelihoods.  Sharing via
+    ``share_device_from`` makes the arrays identical objects, so the
+    common case costs ``is`` checks only.
+    """
+    pm0 = pms[0]
+    for pm in pms[1:]:
+        same_aln = (pm.tip_states is pm0.tip_states
+                    or (pm.tip_states.shape == pm0.tip_states.shape
+                        and np.array_equal(pm.tip_states, pm0.tip_states)))
+        same_wgt = (pm.wgt is pm0.wgt or np.array_equal(pm.wgt, pm0.wgt))
+        same_model = (pm.model is pm0.model
+                      or (np.array_equal(pm.model.pi, pm0.model.pi)
+                          and np.array_equal(pm.model.eigenvalues,
+                                             pm0.model.eigenvalues)
+                          and np.array_equal(pm.model.u, pm0.model.u)))
+        if (not same_aln or not same_wgt or not same_model
+                or not np.array_equal(pm.rates, pm0.rates)
+                or not np.array_equal(pm.rate_weights, pm0.rate_weights)):
+            raise ValueError(
+                "batch scoring needs identical alignment/weights/model/"
+                "rates across candidates (only topology and branch "
+                "lengths may differ); build candidates with "
+                "share_device_from")
+
+
+def batch_fits(pms) -> bool:
+    """Whether one batched launch of the models' fused kernel (2 or 2m)
+    takes the whole batch: :meth:`PhyloModel.can_fuse` at the batch's
+    largest arena.  False under ``Backend.TORCH``."""
+    return pms[0].can_fuse(max(pm.fused_slots for pm in pms))
+
+
+def batch_inputs(pms):
+    """The batched launch's inputs for same-alignment models ``pms``:
+    ``(progs, lcs, rcs, planes, n_slots)`` on ``pms[0]``'s device.
+
+    ``progs`` ``(B, 6, E)`` int32 holds each candidate's program (kernel
+    2's carried program, or kernel 2m's register schedule) with its
+    ``eidx`` row renumbered into the operator table ``lcs``/``rcs``
+    ``(P, S*C, S)``: the batch's distinct (left, right) branch-length
+    pairs, encoded once each from the models' shared operator cache (NNI
+    and SPR candidates carry their lengths with their subtrees, so P stays
+    near E plus a few pairs a candidate).  ``planes``: the table's
+    operator planes for kernel 2m (None for kernel 2); ``n_slots``: the
+    largest arena.
+    """
+    pm0 = pms[0]
+    cfg = pm0.config
+    variant = cfg.resolved_kernel_variant
+    E = len(pm0.schedule)
+    progs = np.empty((len(pms), 6, E), np.int32)
+    pair_of: Dict[tuple, int] = {}
+    left, right = [], []
+    for b, pm in enumerate(pms):
+        ids = np.empty(E, np.int32)
+        for e, (_p, _l, _r, tl, tr) in enumerate(pm.schedule):
+            key = (float(tl), float(tr))
+            k = pair_of.get(key)
+            if k is None:
+                k = pair_of[key] = len(left)
+                left.append(pm._branch_cache[key[0]])
+                right.append(pm._branch_cache[key[1]])
+            ids[e] = k
+        progs[b] = pm._sched_np if pm._matrix_form else pm._carry_np
+        progs[b, 5] = ids[progs[b, 5]]
+    dev = pm0.device
+    lcs = torch.as_tensor(np.stack(left), device=dev)
+    rcs = torch.as_tensor(np.stack(right), device=dev)
+    planes = None
+    if pm0._matrix_form:
+        hi, lo = operator_planes(torch.cat([lcs, rcs]), variant)
+        P = len(left)
+        planes = (hi[:P], lo[:P], hi[P:], lo[P:], pm0.ec_planes[0],
+                  pm0.ec_planes[1])
+    n_slots = max(pm.fused_slots for pm in pms)
+    return torch.as_tensor(progs, device=dev), lcs, rcs, planes, n_slots
+
+
+def batch_log_likelihood(pms) -> np.ndarray:
+    """Score many same-shape topologies in ONE launch.
+
+    ``pms``: PhyloModels sharing alignment, model, config and node count
+    (the tree-search neighbourhood case: NNI/SPR preserve all of these;
+    build them with ``share_device_from``).  On the card one launch of
+    kernel 2 (or 2m) with a candidate axis scores every candidate
+    (``ops/plf_tree.py::plf_tree_batch``); on the CPU its plain version
+    runs candidate by candidate.  The batch fits where
+    :meth:`PhyloModel.can_fuse` holds at the batch's largest arena
+    (:func:`batch_fits`); else ValueError ("does not fit").
+
+    Returns (B,) float64 log-likelihoods (fp32 partial sums over chunks of
+    ``config.block_sites`` sites, host fp64 final reduction: the JAX
+    package's precision policy, within ~1e-6 of ``log_likelihood()``).
+    """
+    pm0 = pms[0]
+    cfg = pm0.config
+    n_leaves = pm0.tree.n_leaves
+    E = len(pm0.schedule)
+    for pm in pms[1:]:
+        if (len(pm.schedule) != E or pm.tree.n_leaves != n_leaves
+                or pm.n_pad != pm0.n_pad or pm.config != cfg):
+            raise ValueError("batch_log_likelihood needs same-shape models")
+    _validate_batch_identity(pms)
+    if pm0.ascertainment is not None:
+        raise ValueError("ascertainment not supported in the batch path")
+    pm0._kernel_path("batch")
+    if not batch_fits(pms):
+        slots = max(pm.fused_slots for pm in pms)
+        raise ValueError(
+            f"batch_log_likelihood: a {slots}-slot arena of {cfg.rows} rows "
+            f"does not fit the fused kernel's shared memory; score "
+            f"candidates individually")
+    progs, lcs, rcs, planes, n_slots = batch_inputs(pms)
+    parts = batched_tree_loglik_parts(
+        pm0.codes, progs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+        pm0.root_rows[0], pm0.wgt_pad.to(torch.float32), pm0.n_sites,
+        n_slots=n_slots, states=cfg.states, categories=cfg.categories,
+        variant=cfg.resolved_kernel_variant, planes=planes,
+        n_parts=pm0.n_pad // cfg.block_sites)
+    return parts.cpu().numpy().astype(np.float64).sum(axis=1)
+
+
+def batch_log_likelihood_segmented(pms) -> np.ndarray:
+    """The JAX package's batched segmented scorer (a candidate axis of
+    kernels 7 and 7m): not ported yet."""
+    raise NotImplementedError(
+        "batch_log_likelihood_segmented (a candidate axis of kernels 7 and "
+        "7m) is not ported yet: ROADMAP.md, Queue 1 item 2")

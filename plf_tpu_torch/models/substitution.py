@@ -83,6 +83,24 @@ class SubstitutionModel:
         e = np.exp(self.eigenvalues * t * rate)
         return (self.u * e[None, :]) @ self.w
 
+    def tip_clv(self, states_idx: np.ndarray, categories: int = 4,
+                dtype=np.float32) -> np.ndarray:
+        """Tip CLV in eigen coordinates, replicated per rate category.
+
+        ``states_idx``: (n,) int array of observed states; values >= S (or
+        negative) mean fully ambiguous/gap (likelihood 1 for every state).
+        Returns (n, categories, S).
+        """
+        n = states_idx.shape[0]
+        s = self.states
+        onehot = np.zeros((n, s), dtype=np.float64)
+        valid = (states_idx >= 0) & (states_idx < s)
+        onehot[np.arange(n)[valid], states_idx[valid]] = 1.0
+        onehot[~valid] = 1.0  # gap/ambiguity: all states possible
+        x = onehot @ self.w.T                      # (n, S) eigen coords
+        x = np.repeat(x[:, None, :], categories, axis=1)
+        return x.astype(dtype)
+
 
 def _make(qsym: np.ndarray, pi: np.ndarray) -> SubstitutionModel:
     pi = np.asarray(pi, dtype=np.float64)

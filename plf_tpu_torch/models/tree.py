@@ -1,19 +1,18 @@
 """Phylogenetic tree structure and post-order PLF schedules.
 
-A NumPy-only copy of the parts of ``plf_tpu/models/tree.py`` that the
-likelihood path uses.
+A NumPy-only copy of ``plf_tpu/models/tree.py``.
 
 The reference computes a single PLF node update per call; its production
 context (RAxML's newview) walks a whole tree post-order, re-running the
 kernel at every internal node (SURVEY.md §0).  This module supplies that
-structure: a small binary tree with newick parsing and a post-order
-evaluation schedule.
+structure: a small binary tree with newick parsing and serialisation, a
+post-order evaluation schedule and level grouping.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,6 +46,9 @@ class Tree:
     def n_nodes(self) -> int:
         return len(self.nodes)
 
+    def leaf_names(self) -> List[str]:
+        return [n.name or f"t{n.index}" for n in self.nodes if n.is_leaf]
+
     def postorder(self) -> List[int]:
         """Internal-node indices in evaluation (post)order."""
         order: List[int] = []
@@ -76,6 +78,38 @@ class Tree:
             l, r = node.children
             out.append((idx, l, r, self.nodes[l].length, self.nodes[r].length))
         return out
+
+    def to_newick(self, include_root_length: bool = False) -> str:
+        """Serialise to newick (inverse of :func:`parse_newick`).
+
+        Leaves without a name get ``t<index>`` so the string round-trips
+        to an equivalent tree (same leaf labels, same branch lengths,
+        same topology; leaf *indices* follow newick order after reparse —
+        match by name when resuming from a serialised tree).
+        """
+        def rec(i: int, at_root: bool) -> str:
+            n = self.nodes[i]
+            if n.is_leaf:
+                return f"{n.name or f't{i}'}:{n.length:.17g}"
+            inner = ",".join(rec(c, False) for c in n.children)
+            label = n.name or ""
+            if at_root and not include_root_length:
+                return f"({inner}){label}"
+            return f"({inner}){label}:{n.length:.17g}"
+
+        return rec(self.root, True) + ";"
+
+    def levels(self) -> List[List[int]]:
+        """Group internal nodes into dependency levels (batchable waves)."""
+        depth: Dict[int, int] = {}
+        for idx in self.postorder():
+            node = self.nodes[idx]
+            depth[idx] = 1 + max(
+                (depth.get(c, 0) for c in node.children), default=0)
+        levels: Dict[int, List[int]] = {}
+        for idx, d in depth.items():
+            levels.setdefault(d, []).append(idx)
+        return [levels[d] for d in sorted(levels)]
 
 
 def parse_newick(text: str) -> Tree:

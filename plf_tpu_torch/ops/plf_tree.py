@@ -48,6 +48,15 @@ round; its capacity rule (:func:`tree_mxu_fits`) admits a tree whose
 the per-node path.  At S = 20, C = 4 with all 24 tip codes that admits
 ``n_slots <= 84``.  Narrow tiles leave room for more resident blocks
 (``PERF.md`` records 8-, 16- and 32-site tiles on the card).
+
+Both kernels take a candidate axis (:func:`plf_tree_batch`, the grid's
+second dimension): a tree search scores a whole neighbourhood over one
+alignment in one launch, each candidate with its own program and output
+row, all sharing the codes, the tip table and one operator table that the
+programs' ``eidx`` rows index.  It replaces ``plf_tpu/ops/
+plf_tree_pallas.py::batched_tree_loglik_parts`` (``:628``, a ``lax.map``
+of ``_tree_kernel_dynamic`` over the candidates); the per-site arithmetic
+is the single-tree kernels', which are batches of one.
 """
 
 from __future__ import annotations
@@ -70,7 +79,9 @@ __all__ = ["plf_tree", "plf_tree_torch", "plf_tree_occupancy", "root_reduce",
            "pack_branch_constants", "tree_smem_bytes",
            "SMEM_BLOCK_BYTES", "TREE_THREADS", "plf_tree_mxu",
            "plf_tree_mxu_occupancy", "tree_mxu_fits", "tree_mxu_smem_bytes",
-           "tree_mxu_block", "TREE_MXU_SITES"]
+           "tree_mxu_block", "TREE_MXU_SITES", "tree_mxu_plan",
+           "plf_tree_batch", "plf_tree_mxu_batch", "plf_tree_batch_torch",
+           "batched_tree_loglik_parts", "MAX_BATCH"]
 
 #: Sites per block of the tree kernel (one a thread: :func:`tree_plan`),
 #: four warps, which leaves room for several blocks per SM at the arena
@@ -352,17 +363,15 @@ def plf_tree_torch(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
     return root_reduce(rr, x3)[None, :], scaler[None, :]
 
 
-def _check(codes, sched, lcs, rcs, ec, ttab, rr, n_slots, root_slot,
-           states, categories):
+def _check_operands(codes, lcs, rcs, ec, ttab, rr, states, categories,
+                    n_ops):
+    """Types, shapes and device of the arrays every tree launch takes;
+    ``lcs``/``rcs`` are ``(n_ops, S*C, S)``."""
     rows = states * categories
     if codes.dim() != 2 or codes.dtype not in (torch.int32, torch.int8):
         raise TypeError("codes must be (n_leaves, n_pad) int32 or int8")
-    E = lcs.shape[0]
-    if tuple(sched.shape) != (6, E) or sched.dtype != torch.int32:
-        raise ValueError(f"sched must be (6, {E}) int32, got "
-                         f"{tuple(sched.shape)} {sched.dtype}")
-    for name, t, shape in (("lcs", lcs, (E, rows, states)),
-                           ("rcs", rcs, (E, rows, states)),
+    for name, t, shape in (("lcs", lcs, (n_ops, rows, states)),
+                           ("rcs", rcs, (n_ops, rows, states)),
                            ("ec", ec, (rows, states)),
                            ("rr", rr, (rows,))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
@@ -371,11 +380,38 @@ def _check(codes, sched, lcs, rcs, ec, ttab, rr, n_slots, root_slot,
     if ttab.dim() != 2 or ttab.shape[0] != rows \
             or ttab.dtype != torch.float32:
         raise ValueError(f"ttab must be ({rows}, n_codes) float32")
-    ts = (codes, sched, lcs, rcs, ec, ttab, rr)
-    if any(t.device != codes.device for t in ts):
+    if any(t.device != codes.device for t in (lcs, rcs, ec, ttab, rr)):
+        raise ValueError("plf_tree: all tensors must be on one device")
+
+
+def _check(codes, sched, lcs, rcs, ec, ttab, rr, n_slots, root_slot,
+           states, categories):
+    E = lcs.shape[0]
+    _check_operands(codes, lcs, rcs, ec, ttab, rr, states, categories, E)
+    if tuple(sched.shape) != (6, E) or sched.dtype != torch.int32:
+        raise ValueError(f"sched must be (6, {E}) int32, got "
+                         f"{tuple(sched.shape)} {sched.dtype}")
+    if sched.device != codes.device:
         raise ValueError("plf_tree: all tensors must be on one device")
     if not 0 <= root_slot < n_slots:
         raise ValueError(f"root_slot {root_slot} outside {n_slots} slots")
+
+
+def _check_batch(codes, progs, lcs, rcs, ec, ttab, rr, states, categories):
+    """The checks of :func:`plf_tree_batch`: ``progs`` ``(B, 6, E)`` int32
+    on the device of ``codes``, one contiguous program per candidate, and
+    an operator table ``lcs``/``rcs`` of any length."""
+    _check_operands(codes, lcs, rcs, ec, ttab, rr, states, categories,
+                    lcs.shape[0])
+    if progs.dim() != 3 or progs.shape[1] != 6 or progs.shape[0] < 1 \
+            or progs.dtype != torch.int32 or not progs.is_contiguous():
+        raise ValueError(f"progs must be a contiguous (B, 6, E) int32 "
+                         f"tensor, got {tuple(progs.shape)} {progs.dtype}")
+    if progs.device != codes.device:
+        raise ValueError("plf_tree: all tensors must be on one device")
+    if progs.shape[0] > MAX_BATCH:
+        raise ValueError(f"a batch of {progs.shape[0]} candidates exceeds "
+                         f"the launch's {MAX_BATCH}")
 
 
 @functools.cache
@@ -386,12 +422,12 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_launch.argtypes = [
         vp, ci, vp, ci, vp, vp, vp, vp, ci, vp, ci, vp, vp, ci, ci, ci, ci,
-        vp]
+        ci, vp]
     lib.plf_tree_launch.restype = ci
     lib.plf_tree_occupancy.argtypes = [ci, ci, ci, ci, ci,
                                        ctypes.POINTER(ci)]
     lib.plf_tree_occupancy.restype = ci
-    lib.plf_tree_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+    lib.plf_tree_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ci)] * 5
     lib.plf_tree_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
     lib.plf_error_string.restype = ctypes.c_char_p
@@ -422,7 +458,8 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
       codes: ``(n_leaves, n_pad)`` int32 or int8 tip-table column codes
         (padding sites hold the gap code).
       sched: ``(6, E)`` int32 rows lsrc, lflag, rsrc, rflag, oslot, edge
-        (:func:`compile_register_schedule`).
+        (:func:`compile_register_schedule`; kernel 2m reduces the last
+        op's ``oslot``, which is ``root_slot``).
       lcs, rcs: ``(E, S*C, S)`` fp32 per-edge branch constants, indexed
         by original edge.
       ec: ``(S*C, S)`` eigenvector constants; ttab: ``(S*C, n_codes)`` tip
@@ -457,15 +494,25 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
                               states=states, categories=categories)
     if codes.device.type != "cuda":
         raise ValueError(f"plf_tree: no kernel for device {codes.device}")
+    prog, slots = _program(program, sched, lcs.shape[0], codes.device)
+    lik, sc = _launch_tree(codes, prog[None], lcs, rcs, ec, ttab, rr, n,
+                           slots, states, categories)
+    plf_tree.launches += 1
+    return lik, sc
+
+
+def _launch_tree(codes, progs, lcs, rcs, ec, ttab, rr, n, slots, states,
+                 categories):
+    """One kernel-2 launch over the ``(B, 6, E)`` programs ``progs``:
+    ``(B, n_pad)`` likelihoods and scaler counts."""
     if states != 4 or not 1 <= categories <= 8:
         raise ValueError("the CUDA tree kernel takes S = 4 and C in 1..8, "
                          f"got S={states}, C={categories}")
-    ts = (codes, sched, lcs, rcs, ec, ttab, rr)
+    ts = (codes, progs, lcs, rcs, ec, ttab, rr)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("plf_tree: tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in (lcs, rcs, ec)):
         raise ValueError("plf_tree: lcs/rcs/ec must be 16-byte aligned")
-    prog, slots = _program(program, sched, lcs.shape[0], codes.device)
     rows = states * categories
     n_codes = ttab.shape[1]
     block_sites = tree_fused_threads(slots, rows, n_codes, states)
@@ -478,19 +525,19 @@ def plf_tree(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *, n_slots: int,
     if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
         raise ValueError(f"plf_tree: bad n={n} for n_pad={n_pad}")
     lib = _lib()
-    lik = torch.empty((1, n_pad), dtype=torch.float32, device=codes.device)
-    sc = torch.empty((1, n_pad), dtype=torch.int32, device=codes.device)
+    B, E = progs.shape[0], progs.shape[2]
+    lik = torch.empty((B, n_pad), dtype=torch.float32, device=codes.device)
+    sc = torch.empty((B, n_pad), dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.plf_tree_launch(
-            codes.data_ptr(), codes.element_size(), prog.data_ptr(),
-            lcs.shape[0], lcs.data_ptr(), rcs.data_ptr(), ec.data_ptr(),
-            ttab.data_ptr(), n_codes, rr.data_ptr(), slots, lik.data_ptr(),
-            sc.data_ptr(), int(n), n_pad, categories, block_sites, stream)
+            codes.data_ptr(), codes.element_size(), progs.data_ptr(), E,
+            lcs.data_ptr(), rcs.data_ptr(), ec.data_ptr(), ttab.data_ptr(),
+            n_codes, rr.data_ptr(), slots, lik.data_ptr(), sc.data_ptr(),
+            int(n), n_pad, categories, block_sites, B, stream)
     if err != 0:
         raise RuntimeError(f"plf_tree kernel launch failed: "
                            f"{lib.plf_error_string(err).decode()}")
-    plf_tree.launches += 1
     return lik, sc
 
 
@@ -515,24 +562,29 @@ def plf_tree_occupancy(code_dtype: torch.dtype, categories: int,
 
 
 def tree_plan(code_dtype: torch.dtype, categories: int, n_codes: int,
-              n_slots: int) -> dict:
-    """Kernel 2's launch for an arena of ``n_slots`` slots: ``sites`` per
-    block (:data:`TREE_THREADS`), and as its library decides them
-    (``plf_tree_plan``) ``threads`` per block, ``sites_per_thread`` and
-    dynamic ``smem_bytes`` (:func:`tree_fused_smem_bytes` restates
-    them); the arena ``slots`` and ``blocks_per_sm``
-    (:func:`plf_tree_occupancy`).  Needs a CUDA device."""
+              n_slots: int, n_pad: int = TREE_THREADS,
+              batch: int = 1) -> dict:
+    """Kernel 2's launch for an arena of ``n_slots`` slots and ``batch``
+    candidates of ``n_pad`` sites: ``sites`` per block
+    (:data:`TREE_THREADS`), and as its library decides them
+    (``plf_tree_plan``) ``threads`` per block, ``sites_per_thread``,
+    dynamic ``smem_bytes`` (:func:`tree_fused_smem_bytes` restates them)
+    and the ``grid`` (site blocks, candidates); the arena ``slots`` and
+    ``blocks_per_sm`` (:func:`plf_tree_occupancy`).  Needs a CUDA
+    device."""
     lib = _lib()
     threads, per, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    gx, gy = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.plf_tree_plan(categories, n_codes, n_slots, TREE_THREADS,
-                            ctypes.byref(threads), ctypes.byref(per),
-                            ctypes.byref(smem))
+                            n_pad, batch, ctypes.byref(threads),
+                            ctypes.byref(per), ctypes.byref(smem),
+                            ctypes.byref(gx), ctypes.byref(gy))
     if err != 0:
         raise RuntimeError(f"plf_tree plan query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     return dict(sites=TREE_THREADS, threads=threads.value,
                 sites_per_thread=per.value, slots=n_slots,
-                smem_bytes=smem.value,
+                smem_bytes=smem.value, grid=(gx.value, gy.value),
                 blocks_per_sm=plf_tree_occupancy(code_dtype, categories,
                                                  n_codes, n_slots))
 
@@ -548,7 +600,7 @@ def _lib_mxu():
     lib = load_library("plf_tree_mxu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_mxu_launch.argtypes = [
-        vp, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, ci, vp, vp,
+        vp, ci, vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp, vp, ci,
         ci, ci, ci, ci, ci, vp]
     lib.plf_tree_mxu_launch.restype = ci
     lib.plf_tree_mxu_occupancy.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
@@ -578,7 +630,17 @@ def plf_tree_mxu(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
                               variant=variant, planes=planes)
     if codes.device.type != "cuda":
         raise ValueError(f"plf_tree_mxu: no kernel for device {codes.device}")
-    ts = (codes, sched, lcs, rcs, ec, ttab, rr)
+    lik, sc = _launch_tree_mxu(codes, sched[None], lcs, rcs, ec, ttab, rr, n,
+                               n_slots, states, categories, variant, planes)
+    plf_tree_mxu.launches += 1
+    return lik, sc
+
+
+def _launch_tree_mxu(codes, scheds, lcs, rcs, ec, ttab, rr, n, n_slots,
+                     states, categories, variant, planes):
+    """One kernel-2m launch over the ``(B, 6, E)`` schedules ``scheds``:
+    ``(B, n_pad)`` likelihoods and scaler counts."""
+    ts = (codes, scheds, lcs, rcs, ec, ttab, rr)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("plf_tree_mxu: tensors must be contiguous")
     rows = states * categories
@@ -596,20 +658,19 @@ def plf_tree_mxu(codes, sched, lcs, rcs, ec, ttab, rr, n: int, *,
     if states % 4 == 0 and any(p.data_ptr() % 16 for p in planes):
         raise ValueError("plf_tree_mxu: lcs/rcs/ec must be 16-byte aligned")
     lib = _lib_mxu()
-    lik = torch.empty((1, n_pad), dtype=torch.float32, device=codes.device)
-    sc = torch.empty((1, n_pad), dtype=torch.int32, device=codes.device)
+    B, E = scheds.shape[0], scheds.shape[2]
+    lik = torch.empty((B, n_pad), dtype=torch.float32, device=codes.device)
+    sc = torch.empty((B, n_pad), dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.plf_tree_mxu_launch(
-            codes.data_ptr(), codes.element_size(), sched.data_ptr(),
-            lcs.shape[0], *(p.data_ptr() for p in planes), ttab.data_ptr(),
-            n_codes, rr.data_ptr(), n_slots, root_slot, lik.data_ptr(),
-            sc.data_ptr(), int(n), n_pad, states, categories,
-            MODES[variant], stream)
+            codes.data_ptr(), codes.element_size(), scheds.data_ptr(), E,
+            *(p.data_ptr() for p in planes), ttab.data_ptr(), n_codes,
+            rr.data_ptr(), n_slots, lik.data_ptr(), sc.data_ptr(), int(n),
+            n_pad, states, categories, MODES[variant], B, stream)
     if err != 0:
         raise RuntimeError(f"plf_tree_mxu kernel launch failed: "
                            f"{lib.plf_error_string(err).decode()}")
-    plf_tree_mxu.launches += 1
     return lik, sc
 
 
@@ -650,3 +711,145 @@ def tree_mxu_block(states: int, categories: int) -> Tuple[int, int]:
         raise RuntimeError(f"plf_tree_mxu block query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     return threads.value, rows.value
+
+
+def tree_mxu_plan(code_dtype: torch.dtype, states: int, categories: int,
+                  n_codes: int, n_slots: int, variant: str,
+                  n_pad: int = TREE_MXU_SITES, batch: int = 1) -> dict:
+    """Kernel 2m's launch for ``batch`` candidates of ``n_pad`` sites:
+    ``sites`` per block (:data:`TREE_MXU_SITES`), ``threads`` and output
+    ``rows`` per job (:func:`tree_mxu_block`), ``blocks_per_sm``
+    (:func:`plf_tree_mxu_occupancy`) and the ``grid`` (site tiles,
+    candidates).  Needs a CUDA device."""
+    threads, rows = tree_mxu_block(states, categories)
+    return dict(sites=TREE_MXU_SITES, threads=threads, rows=rows,
+                slots=n_slots,
+                smem_bytes=tree_mxu_smem_bytes(n_slots, states * categories,
+                                               n_codes),
+                grid=(-(-n_pad // TREE_MXU_SITES), batch),
+                blocks_per_sm=plf_tree_mxu_occupancy(
+                    code_dtype, states, categories, n_codes, n_slots,
+                    variant))
+
+
+# ------------------------------------------------------- candidate axis --
+
+#: Most candidates one batched launch takes (the grid's y extent).
+MAX_BATCH = 65535
+
+#: log(2^-32), the log-likelihood of one rescale.
+LOG_MINLIK = float(np.log(np.float64(2.0) ** -32))
+
+#: Site-likelihood floor before the log (a normal fp32 value, as in the
+#: JAX package; exact paths never go below it).
+LIK_FLOOR = 1.1754944e-38
+
+
+def plf_tree_batch_torch(codes, progs, lcs, rcs, ec, ttab, rr, n: int, *,
+                         n_slots: int, states: int = 4, categories: int = 4,
+                         variant: str = "vpu", planes=None):
+    """Plain version of :func:`plf_tree_batch`: :func:`plf_tree_torch` on
+    each candidate's program in turn (same arguments and results)."""
+    outs = [plf_tree_torch(codes, prog, lcs, rcs, ec, ttab, rr, n,
+                           n_slots=n_slots, states=states,
+                           categories=categories, variant=variant,
+                           planes=planes)
+            for prog in progs]
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def plf_tree_batch(codes, progs, lcs, rcs, ec, ttab, rr, n: int, *,
+                   n_slots: int, states: int = 4, categories: int = 4,
+                   variant: str = "vpu", planes=None):
+    """Kernels 2 and 2m with a candidate axis: many trees over one
+    alignment in ONE launch (the tree-search neighbourhood).
+
+    Args:
+      codes, ec, ttab, rr, n: as :func:`plf_tree`, shared by every
+        candidate.
+      progs: ``(B, 6, E)`` int32, one program per candidate: a
+        :func:`carry_program` for kernel 2 ("vpu" at S = 4), a
+        :func:`compile_register_schedule` schedule for kernel 2m (every
+        other form), whose last op's ``oslot`` is the root's slot.  Row 5
+        (``eidx``) indexes the operator table.
+      lcs, rcs: ``(P, S*C, S)`` fp32 operator table: op ``i`` of a
+        candidate reads ``lcs[eidx[i]]`` and ``rcs[eidx[i]]``.
+      n_slots: the largest arena of the programs (the launch's).
+      variant, planes: as :func:`plf_tree` (planes shaped as the table).
+
+    Returns:
+      ``(site_lik, scaler_counts)``: ``(B, n_pad)`` fp32 and int32; row
+      ``b`` equals :func:`plf_tree` on candidate ``b`` bit for bit.
+    """
+    if uses_mxu_kernels(variant, states):
+        return plf_tree_mxu_batch(codes, progs, lcs, rcs, ec, ttab, rr, n,
+                                  n_slots=n_slots, states=states,
+                                  categories=categories, variant=variant,
+                                  planes=planes)
+    if planes is not None:
+        raise ValueError("plf_tree: planes are for the matrix-form kernel")
+    _check_batch(codes, progs, lcs, rcs, ec, ttab, rr, states, categories)
+    if codes.device.type == "cpu":
+        return plf_tree_batch_torch(codes, progs, lcs, rcs, ec, ttab, rr, n,
+                                    n_slots=n_slots, states=states,
+                                    categories=categories)
+    if codes.device.type != "cuda":
+        raise ValueError(f"plf_tree: no kernel for device {codes.device}")
+    lik, sc = _launch_tree(codes, progs, lcs, rcs, ec, ttab, rr, n, n_slots,
+                           states, categories)
+    plf_tree_batch.launches += 1
+    return lik, sc
+
+
+plf_tree_batch.launches = 0
+
+
+def plf_tree_mxu_batch(codes, progs, lcs, rcs, ec, ttab, rr, n: int, *,
+                       n_slots: int, states: int = 20, categories: int = 4,
+                       variant: str = "mxu_3x", planes=None):
+    """Kernel 2m with a candidate axis: :func:`plf_tree_batch` in the
+    arithmetic of ``variant`` (any key of :data:`plf_mxu.MODES`)."""
+    if variant not in MODES:
+        raise ValueError(f"unknown kernel variant {variant!r}")
+    _check_batch(codes, progs, lcs, rcs, ec, ttab, rr, states, categories)
+    if codes.device.type == "cpu":
+        return plf_tree_batch_torch(codes, progs, lcs, rcs, ec, ttab, rr, n,
+                                    n_slots=n_slots, states=states,
+                                    categories=categories, variant=variant,
+                                    planes=planes)
+    if codes.device.type != "cuda":
+        raise ValueError(f"plf_tree_mxu: no kernel for device {codes.device}")
+    lik, sc = _launch_tree_mxu(codes, progs, lcs, rcs, ec, ttab, rr, n,
+                               n_slots, states, categories, variant, planes)
+    plf_tree_mxu_batch.launches += 1
+    return lik, sc
+
+
+plf_tree_mxu_batch.launches = 0
+
+
+def batched_tree_loglik_parts(codes, progs, lcs, rcs, ec, ttab, rr, wpad,
+                              n: int, *, n_slots: int, states: int = 4,
+                              categories: int = 4, variant: str = "vpu",
+                              planes=None, n_parts: int = 64):
+    """Score a batch of same-shape topologies in ONE launch
+    (:func:`plf_tree_batch`) and reduce each candidate's sites to
+    ``(B, n_parts)`` fp32 partial sums of the weighted per-site
+    log-likelihood, rescale counts folded in, over equal chunks of sites
+    (the JAX package's epilogue, ``plf_tree_pallas.py:656-662``, as torch
+    ops on the device); sum them in float64 on the host for each
+    candidate's log-likelihood.
+    Counterpart of ``plf_tpu/ops/plf_tree_pallas.py::
+    batched_tree_loglik_parts`` (``:628``); ``wpad`` is the ``(n_pad,)``
+    fp32 site weights."""
+    B, n_pad = progs.shape[0], codes.shape[-1]
+    if n_parts < 1 or n_pad % n_parts:
+        raise ValueError(f"n_parts {n_parts} does not divide {n_pad} sites")
+    lik, sc = plf_tree_batch(codes, progs, lcs, rcs, ec, ttab, rr, n,
+                             n_slots=n_slots, states=states,
+                             categories=categories, variant=variant,
+                             planes=planes)
+    site = (torch.log(torch.clamp_min(lik, LIK_FLOOR))
+            + sc.to(torch.float32) * LOG_MINLIK) * wpad
+    return site.reshape(B, n_parts, n_pad // n_parts).sum(dim=-1)

@@ -101,7 +101,7 @@ the storage type (:func:`seg_mxu_site_bytes` counts fp32 boundaries), so
 an fp32 and a bf16 run cut a tree alike, as the JAX planner does.  Each
 wrapper's ``bf16_launches`` counts the launches of its bf16 form.
 
-Not ported yet (ROADMAP queue 1 item 3): the batched segmented scorer.
+Not ported yet (ROADMAP queue 1 item 2): the batched segmented scorer.
 """
 
 from __future__ import annotations

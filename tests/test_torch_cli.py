@@ -18,6 +18,7 @@ from plf_tpu_torch.reference import plf_reference  # noqa: E402
 from plf_tpu_torch.runtime.executor import StreamingExecutor  # noqa: E402
 from plf_tpu_torch.runtime.native import plf_golden_native  # noqa: E402
 from plf_tpu_torch.utils import timing as TT  # noqa: E402
+from test_torch_batch import _one_torch_thread  # noqa: E402,F401
 
 
 def test_cli_host_mem_equivalent(tmp_path, capsys):
@@ -53,9 +54,58 @@ def test_cli_runs(argv, capsys):
         assert re.search(r"\| instances +\| +9 \|", out)
 
 
-def test_cli_infer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["infer", "aln.fasta"])
+def _write_fasta(path, n_taxa=6, n_sites=300, seed=3):
+    from plf_tpu_torch.models import hky85, random_tree, simulate_alignment
+    codes = simulate_alignment(random_tree(n_taxa, seed=seed), hky85(2.0),
+                               n_sites, alpha=0.5, seed=seed)
+    path.write_text("".join(f">t{i}\n" + "".join("ACGT"[c] for c in row)
+                            + "\n" for i, row in enumerate(codes)))
+    return str(path)
+
+
+def test_cli_infer_is_not_ported(tmp_path):
+    """What ``infer`` does not take yet: ``--model auto`` (AICc model
+    selection, models/selection.py; DNA and codon alike) raises
+    NotImplementedError naming its ROADMAP item."""
+    fa = _write_fasta(tmp_path / "aln.fa")
+    for extra in ([], ["--seq-type", "codon"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(["infer", fa, "--model", "auto", "--device", "cpu"]
+                 + extra)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "hky", "--alpha", "0.5", "--search", "nni"],
+    ["--model", "gtr", "--alpha", "0.5", "--bootstrap", "3",
+     "--search", "spr"],
+])
+def test_cli_infer_writes_newick(tmp_path, capsys, argv):
+    """``python -m plf_tpu_torch infer`` (plf_tpu/__main__.py:56) on a small
+    simulated DNA FASTA, on the CPU: exit 0, the newick written to
+    ``--out`` parses back with every taxon (and bootstrap support labels
+    with ``--bootstrap``); the GTR run fits the model (fit_model)."""
+    from plf_tpu_torch.models import parse_newick
+    fa = _write_fasta(tmp_path / "aln.fa")
+    out = tmp_path / "tree.nwk"
+    assert main(["infer", fa, "--out", str(out), "--device", "cpu"]
+                + argv) == 0
+    text = capsys.readouterr().out
+    tree = parse_newick(out.read_text())
+    assert sorted(tree.leaf_names()) == [f"t{i}" for i in range(6)]
+    assert "final ll = " in text and "kernel launches: none" in text
+    if "gtr" in argv:
+        assert "GTR fit" in text
+        labels = [n.name for n in tree.nodes if not n.is_leaf and n.name]
+        assert labels and all(0 <= int(x) <= 100 for x in labels)
+
+
+def test_detect_protein_equals_jax():
+    from plf_tpu.__main__ import _detect_protein as j_detect
+    from plf_tpu_torch.__main__ import _detect_protein
+    for text in (">a\nACGTACGTXXACGTACGTACGT\n>b\nACGTACGTAC-TACGTACGTNN\n",
+                 ">a\nMKVLITEDSQFE\n>b\nMKLLVSEDWQFE\n",
+                 "2 6\na ACGTRY\nb MKVLIT\n"):
+        assert _detect_protein(text) == j_detect(text)
 
 
 @pytest.mark.parametrize("S", [4, 20])

@@ -16,9 +16,10 @@ torch = pytest.importorskip("torch")
 
 from plf_tpu_torch import PLFConfig, PLFEngine  # noqa: E402
 from plf_tpu_torch.models import (PhyloModel, codon_gy94,  # noqa: E402
-                                  empirical_protein, hky85, parse_newick,
-                                  random_gtr, random_tree,
+                                  empirical_protein, hky85, nni_neighbors,
+                                  parse_newick, random_gtr, random_tree,
                                   simulate_alignment)
+from plf_tpu_torch.models import phylo as TP  # noqa: E402
 from plf_tpu_torch.ops import layout as L  # noqa: E402
 from plf_tpu_torch.ops.plf_mxu import (node_mxu_plan,  # noqa: E402
                                        plf_node_mxu, plf_node_mxu_torch,
@@ -876,6 +877,154 @@ def test_kernel2m_occupancy_and_rejections(cuda):
     c = torch.rand(80, 20, device=cuda)
     with pytest.raises(ValueError, match="one device"):
         plf_node_mxu(x, x, c.cpu(), c, c, 200, variant="mxu")
+
+
+# ------------------------------ kernels 2 and 2m with a candidate axis --
+
+def _nni_batch(device, variant, states=4, n_leaves=24, n_sites=1000,
+               tip_dtype="int32", categories=4, p_inv=None):
+    """The incumbent and its NNI neighbours, sharing its device tensors."""
+    rng = np.random.default_rng(6)
+    tips = rng.integers(-1, states + (10 if states == 4 else 3),
+                        size=(n_leaves, n_sites))
+    model = {4: lambda: hky85(2.0), 20: lambda: empirical_protein("lg")}.get(
+        states, lambda: random_gtr(states, seed=2))()
+    cfg = PLFConfig(states=states, block_sites=128, kernel_variant=variant,
+                    tip_dtype=tip_dtype, categories=categories)
+    tree = random_tree(n_leaves, seed=6)
+    pm0 = PhyloModel(tree, model, tips, alpha=0.5, p_inv=p_inv, config=cfg,
+                     device=device)
+    return [pm0] + [PhyloModel(t, model, tips, alpha=0.5, p_inv=p_inv,
+                               config=cfg, share_device_from=pm0,
+                               device=device)
+                    for t in nni_neighbors(tree)]
+
+
+def _batch_against_single_and_plain(pms, counter):
+    """One batched launch == the plain batch and each candidate's
+    single-tree launch, bit for bit (likelihoods and scaler counts);
+    ``batch_log_likelihood`` is one more batched launch, each row within
+    rtol 1e-6 of that candidate's log_likelihood()."""
+    pm0 = pms[0]
+    cfg = pm0.config
+    progs, lcs, rcs, planes, n_slots = TP.batch_inputs(pms)
+    kw = dict(n_slots=n_slots, states=cfg.states, categories=cfg.categories,
+              variant=cfg.resolved_kernel_variant, planes=planes)
+    args = (pm0.codes, progs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+            pm0.root_rows[0], pm0.n_sites)
+    before = counter.launches
+    lik, sc = TT.plf_tree_batch(*args, **kw)
+    assert counter.launches == before + 1
+    lik_p, sc_p = TT.plf_tree_batch_torch(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lik, lik_p) and torch.equal(sc, sc_p)
+    for b, pm in enumerate(pms):
+        one, one_sc = plf_tree(
+            pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites, n_slots=pm.n_slots,
+            root_slot=pm.root_slot, states=cfg.states,
+            categories=cfg.categories, variant=cfg.resolved_kernel_variant,
+            planes=pm._planes(), program=None if pm._matrix_form
+            else pm.tree_program)
+        assert torch.equal(lik[b], one[0]) and torch.equal(sc[b], one_sc[0])
+    assert int(sc.sum()) > 0
+    lls = TP.batch_log_likelihood(pms)
+    assert counter.launches == before + 2
+    np.testing.assert_allclose(
+        lls, [pm.log_likelihood().log_likelihood for pm in pms], rtol=1e-6)
+
+
+@pytest.mark.parametrize("tip_dtype", ["int32", "int8"])
+@pytest.mark.parametrize("categories,p_inv", [(4, None), (4, 0.2),
+                                              (1, None)])
+def test_kernel2_batch_equals_single_and_plain(cuda, tip_dtype, categories,
+                                               p_inv):
+    """Kernel 2 with a candidate axis: an NNI neighbourhood plus the
+    incumbent (45 candidates at 24 taxa) in one launch, each row == the
+    single-tree kernel on that candidate and == the plain version, with
+    int8 tips, +I (C = 5) and C = 1."""
+    pms = _nni_batch(cuda, "vpu", tip_dtype=tip_dtype,
+                     categories=categories, p_inv=p_inv)
+    assert len(pms) == 45 and TP.batch_fits(pms)
+    _batch_against_single_and_plain(pms, TT.plf_tree_batch)
+
+
+#: (states, model size) x variant of the kernel-2m batch test: every
+#: variant at S = 20 (+I too) and 61; the matrix forms at S = 4 ("vpu"
+#: there is kernel 2's, tested above).
+BATCH_2M_CASES = [
+    (states, extra, variant)
+    for states, extra in ((20, {}), (20, {"p_inv": 0.2}),
+                          (61, {"n_leaves": 8, "n_sites": 300}),
+                          (4, {"n_leaves": 32}))
+    for variant in MXU_VARIANTS + ["vpu"]
+    if (states, variant) != (4, "vpu")]
+
+
+@pytest.mark.parametrize("states,extra,variant", BATCH_2M_CASES)
+def test_kernel2m_batch_equals_single_and_plain(cuda, states, extra,
+                                                variant):
+    """Kernel 2m with a candidate axis, every variant, at S = 20 (+I too),
+    61 and 4 (DNA in the matrix forms): one launch == single-tree 2m on
+    each candidate == the plain version."""
+    kw = {"n_leaves": 12, "n_sites": 700}
+    kw.update(extra)
+    pms = _nni_batch(cuda, variant, states=states, **kw)
+    _batch_against_single_and_plain(pms, TT.plf_tree_mxu_batch)
+
+
+def test_batch_plan_and_rejections(cuda):
+    """tree_plan and tree_mxu_plan report the batched grid (site blocks,
+    candidates); the wrappers refuse a program of the wrong shape or
+    dtype."""
+    pms = _nni_batch(cuda, "vpu")
+    pm0 = pms[0]
+    progs, lcs, rcs, _, n_slots = TP.batch_inputs(pms)
+    n_codes = pm0.tip_table.shape[1]
+    plan = TT.tree_plan(pm0.codes.dtype, 4, n_codes, n_slots, pm0.n_pad,
+                        len(pms))
+    assert plan["grid"] == (-(-pm0.n_pad // TT.TREE_THREADS), len(pms))
+    assert plan["blocks_per_sm"] >= 1
+    assert TT.tree_plan(pm0.codes.dtype, 4, n_codes, n_slots)["grid"] == \
+        (1, 1)
+    mplan = TT.tree_mxu_plan(torch.int32, 20, 4, 24, 6, "mxu_3x", 1024, 7)
+    assert mplan["grid"] == (1024 // TT.TREE_MXU_SITES, 7)
+    assert (mplan["threads"], mplan["rows"]) == TREE_MXU_BLOCKS[(20, 4)]
+    args = (pm0.codes, progs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+            pm0.root_rows[0], pm0.n_sites)
+    with pytest.raises(ValueError, match="progs"):
+        TT.plf_tree_batch(*args[:1], progs[0], *args[2:], n_slots=n_slots)
+    with pytest.raises(ValueError, match="progs"):
+        TT.plf_tree_batch(*args[:1], progs.to(torch.int64), *args[2:],
+                          n_slots=n_slots)
+    with pytest.raises(ValueError, match="does not fit"):
+        TT.plf_tree_batch(*args, n_slots=40)
+
+
+@pytest.mark.parametrize("states,argv", [
+    (4, ["--model", "hky", "--alpha", "0.5", "--search", "mixed",
+         "--bootstrap", "3"]),
+    (20, ["--model", "lg", "--search", "spr", "--fit", "lengths"])])
+def test_infer_cli_on_the_card(cuda, tmp_path, capsys, states, argv):
+    """``python -m plf_tpu_torch infer`` on the card (its default device):
+    SPR and mixed rounds score each neighbourhood in one batched launch
+    (kernel 2 for DNA, 2m for LG proteins), and the newick parses back
+    with every taxon."""
+    from plf_tpu_torch.__main__ import main
+    tree = random_tree(8, seed=3, mean_branch=0.2)
+    model = hky85(2.0) if states == 4 else empirical_protein("lg")
+    codes = simulate_alignment(tree, model, 400, alpha=0.5, seed=3)
+    letters = "ACGT" if states == 4 else "ARNDCQEGHILKMFPSTWYV"
+    fa, out = tmp_path / "aln.fa", tmp_path / "tree.nwk"
+    fa.write_text("".join(f">t{i}\n" + "".join(letters[c] for c in row)
+                          + "\n" for i, row in enumerate(codes)))
+    counter = TT.plf_tree_batch if states == 4 else TT.plf_tree_mxu_batch
+    before = counter.launches
+    assert main(["infer", str(fa), "--out", str(out)] + argv) == 0
+    assert counter.launches > before
+    assert "final ll = " in capsys.readouterr().out
+    assert sorted(parse_newick(out.read_text()).leaf_names()) == \
+        sorted(tree.leaf_names())
 
 
 # --------------------------------------------- kernel 4m (matrix forms) --
