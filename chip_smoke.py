@@ -1693,6 +1693,16 @@ def _fasta(path, rows, alphabet):
             f.write(f">t{i}\n" + "".join(alphabet[c] for c in row) + "\n")
 
 
+def _codon_fasta(path):
+    """The GY94 codon FASTA of phases ``infer`` and ``analyses`` (16 taxa
+    x 512 codons, kappa 3, omega 0.3); returns the true tree."""
+    ctrue = random_tree(INFER_CODON_TAXA, seed=INFER_SEED, mean_branch=0.2)
+    _fasta(path, simulate_alignment(ctrue, codon_gy94(3.0, 0.3),
+                                    INFER_CODONS, seed=INFER_SEED),
+           SENSE_CODONS)
+    return ctrue
+
+
 def infer_phase(dev):
     """The inference workflow (``run_inference``, ``python -m
     plf_tpu_torch infer``), each run with every count set to 0 just
@@ -1804,12 +1814,8 @@ def infer_phase(dev):
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        ctrue = random_tree(INFER_CODON_TAXA, seed=INFER_SEED,
-                            mean_branch=0.2)
-        ccodes = simulate_alignment(ctrue, codon_gy94(3.0, 0.3),
-                                    INFER_CODONS, seed=INFER_SEED)
         fa, nwk = f"{tmp}/codon.fa", f"{tmp}/codon.nwk"
-        _fasta(fa, ccodes, SENSE_CODONS)
+        ctrue = _codon_fasta(fa)
         text, wall, counts = _cli_infer(
             [fa, "--seq-type", "codon", "--model", "gy94", "--search",
              "nni", "--out", nwk], "codon")
@@ -1853,6 +1859,465 @@ def infer_phase(dev):
               f"({min(labels)}-{max(labels)}), RF to the true tree "
               f"{rf_distance(tree, gtrue)}; launches {counts}")
         out["gtr"] = dict(wall_s=wall, counts=counts)
+    return out
+
+
+# -------------------------------------------------------------- analyses --
+
+ANALYSES_TAXA, ANALYSES_SITES = 128, 1 << 14
+ANALYSES_SEED = 29
+ANALYSES_PROT_TAXA, ANALYSES_PROT_SITES = 32, 4096
+ALRT_REPLICATES = 1000
+#: aLRT's first branches held to the float64 brute force, on a
+#: sub-alignment of this many sites run through the same function.
+ALRT_BRUTE_BRANCHES, ALRT_BRUTE_SITES = 4, 2048
+ALRT_BRUTE_RTOL = 1e-6
+#: Posteriors against the float64 pass of the same recursion, on the
+#: first ANC_SITES sites: probabilities in fp32.  Site rates are held to
+#: the CPU plain versions' run of the same model (kernels 1 and 1m equal
+#: them bit for bit), and their distance from float64 is printed: the
+#: root CLV's eigen-coordinate sums cancel, so a category's likelihood
+#: carries fp32 rounding of the larger terms (3e-4 of a posterior in fp32
+#: and 1e-2 in "mxu_3x" at 32 x 4,096 protein on the CPU).
+ANC_SITES, ANC_ATOL = 512, 1e-5
+PART_STEPS = 50
+
+
+class Captured:
+    """Keeps what ``model_select`` and ``run_inference`` return while the
+    CLI runs inside it (``__main__`` imports both from
+    ``plf_tpu_torch.models`` when it runs; the package is untouched)."""
+
+    def __enter__(self):
+        import plf_tpu_torch.models as M
+        self._real = (M.model_select, M.run_inference)
+        self.selection = self.inference = None
+
+        def select(*a, **k):
+            self.selection = self._real[0](*a, **k)
+            return self.selection
+
+        def infer(*a, **k):
+            self.inference = self._real[1](*a, **k)
+            return self.inference
+
+        M.model_select, M.run_inference = select, infer
+        return self
+
+    def __exit__(self, *exc):
+        import plf_tpu_torch.models as M
+        M.model_select, M.run_inference = self._real
+
+
+def _selection_table(text, label):
+    """The AICc table, fit seconds and winner that ``infer --model auto``
+    logs: ``(rows as (name, k, aicc), fit seconds text, winner, alpha)``."""
+    table = text.split("model selection (AICc):\n")[1].split("\nfit ")[0]
+    rows = [(r.split()[0], int(r.split()[2]), float(r.split()[4]))
+            for r in table.splitlines()[1:]]
+    secs = re.search(r"fit seconds: (.*)", text).group(1)
+    sel = re.search(r"selected: (\S+) \(alpha=(\S+), p_inv", text)
+    check(sel is not None, f"{label}: no 'selected:' line")
+    alpha = None if sel.group(2) == "None" else float(sel.group(2))
+    return rows, secs, sel.group(1), alpha
+
+
+def _merge(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _launched(counts, names, label):
+    check(all(counts.get(k, 0) > 0 for k in names),
+          f"{label}: expected launches of {names}, got {counts}")
+
+
+#: ``trace()`` of one model's ``log_likelihood()`` in a process of its own
+#: (argument: a directory holding ``model.npz`` and ``model.json``).  On
+#: the H100 machine a ``torch.profiler`` session late in this script's
+#: process (after the kernels' libraries were built) recorded no device
+#: activity, while one in a fresh process records every launch.
+TRACE_SCRIPT = """
+import json, sys
+import numpy as np
+from plf_tpu_torch import convert
+from plf_tpu_torch.models import PhyloModel
+from plf_tpu_torch.utils.profiling import trace
+d = np.load(sys.argv[1] + "/model.npz")
+meta = json.load(open(sys.argv[1] + "/model.json"))
+pm = PhyloModel(convert.tree_from_nodes(meta["nodes"], meta["root"]),
+                convert.substitution_model(d["pi"], d["eigenvalues"],
+                                           d["u"], d["w"]),
+                d["tips"], wgt=d["wgt"], alpha=meta["alpha"],
+                p_inv=meta["p_inv"], device="cuda")
+pm.log_likelihood()
+with trace(sys.argv[1] + "/trace", device="cuda"):
+    ll = pm.log_likelihood().log_likelihood
+print(json.dumps({"ll": ll}))
+"""
+
+
+class TracedRun:
+    """``TRACE_SCRIPT`` on a model passed by value, started at once in a
+    process of its own; ``result()`` waits for it and returns the
+    kernel-2 names in its ``trace.json``, the trace's event count and
+    the model's ll there.  The process is killed if it is still running
+    when the phase fails."""
+
+    def __init__(self, path, tree, model, tips, wgt, alpha, p_inv):
+        import os
+        os.makedirs(path, exist_ok=True)
+        np.savez(f"{path}/model.npz", pi=model.pi,
+                 eigenvalues=model.eigenvalues, u=model.u, w=model.w,
+                 tips=tips, wgt=wgt)
+        with open(f"{path}/model.json", "w") as f:
+            json.dump(dict(nodes=[(n.index, n.name, n.length, n.children)
+                                  for n in tree.nodes], root=tree.root,
+                           alpha=alpha, p_inv=p_inv), f)
+        self.path = path
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", TRACE_SCRIPT, path],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self):
+        try:
+            out, err = self.proc.communicate(timeout=300)
+        finally:
+            self.stop()
+        check(self.proc.returncode == 0, f"trace subprocess exited "
+              f"{self.proc.returncode}:\n{err[-2000:]}")
+        events = json.load(open(f"{self.path}/trace/trace.json")
+                           )["traceEvents"]
+        k2 = sorted({str(e.get("name"))[:80] for e in events
+                     if "plf_tree_kernel" in str(e.get("name"))})
+        return k2, len(events), json.loads(out.splitlines()[-1])["ll"]
+
+
+def analyses_phase(dev):
+    """The analyses around a tree, each run with every count set to 0
+    just before it and read just after:
+
+    * ``python -m plf_tpu_torch infer --model auto`` on 128 DNA taxa x
+      16,384 sites (HKY85, kappa 4, pi 0.3/0.2/0.2/0.3, Gamma4 alpha
+      0.5): the AICc table of all 10 DNA candidates, the winner HKY or GTR
+      with +G and alpha in 0.35-0.7, each fit's seconds, the newick
+      parsed back (kernels 2, 7, 8);
+    * ``model_select`` over the 32-model protein ladder on 32 taxa x
+      4,096 LG+G4 sites: LG with +G wins (kernels 2m, 4m);
+    * ``infer --seq-type codon --model auto`` on phase infer's 16 x 512
+      GY94 FASTA: GY94 and GY94+G in the table (kernels 2m, 4m);
+    * SH-aLRT (``alrt_support``, 1,000 RELL replicates) on the DNA tree
+      parsed back under the fitted model: 126 branches (every internal
+      node but the root), kernel 2 a tree; the first
+      branches' alternatives on a 2,048-site sub-alignment equal the
+      float64 brute force;
+    * ``ancestral_marginal`` and ``site_rates`` on that DNA model and on
+      the default protein LG+G4 model: rows sum to 1, posteriors equal a
+      float64 pass on the first 512 sites (with TF32 switched on around
+      ``ancestral_marginal``), ``site_rates`` one launch of kernel 1 or 1m
+      an internal node;
+    * a partitioned model (the DNA alignment's three codon positions,
+      HKY85+G4 each with its own alpha): ``log_likelihood()`` == the sum
+      of the three PhyloModels bit for bit, ``loglik_fn`` at t0 within
+      rel 1e-5 of it, ``optimize(steps=50)`` raises the ll.
+
+    The phase runs under ``PhaseProfiler`` (its report printed), and a
+    ``trace()`` of one aLRT alternative names kernel 2's launch."""
+    from plf_tpu_torch.models import (DNA_CANDIDATES, PROTEIN_CANDIDATES,
+                                      Partition, PartitionedModel,
+                                      alrt_support, ancestral_marginal,
+                                      model_select, nj_tree, site_rates)
+    from plf_tpu_torch.models import support as support_mod
+    from plf_tpu_torch.models.ancestral import ancestral_bruteforce
+    from plf_tpu_torch.models.search import _rebuild
+    from plf_tpu_torch.models.pipeline import _with_lengths
+    from plf_tpu_torch.utils.profiling import PhaseProfiler
+
+    prof = PhaseProfiler(device=dev)
+    total = {}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as cleanup:
+        # -- DNA: infer --model auto --------------------------------------
+        true = random_tree(ANALYSES_TAXA, seed=ANALYSES_SEED)
+        model = hky85(4.0, [0.3, 0.2, 0.2, 0.3])
+        codes = simulate_alignment(true, model, ANALYSES_SITES, alpha=0.5,
+                                   seed=ANALYSES_SEED)
+        names = true.leaf_names()
+        fa, nwk = f"{tmp}/dna.fa", f"{tmp}/dna.nwk"
+        _fasta(fa, codes, "ACGT")
+        with prof.range("select_dna"), Captured() as cap:
+            text, wall, counts = _cli_infer([fa, "--model", "auto", "--out",
+                                             nwk], "DNA auto")
+        _merge(total, counts)
+        rows, secs, best, alpha = _selection_table(text, "DNA auto")
+        tree = parse_newick(open(nwk).read())
+        base, *flags = best.split("+")
+        check(sorted(r[0] for r in rows) == sorted(DNA_CANDIDATES)
+              and base in ("HKY", "GTR") and "G" in flags
+              and alpha is not None and 0.35 <= alpha <= 0.7
+              and sorted(tree.leaf_names()) == sorted(names),
+              f"DNA auto: winner {best}, alpha {alpha}, rows {rows}")
+        _launched(counts, ("plf_tree", "plf_tree_seg", "plf_tree_seg_bwd"),
+                  "DNA auto")
+        sel_s = sum(f.seconds for f in cap.selection.fits)
+        phase("analyses", f"python -m plf_tpu_torch infer --model auto "
+              f"({ANALYSES_TAXA} taxa x {ANALYSES_SITES} HKY85+G4 sites): "
+              f"exit 0 in {wall:.1f} s (selection {sel_s:.1f} s); winner "
+              f"{best}, alpha {alpha:.4f}, final ll "
+              f"{cap.inference.log_likelihood:.3f}, RF to the true tree "
+              f"{rf_distance(tree, true)}; launches {counts}")
+        print("AICc table (DNA):\n" + cap.selection.table(), flush=True)
+        phase("analyses", f"DNA fit seconds: {secs}")
+        out["dna"] = dict(wall_s=wall, select_s=sel_s, winner=best,
+                          counts=counts)
+        # one alternative that aLRT scores (the NNI around the first
+        # internal branch), traced in a process of its own while the
+        # phase goes on
+        res = cap.inference
+        pats, wgt = compress_patterns(codes)
+        order = [names.index(nm) for nm in tree.leaf_names()]
+        tips = pats[order]
+        d = next(nd.index for nd in tree.nodes
+                 if not nd.is_leaf and nd.index != tree.root)
+        parent = next(nd for nd in tree.nodes if d in nd.children)
+        s_ = next(c for c in parent.children if c != d)
+        x, y = tree.nodes[d].children
+        alt = _rebuild(tree, {parent.index: tuple(x if c == s_ else c
+                                                  for c in parent.children),
+                              d: (s_, y)})
+        traced = TracedRun(f"{tmp}/alt", alt, res.model, tips, wgt,
+                           res.alpha, res.p_inv)
+        cleanup.callback(traced.stop)
+
+        # -- protein: model_select over the 32-model ladder ---------------
+        ptrue = random_tree(ANALYSES_PROT_TAXA, seed=ANALYSES_SEED)
+        lg = empirical_protein("lg")
+        pcodes = simulate_alignment(ptrue, lg, ANALYSES_PROT_SITES,
+                                    alpha=0.5, seed=ANALYSES_SEED)
+        ppats, pwgt = compress_patterns(pcodes)
+        _reset_counts()
+        t0 = time.perf_counter()
+        with prof.range("select_protein"):
+            pstart = nj_tree(ppats, pwgt, states=20, device=dev)
+            psel = model_select(pstart, ppats, wgt=pwgt,
+                                config=PLFConfig(states=20), device=dev)
+        pwall = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        _merge(total, counts)
+        pbest = psel.best
+        check(sorted(f.name for f in psel.fits) == sorted(PROTEIN_CANDIDATES)
+              and pbest.name.split("+")[0] == "LG"
+              and "G" in pbest.name.split("+")[1:],
+              f"protein selection: winner {pbest.name}")
+        _launched(counts, ("plf_tree_mxu", "plf_tree_bwd_mxu"),
+                  "protein selection")
+        print("AICc table (protein):\n" + psel.table(), flush=True)
+        phase("analyses", f"model_select, {len(psel.fits)} protein models "
+              f"({ANALYSES_PROT_TAXA} x {ANALYSES_PROT_SITES} LG+G4 sites, "
+              f"{ppats.shape[1]} patterns): {pwall:.1f} s; winner "
+              f"{pbest.name} (alpha {pbest.alpha}); fit seconds "
+              + ", ".join(f"{f.name} {f.seconds:.2f}" for f in psel.fits)
+              + f"; launches {counts}")
+        out["protein"] = dict(wall_s=pwall, winner=pbest.name,
+                              counts=counts)
+
+        # -- codon: infer --seq-type codon --model auto -------------------
+        cfa = f"{tmp}/codon.fa"
+        _codon_fasta(cfa)
+        with prof.range("select_codon"):
+            ctext, cwall, counts = _cli_infer(
+                [cfa, "--seq-type", "codon", "--model", "auto"],
+                "codon auto")
+        _merge(total, counts)
+        crows, csecs, cbest, _ = _selection_table(ctext, "codon auto")
+        check(sorted(r[0] for r in crows) == ["GY94", "GY94+G"],
+              f"codon auto: rows {crows}")
+        _launched(counts, ("plf_tree_mxu", "plf_tree_bwd_mxu"), "codon auto")
+        phase("analyses", f"python -m plf_tpu_torch infer --seq-type codon "
+              f"--model auto ({INFER_CODON_TAXA} x {INFER_CODONS} GY94 "
+              f"codons): exit 0 in {cwall:.1f} s; table "
+              + ", ".join(f"{n} k={k} AICc={a:.2f}" for n, k, a in crows)
+              + f"; winner {cbest}; fit seconds {csecs}; launches {counts}")
+        out["codon"] = dict(wall_s=cwall, counts=counts)
+
+        # -- SH-aLRT on the DNA tree under the fitted model ---------------
+        _reset_counts()
+        t0 = time.perf_counter()
+        with prof.range("alrt"):
+            sup = alrt_support(tree, res.model, tips, wgt=wgt,
+                               alpha=res.alpha, p_inv=res.p_inv,
+                               rell_replicates=ALRT_REPLICATES, seed=0,
+                               device=dev)
+        awall = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        _merge(total, counts)
+        # every internal node but the root: the two root edges are one
+        # unrooted branch, scored twice, as the JAX package scores it
+        n_int = ANALYSES_TAXA - 2
+        check(len(sup) == n_int and counts.get("plf_tree") == 1 + 2 * n_int,
+              f"aLRT: {len(sup)} branches, launches {counts}")
+        shs = np.array([sh for _, sh in sup.values()])
+        alrts = np.array([a for a, _ in sup.values()])
+
+        seen = []
+        real = support_mod._site_ll
+
+        def spy(t, *a, **kw):
+            ll, s_ll, m = real(t, *a, **kw)
+            seen.append((t, a, ll))
+            return ll, s_ll, m
+
+        support_mod._site_ll = spy
+        try:
+            alrt_support(tree, res.model, codes[order][:, :ALRT_BRUTE_SITES],
+                         alpha=res.alpha, p_inv=res.p_inv,
+                         rell_replicates=ALRT_REPLICATES, device=dev)
+        finally:
+            support_mod._site_ll = real
+        worst = 0.0
+        for t, (m, tp, w, al, pi_, cfg, d), ll in \
+                seen[:1 + 2 * ALRT_BRUTE_BRANCHES]:
+            bf = PhyloModel(t, m, tp, wgt=w, alpha=al, p_inv=pi_,
+                            config=cfg, device=d).log_likelihood_bruteforce()
+            worst = max(worst, abs(ll - bf) / abs(bf))
+        check(worst < ALRT_BRUTE_RTOL,
+              f"aLRT: alternatives vs float64 brute force rel {worst:.2e}")
+        phase("analyses", f"alrt_support: {len(sup)} branches x 2 NNI "
+              f"alternatives, {ALRT_REPLICATES} RELL replicates: "
+              f"{awall:.2f} s; SH >= 0.9 on {np.mean(shs >= 0.9):.3f} of "
+              f"branches; aLRT < 0 on {int((alrts < 0).sum())}; the first "
+              f"{ALRT_BRUTE_BRANCHES} branches' "
+              f"{2 * ALRT_BRUTE_BRANCHES} alternatives and the incumbent "
+              f"on {ALRT_BRUTE_SITES} sites within rel {worst:.1e} of the "
+              f"float64 brute force; launches {counts}")
+        out["alrt"] = dict(wall_s=awall, counts=counts)
+
+        # the aLRT alternative under the trace: its ll here == there
+        alt_ll = PhyloModel(alt, res.model, tips, wgt=wgt, alpha=res.alpha,
+                            p_inv=res.p_inv,
+                            device=dev).log_likelihood().log_likelihood
+        with prof.range("trace"):
+            k2, n_events, sub_ll = traced.result()
+        check(k2 and sub_ll == alt_ll,
+              f"trace: kernel-2 launches named {k2}, ll {sub_ll} vs "
+              f"{alt_ll} in this process")
+        phase("analyses", f"trace() of one aLRT alternative (in a process "
+              f"of its own, run beside the phase): {n_events} events, "
+              f"kernel 2 named as {k2}; its ll == this process's bit for "
+              f"bit")
+
+        # -- ancestral states and site rates -------------------------------
+        lg_fit = next(f for f in psel.fits if f.name == "LG+G")
+        lg_tree = _with_lengths(pstart, lg_fit.lengths)
+        out["ancestral"] = {}
+        for label, make, kernel in (
+                ("DNA", lambda d: PhyloModel(
+                    tree, res.model, tips, wgt=wgt, alpha=res.alpha,
+                    p_inv=res.p_inv, device=d), "plf_node"),
+                ("protein", lambda d: PhyloModel(
+                    lg_tree, lg, ppats, wgt=pwgt, alpha=lg_fit.alpha,
+                    device=d), "plf_node_mxu")):
+            m = make(dev)
+            legacy = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with prof.range(f"ancestral_{label}"):
+                    posts = ancestral_marginal(m)
+                anc_ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = legacy
+            bf_posts, bf_lik = ancestral_bruteforce(m, ANC_SITES)
+            row_err = max(float(np.abs(p.sum(axis=1) - 1).max())
+                          for p in posts.values())
+            post_err = max(float(np.abs(posts[v][:len(bf_lik)]
+                                        - bf_posts[v]).max())
+                           for v in posts)
+            check(len(posts) == m.tree.n_leaves - 1 and row_err < ANC_ATOL
+                  and post_err < ANC_ATOL,
+                  f"ancestral {label}: rows {row_err:.2e}, posteriors vs "
+                  f"float64 {post_err:.2e}")
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with prof.range(f"site_rates_{label}"):
+                mean_rate, cat_post = site_rates(m)
+            sr_ms = 1e3 * (time.perf_counter() - t0)
+            counts = {k: v for k, v in _counts().items() if v}
+            _merge(total, counts)
+            w_bf = bf_lik * np.asarray(m.rate_weights)[None, :]
+            w_bf = w_bf / w_bf.sum(axis=1, keepdims=True)
+            sr_err = float(np.abs(cat_post[:len(w_bf)] - w_bf).max())
+            plain_mean, plain_post = site_rates(make("cpu"))
+            check(counts == {kernel: len(m.schedule)}
+                  and np.array_equal(cat_post, plain_post)
+                  and np.array_equal(mean_rate, plain_mean)
+                  and np.all(np.isfinite(mean_rate)),
+                  f"site_rates {label}: launches {counts}, vs the plain "
+                  f"versions {np.abs(cat_post - plain_post).max():.2e}")
+            phase("analyses", f"{label} ({m.tree.n_leaves} taxa x "
+                  f"{m.n_sites} patterns, "
+                  f"{m.config.resolved_kernel_variant}): ancestral_marginal "
+                  f"{anc_ms:.1f} ms (TF32 on), {len(posts)} nodes, rows sum "
+                  f"to 1 within {row_err:.1e}, first {ANC_SITES} sites within "
+                  f"{post_err:.1e} of float64; site_rates {sr_ms:.1f} ms, == "
+                  f"the plain versions' run, category posteriors "
+                  f"{sr_err:.1e} from float64 on the first {ANC_SITES}, "
+                  f"mean rate {float(np.average(mean_rate, weights=m.wgt)):.4f}"
+                  f"; launches {counts}")
+            out["ancestral"][label] = dict(ancestral_ms=anc_ms,
+                                           site_rates_ms=sr_ms,
+                                           counts=counts)
+
+        # -- partitions: the three codon positions ------------------------
+        raw = codes[order]
+        sites = np.arange(ANALYSES_SITES)
+        alphas = (0.4, 0.5, 0.6)
+        parts = [Partition(f"pos{i + 1}", sites[sites % 3 == i], model,
+                           alpha=a) for i, a in enumerate(alphas)]
+        _reset_counts()
+        with prof.range("partitions"):
+            pmod = PartitionedModel(tree, parts, raw, device=dev)
+            pres = pmod.log_likelihood()
+            sep = [PhyloModel(tree, p.model, raw[:, p.sites], alpha=p.alpha,
+                              device=dev).log_likelihood().log_likelihood
+                   for p in parts]
+            fn, t0v, _ = pmod.loglik_fn()
+            with torch.no_grad():
+                joint0 = float(fn(t0v, torch.zeros(3)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, scales, ll0, ll1 = pmod.optimize(steps=PART_STEPS)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / PART_STEPS
+        counts = {k: v for k, v in _counts().items() if v}
+        _merge(total, counts)
+        rel = abs(joint0 - pres.log_likelihood) / abs(pres.log_likelihood)
+        check(pres.log_likelihood == float(sum(sep)) and rel < 1e-5
+              and ll1 > ll0, f"partitions: {pres.log_likelihood} vs sum "
+              f"{float(sum(sep))}, loglik_fn rel {rel:.2e}, optimize "
+              f"{ll0} -> {ll1}")
+        _launched(counts, ("plf_tree", "plf_tree_seg", "plf_tree_seg_bwd"),
+                  "partitions")
+        phase("analyses", f"PartitionedModel, 3 codon positions x "
+              f"HKY85+G4 (alpha {alphas}): log_likelihood() "
+              f"{pres.log_likelihood:.3f} == the sum of the three "
+              f"PhyloModels bit for bit; loglik_fn at t0 within rel "
+              f"{rel:.1e}; optimize(steps={PART_STEPS}) {ll0:.3f} -> "
+              f"{ll1:.3f}, {step_ms:.2f} ms a joint step, scales "
+              f"{np.round(scales, 4).tolist()}; launches {counts}")
+        out["partitions"] = dict(step_ms=step_ms, counts=counts)
+
+    phase("analyses", "PhaseProfiler report:\n" + prof.report())
+    phase("analyses", f"launches over the phase: {total}")
+    out["launches"] = total
     return out
 
 
@@ -3341,6 +3806,7 @@ def main():
     launches["plf_node_bwd_mxu"] = kt_launches["plf_node_bwd_mxu"]
     codon_phase(codon, dev)
     inf = infer_phase(dev)
+    analyses_phase(dev)
     k7m = kernel7m_phase(models, codon, (tree, tips), dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))

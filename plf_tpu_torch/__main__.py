@@ -26,12 +26,15 @@ Beyond the reference's benchmark program, ``infer`` runs the full ML
 pipeline on a real alignment (``models/pipeline.py``), on the card unless
 ``--device cpu`` asks for the plain versions::
 
-    python -m plf_tpu_torch infer align.fasta [--model jc|hky|gtr|lg|...]
+    python -m plf_tpu_torch infer align.fasta [--model auto|jc|hky|gtr|lg|...]
         [--seq-type auto|dna|protein|codon] [--alpha A] [--pinv P]
         [--search nni|spr|mixed|none] [--bootstrap N] [--out tree.nwk]
 
-Counterpart of ``plf_tpu/__main__.py::infer_main`` (``:56``); ``--model
-auto`` (AICc model selection, ``models/selection.py``) is not ported yet.
+Counterpart of ``plf_tpu/__main__.py::infer_main`` (``:56``).  ``--model
+auto`` first ranks a candidate ladder by AICc on the NJ starting tree
+(``models/selection.py``: the 10 DNA models, the 32 empirical protein
+models, or GY94 against GY94+G for codons), logs the table, and runs the
+pipeline under the winner.
 """
 
 from __future__ import annotations
@@ -128,9 +131,11 @@ def infer_main(argv):
                     choices=["auto", "jc", "hky", "gtr", "lg", "wag",
                              "jtt", "dayhoff", "mtrev", "cprev",
                              "gy94"],
-                    help="'gy94' fits omega/kappa by ML (fit_codon) "
-                         "directly; 'gtr' fits the GTR model (fit_model); "
-                         "'auto' (AICc model selection) is not ported")
+                    help="'auto' = AICc model selection (DNA: JC/HKY/"
+                         "GTR +G/+I; protein: the empirical-matrix ladder; "
+                         "codon: GY94 vs GY94+G); 'gy94' fits omega/kappa "
+                         "by ML (fit_codon) directly; 'gtr' fits the GTR "
+                         "model (fit_model)")
     ap.add_argument("--seq-type", default="auto",
                     choices=["auto", "dna", "protein", "codon"],
                     help="alignment alphabet; 'auto' treats the data as "
@@ -152,11 +157,6 @@ def infer_main(argv):
                     help="'cuda' (default: the CUDA kernels) or 'cpu' "
                          "(their plain versions)")
     args = ap.parse_args(argv)
-    if args.model == "auto":
-        raise NotImplementedError(
-            "--model auto needs AICc model selection (models/selection.py),"
-            " which is not ported yet: ROADMAP.md, Queue 1 item 3 (python "
-            "-m plf_tpu infer runs it on JAX)")
 
     from .models import empirical_protein, hky85, jc69, run_inference
     from .models.substitution import BUILTIN_PROTEIN_MODELS
@@ -178,6 +178,24 @@ def infer_main(argv):
         return _infer_codon(args, aln)
     if args.model in BUILTIN_PROTEIN_MODELS:
         model = empirical_protein(args.model)
+    elif args.model == "auto":
+        # ModelTest step: rank the candidate ladder by AICc on an NJ
+        # starting tree, then run the full inference under the winner
+        # (DNA: JC/HKY/GTR +G/+I; protein: the empirical-table ladder).
+        from .config import PLFConfig
+        from .models import nj_tree
+        comp = aln.compressed()
+        # the NJ distances use the alignment's alphabet size
+        start = nj_tree(comp.codes, comp.weights,
+                        states=20 if protein else 4, device=args.device)
+        sel = _select(start, comp, PLFConfig(states=20) if protein
+                      else None, args.device)
+        model = sel.best.model
+        if sel.best.alpha is not None and args.alpha is None:
+            args.alpha = sel.best.alpha
+        if sel.best.p_inv is not None and args.pinv is None:
+            args.pinv = sel.best.p_inv
+        args.model = sel.best.name.partition("+")[0].lower()
     else:
         model = {"jc": jc69, "hky": lambda: hky85(args.kappa),
                  "gtr": jc69}[args.model]()
@@ -189,6 +207,20 @@ def infer_main(argv):
                         device=args.device)
     return _report(res, args.out, f"(alpha={res.alpha}, p_inv={res.p_inv}, "
                                   f"{res.elapsed_s:.1f}s)")
+
+
+def _select(start, comp, cfg, device, label="model selection"):
+    """AICc model selection on the start tree; logs the table, each
+    candidate's fit time and the winner."""
+    from .models import model_select
+    sel = model_select(start, comp.codes, wgt=comp.weights, config=cfg,
+                       device=device)
+    log(f"{label} (AICc):\n" + sel.table())
+    log("fit seconds: " + ", ".join(f"{f.name} {f.seconds:.2f}"
+                                    for f in sel.fits))
+    log(f"selected: {sel.best.name} (alpha={sel.best.alpha}, "
+        f"p_inv={sel.best.p_inv})")
+    return sel
 
 
 def _report(res, out, detail) -> int:
@@ -203,8 +235,9 @@ def _report(res, out, detail) -> int:
 
 
 def _infer_codon(args, aln) -> int:
-    """Codon-model inference: GY94 omega/kappa ML fit, then the standard
-    pipeline under the fitted model."""
+    """Codon-model inference: GY94 omega/kappa ML fit (or GY94 vs
+    GY94+G selection with --model auto), then the standard pipeline
+    under the fitted model."""
     from .config import PLFConfig
     from .models import nj_tree, run_inference
     from .models.optimize import fit_codon
@@ -212,13 +245,20 @@ def _infer_codon(args, aln) -> int:
     comp = aln.compressed()
     cfg = PLFConfig(states=61, kernel_variant="auto", block_sites=1024)
     start = nj_tree(comp.codes, comp.weights, states=61, device=args.device)
-    model, info = fit_codon(start, comp.codes, wgt=comp.weights, config=cfg,
-                            fit_alpha=args.alpha is not None, verbose=True,
-                            device=args.device)
-    log(f"GY94 fit: kappa={info['kappa']:.3f} omega={info['omega']:.4f} "
-        f"ll={info['ll']:.4f}")
+    if args.model == "auto":
+        sel = _select(start, comp, cfg, args.device,
+                      label="codon model selection")
+        model, alpha = sel.best.model, sel.best.alpha
+    else:
+        model, info = fit_codon(start, comp.codes, wgt=comp.weights,
+                                config=cfg, fit_alpha=args.alpha
+                                is not None, verbose=True,
+                                device=args.device)
+        log(f"GY94 fit: kappa={info['kappa']:.3f} "
+            f"omega={info['omega']:.4f} ll={info['ll']:.4f}")
+        alpha = info["alpha"]
     res = run_inference(aln.codes, names=aln.names, model=model,
-                        alpha=info["alpha"], search=args.search,
+                        alpha=alpha, search=args.search,
                         fit="lengths", bootstrap=args.bootstrap,
                         progress=log, device=args.device)
     return _report(res, args.out, f"({res.elapsed_s:.1f}s)")

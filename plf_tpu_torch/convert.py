@@ -11,22 +11,32 @@ value: NumPy arrays and plain Python numbers.  From a JAX ``PhyloModel``
     rate_weights=pm.rate_weights,
     tip_states=pm.tip_states[:, :pm.n_sites_obs], wgt=pm.wgt[:pm.n_sites_obs]
 
-and the result encodes the same operators bit for bit.
+and the result encodes the same operators bit for bit.  A JAX
+``PartitionedModel`` ``pmod`` moves by its partitions: for each ``p`` in
+``pmod.partitions``::
+
+    dict(name=p.name, sites=p.sites, wgt=p.wgt, alpha=p.alpha,
+         scale=p.scale, pi=p.model.pi, eigenvalues=p.model.eigenvalues,
+         u=p.model.u, w=p.model.w)
+
+with the shared tree and the full tip matrix as for ``phylo_model``.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Union
+from typing import Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .config import PLFConfig
+from .models.partition import Partition, PartitionedModel
 from .models.phylo import PhyloModel
 from .models.substitution import SubstitutionModel
 from .models.tree import Tree, TreeNode, parse_newick
 
-__all__ = ["substitution_model", "tree_from_nodes", "phylo_model"]
+__all__ = ["substitution_model", "tree_from_nodes", "phylo_model",
+           "partitioned_model"]
 
 
 def substitution_model(pi, eigenvalues, u, w) -> SubstitutionModel:
@@ -70,3 +80,28 @@ def phylo_model(*, pi, eigenvalues, u, w, tip_states, rates,
                                     else np.asarray(rate_weights,
                                                     np.float64)),
                       device=device)
+
+
+def partitioned_model(*, partitions: Sequence[dict], tip_states,
+                      nodes=None, root=None, newick: Optional[str] = None,
+                      ascertainment: Optional[str] = None,
+                      config: Optional[PLFConfig] = None,
+                      device: Union[str, torch.device] = "cuda"
+                      ) -> PartitionedModel:
+    """A port PartitionedModel from the JAX one's partitions, each a dict
+    of its site indices, weights, eigensystem, alpha and scale (see the
+    module docstring); the tree as for :func:`phylo_model`.  It lives on
+    the card unless ``device="cpu"``."""
+    if (nodes is None) == (newick is None):
+        raise ValueError("give the tree as nodes or as newick, not both")
+    tree = (parse_newick(newick) if newick is not None
+            else tree_from_nodes(nodes, root))
+    parts = [Partition(
+        name=p["name"], sites=np.asarray(p["sites"]),
+        model=substitution_model(p["pi"], p["eigenvalues"], p["u"], p["w"]),
+        alpha=p.get("alpha"),
+        wgt=None if p.get("wgt") is None else np.asarray(p["wgt"]),
+        scale=float(p.get("scale", 1.0))) for p in partitions]
+    return PartitionedModel(tree, parts, np.asarray(tip_states),
+                            config=config, ascertainment=ascertainment,
+                            device=device)

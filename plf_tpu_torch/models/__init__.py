@@ -20,3 +20,9 @@ from .distance import (pairwise_mismatch, jc_distance_matrix,
 from .consensus import (bipartitions, rf_distance, majority_rule_consensus,
                         split_support, bootstrap_nj_trees, annotate_support)
 from .pipeline import InferenceResult, run_inference
+from .partition import Partition, PartitionedModel, PartitionedResult
+from .ancestral import ancestral_marginal, site_rates
+from .support import alrt_support, annotate_alrt
+from .selection import (ModelFit, SelectionResult, model_select,
+                        empirical_frequencies, DNA_CANDIDATES,
+                        PROTEIN_CANDIDATES, CODON_CANDIDATES)

@@ -84,7 +84,7 @@ likelihood, with branch lengths fitted through ``tree_loglik_fn``.
 from __future__ import annotations
 
 import warnings
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -314,19 +314,36 @@ def _plf_stage(x1, x2, left, right, ev, S):
     """Element-wise PLF on ``(n, C, S)`` eigen-coordinate CLVs, as the JAX
     package's ``_plf_stage`` (``optimize.py:41-54``): per-branch ``(C, S,
     S)`` factors ``left``/``right``, EV ``[k, a]``, 2^32 rescaling and its
-    per-site flags."""
+    per-site flags.  With a leading axis of nodes (``(m, n, C, S)`` CLVs,
+    ``(m, C, S, S)`` factors) it runs m nodes at once, each element by the
+    same operations in the same order."""
     ump1 = torch.zeros_like(x1)
     ump2 = torch.zeros_like(x2)
     for a in range(S):
-        ump1 = ump1 + x1[:, :, a:a + 1] * left[None, :, :, a]
-        ump2 = ump2 + x2[:, :, a:a + 1] * right[None, :, :, a]
+        ump1 = ump1 + x1[..., a:a + 1] * left[..., None, :, :, a]
+        ump2 = ump2 + x2[..., a:a + 1] * right[..., None, :, :, a]
     p = ump1 * ump2
     x3 = torch.zeros_like(p)
     for k in range(S):
-        x3 = x3 + p[:, :, k:k + 1] * ev[None, None, k, :]
-    mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=2).all(dim=1)
-    x3 = torch.where(mask[:, None, None], x3 * float(TWO_TO_THE_32), x3)
+        x3 = x3 + p[..., k:k + 1] * ev[k]
+    mask = (x3.abs() < float(MIN_LIKELIHOOD)).all(dim=-1).all(dim=-1)
+    x3 = torch.where(mask[..., None, None], x3 * float(TWO_TO_THE_32), x3)
     return x3, mask.to(torch.int32)
+
+
+def _waves(schedule):
+    """The internal nodes in dependency waves: ``[(parents, lefts,
+    rights)]``, each node one wave past the deepest internal child it has
+    (schedule order within a wave); the root is the last wave's only
+    node."""
+    depth: Dict[int, int] = {}
+    waves: Dict[int, Tuple[list, list, list]] = {}
+    for p, l, r in schedule:
+        depth[p] = 1 + max(depth.get(l, 0), depth.get(r, 0))
+        for lst, v in zip(waves.setdefault(depth[p], ([], [], [])),
+                          (p, l, r)):
+            lst.append(v)
+    return [waves[d] for d in sorted(waves)]
 
 
 def _core_torch(pm):
@@ -639,7 +656,12 @@ def fit_model(pm: PhyloModel, steps: int = 150, learning_rate: float = 0.02,
     ``pm.device`` (no kernel: the tip table depends on the fitted
     eigenvectors, and the kernels' backward takes no tip-table
     gradient), under torch autograd; the S x S eigensystem
-    (``torch.linalg.eigh``, fp32) runs on the host inside the graph.
+    (``torch.linalg.eigh``, fp32) runs on the host inside the graph.  The
+    traversal runs in dependency waves (:func:`_waves`): one batched stage
+    for every node whose children are ready, each element computed as a
+    single node's stage computes it, so a step launches E / waves times
+    fewer small kernels (the card's cost of this plain path is its
+    launches).
     Adam (``torch.optim.Adam`` with optax's defaults) updates log
     exchangeabilities, frequency logits and log lengths together.
 
@@ -672,6 +694,17 @@ def fit_model(pm: PhyloModel, steps: int = 150, learning_rate: float = 0.02,
     rng = np.random.default_rng(seed)
     ex0 = ex0 * np.exp(rng.normal(0, 1e-3, ex0.shape))  # break degeneracy
     lengths = [pm.tree.nodes[i].length for i in range(pm.tree.n_nodes - 1)]
+    # the traversal by waves: each wave's children as rows of the store
+    # and as node indices of the length vector
+    row_of = {leaf: leaf for leaf in range(n_leaves)}
+    waves = []
+    for parents, lefts, rights in _waves(schedule):
+        waves.append(tuple(torch.tensor(v, dtype=torch.long, device=dev)
+                           for v in ([row_of[c] for c in lefts],
+                                     [row_of[c] for c in rights],
+                                     lefts, rights)))
+        for p in parents:
+            row_of[p] = len(row_of)
     log_rates = torch.tensor(np.log(ex0), dtype=torch.float32,
                              requires_grad=True)
     logits_pi = torch.tensor(np.log(m0.pi), dtype=torch.float32,
@@ -687,19 +720,25 @@ def fit_model(pm: PhyloModel, steps: int = 150, learning_rate: float = 0.02,
             t_vec = t_vec.detach()
         wg = _tip_table(w, S)                     # (S, n_codes)
 
-        def branch_factor(t):                     # (C, S, S): [c, k, a]
-            e = torch.exp(lam[None, :] * t * rates_gamma[:, None])
-            return u[None, :, :] * e[:, None, :]
+        def branch_factor(t):             # (m, C, S, S): [j, c, k, a]
+            e = torch.exp(lam * t[:, None, None] * rates_gamma[:, None])
+            return u * e[..., None, :]
 
-        clvs = {leaf: wg[:, codes[leaf]].t()[:, None, :].expand(n, C, S)
-                for leaf in range(n_leaves)}
+        # one stage a wave of nodes; store rows: the leaves, then each
+        # wave's parents in turn
+        # (embedding: its backward sums repeated codes in a fixed order)
+        store = torch.nn.functional.embedding(codes, wg.t())[
+            :, :, None, :].expand(n_leaves, n, C, S)
         scaler_sites = torch.zeros(n, dtype=torch.int32, device=dev)
-        for parent, l, r in schedule:
-            x3, sv = _plf_stage(clvs[l], clvs[r], branch_factor(t_vec[l]),
-                                branch_factor(t_vec[r]), w.T, S)
-            clvs[parent] = x3
-            scaler_sites = scaler_sites + sv
-        lik = (clvs[schedule[-1][0]] @ (pi @ u)) @ cw
+        for rows_l, rows_r, t_l, t_r in waves:
+            x3, sv = _plf_stage(store.index_select(0, rows_l),
+                                store.index_select(0, rows_r),
+                                branch_factor(t_vec.index_select(0, t_l)),
+                                branch_factor(t_vec.index_select(0, t_r)),
+                                w.T, S)
+            store = torch.cat([store, x3])
+            scaler_sites = scaler_sites + sv.sum(dim=0, dtype=torch.int32)
+        lik = (store[-1] @ (pi @ u)) @ cw
         site_ll = torch.log(torch.clamp_min(lik, LIK_FLOOR))
         scaler = (scaler_sites * wgt_i).sum().to(torch.float32)
         ll = (site_ll * wgt).sum() + scaler * LOG_MINLIK

@@ -567,8 +567,9 @@ class PhyloModel(nn.Module):
     def log_likelihood_sharded(self, *args, **kwargs):
         """Site-sharded evaluation over several cards: not ported yet."""
         raise NotImplementedError(
-            "multi-device site sharding is not ported yet: ROADMAP.md, "
-            "Queue 1 item 9")
+            "multi-device site sharding (a device axis with "
+            "torch.distributed) is not ported yet: ROADMAP.md, Queue 1 "
+            "item 9")
 
     # -- brute-force oracle (tests) -----------------------------------------
 
@@ -740,4 +741,5 @@ def batch_log_likelihood_segmented(pms) -> np.ndarray:
     kernels 7 and 7m): not ported yet."""
     raise NotImplementedError(
         "batch_log_likelihood_segmented (a candidate axis of kernels 7 and "
-        "7m) is not ported yet: ROADMAP.md, Queue 1 item 2")
+        "7m) is not ported yet: ROADMAP.md, Queue 1 item 2 (the next "
+        "slice: the candidate, instance and device axes)")

@@ -63,15 +63,31 @@ def _write_fasta(path, n_taxa=6, n_sites=300, seed=3):
     return str(path)
 
 
-def test_cli_infer_is_not_ported(tmp_path):
-    """What ``infer`` does not take yet: ``--model auto`` (AICc model
-    selection, models/selection.py; DNA and codon alike) raises
-    NotImplementedError naming its ROADMAP item."""
+def test_cli_infer_is_not_ported(tmp_path, capsys):
+    """``--model auto`` (AICc model selection, models/selection.py), which
+    ``infer`` once refused, runs on the CPU: the AICc table of all ten
+    DNA candidates, each fit's seconds and the winner are logged, the
+    pipeline runs under the winner and the newick parses back."""
+    from plf_tpu_torch.models import DNA_CANDIDATES, parse_newick
     fa = _write_fasta(tmp_path / "aln.fa")
-    for extra in ([], ["--seq-type", "codon"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["infer", fa, "--model", "auto", "--device", "cpu"]
-                 + extra)
+    out = tmp_path / "tree.nwk"
+    assert main(["infer", fa, "--model", "auto", "--device", "cpu",
+                 "--out", str(out)]) == 0
+    text = capsys.readouterr().out
+    table = text.split("model selection (AICc):\n")[1].split("\nfit ")[0]
+    rows = table.splitlines()
+    assert rows[0].split() == ["model", "lnL", "k", "AIC", "AICc", "BIC"]
+    assert sorted(r.split()[0] for r in rows[1:]) == sorted(DNA_CANDIDATES)
+    aicc = [float(r.split()[4]) for r in rows[1:]]
+    assert aicc == sorted(aicc)
+    best = rows[1].split()[0]
+    assert f"selected: {best} (alpha=" in text
+    assert "fit seconds: " + best in text
+    tree = parse_newick(out.read_text())
+    assert sorted(tree.leaf_names()) == [f"t{i}" for i in range(6)]
+    assert "final ll = " in text and "kernel launches: none" in text
+    if best.startswith("GTR"):
+        assert "GTR fit" in text
 
 
 @pytest.mark.parametrize("argv", [

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_batch import _one_torch_thread  # noqa: E402,F401
+
 from plf_tpu.config import Backend  # noqa: E402
 from plf_tpu.config import PLFConfig as JCfg  # noqa: E402
 from plf_tpu.models import PhyloModel as JPM  # noqa: E402

@@ -1931,3 +1931,120 @@ def test_bf16_paths_on_the_card(cuda, monkeypatch, states):
     want = t.grad.numpy()
     np.testing.assert_allclose(g16.cpu().numpy(), want, rtol=2e-4,
                                atol=1e-4 * np.abs(want).max())
+
+
+# ------------------------------------------------ analyses around a tree --
+
+def _analysis_case(states=4, n_taxa=24, n_sites=3000, seed=31):
+    """A tree and a simulated alignment with 5% gaps (a few IUPAC codes
+    in DNA)."""
+    model = hky85(4.0, [0.3, 0.2, 0.2, 0.3]) if states == 4 else \
+        empirical_protein("lg")
+    tree = random_tree(n_taxa, seed=seed, mean_branch=0.15)
+    tips = simulate_alignment(tree, model, n_sites, alpha=0.5, seed=seed)
+    rng = np.random.default_rng(seed)
+    tips[rng.random(tips.shape) < 0.05] = -1
+    if states == 4:
+        tips[rng.random(tips.shape) < 0.02] = 5
+    return tree, model, tips
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_ancestral_marginal_ignores_global_tf32(cuda, states):
+    """``ancestral_marginal`` on the card equals its CPU plain run within
+    1e-5 (probabilities in fp32; the sums of its broadcast contractions
+    run in another order on the card) with TF32 switched on globally for
+    cuBLAS and cuDNN: the port must not lean on a default a caller may
+    have changed (TF32 keeps ~3 decimal digits, far outside the bar)."""
+    from plf_tpu_torch.models import ancestral_marginal
+    tree, model, tips = _analysis_case(states)
+    want = ancestral_marginal(PhyloModel(tree, model, tips, alpha=0.5,
+                                         device="cpu"))
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = ancestral_marginal(PhyloModel(tree, model, tips, alpha=0.5,
+                                            device=cuda))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    assert set(got) == set(want)
+    for v in got:
+        np.testing.assert_allclose(got[v], want[v], atol=1e-5, rtol=0)
+
+
+def test_alrt_support_on_the_card_equals_cpu(cuda, monkeypatch):
+    """Every tree ``alrt_support`` scores (kernel 2 once each on the card)
+    within rel 1e-6 of the CPU plain run's ll; the aLRT statistics within
+    abs 1e-2 (twice a difference of ~1e4-magnitude lls)."""
+    from plf_tpu_torch.models import alrt_support
+    from plf_tpu_torch.models import support as TSup
+    tree, model, tips = _analysis_case(n_taxa=16, n_sites=2000, seed=33)
+    real, seen = TSup._site_ll, {}
+
+    def spy(t, *a, **kw):
+        ll, s, pm = real(t, *a, **kw)
+        seen.setdefault(str(pm.device), []).append(ll)
+        return ll, s, pm
+
+    monkeypatch.setattr(TSup, "_site_ll", spy)
+    c0 = plf_tree.launches
+    got = alrt_support(tree, model, tips, alpha=0.5, rell_replicates=200,
+                       device=cuda)
+    assert plf_tree.launches - c0 == 1 + 2 * len(got)
+    want = alrt_support(tree, model, tips, alpha=0.5, rell_replicates=200,
+                        device="cpu")
+    (card,), (cpu,) = ([v for k, v in seen.items() if k.startswith(d)]
+                       for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(card, cpu, rtol=1e-6)
+    for d in want:
+        assert got[d][0] == pytest.approx(want[d][0], abs=1e-2)
+
+
+def test_partitioned_log_likelihood_is_the_sum_of_its_parts(cuda):
+    """Three codon-position partitions, each HKY85+G4 with its own alpha:
+    the partitioned ll is the host sum of the three PhyloModels' lls bit
+    for bit (kernel 2 once each), and the joint objective at t0 within
+    rel 1e-5 of it (the "segmented" forward, kernel 7)."""
+    from plf_tpu_torch.models import Partition, PartitionedModel
+    tree, model, tips = _analysis_case(n_sites=3000)
+    sites = np.arange(tips.shape[1])
+    parts = [Partition(f"pos{i}", sites[sites % 3 == i], model, alpha=a)
+             for i, a in enumerate((0.4, 0.5, 0.6))]
+    c0 = plf_tree.launches
+    pmod = PartitionedModel(tree, parts, tips, device=cuda)
+    res = pmod.log_likelihood()
+    assert plf_tree.launches - c0 == 3
+    sep = [PhyloModel(tree, model, tips[:, p.sites], alpha=p.alpha,
+                      device=cuda).log_likelihood().log_likelihood
+           for p in parts]
+    assert res.log_likelihood == float(sum(sep))
+    fn, t0, _ = pmod.loglik_fn()
+    with torch.no_grad():
+        v = float(fn(t0, torch.zeros(3)))
+    assert v == pytest.approx(res.log_likelihood, rel=1e-5)
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_site_rates_launches_one_node_kernel_a_node(cuda, states):
+    """``site_rates`` runs the per-node traversal: kernel 1 (S=4) or 1m
+    (S=20, the default protein model's "mxu_3x") once per internal node
+    and no other kernel; its rates and category posteriors equal the CPU
+    plain run's bit for bit (kernels 1 and 1m equal their plain versions
+    bit for bit, and the float64 epilogue is the same numpy)."""
+    from plf_tpu_torch.models import site_rates
+    tree, model, tips = _analysis_case(states, n_taxa=12, n_sites=1000)
+    pm = PhyloModel(tree, model, tips, alpha=0.5, device=cuda)
+    wrappers = _counted()
+    before = [f.launches for f in wrappers]
+    mean, post = site_rates(pm)
+    runs = {f.__name__: f.launches - b for f, b in zip(wrappers, before)
+            if f.launches != b}
+    node = "plf_node" if states == 4 else "plf_node_mxu"
+    assert runs == {node: len(pm.schedule)}
+    mean_c, post_c = site_rates(PhyloModel(tree, model, tips, alpha=0.5,
+                                           device="cpu"))
+    np.testing.assert_array_equal(post, post_c)
+    np.testing.assert_array_equal(mean, mean_c)

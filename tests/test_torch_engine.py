@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_batch import _one_torch_thread  # noqa: E402,F401
+
 from plf_tpu.config import Backend as JBackend  # noqa: E402
 from plf_tpu.config import PLFConfig as JCfg  # noqa: E402
 from plf_tpu.engine import PLFEngine as JEngine  # noqa: E402
@@ -230,8 +232,12 @@ def test_port_never_imports_jax():
             "import plf_tpu_torch.__main__, plf_tpu_torch.runtime, "
             "plf_tpu_torch.runtime.executor, plf_tpu_torch.runtime.native, "
             "plf_tpu_torch.utils.timing\n"
-            "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'plf_tpu.')) or m == 'plf_tpu']\n"
+            "import plf_tpu_torch.models.selection, "
+            "plf_tpu_torch.models.support, plf_tpu_torch.models.ancestral, "
+            "plf_tpu_torch.models.partition, plf_tpu_torch.io.streams, "
+            "plf_tpu_torch.io.fixtures, plf_tpu_torch.utils.profiling\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'optax', "
+            "'plf_tpu') or m.startswith(('jax.', 'optax.', 'plf_tpu.'))]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     res = _run(["-c", code], REPO)

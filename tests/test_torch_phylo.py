@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_batch import _one_torch_thread  # noqa: E402,F401
+
 from plf_tpu.config import Backend, PLFConfig  # noqa: E402
 from plf_tpu.models import PhyloModel, hky85, jc69, random_tree  # noqa: E402
 from plf_tpu_torch import convert  # noqa: E402

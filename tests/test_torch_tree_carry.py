@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_batch import _one_torch_thread  # noqa: E402,F401
+
 from plf_tpu.config import PLFConfig  # noqa: E402
 from plf_tpu.models import PhyloModel, hky85, parse_newick, random_tree  # noqa: E402
 from plf_tpu.ops import plf_tree_pallas as JT  # noqa: E402

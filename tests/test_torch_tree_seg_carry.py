@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_batch import _one_torch_thread  # noqa: E402,F401
+
 from plf_tpu.ops import plf_tree_seg as JSG  # noqa: E402
 from plf_tpu_torch.config import PLFConfig  # noqa: E402
 from plf_tpu_torch.models import PhyloModel, hky85  # noqa: E402

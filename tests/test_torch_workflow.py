@@ -340,6 +340,42 @@ def test_search_scores_by_rule(monkeypatch):
 
 # ----------------------------------------------------- fit_model, pipeline --
 
+@pytest.mark.parametrize("shape", ["random", "caterpillar"])
+def test_fit_model_waves_run_the_per_node_stage(shape):
+    """fit_model's traversal by waves: every internal node once, after its
+    internal children, the root alone last; a wave's batched stage gives
+    each node's per-node stage bit for bit (values and rescale flags)."""
+    from plf_tpu_torch.models.optimize import _plf_stage, _waves
+    tree = (T.random_tree(13, seed=6) if shape == "random"
+            else _caterpillar(T, 9))
+    sched = [(p, l, r) for (p, l, r, _, _) in tree.schedule()]
+    waves = _waves(sched)
+    seen = set(range(tree.n_leaves))
+    for parents, lefts, rights in waves:
+        assert all(c in seen for c in lefts + rights)
+        seen |= set(parents)
+    assert sorted(p for w in waves for p in w[0]) == sorted(
+        p for p, _, _ in sched)
+    assert waves[-1][0] == [tree.root]
+    if shape == "caterpillar":        # each internal node its own wave
+        assert len(waves) == 8
+    else:                             # 12 internal nodes in fewer waves
+        assert len(waves) < 12
+    rng = np.random.default_rng(6)
+    m, n, C, S = 5, 64, 4, 4
+    x1, x2 = (torch.tensor(rng.random((m, n, C, S)), dtype=torch.float32)
+              for _ in range(2))
+    x1[:, ::3] *= 1e-30
+    left, right = (torch.tensor(rng.random((m, C, S, S)),
+                                dtype=torch.float32) for _ in range(2))
+    ev = torch.tensor(rng.random((S, S)), dtype=torch.float32)
+    x3, sv = _plf_stage(x1, x2, left, right, ev, S)
+    assert int(sv.sum()) > 0
+    for j in range(m):
+        y3, sj = _plf_stage(x1[j], x2[j], left[j], right[j], ev, S)
+        assert torch.equal(x3[j], y3) and torch.equal(sv[j], sj)
+
+
 @pytest.mark.parametrize("fit_alpha", [False, True])
 def test_fit_model_equals_jax(fit_alpha):
     """fit_model at 5 taxa x 300 sites, 20 Adam steps from a near-JC GTR
