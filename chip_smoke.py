@@ -81,6 +81,22 @@ built here: DNA at 2^24 sites (``--roundtrip`` at 2^21), 20 states at
 2^21, ``--gen`` at S = 4 and 20, each checked exactly against the golden
 oracle where it verifies.
 
+The three axes (phases ``axes`` and ``sharded``, after ``analyses``):
+``PLFEngine.plf_batch`` on 9 instances (the reference's
+NUM_ACCELERATORS) of 2^20 DNA sites and of 2^18 sites at S = 20 in each
+MXU variant, one launch of kernel 1 or 1m with an instance axis, each
+instance == its own ``plf`` and the batched kernel == plain, timed beside
+nine single launches; ``batch_log_likelihood_segmented`` on an NNI round
+of 256 DNA taxa x 16,384 sites (kernel 7, fp32 and bf16 boundaries) and of
+64 protein taxa x 4,096 ("mxu_3x", kernel 7m), one launch a chunk of
+candidates under the boundary-buffer cap, every row == the single-tree
+launch, fp32 rows == the batched fused kernel, lls within 1e-6 of
+``log_likelihood(method="segmented")``; site sharding: a one-rank mesh
+== the unsharded paths, two ranks on the one card in processes of their
+own (NCCL if it takes two ranks on one card, else gloo) on the DNA and
+protein models and ``plf_sharded`` at 2^24 sites, and the whole-tree
+golden oracle == kernel 2 on 2^16 sites.
+
 A profile phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
 idle share, the top kernels) and times kernel 2 at the occupancy its
@@ -658,7 +674,9 @@ COUNTED = (plf_node, plf_tree, plf_node_bwd, plf_tree_bwd, plf_node_mxu,
            plf_tree_mxu, plf_tree_bwd_mxu, plf_tree_seg, plf_tree_seg_bwd,
            plf_tree_seg_mxu, plf_tree_seg_bwd_mxu, plf_node_gen,
            plf_grad.plf_node_bwd_mxu, tree_mod.plf_tree_batch,
-           tree_mod.plf_tree_mxu_batch)
+           tree_mod.plf_tree_mxu_batch, node_mod.plf_node_batch,
+           plf_mxu.plf_node_mxu_batch, seg_mod.plf_tree_seg_batch,
+           seg_mod.plf_tree_seg_mxu_batch)
 
 
 #: The wrappers with a bf16 CLV storage form, which count its launches in
@@ -2321,6 +2339,511 @@ def analyses_phase(dev):
     return out
 
 
+# -------------------------------------------- the three axes (PR phases) --
+
+#: The instance axis at the reference's NUM_ACCELERATORS=9: nine node
+#: pairs of 2^20 DNA sites (kernel 1) and of 2^18 sites at S = 20 (kernel
+#: 1m) in one launch.
+AXES_INSTANCES = 9
+AXES_DNA_SITES, AXES_S20_SITES = 1 << 20, 1 << 18
+#: The segmented engine's candidate axis: an NNI round of 256 DNA taxa x
+#: 16,384 sites (kernel 7) and of 64 protein taxa x 4,096 sites (kernel
+#: 7m, "mxu_3x"); the plain batch and its kernel timing take the round's
+#: first AXES_PLAIN candidates.
+AXES_SEG_TAXA, AXES_SEG_SITES = 256, 1 << 14
+AXES_PROT_TAXA, AXES_PROT_SITES = 64, 1 << 12
+AXES_PLAIN = 8
+#: The sharded phase: kernel 1 on 2 ranks at 2^24 sites, the golden
+#: oracle on the first 2^16 sites of the DNA model.
+SHARD_NODE_SITES = 1 << 24
+GOLDEN_SITES = 1 << 16
+
+
+def _instances(dev, S, n, seed):
+    """AXES_INSTANCES node pairs of ``n`` sites made on the card from a
+    seed: site-major children (every 4th site of x1 scaled by 1e-15, so
+    it rescales), branches and EV from numpy."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    I = AXES_INSTANCES
+    x1 = torch.rand((I, n, 4, S), generator=g, device=dev)
+    x2 = torch.rand((I, n, 4, S), generator=g, device=dev)
+    x1[:, ::4] *= 1e-15
+    rng = np.random.default_rng(seed)
+    left, right = (rng.random((I, 4, S, S), dtype=np.float32)
+                   for _ in range(2))
+    ev = rng.random((I, S, S), dtype=np.float32)
+    return x1, x2, left, right, ev
+
+
+def _lane_batch(x1, x2, left, right, ev, dev):
+    """The lane-major batch that PLFEngine.plf_batch hands the kernel."""
+    I, n, C, S = x1.shape
+    lane = lambda x: x.permute(0, 3, 2, 1).reshape(I, S * C, n).contiguous()
+    lc, rc = (torch.as_tensor(np.stack([L.branch_to_lane_constants(b, S, C)
+                                        for b in m]), device=dev)
+              for m in (left, right))
+    ec = torch.as_tensor(np.stack([L.ev_to_lane_constants(e, S, C)
+                                   for e in ev]), device=dev)
+    return lane(x1), lane(x2), lc, rc, ec
+
+
+def axes_node(dev, S, variant):
+    """``PLFEngine.plf_batch`` on AXES_INSTANCES node pairs: one launch of
+    kernel 1 (S = 4) or 1m, each instance == its own ``plf`` bit for bit;
+    the batched kernel == its plain version bit for bit; timed against
+    nine single launches on the same lane-major inputs."""
+    n = AXES_DNA_SITES if S == 4 else AXES_S20_SITES
+    args = _instances(dev, S, n, 90 + S)
+    eng = PLFEngine(PLFConfig(states=S, kernel_variant=variant), device=dev)
+    counter = (node_mod.plf_node_batch if S == 4
+               else plf_mxu.plf_node_mxu_batch)
+    _reset_counts()
+    out = eng.plf_batch(*args)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counts().items() if v}
+    check(counts == {counter.__name__: 1}, f"plf_batch S={S} {variant}: "
+          f"launches {counts}")
+    rescued = int(out.scaler_increment.sum())
+    for i in range(AXES_INSTANCES):
+        one = eng.plf(*(a[i] for a in args))
+        check(torch.equal(out.x3[i], one.x3)
+              and torch.equal(out.scaler_vector[i], one.scaler_vector)
+              and int(out.scaler_increment[i]) == int(one.scaler_increment),
+              f"plf_batch S={S} {variant}: instance {i} != plf")
+    lane = _lane_batch(*args, dev)
+    kw = dict(states=S, categories=4, variant=variant)
+    x3, sc = node_mod.plf_node_batch(*lane, n, **kw)
+    plain_fn = (functools.partial(node_mod.plf_node_batch_torch, states=S)
+                if S == 4 else functools.partial(
+                    plf_mxu.plf_node_mxu_batch_torch, **kw))
+    (x3p, scp), plain_ms = timed(lambda: plain_fn(*lane, n))
+    check(torch.equal(x3, x3p) and torch.equal(sc, scp),
+          f"batched kernel {counter.__name__} S={S} {variant} != plain")
+    del x3p, scp
+    ms = cuda_ms(lambda: node_mod.plf_node_batch(*lane, n, **kw), reps=5)
+
+    def singles():
+        for i in range(AXES_INSTANCES):
+            plf_node(*(t[i] for t in lane), n, **kw)
+    single_ms = cuda_ms(singles, reps=5)
+    flops, rate = node_work(S, 4, variant)
+    bd = bound(AXES_INSTANCES * (3 * S * 4 * 4 + 4) * n,
+               AXES_INSTANCES * flops * n, rate)
+    phase("axes", f"PLFEngine.plf_batch, {AXES_INSTANCES} instances x {n} "
+          f"sites, S={S} {variant}: one launch of {counter.__name__} "
+          f"({rescued} rescues), each instance == its own plf() and the "
+          f"batched kernel == plain, bit for bit; batched {ms:.3f} ms vs "
+          f"{AXES_INSTANCES} single launches {single_ms:.3f} ms (means of "
+          f"5), bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+          f"({bd['bound_ms'] / ms:.1%}); plain {plain_ms:.1f} ms")
+    del out, lane, x3, sc, args
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, single_ms=single_ms,
+                launches=counts.get(counter.__name__, 0), **bd)
+
+
+def _round(tree, model, tips, cfg, dev):
+    """The incumbent and its NNI neighbours as models sharing its device
+    tensors (a search round's batch)."""
+    pm0 = PhyloModel(tree, model, tips, alpha=0.5, config=cfg, device=dev)
+    return [pm0] + [PhyloModel(t, model, tips, alpha=0.5, config=cfg,
+                               share_device_from=pm0, device=dev)
+                    for t in search_mod.nni_neighbors(tree)]
+
+
+def _seg_batch_args(pms):
+    """``(args, kw)`` of the round's batched segmented launches, as
+    ``batch_log_likelihood_segmented`` builds them."""
+    progs, segs, lcs, rcs, planes, n_slots, n_bnd = \
+        phylo_mod.segmented_batch_inputs(pms)
+    pm0 = pms[0]
+    cfg = pm0.config
+    args = (pm0.codes, progs, segs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+            pm0.root_rows[0], pm0.n_sites)
+    kw = dict(n_boundaries=n_bnd, n_slots=n_slots, states=cfg.states,
+              categories=cfg.categories, variant=cfg.resolved_kernel_variant,
+              planes=planes, dtype=getattr(torch, cfg.dtype))
+    return args, kw
+
+
+def axes_segmented(pms, label):
+    """``batch_log_likelihood_segmented`` on a round: its launches (one a
+    chunk of candidates whose boundary buffers fit the cap), every row ==
+    the candidate's single-tree kernel 7 (7m) bit for bit, fp32 rows ==
+    the batched fused kernel (2 or 2m) too, and the lls within
+    BATCH_LL_RTOL of each ``log_likelihood(method="segmented")``; the
+    round's first AXES_PLAIN candidates in one launch == the plain batch
+    (timed beside it)."""
+    pm0 = pms[0]
+    cfg = pm0.config
+    mxu = pm0._matrix_form
+    counter = (seg_mod.plf_tree_seg_mxu_batch if mxu
+               else seg_mod.plf_tree_seg_batch)
+    B = len(pms)
+    t0 = time.perf_counter()
+    for pm in pms:
+        pm._segmented_inputs()
+    plan_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    lls = phylo_mod.batch_log_likelihood_segmented(pms)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts().items() if v}
+    args, kw = _seg_batch_args(pms)
+    rows, n_pad = cfg.rows, pm0.n_pad
+    per = seg_mod.seg_batch_size(B, kw["n_boundaries"], rows, n_pad,
+                                 kw["dtype"])
+    chunks = -(-B // per)
+    check(counts == {counter.__name__: chunks}, f"{label}: launches {counts}"
+          f", {chunks} chunks expected")
+    lik, sc = seg_mod.plf_tree_seg_batch(*args, **kw)
+    for b, pm in enumerate(pms):
+        plan, prog, segs, slots = pm._segmented_inputs()
+        one, one_sc, _ = plf_tree_seg(
+            pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites, n_boundaries=plan.n_boundaries,
+            n_slots=slots, states=cfg.states, categories=cfg.categories,
+            variant=cfg.resolved_kernel_variant, planes=pm._planes(),
+            dtype=kw["dtype"], program=pm.segmented_program)
+        check(torch.equal(lik[b], one[0]) and torch.equal(sc[b], one_sc[0]),
+              f"{label}: batched row {b} != the single-tree kernel")
+    fused = "no fused batch (bf16 boundaries round)"
+    if kw["dtype"] == torch.float32:
+        check(phylo_mod.batch_fits(pms), f"{label}: the fused batch does "
+              f"not fit, nothing to hold the rows to")
+        bargs, bkw = _batch_args(pms)
+        flik, fsc = tree_mod.plf_tree_batch(*bargs, **bkw)
+        check(torch.equal(lik, flik) and torch.equal(sc, fsc),
+              f"{label}: batched segmented rows != batched fused rows")
+        fused = "== the batched fused kernel bit for bit"
+    own = np.array([pm.log_likelihood(method="segmented").log_likelihood
+                    for pm in pms])
+    rel = float(np.max(np.abs(lls / own - 1)))
+    check(rel < BATCH_LL_RTOL, f"{label}: batch lls vs log_likelihood("
+          f"method='segmented') rel {rel} >= {BATCH_LL_RTOL}")
+    round_ms = cuda_ms(lambda: seg_mod.plf_tree_seg_batch(*args, **kw),
+                       reps=3, warmup=1)
+    round_bd = _batch_bound(pms)
+    sub = pms[:AXES_PLAIN]
+    sargs, skw = _seg_batch_args(sub)
+    lik_s, sc_s = seg_mod.plf_tree_seg_batch(*sargs, **skw)
+    (lik_p, sc_p), plain_ms = timed(
+        lambda: seg_mod.plf_tree_seg_batch_torch(*sargs, **skw))
+    check(torch.equal(lik_s, lik_p) and torch.equal(sc_s, sc_p)
+          and torch.equal(lik_s, lik[:AXES_PLAIN]),
+          f"{label}: batch of {AXES_PLAIN} != plain or != the round's rows")
+    ms = cuda_ms(lambda: seg_mod.plf_tree_seg_batch(*sargs, **skw), reps=5)
+    bd = _batch_bound(sub)
+    cap = seg_mod.SEG_BATCH_BBUF_BYTES
+    text = (f"{B} candidates x {len(pm0.schedule)} nodes x {pm0.n_sites} "
+            f"sites, {cfg.resolved_kernel_variant}, {cfg.dtype} boundaries: "
+            f"{chunks} launches of {counter.__name__} (chunks of {per} "
+            f"candidates: {kw['n_boundaries']} boundaries a candidate, "
+            f"{kw['n_boundaries'] * rows * n_pad * storage_bytes(pm0)} "
+            f"bytes, under the {cap} byte cap); segments "
+            f"{min(len(pm._segmented_inputs()[0].segments) for pm in pms)}"
+            f"-{max(len(pm._segmented_inputs()[0].segments) for pm in pms)}"
+            f", {kw['n_slots']} arena slots, {args[3].shape[0]} operator "
+            f"pairs; rows == single-tree launches bit for bit, {fused}; "
+            f"lls within rel {rel:.1e} of log_likelihood(method="
+            f"'segmented'); batch_log_likelihood_segmented {wall:.2f} s "
+            f"wall (plans {plan_s:.2f} s before); the round's launches "
+            f"{round_ms:.3f} ms (bound {round_bd['bound_ms']:.4f} ms by "
+            f"{round_bd['bound_by']}); its first {AXES_PLAIN} in one launch "
+            f"== plain: kernel {ms:.3f} ms (bound {bd['bound_ms']:.4f} ms), "
+            f"plain {plain_ms:.1f} ms")
+    phase("axes", f"{label}: {text}")
+    del lik, sc, lik_s, lik_p
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, round_ms=round_ms,
+                launches=counts.get(counter.__name__, 0), chunks=chunks, **bd)
+
+
+def axes_phase(dev):
+    """The instance and candidate axes: ``PLFEngine.plf_batch`` (kernels
+    1 and 1m with an instance axis) and ``batch_log_likelihood_segmented``
+    (kernels 7 and 7m with a candidate axis), each run with every count
+    set to 0 just before it and read just after."""
+    out = {"plf_node": axes_node(dev, 4, "vpu")}
+    for variant in MXU_VARIANTS:
+        out[f"plf_node_mxu:{variant}"] = axes_node(dev, 20, variant)
+    rng = np.random.default_rng(AXES_SEG_TAXA)
+    tree = random_tree(AXES_SEG_TAXA, seed=AXES_SEG_TAXA)
+    tips = rng.integers(-1, 14, size=(AXES_SEG_TAXA, AXES_SEG_SITES))
+    hky = hky85(2.0)
+    for dtype in ("float32", "bfloat16"):
+        pms = _round(tree, hky, tips, PLFConfig(dtype=dtype), dev)
+        out[f"plf_tree_seg:{dtype}"] = axes_segmented(
+            pms, f"DNA round ({dtype})")
+        del pms
+    ptree = random_tree(AXES_PROT_TAXA, seed=AXES_PROT_TAXA)
+    ptips = rng.integers(-1, 23, size=(AXES_PROT_TAXA, AXES_PROT_SITES))
+    lg = empirical_protein("lg")
+    for dtype in ("float32", "bfloat16"):
+        pms = _round(ptree, lg, ptips, PLFConfig(
+            states=20, kernel_variant="mxu_3x", dtype=dtype), dev)
+        out[f"plf_tree_seg_mxu:{dtype}"] = axes_segmented(
+            pms, f"protein round ({dtype})")
+        del pms
+    torch.cuda.empty_cache()
+    return out
+
+
+#: One rank of the sharded phase (arguments: rank, world, store file,
+#: backend, data directory, device).  It loads the libraries this script
+#: built, rebuilds the DNA and protein models from the tips saved there,
+#: and prints one JSON line.
+SHARD_SCRIPT = """
+import json, sys, time
+import numpy as np, torch
+from plf_tpu_torch import PLFEngine
+from plf_tpu_torch.models import PhyloModel, empirical_protein, hky85
+from plf_tpu_torch.models import random_tree, tree_loglik_fn
+from plf_tpu_torch.ops import layout as L
+from plf_tpu_torch.parallel import (ShardedPLF, global_site_mesh,
+                                    initialize_distributed, process_summary,
+                                    shard_sites, validate_site_workload)
+from plf_tpu_torch.parallel.sharding import shard_span
+rank, world, store, backend, data, dev = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+    sys.argv[5], sys.argv[6])
+torch.backends.cuda.matmul.allow_tf32 = False
+initialize_distributed(f"file://{store}", world, rank, backend=backend,
+                       device=dev)
+mesh = global_site_mesh(device=dev)
+out = dict(rank=rank, summary=process_summary(), backend=mesh.backend)
+d = np.load(data + "/tips.npz")
+meta = json.load(open(data + "/meta.json"))
+dna = PhyloModel(random_tree(meta["taxa"], seed=1), hky85(2.0), d["dna"],
+                 alpha=0.5, device=dev)
+prot = PhyloModel(random_tree(meta["prot_taxa"], seed=1),
+                  empirical_protein("lg"), d["prot"], alpha=0.5, device=dev)
+validate_site_workload(mesh, dna.n_sites, dna.config.block_sites)
+sync = torch.cuda.synchronize if mesh.device.type == "cuda" else lambda: None
+for name, pm in (("dna", dna), ("protein", prot)):
+    sync()
+    t0 = time.perf_counter()
+    r = pm.log_likelihood_sharded(mesh)
+    out[name] = dict(ll=r.log_likelihood, scaler_total=r.scaler_total,
+                     sites=len(r.site_log_likelihood),
+                     s=time.perf_counter() - t0)
+for name, pm in (("dna", dna), ("protein", prot)):
+    fn, t0 = tree_loglik_fn(pm, mesh=mesh)
+    t = torch.tensor(t0, device=dev, requires_grad=True)
+    sync()
+    s0 = time.perf_counter()
+    v = fn(t)
+    v.backward()
+    sync()
+    out[name + "_step"] = dict(value=float(v.detach()),
+                               grad=t.grad.cpu().tolist(), engine=fn.engine,
+                               s=time.perf_counter() - s0)
+n = meta["node_sites"]
+g = torch.Generator(device=dev).manual_seed(7)
+x1 = torch.rand((16, n), generator=g, device=dev)
+x2 = torch.rand((16, n), generator=g, device=dev)
+x1[:, ::4] *= 1e-12
+rng = np.random.default_rng(7)
+left, right = (rng.random((4, 4, 4), dtype=np.float32) for _ in range(2))
+ev = rng.random((4, 4), dtype=np.float32)
+sp = ShardedPLF(mesh, block_sites=4096)
+n_pad = sp.padded_sites(n)
+lo, shard, n_local = shard_span(mesh, n, n_pad)
+wgt = torch.ones((1, n), dtype=torch.int32, device=dev)
+x3s, scs, inc = sp(shard_sites(mesh, x1, n_pad), shard_sites(mesh, x2, n_pad),
+                   *sp.constants(left, right, ev),
+                   shard_sites(mesh, wgt, n_pad), n)
+ref = PLFEngine(device=dev).plf(L.from_lane_major(x1), L.from_lane_major(x2),
+                                left, right, ev)
+mine = L.from_lane_major(x3s, n=n_local)
+ref_sv = ref.scaler_vector[lo:lo + n_local]
+out["plf"] = dict(inc=int(inc), ref_inc=int(ref.scaler_increment),
+                  exact=bool(torch.equal(mine, ref.x3[lo:lo + n_local])
+                             and torch.equal(scs[0, :n_local], ref_sv)),
+                  n_local=n_local)
+print(json.dumps(out), flush=True)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+"""
+
+#: Two ranks of NCCL on one card: one all-reduce (argument: store file,
+#: rank).  NCCL usually refuses two ranks on one device.
+NCCL_PROBE = """
+import sys, torch, torch.distributed as dist
+dist.init_process_group("nccl", init_method="file://" + sys.argv[1],
+                        world_size=2, rank=int(sys.argv[2]))
+t = torch.ones(1, device="cuda")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print(float(t))
+dist.destroy_process_group()
+"""
+
+
+def _ranks(script, argv_of, timeout):
+    """Run two ranks of ``script`` at once; ``[(returncode, stdout,
+    stderr)]``, every process stopped by the end."""
+    procs = [subprocess.Popen([sys.executable, "-c", script, *argv_of(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    res = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+                res.append((p.returncode, out, err))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                res.append((None, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def sharded_phase(dev, tree, tips, pm, models):
+    """Site sharding over torch.distributed on the card:
+
+    * a one-rank mesh (no process group) on the 160 x 2^20 DNA model:
+      ``log_likelihood_sharded()`` == ``log_likelihood()`` site for site,
+      "tree" and "segmented" mesh steps == the unsharded steps within
+      SEG_GRAD_RTOL of scale;
+    * two ranks on the one card, processes of their own that load the
+      libraries built here (NCCL if it takes two ranks on one card, else
+      gloo, whose all-reduce copies through the host): the DNA model and
+      the 64 x 131,072 protein "mxu_3x" model, ll within rel 1e-6 of the
+      unsharded, scaler totals exact, a mesh step (auto: "tree") within
+      SEG_GRAD_RTOL of the unsharded step's gradient scale
+      (SEG_MXU_GRAD_RTOL for the protein model's matrix form), every rank
+      the same; ``plf_sharded`` at 2^24 sites == ``PLFEngine.plf`` on
+      each rank's shard, bit for bit, the increment exact;
+    * ``tree_golden_for_model`` on the first 2^16 sites of the DNA model
+      == kernel 2 bit for bit."""
+    from plf_tpu_torch.parallel import make_mesh
+    from plf_tpu_torch.runtime.native import (golden_oracle,
+                                              tree_golden_for_model)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = [subprocess.Popen(
+            [sys.executable, "-c", NCCL_PROBE, f"{tmp}/nccl", str(r)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        np.savez(f"{tmp}/tips.npz", dna=tips, prot=models["mxu_3x"].tip_states)
+        with open(f"{tmp}/meta.json", "w") as f:
+            json.dump(dict(taxa=N_TAXA, prot_taxa=PROT_TAXA,
+                           node_sites=SHARD_NODE_SITES), f)
+        mesh = make_mesh(device=dev)
+        check(mesh.size == 1 and mesh.group is None, f"one-rank mesh {mesh}")
+        want = pm.log_likelihood()
+        got = pm.log_likelihood_sharded(mesh)
+        check(np.array_equal(got.site_log_likelihood, want.site_log_likelihood)
+              and got.scaler_total == want.scaler_total,
+              "one-rank log_likelihood_sharded != log_likelihood()")
+        steps = {}
+        for backend in ("tree", "segmented"):
+            vals = []
+            for m in (None, mesh):
+                fn, t0 = tree_loglik_fn(pm, backend=backend, mesh=m)
+                vals.append(_grad_step(fn, t0, dev))
+            err = float((vals[0][1] - vals[1][1]).abs().max()
+                        / vals[0][1].abs().max())
+            check(err <= SEG_GRAD_RTOL and vals[0][0] == vals[1][0],
+                  f"one-rank {backend} mesh step: gradient {err} of scale")
+            steps[backend] = (vals[0], err)
+        phase("sharded", f"one-rank mesh on {N_TAXA} x {TREE_SITES}: "
+              f"log_likelihood_sharded() == log_likelihood() site for site "
+              f"(ll {got.log_likelihood:.3f}, {got.scaler_total} rescales); "
+              f"'tree' and 'segmented' mesh steps == unsharded (gradient "
+              f"{steps['tree'][1]:.1e} and {steps['segmented'][1]:.1e} of "
+              f"scale)")
+        nccl = []
+        for p in probe:
+            try:
+                o, e = p.communicate(timeout=90)
+                nccl.append((p.returncode, e))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                nccl.append((None, "timed out"))
+        backend = "nccl" if all(rc == 0 for rc, _ in nccl) else "gloo"
+        def reason(err):
+            """NCCL's own words: the line after "Last error:", else the
+            last line that names an error."""
+            lines = [ln.strip() for ln in err.strip().splitlines()] or ["?"]
+            last = [i for i, ln in enumerate(lines) if "Last error:" in ln]
+            if last and last[-1] + 1 < len(lines):
+                return lines[last[-1] + 1]
+            return ([ln for ln in lines if "rror" in ln
+                     or "timed out" in ln] or lines)[-1]
+        why = "" if backend == "nccl" else " (NCCL refused: " + " / ".join(
+            reason(e)[:200] for _, e in nccl) + ")"
+        phase("sharded", f"two ranks on one card: backend {backend}{why}")
+        t0 = time.perf_counter()
+        ranks = _ranks(SHARD_SCRIPT, lambda r: [str(r), "2", f"{tmp}/store",
+                                                backend, tmp, str(dev)], 600)
+        wall = time.perf_counter() - t0
+        for r, (rc, o, e) in enumerate(ranks):
+            check(rc == 0, f"sharded rank {r} exited {rc}:\n{e[-3000:]}")
+        res = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in ranks]
+    prot = models["mxu_3x"]
+    ref = dict(dna=want, protein=prot.log_likelihood())
+    for name in ("dna", "protein"):
+        for r in res:
+            rel = abs(r[name]["ll"] / ref[name].log_likelihood - 1)
+            check(rel < 1e-6 and r[name]["scaler_total"]
+                  == ref[name].scaler_total and r[name]["ll"]
+                  == res[0][name]["ll"], f"2 ranks {name}: ll {r[name]} vs "
+                  f"{ref[name].log_likelihood} (rel {rel})")
+    errs = {}
+    for name, model in (("dna", pm), ("protein", prot)):
+        fn, t0 = tree_loglik_fn(model, backend=res[0][name + "_step"]
+                                ["engine"])
+        v, g = _grad_step(fn, t0, dev)
+        g = g.cpu().numpy()
+        for r in res:
+            got = np.asarray(r[name + "_step"]["grad"])
+            errs[name] = float(np.abs(got - g).max() / np.abs(g).max())
+            rtol = SEG_GRAD_RTOL if name == "dna" else SEG_MXU_GRAD_RTOL
+            check(errs[name] <= rtol and got.tolist()
+                  == res[0][name + "_step"]["grad"],
+                  f"2 ranks {name} step: gradient {errs[name]} of scale")
+    for r in res:
+        check(r["plf"]["exact"] and r["plf"]["inc"] == r["plf"]["ref_inc"]
+              > 0, f"2 ranks plf_sharded: {r['plf']}")
+    phase("sharded", f"2 ranks ({res[0]['summary']}; {res[1]['backend']}) "
+          f"on one card, {wall:.1f} s wall: DNA ll {res[0]['dna']['ll']:.3f} "
+          f"(unsharded {want.log_likelihood:.3f}), protein "
+          f"{res[0]['protein']['ll']:.3f}, scaler totals exact, every rank "
+          f"the same; mesh steps ({res[0]['dna_step']['engine']}/"
+          f"{res[0]['protein_step']['engine']}) within {errs['dna']:.1e} / "
+          f"{errs['protein']:.1e} of the unsharded gradients' scale; "
+          f"sharded ll {res[0]['dna']['s']:.2f} / "
+          f"{res[0]['protein']['s']:.2f} s and steps "
+          f"{res[0]['dna_step']['s']:.2f} / {res[0]['protein_step']['s']:.2f}"
+          f" s a rank (wall, shared card); plf_sharded at "
+          f"{SHARD_NODE_SITES} sites == PLFEngine.plf on each shard "
+          f"({res[0]['plf']['n_local']} + {res[1]['plf']['n_local']} "
+          f"sites), increment {res[0]['plf']['inc']}")
+    sub = PhyloModel(tree, hky85(2.0), tips[:, :GOLDEN_SITES], alpha=0.5,
+                     device=dev)
+    t0 = time.perf_counter()
+    glik, gsc = tree_golden_for_model(sub)
+    gsecs = time.perf_counter() - t0
+    klik, ksc = plf_tree(sub.codes, sub.sched, sub.lcs, sub.rcs, sub.ec,
+                         sub.fused_tip_table, sub.root_rows[0], sub.n_sites,
+                         n_slots=sub.n_slots, root_slot=sub.root_slot,
+                         program=sub.tree_program)
+    check(np.array_equal(glik, klik[0, :GOLDEN_SITES].cpu().numpy())
+          and np.array_equal(gsc, ksc[0, :GOLDEN_SITES].cpu().numpy()),
+          "tree_golden_for_model != kernel 2")
+    phase("sharded", f"tree_golden_for_model ({golden_oracle()}) on "
+          f"{N_TAXA} x {GOLDEN_SITES} sites == kernel 2 bit for bit "
+          f"({int(gsc.sum())} rescales), {gsecs:.2f} s on the host")
+    out["backend"] = backend
+    return out
+
+
 def seg_inputs(pm):
     """The model's segment plan, the forward's program (cached on the
     model: kernel 7's carried one, ``carry_segment_program``, or kernel
@@ -3807,6 +4330,8 @@ def main():
     codon_phase(codon, dev)
     inf = infer_phase(dev)
     analyses_phase(dev)
+    ax = axes_phase(dev)
+    sharded_phase(dev, tree, tips, pm, models)
     k7m = kernel7m_phase(models, codon, (tree, tips), dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))
@@ -3863,6 +4388,20 @@ def main():
         entry("plf_tree_mxu:batched", "plf_tree_mxu.cu",
               "plf_tpu/ops/plf_tree_pallas.py:628",
               inf["plf_tree_mxu_batch"]),
+        entry("plf_node:batched", "plf_node.cu",
+              "plf_tpu/ops/plf_pallas.py:78", ax["plf_node"]),
+        entry("plf_node_mxu:batched", "plf_node_mxu.cu",
+              "plf_tpu/ops/plf_pallas.py:233", ax["plf_node_mxu:mxu_3x"]),
+        entry("plf_tree_seg:batched", "plf_tree_seg.cu",
+              "plf_tpu/ops/plf_tree_seg.py:1376", ax["plf_tree_seg:float32"]),
+        entry("plf_tree_seg:batched:bf16", "plf_tree_seg.cu",
+              "plf_tpu/ops/plf_tree_seg.py:1376", ax["plf_tree_seg:bfloat16"]),
+        entry("plf_tree_seg_mxu:batched", "plf_tree_seg_mxu.cu",
+              "plf_tpu/ops/plf_tree_seg.py:1376",
+              ax["plf_tree_seg_mxu:float32"]),
+        entry("plf_tree_seg_mxu:batched:bf16", "plf_tree_seg_mxu.cu",
+              "plf_tpu/ops/plf_tree_seg.py:1376",
+              ax["plf_tree_seg_mxu:bfloat16"]),
     ]
     replaces = {"plf_node": "plf_pallas.py:78",
                 "plf_node_mxu": "plf_pallas.py:233",

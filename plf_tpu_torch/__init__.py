@@ -13,6 +13,6 @@ version instead.  This package never imports JAX or ``plf_tpu``.
 
 from .config import PLFConfig, Backend
 from .reference import plf_reference, MIN_LIKELIHOOD, TWO_TO_THE_32
-from .engine import PLFEngine, PLFResult
+from .engine import PLFEngine, PLFResult, plf
 
 __version__ = "0.1.0"

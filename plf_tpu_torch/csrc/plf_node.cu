@@ -17,6 +17,17 @@
 // (plf_pallas.py:114-119).  A site then moves 100 bytes (2*16*2 + 16*2 + 4),
 // about half of the fp32 form's.
 //
+// Instance axis (plf_node_batch_launch, PLFEngine.plf_batch): blockIdx.y is
+// the instance of a kernel instantiated with kBatch (a launch of one
+// instance runs the single-node kernel, whose pointers stay kernel
+// parameters rather than registers); instance i reads its own x1, x2 (i * S*C * n_pad elements
+// in), its own lc, rc, ec (i * S*C * S floats in) and writes its own x3 and
+// scaler row, so one launch evaluates I independent node pairs.  The
+// per-site arithmetic is the single-node kernel's, which is instance 0 of a
+// batch of one: instance i's x3 and flags equal plf_node on instance i bit
+// for bit.  Replaces the vmap of plf_pallas_lane_major over instances in
+// plf_tpu/engine.py::PLFEngine.plf_batch (:147-228).
+//
 // In-place form: x3 may be the same buffer as x1 or x2 (the parent CLV written
 // over a dead child, plf_tpu/ops/plf_pallas.py:328-330).  That is safe because
 // each thread reads every row of its own site into registers before it writes
@@ -28,11 +39,21 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int C, typename T>
+template <int C, typename T, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 plf_node_kernel(const T* x1, const T* x2, const float* lc, const float* rc,
                 const float* ec, T* x3, int* sc, int n, int n_pad) {
   constexpr int R = plf::S * C;
+  if constexpr (kBatch) {  // this block's instance
+    const size_t inst = blockIdx.y;
+    x1 += inst * R * n_pad;
+    x2 += inst * R * n_pad;
+    x3 += inst * R * n_pad;
+    sc += inst * n_pad;
+    lc += inst * R * plf::S;
+    rc += inst * R * plf::S;
+    ec += inst * R * plf::S;
+  }
   __shared__ float4 s_lc[R], s_rc[R], s_ec[R];
   for (int i = threadIdx.x; i < R; i += blockDim.x) {
     s_lc[i] = reinterpret_cast<const float4*>(lc)[i];
@@ -55,6 +76,22 @@ plf_node_kernel(const T* x1, const T* x2, const float* lc, const float* rc,
   sc[site] = flag;
 }
 
+int launch(const void* x1, const void* x2, const float* lc, const float* rc,
+           const float* ec, void* x3, int* sc, int n, int n_pad,
+           int categories, int bf16, int batch, void* stream) {
+  if (n_pad <= 0 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_pad + kThreads - 1) / kThreads, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
+      auto kern = batch > 1 ? plf_node_kernel<C_, T_, true>
+                            : plf_node_kernel<C_, T_, false>;
+      kern<<<grid, kThreads, 0, st>>>(
+          static_cast<const T_*>(x1), static_cast<const T_*>(x2), lc, rc, ec,
+          static_cast<T_*>(x3), sc, n, n_pad)));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x1, x2, x3: (S*C, n_pad), fp32, or bf16 when bf16 is set; lc, rc, ec:
@@ -65,12 +102,18 @@ extern "C" int plf_node_launch(const void* x1, const void* x2,
                                const float* ec, void* x3, int* sc, int n,
                                int n_pad, int categories, int bf16,
                                void* stream) {
-  if (n_pad <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_pad + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
-      plf_node_kernel<C_, T_><<<grid, kThreads, 0, st>>>(
-          static_cast<const T_*>(x1), static_cast<const T_*>(x2), lc, rc, ec,
-          static_cast<T_*>(x3), sc, n, n_pad)));
-  return (int)cudaGetLastError();
+  return launch(x1, x2, lc, rc, ec, x3, sc, n, n_pad, categories, bf16, 1,
+                stream);
+}
+
+// The instance axis: x1, x2, x3: (batch, S*C, n_pad); lc, rc, ec: (batch,
+// S*C, S); sc: (batch, n_pad); n valid sites in every instance; batch in
+// 1..65535 (the grid's y extent).  One launch.
+extern "C" int plf_node_batch_launch(const void* x1, const void* x2,
+                                     const float* lc, const float* rc,
+                                     const float* ec, void* x3, int* sc,
+                                     int n, int n_pad, int categories,
+                                     int bf16, int batch, void* stream) {
+  return launch(x1, x2, lc, rc, ec, x3, sc, n, n_pad, categories, bf16,
+                batch, stream);
 }

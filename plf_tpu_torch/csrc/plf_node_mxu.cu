@@ -35,6 +35,16 @@
 // 2^32, x3).astype (plf_pallas.py:249-250, :264-265); 484 bytes a site at S
 // = 20, C = 4.
 //
+// Instance axis (plf_node_mxu_batch_launch, PLFEngine.plf_batch): blockIdx.y
+// is the instance of a kernel instantiated with kBatch (a launch of one
+// instance runs the single-node kernel, whose ten pointers stay kernel
+// parameters rather than offset copies in registers); instance i reads its own child tiles (i * S*C * n_pad
+// elements in), its own six operator planes (i * S*C * S floats in) and
+// writes its own parent and flags.  The tile's arithmetic is unchanged, so
+// instance i equals a single launch on it bit for bit (a single launch is a
+// batch of one).  Replaces the vmap of plf_pallas_lane_major over instances
+// in plf_tpu/engine.py::PLFEngine.plf_batch (:147-228).
+//
 // In-place form: x3 may be x1 or x2 (the parent written over a dead child).
 // A block reads its whole tile of both children before it writes any of its
 // sites, and blocks own disjoint sites, so the pointers are not __restrict__.
@@ -50,7 +60,7 @@ using plf_mxu::kMaxThreads;
 // 8, 16 and 32 at S = 20 and S = 61, summed over the modes and storages.
 constexpr int kNodeSites = 32;
 
-template <int MODE, int V, typename T>
+template <int MODE, int V, typename T, bool kBatch>
 __global__ void __launch_bounds__(kMaxThreads)
 plf_node_mxu_kernel(const T* x1, const T* x2, const float* lh,
                     const float* ll, const float* rh, const float* rl,
@@ -60,6 +70,20 @@ plf_node_mxu_kernel(const T* x1, const T* x2, const float* lh,
   extern __shared__ float smem[];
   const int rows = S * C;
   const int tile = rows * TS;
+  if constexpr (kBatch) {  // this block's instance
+    const size_t inst = blockIdx.y;
+    const size_t clv = inst * rows * n_pad, ops = inst * rows * S;
+    x1 += clv;
+    x2 += clv;
+    x3 += clv;
+    sc += inst * n_pad;
+    lh += ops;
+    ll += ops;
+    rh += ops;
+    rl += ops;
+    eh += ops;
+    el += ops;
+  }
   float* A = smem;
   float* B = A + tile;
   float* P = B + tile;
@@ -97,26 +121,26 @@ size_t smem_bytes(int rows) {
 
 // Threads and shared memory of a block, the kernel's shared-memory ceiling
 // raised to them (fails where they exceed what a block may use).
-template <int MODE, int V, typename T>
+template <int MODE, int V, typename T, bool kBatch>
 cudaError_t shape(int S, int C, int* threads, size_t* smem) {
   *threads = block_threads(S, C, job_rows(V), kNodeSites);
   *smem = smem_bytes(S * C);
-  return cudaFuncSetAttribute(plf_node_mxu_kernel<MODE, V, T>,
+  return cudaFuncSetAttribute(plf_node_mxu_kernel<MODE, V, T, kBatch>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
 }
 
-template <int MODE, int V, typename T>
+template <int MODE, int V, typename T, bool kBatch>
 int launch(const void* x1, const void* x2, const float* lh, const float* ll,
            const float* rh, const float* rl, const float* eh, const float* el,
-           void* x3, int* sc, int n, int n_pad, int S, int C,
+           void* x3, int* sc, int n, int n_pad, int S, int C, int batch,
            cudaStream_t st) {
   int threads = 0;
   size_t smem = 0;
-  const cudaError_t err = shape<MODE, V, T>(S, C, &threads, &smem);
+  const cudaError_t err = shape<MODE, V, T, kBatch>(S, C, &threads, &smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_pad + kNodeSites - 1) / kNodeSites);
-  plf_node_mxu_kernel<MODE, V, T><<<grid, threads, smem, st>>>(
+  const dim3 grid((n_pad + kNodeSites - 1) / kNodeSites, batch);
+  plf_node_mxu_kernel<MODE, V, T, kBatch><<<grid, threads, smem, st>>>(
       static_cast<const T*>(x1), static_cast<const T*>(x2), lh, ll, rh, rl, eh,
       el, static_cast<T*>(x3), sc, n, n_pad, S, C);
   return (int)cudaGetLastError();
@@ -125,11 +149,33 @@ int launch(const void* x1, const void* x2, const float* lh, const float* ll,
 template <int MODE, int V, typename T>
 int plan(int S, int C, int* threads, int* blocks) {
   size_t smem = 0;
-  cudaError_t err = shape<MODE, V, T>(S, C, threads, &smem);
+  cudaError_t err = shape<MODE, V, T, false>(S, C, threads, &smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, plf_node_mxu_kernel<MODE, V, T>, *threads, smem);
+        blocks, plf_node_mxu_kernel<MODE, V, T, false>, *threads, smem);
   return (int)err;
+}
+
+int launch_any(const void* x1, const void* x2, const float* lh,
+               const float* ll, const float* rh, const float* rl,
+               const float* eh, const float* el, void* x3, int* sc, int n,
+               int n_pad, int states, int categories, int mode, int bf16,
+               int batch, void* stream) {
+  if (n_pad <= 0 || states < 1 || categories < 1 || batch < 1 ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
+                   return batch > 1
+                       ? launch<M_, V_, T_, true>(x1, x2, lh, ll, rh, rl, eh,
+                                                  el, x3, sc, n, n_pad,
+                                                  states, categories, batch,
+                                                  st)
+                       : launch<M_, V_, T_, false>(x1, x2, lh, ll, rh, rl, eh,
+                                                   el, x3, sc, n, n_pad,
+                                                   states, categories, 1,
+                                                   st)));
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -148,14 +194,20 @@ extern "C" int plf_node_mxu_launch(const void* x1, const void* x2,
                                    int* sc, int n, int n_pad, int states,
                                    int categories, int mode, int bf16,
                                    void* stream) {
-  if (n_pad <= 0 || states < 1 || categories < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
-                   return launch<M_, V_, T_>(x1, x2, lh, ll, rh, rl, eh, el,
-                                             x3, sc, n, n_pad, states,
-                                             categories, st)));
-  return (int)cudaErrorInvalidValue;
+  return launch_any(x1, x2, lh, ll, rh, rl, eh, el, x3, sc, n, n_pad, states,
+                    categories, mode, bf16, 1, stream);
+}
+
+// The instance axis: x1, x2, x3: (batch, S*C, n_pad); each plane (batch,
+// S*C, S); sc: (batch, n_pad); n valid sites in every instance; batch in
+// 1..65535 (the grid's y extent).  One launch.
+extern "C" int plf_node_mxu_batch_launch(
+    const void* x1, const void* x2, const float* lh, const float* ll,
+    const float* rh, const float* rl, const float* eh, const float* el,
+    void* x3, int* sc, int n, int n_pad, int states, int categories,
+    int mode, int bf16, int batch, void* stream) {
+  return launch_any(x1, x2, lh, ll, rh, rl, eh, el, x3, sc, n, n_pad, states,
+                    categories, mode, bf16, batch, stream);
 }
 
 // The launch shape of kernel 1m for this state and category count, mode and

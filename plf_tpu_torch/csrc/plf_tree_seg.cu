@@ -66,6 +66,22 @@
 // read at op i+1, after the export.  Every other boundary was exported by
 // an earlier op, before its landing is issued.
 //
+// Candidate axis (blockIdx.y; plf_tree_seg_batch in ops/plf_tree_seg.py,
+// kernel 2's candidate axis on kernel 7): a launch scores a batch of trees
+// over one alignment, candidate b with its own carried program prog[b] (6 x
+// n_ops, the same op count for every candidate), its own segment rows
+// segs[b] (n_seg rows, the batch's most; a candidate with fewer segments is
+// padded past its last with rows that are never reached), its own boundary
+// buffer bbuf[b] (n_bnd boundaries, the batch's most) and its own lik and sc
+// rows; all share the codes, the tip table and one operator table that
+// every program's edge row indexes (the batch's distinct (left, right)
+// operator pairs).  Per-site arithmetic is the single-tree kernel's, so each
+// row equals a single-tree launch bit for bit; a batch of one runs the
+// single-tree kernel (kBatch false: its pointers stay kernel parameters).  The host launches a batch in chunks of candidates whose boundary
+// buffers fit a stated cap, one launch a chunk over one reused buffer.
+// Replaces plf_tpu/ops/plf_tree_seg.py::batched_seg_loglik_parts (:1376, a
+// lax.map of _seg_fwd_call over the candidates of stack_plans :1289).
+//
 // bf16 boundaries (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): a
 // segment's root is narrowed as it is exported to bbuf and widened when a
 // later segment reads it, as the TPU kernel stores root.astype(bf16) (:568)
@@ -111,14 +127,23 @@ struct Entries {
   bool llate, rlate;
 };
 
-template <int C, typename CodeT, typename BT>
+template <int C, typename CodeT, typename BT, bool kBatch>
 __global__ void plf_tree_seg_kernel(const CodeT* codes, const int* prog,
                                     int n_ops, const int* segs, int n_seg,
                                     const float* lcs, const float* rcs,
                                     const float* ec, const float* ttab,
                                     int ncols, const float* rr, BT* bbuf,
-                                    float* lik, int* sc, int n, int n_pad) {
+                                    int n_bnd, float* lik, int* sc, int n,
+                                    int n_pad) {
   constexpr int R = plf::S * C;
+  if constexpr (kBatch) {  // this block's candidate
+    const size_t cand = blockIdx.y;
+    prog += cand * 6 * n_ops;
+    segs += cand * 2 * n_seg;
+    bbuf += cand * n_bnd * R * n_pad;
+    lik += cand * n_pad;
+    sc += cand * n_pad;
+  }
   extern __shared__ float4 smem4[];
   float4* s_ec = smem4;                                    // R float4
   float4* s_ops = smem4 + R;                               // 2 x (lc, rc)
@@ -291,19 +316,20 @@ template <int C, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* lcs, const float* rcs, const float* ec,
            const float* ttab, int ncols, const float* rr, void* bbuf,
-           float* lik, int* sc, int n_slots, int n, int n_pad, int threads,
-           cudaStream_t st) {
+           int n_bnd, float* lik, int* sc, int n_slots, int n, int n_pad,
+           int threads, int batch, cudaStream_t st) {
   if (threads < 2 * plf::S * C) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<C>(ncols, n_slots, threads);
-  auto kern = plf_tree_seg_kernel<C, CodeT, BT>;
+  auto kern = batch > 1 ? plf_tree_seg_kernel<C, CodeT, BT, true>
+                        : plf_tree_seg_kernel<C, CodeT, BT, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_pad + threads - 1) / threads);
+  const dim3 grid((n_pad + threads - 1) / threads, batch);
   kern<<<grid, threads, smem, st>>>(static_cast<const CodeT*>(codes), prog,
                                     n_ops, segs, n_seg, lcs, rcs, ec, ttab,
-                                    ncols, rr, static_cast<BT*>(bbuf), lik,
-                                    sc, n, n_pad);
+                                    ncols, rr, static_cast<BT*>(bbuf), n_bnd,
+                                    lik, sc, n, n_pad);
   return (int)cudaGetLastError();
 }
 
@@ -311,7 +337,7 @@ template <int C, typename CodeT, typename BT>
 int plan(int ncols, int n_slots, int threads, int* smem, int* blocks,
          int* regs) {
   const size_t bytes = smem_bytes<C>(ncols, n_slots, threads);
-  auto kern = plf_tree_seg_kernel<C, CodeT, BT>;
+  auto kern = plf_tree_seg_kernel<C, CodeT, BT, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -326,36 +352,40 @@ int plan(int ncols, int n_slots, int threads, int* smem, int* blocks,
 
 }  // namespace
 
-// codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (1); prog: (6, n_ops)
-// int32 rows lsrc, lflag, rsrc, rflag, oslot, edge (carry_segment_program;
-// segment_program's uncarried program runs too); segs: (n_seg, 2) int32;
-// lcs, rcs: (E, S*C, S) fp32; ec: (S*C, S); ttab: (S*C, ncols); rr: (S*C,);
-// bbuf: (n_boundaries, S*C, n_pad), fp32, or bf16 when bf16 is set; lik:
-// (n_pad,) fp32; sc: (n_pad,) int32; n_slots: the program's arena slots;
-// threads: sites (one a thread) per block, at least 2*S*C.  Returns
-// cudaGetLastError().
+// codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (1); prog: (batch,
+// 6, n_ops) int32, each candidate's rows lsrc, lflag, rsrc, rflag, oslot,
+// edge (carry_segment_program; segment_program's uncarried program runs
+// too); segs: (batch, n_seg, 2) int32; lcs, rcs: (P, S*C, S) fp32, the
+// operator table the edge rows index; ec: (S*C, S); ttab: (S*C, ncols); rr:
+// (S*C,); bbuf: (batch, n_bnd, S*C, n_pad), fp32, or bf16 when bf16 is set;
+// lik, sc: (batch, n_pad) fp32 and int32; n_slots: the programs' largest
+// arena; threads: sites (one a thread) per block, at least 2*S*C; batch in
+// 1..65535.  Returns cudaGetLastError().
 extern "C" int plf_tree_seg_launch(const void* codes, int code_bytes,
                                    const int* prog, int n_ops, const int* segs,
                                    int n_seg, const float* lcs,
                                    const float* rcs, const float* ec,
                                    const float* ttab, int ncols,
-                                   const float* rr, void* bbuf, float* lik,
-                                   int* sc, int n_slots, int n, int n_pad,
-                                   int categories, int threads, int bf16,
-                                   void* stream) {
-  if (n_pad <= 0 || n_ops <= 0 || n_seg <= 0 || threads <= 0 || n_slots < 0)
+                                   const float* rr, void* bbuf, int n_bnd,
+                                   float* lik, int* sc, int n_slots, int n,
+                                   int n_pad, int categories, int threads,
+                                   int bf16, int batch, void* stream) {
+  if (n_pad <= 0 || n_ops <= 0 || n_seg <= 0 || threads <= 0 || n_slots < 0 ||
+      n_bnd < 0 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (code_bytes == 4) {
     PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
         return launch<C_, int32_t, T_>(codes, prog, n_ops, segs, n_seg, lcs,
-                                       rcs, ec, ttab, ncols, rr, bbuf, lik,
-                                       sc, n_slots, n, n_pad, threads, st)));
+                                       rcs, ec, ttab, ncols, rr, bbuf, n_bnd,
+                                       lik, sc, n_slots, n, n_pad, threads,
+                                       batch, st)));
   } else if (code_bytes == 1) {
     PLF_DISPATCH_T(bf16, PLF_DISPATCH_C(categories,
         return launch<C_, int8_t, T_>(codes, prog, n_ops, segs, n_seg, lcs,
-                                      rcs, ec, ttab, ncols, rr, bbuf, lik,
-                                      sc, n_slots, n, n_pad, threads, st)));
+                                      rcs, ec, ttab, ncols, rr, bbuf, n_bnd,
+                                      lik, sc, n_slots, n, n_pad, threads,
+                                      batch, st)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -38,6 +38,17 @@
 // reduction and the count take the kSites threads tid < kSites, which
 // every block size of the rule holds (at least one job slot).
 //
+// Candidate axis (blockIdx.y), as in kernel 7: candidate b walks its own
+// program prog[b] and segment rows segs[b] (padded past its last segment to
+// the batch's most with rows that end where the last one does: the loop
+// stops at the first segment with no ops), through its own boundary buffer
+// bbuf[b] (n_bnd boundaries, the batch's most), into its own lik and sc
+// rows; the operator planes are one table that every program's edge row
+// indexes.  Each row equals a single-tree launch bit for bit; a batch of one
+// runs the single-tree kernel (kBatch false: its pointers stay kernel
+// parameters, and it reads no padding row).  Replaces
+// plf_tpu/ops/plf_tree_seg.py::batched_seg_loglik_parts (:1376).
+//
 // bf16 boundaries (BT = __nv_bfloat16, PLFConfig(dtype="bfloat16")): the
 // root tile is narrowed as it is exported and a boundary tile widened as it
 // is brought in, as the TPU kernel's bf16 landing scratch does (:452-484,
@@ -53,16 +64,25 @@ using plf_mxu::job_rows;
 using plf_mxu::kMaxThreads;
 using plf_mxu::kSites;
 
-template <int MODE, int V, typename CodeT, typename BT>
+template <int MODE, int V, typename CodeT, typename BT, bool kBatch>
 __global__ void __launch_bounds__(kMaxThreads)
 plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
                         const int* segs, int n_seg, const float* lh,
                         const float* ll, const float* rh, const float* rl,
                         const float* eh, const float* el, const float* ttab,
-                        int ncols, const float* rr, BT* bbuf, float* lik,
-                        int* sc, int n_slots, int n, int n_pad, int S, int C) {
+                        int ncols, const float* rr, BT* bbuf, int n_bnd,
+                        float* lik, int* sc, int n_slots, int n, int n_pad,
+                        int S, int C) {
   extern __shared__ float smem[];
   const int rows = S * C;
+  if constexpr (kBatch) {  // this block's candidate
+    const size_t cand = blockIdx.y;
+    prog += cand * 6 * n_ops;
+    segs += cand * 2 * n_seg;
+    bbuf += cand * n_bnd * rows * n_pad;
+    lik += cand * n_pad;
+    sc += cand * n_pad;
+  }
   const int tile = rows * kSites;
   const size_t op_stride = (size_t)rows * S;  // one edge's operator plane
   const size_t bnd_stride = (size_t)rows * n_pad;
@@ -113,6 +133,7 @@ plf_tree_seg_mxu_kernel(const CodeT* codes, const int* prog, int n_ops,
   for (int s = 0; s < n_seg; ++s) {
     const int end = __ldg(segs + 2 * s);
     const int gout = __ldg(segs + 2 * s + 1);
+    if (kBatch && end <= i) break;  // a padding row: the candidate is done
     for (; i < end; ++i) {
       const size_t e = (size_t)__ldg(eidx + i) * op_stride;
       float* out = arena + (size_t)__ldg(oslot + i) * tile;
@@ -162,59 +183,63 @@ size_t smem_bytes(int rows, int ncols, int n_slots) {
                           ((size_t)n_slots + 3) * rows * kSites);
 }
 
-template <int MODE, int V, typename CodeT, typename BT>
+template <int MODE, int V, typename CodeT, typename BT, bool kBatch>
 cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(
+      plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT, kBatch>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int MODE, int V, typename CodeT, typename BT>
 int launch(const void* codes, const int* prog, int n_ops, const int* segs,
            int n_seg, const float* const* pl, const float* ttab, int ncols,
-           const float* rr, void* bbuf, float* lik, int* sc, int n_slots,
-           int n, int n_pad, int S, int C, cudaStream_t st) {
-  auto kern = plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>;
+           const float* rr, void* bbuf, int n_bnd, float* lik, int* sc,
+           int n_slots, int n, int n_pad, int S, int C, int batch,
+           cudaStream_t st) {
   const size_t smem = smem_bytes(S * C, ncols, n_slots);
-  cudaError_t err = prepare<MODE, V, CodeT, BT>(smem);
+  const bool batched = batch > 1;
+  auto kern = batched ? plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT, true>
+                      : plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT, false>;
+  cudaError_t err = batched ? prepare<MODE, V, CodeT, BT, true>(smem)
+                            : prepare<MODE, V, CodeT, BT, false>(smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_pad + kSites - 1) / kSites);
+  const dim3 grid((n_pad + kSites - 1) / kSites, batch);
   kern<<<grid, block_threads(S, C, job_rows(V)), smem, st>>>(
       static_cast<const CodeT*>(codes), prog, n_ops, segs, n_seg, pl[0],
       pl[1], pl[2], pl[3], pl[4], pl[5], ttab, ncols, rr,
-      static_cast<BT*>(bbuf), lik, sc,
-      n_slots, n, n_pad, S, C);
+      static_cast<BT*>(bbuf), n_bnd, lik, sc, n_slots, n, n_pad, S, C);
   return (int)cudaGetLastError();
 }
 
 template <int MODE, int V, typename CodeT, typename BT>
 int occupancy(int S, int C, int ncols, int n_slots, int* blocks) {
   const size_t smem = smem_bytes(S * C, ncols, n_slots);
-  cudaError_t err = prepare<MODE, V, CodeT, BT>(smem);
+  cudaError_t err = prepare<MODE, V, CodeT, BT, false>(smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT>,
+      blocks, plf_tree_seg_mxu_kernel<MODE, V, CodeT, BT, false>,
       block_threads(S, C, job_rows(V)), smem);
 }
 
 }  // namespace
 
-// codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (1); prog: (6, n_ops)
-// int32 rows lsrc, lflag, rsrc, rflag, oslot, edge; segs: (n_seg, 2) int32;
-// lh/ll, rh/rl: (E, S*C, S) fp32 hi and lo planes of the per-edge lane
-// constants; eh/el: (S*C, S); ttab: (S*C, ncols), already rounded for the
-// variant; rr: (S*C,); bbuf: (n_boundaries, S*C, n_pad), fp32, or bf16 when
-// bf16 is set; lik: (n_pad,) fp32; sc: (n_pad,) int32.  mode: 0 fp32, 1
-// bf16x3, 2 bf16.  Returns cudaGetLastError().
+// codes: (n_leaves, n_pad) int32 (code_bytes 4) or int8 (1); prog: (batch,
+// 6, n_ops) int32, each candidate's rows lsrc, lflag, rsrc, rflag, oslot,
+// edge; segs: (batch, n_seg, 2) int32; lh/ll, rh/rl: (P, S*C, S) fp32 hi and
+// lo planes of the operator table the edge rows index; eh/el: (S*C, S);
+// ttab: (S*C, ncols), already rounded for the variant; rr: (S*C,); bbuf:
+// (batch, n_bnd, S*C, n_pad), fp32, or bf16 when bf16 is set; lik, sc:
+// (batch, n_pad) fp32 and int32.  mode: 0 fp32, 1 bf16x3, 2 bf16; batch in
+// 1..65535.  Returns cudaGetLastError().
 extern "C" int plf_tree_seg_mxu_launch(
     const void* codes, int code_bytes, const int* prog, int n_ops,
     const int* segs, int n_seg, const float* lh, const float* ll,
     const float* rh, const float* rl, const float* eh, const float* el,
-    const float* ttab, int ncols, const float* rr, void* bbuf, float* lik,
-    int* sc, int n_slots, int n, int n_pad, int states, int categories,
-    int mode, int bf16, void* stream) {
+    const float* ttab, int ncols, const float* rr, void* bbuf, int n_bnd,
+    float* lik, int* sc, int n_slots, int n, int n_pad, int states,
+    int categories, int mode, int bf16, int batch, void* stream) {
   if (n_pad <= 0 || n_ops <= 0 || n_seg <= 0 || n_slots <= 0 || states < 1 ||
-      categories < 1)
+      categories < 1 || n_bnd < 0 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   const float* pl[6] = {lh, ll, rh, rl, eh, el};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -222,14 +247,14 @@ extern "C" int plf_tree_seg_mxu_launch(
     PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
                      return launch<M_, V_, int32_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
-                         bbuf, lik, sc, n_slots, n, n_pad, states, categories,
-                         st)));
+                         bbuf, n_bnd, lik, sc, n_slots, n, n_pad, states,
+                         categories, batch, st)));
   } else if (code_bytes == 1) {
     PLF_DISPATCH_T(bf16, PLF_MXU_DISPATCH(mode, states,
                      return launch<M_, V_, int8_t, T_>(
                          codes, prog, n_ops, segs, n_seg, pl, ttab, ncols, rr,
-                         bbuf, lik, sc, n_slots, n, n_pad, states, categories,
-                         st)));
+                         bbuf, n_bnd, lik, sc, n_slots, n, n_pad, states,
+                         categories, batch, st)));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,9 @@
 check.  Counterpart of ``plf_tpu/engine.py``.
 
 * ``plf()``       -- one PLF call (site batch -> parent CLV + scalers)
-* ``plf_batch()`` -- I independent node-pairs (a loop over instances)
+* ``plf_batch()`` -- I independent node-pairs in one launch (kernel 1 or
+                     1m with an instance axis)
+* ``plf()``       -- the module-level one-shot call with a default engine
 * ``verify()``    -- golden-model comparison with the reference's exact
                      float-equality criterion (``host_mem.cpp:403-442``)
 
@@ -31,11 +33,11 @@ import torch
 
 from .config import Backend, PLFConfig
 from .ops import layout as L
-from .ops.plf_node import plf_node_site_major
+from .ops.plf_node import plf_node_batch, plf_node_site_major
 from .ops.plf_torch import plf_torch
 from .reference import plf_reference
 
-__all__ = ["PLFEngine", "PLFResult"]
+__all__ = ["PLFEngine", "PLFResult", "plf"]
 
 
 @dataclasses.dataclass
@@ -154,20 +156,54 @@ class PLFEngine:
     # -- multi-instance -------------------------------------------------------
 
     def plf_batch(self, x1, x2, left, right, ev, wgt=None) -> PLFResult:
-        """Evaluate ``I`` independent node-pairs.
+        """Evaluate ``I`` independent node-pairs in one launch.
 
         Args are batched on a leading instance axis: ``x1/x2``
         ``(I, n, C*S)`` or ``(I, n, C, S)``, ``left/right`` ``(I, C, S, S)``,
-        ``ev`` ``(I, S, S)``, ``wgt`` ``(I, n)``.  The instances run one
-        after another (a grid axis over instances is ROADMAP work), in fp32
-        whatever the config's ``dtype``, as the JAX engine's batch does.
+        ``ev`` ``(I, S, S)``, ``wgt`` ``(I, n)``.  On ``Backend.KERNEL`` the
+        batch is laid out lane-major once, ``(I, S*C, n_pad)``, and runs as
+        ONE launch of kernel 1 (or 1m) with an instance axis
+        (``ops/plf_node.py::plf_node_batch``), the counterpart of the JAX
+        engine's ``vmap`` of the lane-major kernel; ``Backend.TORCH`` and
+        ``Backend.REFERENCE`` evaluate the instances in turn.  fp32
+        whatever the config's ``dtype``, as the JAX engine's batch is.
+        Returns ``x3`` ``(I, n, C, S)``, ``scaler_vector`` ``(I, n)`` and
+        ``scaler_increment`` ``(I,)``.
         """
-        ni = len(x1)
-        outs = [self._plf(x1[i], x2[i], left[i], right[i], ev[i],
-                          None if wgt is None else wgt[i], "float32")
-                for i in range(ni)]
-        return PLFResult(*(torch.stack([getattr(o, f.name) for o in outs])
-                           for f in dataclasses.fields(PLFResult)))
+        cfg = self.config
+        if cfg.backend is not Backend.KERNEL:
+            ni = len(x1)
+            outs = [self._plf(x1[i], x2[i], left[i], right[i], ev[i],
+                              None if wgt is None else wgt[i], "float32")
+                    for i in range(ni)]
+            return PLFResult(*(torch.stack([getattr(o, f.name) for o in outs])
+                               for f in dataclasses.fields(PLFResult)))
+        S, C = cfg.states, cfg.categories
+        x1 = self._t(x1, torch.float32)
+        ni = x1.shape[0]
+        x1 = x1.reshape(ni, -1, C, S)
+        n = x1.shape[1]
+        x2 = self._t(x2, torch.float32).reshape(ni, n, C, S)
+        wgt = (torch.ones((ni, n), dtype=torch.int32, device=self.device)
+               if wgt is None else self._t(wgt).reshape(ni, n))
+
+        def lane(x):   # (I, n, C, S) -> (I, S*C, n_pad), one transform
+            x = x.permute(0, 3, 2, 1).reshape(ni, S * C, n)
+            return L.pad_to_multiple(x, cfg.block_sites).contiguous()
+
+        lm, rm = (self._t(a, torch.float32).reshape(ni, C, S, S)
+                  for a in (left, right))
+        em = self._t(ev, torch.float32).reshape(ni, S, S)
+        lc, rc = (m.permute(0, 2, 1, 3).reshape(ni, S * C, S).contiguous()
+                  for m in (lm, rm))
+        ec = em.transpose(1, 2).repeat_interleave(C, dim=1).contiguous()
+        x3l, sc = plf_node_batch(lane(x1), lane(x2), lc, rc, ec, n,
+                                 states=S, categories=C,
+                                 variant=cfg.resolved_kernel_variant)
+        x3 = x3l.reshape(ni, S, C, -1)[..., :n].permute(0, 3, 2, 1)
+        sv = sc[:, :n]
+        si = (sv.to(torch.int64) * wgt.to(torch.int64)).sum(dim=-1)
+        return PLFResult(x3, sv, si)
 
     # -- verification (host_mem.cpp:403-442 semantics) -----------------------
 
@@ -206,3 +242,9 @@ class PLFEngine:
             n_errors += 1
         return n_errors == 0, n_errors, msgs
 
+
+
+def plf(x1, x2, left, right, ev, wgt=None, config: Optional[PLFConfig] = None,
+        device: Union[str, torch.device] = "cuda") -> PLFResult:
+    """Functional one-shot PLF with a default engine on ``device``."""
+    return PLFEngine(config, device=device).plf(x1, x2, left, right, ev, wgt)

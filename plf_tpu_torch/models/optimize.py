@@ -235,21 +235,35 @@ def _root_rows(pi_u, w_vec, S, C):
     return pi_u.repeat_interleave(C) * w_vec.repeat(S)
 
 
-def _finalise(lik, sc_row, wpad, n, asc, d0, w_total):
-    """fp32 log-likelihood on the device from the site likelihoods
-    ``lik`` (n_pad,) and rescale counts ``sc_row`` (n_pad,), as the JAX
-    function finalises (``optimize.py:520-530``)."""
+def _partials(lik, sc_row, wpad, n, asc, d0):
+    """The ``(2,)`` fp32 sums the log-likelihood is finalised from: the
+    weighted site log-likelihoods with the rescale counts folded in, and
+    (Lewis) the likelihood of the constant dummy sites (from ``d0``)."""
     site_ll = torch.log(torch.clamp_min(lik[:n], LIK_FLOOR))
     sc_f = sc_row.to(torch.float32)
     ll = (site_ll * wpad[:n]).sum() + (sc_f * wpad).sum() * LOG_MINLIK
+    p = torch.zeros((), dtype=torch.float32, device=lik.device)
     if asc:
-        log_pc = site_ll[d0:] + sc_f[d0:n] * LOG_MINLIK
-        ll = ll - w_total * torch.log1p(-torch.exp(log_pc).sum())
-    return ll
+        p = torch.exp(site_ll[d0:] + sc_f[d0:n] * LOG_MINLIK).sum()
+    return torch.stack([ll, p])
+
+
+def _finalise(lik, sc_row, wpad, n, asc, d0, w_total, mesh=None):
+    """fp32 log-likelihood on the device from the site likelihoods
+    ``lik`` (n_pad,) and rescale counts ``sc_row`` (n_pad,), as the JAX
+    function finalises (``optimize.py:520-530``); with ``mesh``, of this
+    rank's shard, its sums all-reduced (``parallel.all_reduce_sum``)."""
+    parts = _partials(lik, sc_row, wpad, n, asc, d0)
+    if mesh is not None:
+        from ..parallel.sharding import all_reduce_sum
+        parts = all_reduce_sum(parts, mesh)
+    ll, p_const = parts.unbind(0)
+    return ll - w_total * torch.log1p(-p_const) if asc else ll
 
 
 def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
-                   with_weights: bool = False, backend: str = "auto"):
+                   with_weights: bool = False, backend: str = "auto",
+                   mesh=None):
     """Build ``(branch_lengths) -> log_likelihood`` (a 0-d fp32 tensor on
     ``pm.device``, differentiable by ``.backward()``).
 
@@ -260,6 +274,18 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
     category rates become an input; ``with_weights`` adds the ``(C,)``
     mixture weights, ``(t_vec, rates, weights)`` (implies with_rates).
     ``backend``: see the module docstring.
+
+    ``mesh`` (``parallel.SiteMesh``): the site axis sharded over its
+    ranks, as the JAX function's ``mesh`` (``plf_tpu/models/optimize.py:
+    57-133``): every rank calls ``fn`` alike and runs the forward and the
+    checkpointed backward ("tree": kernels 2 + 4 or 2m + 4m;
+    "segmented": 7 + 8 or 7m + 8m) on its own shard of sites; the
+    log-likelihood partials are all-reduced by an autograd-aware
+    all-reduce, and the operator stacks' gradients are summed over the
+    ranks in the backward, so every rank holds the same value and the
+    same gradient.  "auto" takes "tree" when the fused arena fits, else
+    "segmented" (the JAX rule under a mesh); any other backend with a
+    mesh raises ValueError.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -276,14 +302,22 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
             "of 'mxu') for training/fitting")
     S = pm.config.states
     matrix_form = uses_mxu_kernels(variant, S)
-    if backend == "auto":
+    if backend == "auto" and mesh is not None:
+        backend = "tree" if pm.can_fuse() else "segmented"
+    elif backend == "auto":
         backend = ("torch" if pm.config.backend is Backend.TORCH
                    else _auto_backend(pm, matrix_form, variant == "vpu"))
+    if mesh is not None and backend not in ("tree", "segmented"):
+        raise ValueError(
+            "mesh-sharded gradients require backend='tree' or "
+            "'segmented' (the checkpointed whole-tree VJP is the "
+            "shard-local kernel)")
     if backend == "kernel":
         variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
-    build = {"torch": _core_torch, "kernel": _core_kernel,
-             "tree": _core_tree, "segmented": _core_segmented}[backend]
-    core = build(pm)
+    if backend in ("tree", "segmented"):
+        core = _core_tree(pm, segmented=backend == "segmented", mesh=mesh)
+    else:
+        core = {"torch": _core_torch, "kernel": _core_kernel}[backend](pm)
     dev = pm.device
     rates = _f32(pm.rates, dev)
     cw = _f32(pm.rate_weights, dev)
@@ -421,13 +455,18 @@ def _core_kernel(pm):
     return core
 
 
-def _core_tree(pm, segmented: bool = False):
+def _core_tree(pm, segmented: bool = False, mesh=None):
     """Kernel 2 forward + kernel 4 backward, or kernels 2m + 4m in the
     model's arithmetic (the JAX "tree" backend, optimize.py:355-545), or
     with ``segmented`` kernels 7 + 8 (7m + 8m) (the JAX "segmented"
     backend, optimize.py:446-457, bf16 boundaries and adjoints under the
     config's ``dtype``, with its warning); operators indexed by original
-    edge."""
+    edge.  With ``mesh``, on this rank's shard of the sites
+    (``PhyloModel.site_shard``): the operator stacks and root rows pass
+    through ``parallel.replicated`` (their gradients summed over the
+    ranks) and the log-likelihood partials are all-reduced
+    (:func:`_finalise`)."""
+    from ..parallel.sharding import replicated
     cfg = pm.config
     S, C = cfg.states, cfg.categories
     variant = cfg.resolved_kernel_variant
@@ -435,6 +474,7 @@ def _core_tree(pm, segmented: bool = False):
     u, lam, pi_u = _model_tensors(pm)
     n, n_leaves = pm.n_sites, pm.tree.n_leaves
     E = len(pm.schedule)
+    rows = cfg.rows
     sched = reorder_schedule(pm.schedule, n_leaves)
     kernel_variant = variant if matrix_form else "vpu"
     if segmented:
@@ -443,7 +483,7 @@ def _core_tree(pm, segmented: bool = False):
                 "optimising through bf16 boundary-CLV storage: "
                 "likelihoods/gradients carry ~1e-3-class rounding from "
                 "the bf16 streams; use dtype='float32' for final fits",
-                stacklevel=4)
+                stacklevel=3)
         tdiff = make_tree_diff_segmented(sched, n_leaves, states=S,
                                          categories=C,
                                          n_codes=pm.tip_table.shape[1],
@@ -455,44 +495,50 @@ def _core_tree(pm, segmented: bool = False):
     child = torch.as_tensor([[e[1] for e in pm.schedule],
                              [e[2] for e in pm.schedule]],
                             dtype=torch.long, device=pm.device)
-    wpad = pm.wgt_pad.to(torch.float32)
+    codes, wpad = pm.codes, pm.wgt_pad.to(torch.float32)
     asc, d0 = pm.ascertainment == "lewis", pm.n_sites_obs
     w_total = float(np.sum(pm.wgt))
+    if mesh is not None:
+        codes, wgt, lo, n = pm.site_shard(mesh)
+        wpad = wgt.to(torch.float32)
+        d0 = int(np.clip(d0 - lo, 0, n))   # this rank's first dummy site
 
     def core(t_vec, r_vec, w_vec):
         ops = _lane_constants(t_vec[child.reshape(-1)], r_vec, lam, u, S, C)
+        rr = _root_rows(pi_u, w_vec, S, C)
+        if mesh is not None:
+            flat = replicated(torch.cat([ops.reshape(-1), rr]), mesh)
+            ops, rr = flat[:-rows].view(2 * E, rows, S), flat[-rows:]
         lcs, rcs = ops.view(2, -1, S * C, S).unbind(0)
         planes = None
         if matrix_form:
             # this step's lengths split once, the whole (2E, rows, S) stack
             # at a time; the EV planes are the model's own
-            hi, lo = operator_planes(ops.detach(), variant)
-            planes = (hi[:E], lo[:E], hi[E:], lo[E:], pm.ec_planes[0],
+            hi, lo_ = operator_planes(ops.detach(), variant)
+            planes = (hi[:E], lo_[:E], hi[E:], lo_[E:], pm.ec_planes[0],
                       pm.ec_planes[1])
-        lik, sc = tdiff(pm.codes, lcs.contiguous(), rcs.contiguous(), pm.ec,
-                        pm.fused_tip_table, _root_rows(pi_u, w_vec, S, C), n,
-                        planes=planes)
-        return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total)
+        lik, sc = tdiff(codes, lcs.contiguous(), rcs.contiguous(), pm.ec,
+                        pm.fused_tip_table, rr, n, planes=planes)
+        return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total, mesh)
     return core
-
-
-def _core_segmented(pm):
-    return _core_tree(pm, segmented=True)
 
 
 def optimize_branch_lengths(pm: PhyloModel, steps: int = 100,
                             learning_rate: float = 0.02,
-                            min_length: float = 1e-6, backend: str = "auto"
-                            ) -> Tuple[np.ndarray, float, float]:
+                            min_length: float = 1e-6, backend: str = "auto",
+                            mesh=None) -> Tuple[np.ndarray, float, float]:
     """Maximise the tree likelihood over all branch lengths.
 
     Adam (``torch.optim.Adam`` with optax's defaults: b1 0.9, b2 0.999,
     eps 1e-8 added outside the square root) on log lengths, so lengths
     stay positive.  On a CUDA model each step is one forward and one
     backward through the kernels of ``backend`` (see :func:`tree_loglik_fn`).
+    With ``mesh`` every rank runs the step on its shard of the sites and
+    holds the same all-reduced value and gradient, so the ranks take the
+    same steps ("tree" or "segmented" backends).
     Returns ``(optimised_lengths, ll_before, ll_after)``.
     """
-    fn, t0 = tree_loglik_fn(pm, backend=backend)
+    fn, t0 = tree_loglik_fn(pm, backend=backend, mesh=mesh)
     dev = pm.device
     t0_dev = torch.as_tensor(t0, device=dev)
     with torch.no_grad():

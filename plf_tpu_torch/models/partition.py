@@ -14,7 +14,9 @@ the per-partition likelihoods sum on the host.  The joint objective of
 ``tree_loglik_fn`` (its auto backend: on the card kernels 7 + 8 or
 2 + 4 for DNA, 2m + 4m for protein and codon) and differentiates by
 autograd; :meth:`PartitionedModel.optimize` fits it with
-``torch.optim.Adam`` (optax's defaults).
+``torch.optim.Adam`` (optax's defaults).  Each takes a ``mesh``
+(``parallel.SiteMesh``) that shards every partition's sites over the
+ranks of a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -31,11 +33,6 @@ from .substitution import SubstitutionModel
 from .tree import Tree
 
 __all__ = ["Partition", "PartitionedModel", "PartitionedResult"]
-
-_NO_MESH = ("multi-device site sharding (a device axis with "
-            "torch.distributed) is not ported yet: ROADMAP.md, Queue 1 "
-            "item 9")
-
 
 @dataclasses.dataclass
 class Partition:
@@ -89,9 +86,17 @@ class PartitionedModel:
             per_partition=results)
 
     def log_likelihood_sharded(self, mesh=None) -> PartitionedResult:
-        """Every partition's site axis sharded over several cards: not
-        ported yet."""
-        raise NotImplementedError(_NO_MESH)
+        """Partitioned likelihood with every partition's site axis sharded
+        over the ranks of ``mesh`` (``parallel.SiteMesh``): each partition
+        runs ``PhyloModel.log_likelihood_sharded`` (one all-reduce of its
+        partials each), and the totals sum on the host, the same on every
+        rank.  Each per-partition result's site arrays are this rank's
+        shard."""
+        results = [pm.log_likelihood_sharded(mesh=mesh)
+                   for pm in self.models]
+        return PartitionedResult(
+            log_likelihood=float(sum(r.log_likelihood for r in results)),
+            per_partition=results)
 
     # -- differentiable joint objective --------------------------------------
 
@@ -104,16 +109,17 @@ class PartitionedModel:
         ``.backward()`` in both arguments.  ``log_scales[0]`` should be
         held at 0 by the caller when fitting (only ratios are identifiable
         alongside free branch lengths); with ``proportional=False`` scales
-        are ignored entirely.  ``mesh`` (site sharding) is not ported.
+        are ignored entirely.  With ``mesh`` (``parallel.SiteMesh``) each
+        partition's forward and backward run on this rank's shard of its
+        sites (``tree_loglik_fn``'s ``mesh``): the joint objective and its
+        gradient are all-reduced, the same on every rank.
         """
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         from .optimize import tree_loglik_fn
 
         fns = []
         t0 = None
         for pm in self.models:
-            fn, t0_p = tree_loglik_fn(pm, with_rates=True)
+            fn, t0_p = tree_loglik_fn(pm, with_rates=True, mesh=mesh)
             fns.append((fn, torch.as_tensor(pm.rates, dtype=torch.float32,
                                             device=pm.device)))
             t0 = t0_p if t0 is None else t0

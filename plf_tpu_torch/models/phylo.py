@@ -47,7 +47,12 @@ included.
 over one alignment that differ in topology and branch lengths) in one
 launch of kernel 2 or 2m with a candidate axis
 (``ops/plf_tree.py::plf_tree_batch``), where the batch fits the kernel's
-arena (:func:`batch_fits`).
+arena (:func:`batch_fits`); :func:`batch_log_likelihood_segmented` scores
+one that does not on kernel 7 or 7m with a candidate axis
+(``ops/plf_tree_seg.py::plf_tree_seg_batch``).
+:meth:`PhyloModel.log_likelihood_sharded` shards the sites over the ranks
+of a ``torch.distributed`` group (``parallel.SiteMesh``), each rank on its
+own shard, the partials all-reduced.
 
 Log-likelihood:  ll = sum_s wgt_s * log( sum_c w_c rv . x_root[s,c,:] )
                      + scaler_total * log(2^-32)
@@ -73,14 +78,16 @@ from ..ops.plf_tree import (LIK_FLOOR, LOG_MINLIK,
                             compile_register_schedule, plf_tree,
                             reorder_schedule, root_reduce,
                             tree_fused_threads, tree_mxu_fits)
-from ..ops.plf_tree_seg import (carry_segment_program, plan_segments,
-                                plf_tree_seg, segment_program)
+from ..ops.plf_tree_seg import (batched_seg_loglik_parts,
+                                carry_segment_program, plan_segments,
+                                plf_tree_seg, segment_program, stack_programs)
 from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
 from .tree import Tree
 
 __all__ = ["PhyloModel", "TreeLikelihoodResult", "batch_log_likelihood",
-           "batch_log_likelihood_segmented", "batch_fits", "batch_inputs"]
+           "batch_log_likelihood_segmented", "batch_fits", "batch_inputs",
+           "segmented_batch_inputs"]
 
 
 @dataclasses.dataclass
@@ -291,7 +298,7 @@ class PhyloModel(nn.Module):
         # kernel 2's program: operands of the op before from registers
         self._carry_np, self.carry_slots = carry_program(arrs)
         self._carry = None
-        self._seg_cache = None
+        self._seg_cache = self._seg_np = None
 
     @property
     def device(self) -> torch.device:
@@ -501,9 +508,13 @@ class PhyloModel(nn.Module):
             self._seg_cache = (plan, torch.as_tensor(prog, device=self.device),
                                torch.as_tensor(segs, device=self.device),
                                n_slots)
+            # the program kernel 7 (7m) runs, on the host: the batched
+            # scorer stacks these
+            self._seg_np = (prog, segs, n_slots)
             self._seg_program = None
             if not uses_mxu_kernels(cfg.resolved_kernel_variant, cfg.states):
                 cprog, slots = carry_segment_program(prog, segs)
+                self._seg_np = (cprog, segs, slots)
                 self._seg_program = (torch.as_tensor(cprog,
                                                      device=self.device),
                                      slots)
@@ -564,12 +575,93 @@ class PhyloModel(nn.Module):
             res.root_clv = x_root
         return res
 
-    def log_likelihood_sharded(self, *args, **kwargs):
-        """Site-sharded evaluation over several cards: not ported yet."""
-        raise NotImplementedError(
-            "multi-device site sharding (a device axis with "
-            "torch.distributed) is not ported yet: ROADMAP.md, Queue 1 "
-            "item 9")
+    # -- site sharding over torch.distributed --------------------------------
+
+    def site_shard(self, mesh):
+        """This rank's share of the sites under ``mesh``
+        (``parallel.SiteMesh``): ``(codes, wgt, lo, n_local)``, the tip
+        codes ``(n_leaves, shard)`` and int32 weights ``(shard,)`` of its
+        shard of the sites padded to ``ranks * block_sites``
+        (``parallel.padded_sites``; padding sites hold the gap code and
+        weight 0) on the model's device, its first global site and its
+        count of valid sites."""
+        from ..parallel.sharding import padded_sites, shard_sites, shard_span
+        cfg = self.config
+        n_pad = padded_sites(mesh, self.n_sites, cfg.block_sites)
+        lo, _, n_local = shard_span(mesh, self.n_sites, n_pad)
+        codes = shard_sites(mesh, self.codes[:, :self.n_sites], n_pad,
+                            fill=cfg.states).to(self.device)
+        wgt = shard_sites(mesh, self.wgt_pad[:self.n_sites], n_pad
+                          ).to(self.device, torch.int32)
+        return codes, wgt, lo, n_local
+
+    def log_likelihood_sharded(self, mesh=None) -> TreeLikelihoodResult:
+        """Whole-tree likelihood with the site axis sharded over the ranks
+        of ``mesh`` (``parallel.SiteMesh``; default ``parallel.make_mesh``
+        on the model's device: every rank of an initialised
+        ``torch.distributed``, else one).  Counterpart of
+        ``plf_tpu/models/phylo.py:638-712``: each rank runs the model's
+        fused kernel (2 or 2m; the segmented kernel 7 or 7m where the
+        fused arena does not fit) on its own shard of sites with its count
+        of valid sites, and the weighted log-likelihood partials (float64)
+        and scaler counts (int64) are all-reduced; a Lewis ascertainment
+        correction all-reduces its constant-site likelihoods too.  Every
+        rank calls this with the same model and gets the same
+        ``log_likelihood`` and ``scaler_total``; its
+        ``site_log_likelihood`` and ``scaler_sites`` are THIS rank's shard
+        only (its observed sites, in order from its first).  With one rank
+        the result equals :meth:`log_likelihood`'s, site for site."""
+        from ..parallel.sharding import make_mesh
+        self._kernel_path("sharded")
+        cfg = self.config
+        mesh = make_mesh(device=self.device) if mesh is None else mesh
+        codes, wgt, lo, n_local = self.site_shard(mesh)
+        kw = dict(states=cfg.states, categories=cfg.categories,
+                  variant=cfg.resolved_kernel_variant, planes=self._planes())
+        if self.can_fuse():
+            lik, sc = plf_tree(codes, self.sched, self.lcs, self.rcs,
+                               self.ec, self.fused_tip_table,
+                               self.root_rows[0], n_local,
+                               n_slots=self.n_slots, root_slot=self.root_slot,
+                               program=self.tree_program, **kw)
+        else:
+            plan, prog, segs, n_slots = self._segmented_inputs()
+            lik, sc, _ = plf_tree_seg(
+                codes, prog, segs, self.lcs, self.rcs, self.ec,
+                self.fused_tip_table, self.root_rows[0], n_local,
+                n_boundaries=plan.n_boundaries, n_slots=n_slots,
+                dtype=getattr(torch, cfg.dtype),
+                program=self.segmented_program, **kw)
+        lik_h = lik[0, :n_local].cpu().numpy().astype(np.float64)
+        sc_h = sc[0, :n_local].cpu().numpy()
+        w_h = wgt[:n_local].cpu().numpy()
+        site_ll = np.log(np.maximum(lik_h, LIK_FLOOR))
+        d0 = self.n_sites_obs
+        n_obs = int(np.clip(d0 - lo, 0, n_local))   # this rank's observed
+        p_part = 0.0
+        if self.ascertainment == "lewis":
+            p_part = float(np.exp(np.log(lik_h[n_obs:])
+                                  + sc_h[n_obs:] * LOG_MINLIK).sum())
+        parts = torch.tensor([float(np.sum(site_ll[:n_obs] * w_h[:n_obs])),
+                              p_part], dtype=torch.float64,
+                             device=mesh.device)
+        counts = torch.tensor([int(np.sum(sc_h.astype(np.int64) * w_h))],
+                              dtype=torch.int64, device=mesh.device)
+        ll_sum, p_const = mesh.all_reduce(parts).tolist()
+        scaler_total = int(mesh.all_reduce(counts)[0])
+        site_ll = site_ll[:n_obs]
+        ll = ll_sum + scaler_total * LOG_MINLIK
+        if self.ascertainment == "lewis":
+            if p_const >= 1.0:
+                raise FloatingPointError(f"ascertainment correction "
+                                         f"degenerate: p_const={p_const}")
+            corr = float(np.log1p(-p_const))
+            site_ll = site_ll - corr
+            ll = ll - corr * float(np.sum(self.wgt[:d0]))
+        return TreeLikelihoodResult(
+            log_likelihood=ll, site_log_likelihood=site_ll,
+            scaler_total=scaler_total, root_clv=None,
+            scaler_sites=sc_h[:n_obs].astype(np.int64))
 
     # -- brute-force oracle (tests) -----------------------------------------
 
@@ -646,6 +738,41 @@ def batch_fits(pms) -> bool:
     return pms[0].can_fuse(max(pm.fused_slots for pm in pms))
 
 
+def _operator_table(pms):
+    """The batch's operator table: ``(ids, lcs, rcs, planes)`` with
+    ``ids[b]`` ``(E,)`` the table row of each original edge of model
+    ``b``, ``lcs``/``rcs`` ``(P, S*C, S)`` the batch's distinct (left,
+    right) branch-length pairs, encoded once each from the models' shared
+    operator cache, and ``planes`` their operator planes for a
+    matrix-form model (None otherwise)."""
+    pm0 = pms[0]
+    E = len(pm0.schedule)
+    pair_of: Dict[tuple, int] = {}
+    left, right, ids = [], [], []
+    for pm in pms:
+        row = np.empty(E, np.int32)
+        for e, (_p, _l, _r, tl, tr) in enumerate(pm.schedule):
+            key = (float(tl), float(tr))
+            k = pair_of.get(key)
+            if k is None:
+                k = pair_of[key] = len(left)
+                left.append(pm._branch_cache[key[0]])
+                right.append(pm._branch_cache[key[1]])
+            row[e] = k
+        ids.append(row)
+    dev = pm0.device
+    lcs = torch.as_tensor(np.stack(left), device=dev)
+    rcs = torch.as_tensor(np.stack(right), device=dev)
+    planes = None
+    if pm0._matrix_form:
+        hi, lo = operator_planes(torch.cat([lcs, rcs]),
+                                 pm0.config.resolved_kernel_variant)
+        P = len(left)
+        planes = (hi[:P], lo[:P], hi[P:], lo[P:], pm0.ec_planes[0],
+                  pm0.ec_planes[1])
+    return ids, lcs, rcs, planes
+
+
 def batch_inputs(pms):
     """The batched launch's inputs for same-alignment models ``pms``:
     ``(progs, lcs, rcs, planes, n_slots)`` on ``pms[0]``'s device.
@@ -660,36 +787,33 @@ def batch_inputs(pms):
     operator planes for kernel 2m (None for kernel 2); ``n_slots``: the
     largest arena.
     """
+    ids, lcs, rcs, planes = _operator_table(pms)
+    E = len(pms[0].schedule)
+    progs = np.empty((len(pms), 6, E), np.int32)
+    for b, pm in enumerate(pms):
+        progs[b] = pm._sched_np if pm._matrix_form else pm._carry_np
+        progs[b, 5] = ids[b][progs[b, 5]]
+    n_slots = max(pm.fused_slots for pm in pms)
+    return (torch.as_tensor(progs, device=pms[0].device), lcs, rcs, planes,
+            n_slots)
+
+
+def _check_batch(pms, name: str) -> None:
+    """The batch scorers' checks: same-shape models over one alignment,
+    no ascertainment correction, a kernel backend (ValueError naming the
+    reason)."""
     pm0 = pms[0]
     cfg = pm0.config
-    variant = cfg.resolved_kernel_variant
+    n_leaves = pm0.tree.n_leaves
     E = len(pm0.schedule)
-    progs = np.empty((len(pms), 6, E), np.int32)
-    pair_of: Dict[tuple, int] = {}
-    left, right = [], []
-    for b, pm in enumerate(pms):
-        ids = np.empty(E, np.int32)
-        for e, (_p, _l, _r, tl, tr) in enumerate(pm.schedule):
-            key = (float(tl), float(tr))
-            k = pair_of.get(key)
-            if k is None:
-                k = pair_of[key] = len(left)
-                left.append(pm._branch_cache[key[0]])
-                right.append(pm._branch_cache[key[1]])
-            ids[e] = k
-        progs[b] = pm._sched_np if pm._matrix_form else pm._carry_np
-        progs[b, 5] = ids[progs[b, 5]]
-    dev = pm0.device
-    lcs = torch.as_tensor(np.stack(left), device=dev)
-    rcs = torch.as_tensor(np.stack(right), device=dev)
-    planes = None
-    if pm0._matrix_form:
-        hi, lo = operator_planes(torch.cat([lcs, rcs]), variant)
-        P = len(left)
-        planes = (hi[:P], lo[:P], hi[P:], lo[P:], pm0.ec_planes[0],
-                  pm0.ec_planes[1])
-    n_slots = max(pm.fused_slots for pm in pms)
-    return torch.as_tensor(progs, device=dev), lcs, rcs, planes, n_slots
+    for pm in pms[1:]:
+        if (len(pm.schedule) != E or pm.tree.n_leaves != n_leaves
+                or pm.n_pad != pm0.n_pad or pm.config != cfg):
+            raise ValueError(f"{name} needs same-shape models")
+    _validate_batch_identity(pms)
+    if pm0.ascertainment is not None:
+        raise ValueError("ascertainment not supported in the batch path")
+    pm0._kernel_path("batch")
 
 
 def batch_log_likelihood(pms) -> np.ndarray:
@@ -710,16 +834,7 @@ def batch_log_likelihood(pms) -> np.ndarray:
     """
     pm0 = pms[0]
     cfg = pm0.config
-    n_leaves = pm0.tree.n_leaves
-    E = len(pm0.schedule)
-    for pm in pms[1:]:
-        if (len(pm.schedule) != E or pm.tree.n_leaves != n_leaves
-                or pm.n_pad != pm0.n_pad or pm.config != cfg):
-            raise ValueError("batch_log_likelihood needs same-shape models")
-    _validate_batch_identity(pms)
-    if pm0.ascertainment is not None:
-        raise ValueError("ascertainment not supported in the batch path")
-    pm0._kernel_path("batch")
+    _check_batch(pms, "batch_log_likelihood")
     if not batch_fits(pms):
         slots = max(pm.fused_slots for pm in pms)
         raise ValueError(
@@ -737,9 +852,61 @@ def batch_log_likelihood(pms) -> np.ndarray:
 
 
 def batch_log_likelihood_segmented(pms) -> np.ndarray:
-    """The JAX package's batched segmented scorer (a candidate axis of
-    kernels 7 and 7m): not ported yet."""
-    raise NotImplementedError(
-        "batch_log_likelihood_segmented (a candidate axis of kernels 7 and "
-        "7m) is not ported yet: ROADMAP.md, Queue 1 item 2 (the next "
-        "slice: the candidate, instance and device axes)")
+    """Score many same-shape topologies on the segmented engine: kernel 7
+    (or 7m) with a candidate axis (``ops/plf_tree_seg.py::
+    plf_tree_seg_batch``), the scorer for a neighbourhood whose batch
+    misses the fused kernel's arena.
+
+    ``pms``: PhyloModels sharing alignment, model, config and node count
+    (build them with ``share_device_from``).  Each candidate's plan and
+    program are its own ``log_likelihood(method="segmented")``'s
+    (``_segmented_inputs``), stacked to one shape
+    (``ops/plf_tree_seg.py::stack_programs``) over one operator table of
+    the batch's distinct length pairs; boundaries are stored in the
+    config's ``dtype``.  On the card one launch per chunk of candidates
+    whose boundary buffers fit ``ops/plf_tree_seg.py::
+    SEG_BATCH_BBUF_BYTES``; on the CPU the plain
+    version, candidate by candidate.  Raises ValueError for models of
+    different shapes or alignments, an ascertainment correction, or
+    ``Backend.TORCH``.
+
+    Returns (B,) float64 log-likelihoods (fp32 partial sums over chunks of
+    ``config.block_sites`` sites, host fp64 final reduction, as
+    :func:`batch_log_likelihood`; within ~1e-6 of ``log_likelihood()``).
+    """
+    pm0 = pms[0]
+    cfg = pm0.config
+    _check_batch(pms, "batch_log_likelihood_segmented")
+    progs, segs, lcs, rcs, planes, n_slots, n_bnd = \
+        segmented_batch_inputs(pms)
+    parts = batched_seg_loglik_parts(
+        pm0.codes, progs, segs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+        pm0.root_rows[0], pm0.wgt_pad.to(torch.float32), pm0.n_sites,
+        n_parts=pm0.n_pad // cfg.block_sites, n_boundaries=n_bnd,
+        n_slots=n_slots, states=cfg.states, categories=cfg.categories,
+        variant=cfg.resolved_kernel_variant, planes=planes,
+        dtype=getattr(torch, cfg.dtype))
+    return parts.cpu().numpy().astype(np.float64).sum(axis=1)
+
+
+def segmented_batch_inputs(pms):
+    """The batched segmented launch's inputs for same-alignment models
+    ``pms``: ``(progs, segs, lcs, rcs, planes, n_slots, n_boundaries)`` on
+    ``pms[0]``'s device, each candidate's own segment program (kernel 7's
+    carried program, or kernel 7m's register-allocated one, from its
+    ``_segmented_inputs``) with its edge row renumbered into the operator
+    table of :func:`batch_inputs`, stacked by
+    ``ops/plf_tree_seg.py::stack_programs``."""
+    ids, lcs, rcs, planes = _operator_table(pms)
+    programs = []
+    for b, pm in enumerate(pms):
+        plan = pm._segmented_inputs()[0]
+        prog, segs, n_slots = pm._seg_np
+        prog = prog.copy()
+        prog[5] = ids[b][prog[5]]
+        programs.append((prog, segs, n_slots, plan.n_boundaries))
+    progs, segs, n_slots, n_bnd = stack_programs(programs)
+    dev = pms[0].device
+    return (torch.as_tensor(progs, device=dev),
+            torch.as_tensor(segs, device=dev), lcs, rcs, planes, n_slots,
+            n_bnd)

@@ -20,8 +20,11 @@ loop:
 
 A round scores its whole neighbourhood, the incumbent included, in one
 launch of the fused tree kernel with a candidate axis
-(``phylo.batch_log_likelihood``) when the batch fits that kernel's arena;
-the choice is made by rule, up front, and no exception picks a path.
+(``phylo.batch_log_likelihood``) when the batch fits that kernel's arena,
+else in one launch a chunk of the segmented kernel with a candidate axis
+(``phylo.batch_log_likelihood_segmented``); only where that raises
+ValueError (an ascertainment correction, a tree no segment arena takes)
+are the candidates scored one by one.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import Backend, PLFConfig
-from .phylo import PhyloModel, batch_fits, batch_log_likelihood
+from .phylo import (PhyloModel, batch_fits, batch_log_likelihood,
+                    batch_log_likelihood_segmented)
 from .substitution import SubstitutionModel
 from .tree import Tree, TreeNode, parse_newick
 
@@ -220,10 +224,12 @@ def _hill_climb(tree: Tree, model: SubstitutionModel, tip_states,
     def score_all(cands) -> np.ndarray:
         """Score a whole neighbourhood, by rule: one launch of the fused
         kernel with a candidate axis (phylo.batch_log_likelihood) when
-        the batch fits its arena (phylo.batch_fits); else, and under
-        ``Backend.TORCH`` or for one candidate, each candidate's own
-        ``log_likelihood()`` (whose auto route takes the segmented kernel
-        past the fused kernel's arena)."""
+        the batch fits its arena (phylo.batch_fits); else the segmented
+        kernel with a candidate axis (phylo.
+        batch_log_likelihood_segmented), and candidate by candidate only
+        where that raises ValueError (an ascertainment correction, a plan
+        that fits no segment arena); under ``Backend.TORCH`` or for one
+        candidate, each candidate's own ``log_likelihood()``."""
         pm0 = make(cands[0])
         if pm0.config.backend is Backend.TORCH or len(cands) == 1:
             return np.asarray([ll_of(c) for c in cands])
@@ -233,8 +239,11 @@ def _hill_climb(tree: Tree, model: SubstitutionModel, tip_states,
         pms = [pm0] + [make(c, donor=pm0) for c in cands[1:]]
         if batch_fits(pms):
             return batch_log_likelihood(pms)
-        return np.asarray([pm.log_likelihood().log_likelihood
-                           for pm in pms])
+        try:
+            return batch_log_likelihood_segmented(pms)
+        except ValueError:
+            return np.asarray([pm.log_likelihood().log_likelihood
+                               for pm in pms])
 
     current = tree
     best_ll = ll_of(current)

@@ -25,7 +25,10 @@ takes the plain version :func:`plf_node_mxu_torch`, a CUDA tensor launches
 kernel launches, ``plf_node_mxu.bf16_launches`` those of the bf16 CLV
 storage form (bf16 child and parent rows, fp32 arithmetic) among them.
 The kernel's launch shape (site tile, threads, resident blocks per SM)
-is its library's: :func:`node_mxu_plan`.
+is its library's: :func:`node_mxu_plan`.  :func:`plf_node_mxu_batch` is
+kernel 1m with an instance axis (``plf_node_mxu_batch_launch``, counted in
+``plf_node_mxu_batch.launches``), as :func:`.plf_node.plf_node_batch` is
+kernel 1's.
 On the card set ``torch.backends.cuda.matmul.allow_tf32 = False`` before
 calling the dense forms: the kernel's plain version uses no matmul.
 """
@@ -40,13 +43,13 @@ import torch
 
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .plf_grad import op_grad, transpose_lane_constants
-from .plf_node import _check, _valid, count_launch, stage
+from .plf_node import _check, _valid, check_batch, count_launch, stage
 
 __all__ = ["MODES", "uses_mxu_kernels", "bf16_round", "bf16_split",
            "dot_bf16x3", "make_mxu_dots", "operator_planes", "node_planes",
            "transpose_planes", "mxu_op_grad", "mxu_stage", "node_mxu_plain",
            "round_tip_table", "plf_node_mxu", "plf_node_mxu_torch",
-           "node_mxu_plan"]
+           "node_mxu_plan", "plf_node_mxu_batch", "plf_node_mxu_batch_torch"]
 
 #: Kernel arithmetic mode of each variant: 0 fp32, 1 bf16x3, 2 bf16.  "vpu"
 #: at S != 4 runs in fp32 mode, the same arithmetic as the golden model.
@@ -254,6 +257,8 @@ def _lib(bf16: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_node_mxu_launch.argtypes = [vp] * 10 + [ci] * 6 + [vp]
     lib.plf_node_mxu_launch.restype = ci
+    lib.plf_node_mxu_batch_launch.argtypes = [vp] * 10 + [ci] * 7 + [vp]
+    lib.plf_node_mxu_batch_launch.restype = ci
     lib.plf_node_mxu_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
     lib.plf_node_mxu_plan.restype = ci
     lib.plf_error_string.argtypes = [ci]
@@ -337,3 +342,64 @@ def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
 
 
 plf_node_mxu.launches = plf_node_mxu.bf16_launches = 0
+
+
+def plf_node_mxu_batch_torch(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
+                             categories: int = 4, variant: str = "mxu_3x",
+                             planes=None):
+    """Plain version of :func:`plf_node_mxu_batch` (same arguments and
+    results): :func:`plf_node_mxu_torch` on each instance."""
+    pl = node_planes(lc, rc, ec, variant, planes)
+    outs = [plf_node_mxu_torch(x1[i], x2[i], lc[i], rc[i], ec[i], n,
+                               states=states, categories=categories,
+                               variant=variant,
+                               planes=[p[i] for p in pl])
+            for i in range(x1.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def plf_node_mxu_batch(x1, x2, lc, rc, ec, n: int, *, states: int = 20,
+                       categories: int = 4, variant: str = "mxu_3x",
+                       planes=None):
+    """Kernel 1m with an instance axis: :func:`.plf_node.plf_node_batch`
+    in the arithmetic of ``variant`` (any key of :data:`MODES`); ``planes``
+    are the six ``(I, S*C, S)`` operator-plane stacks (split here when
+    None).  Instance ``i`` equals :func:`plf_node_mxu` on it bit for
+    bit."""
+    check_batch(x1, x2, lc, rc, ec, n, states, categories,
+                "plf_node_mxu_batch")
+    mode = _mode(variant)
+    if x1.device.type == "cpu":
+        return plf_node_mxu_batch_torch(x1, x2, lc, rc, ec, n,
+                                        states=states, categories=categories,
+                                        variant=variant, planes=planes)
+    if x1.device.type != "cuda":
+        raise ValueError(f"plf_node_mxu_batch: no kernel for device "
+                         f"{x1.device}")
+    if not x1.is_contiguous() or not x2.is_contiguous():
+        raise ValueError("plf_node_mxu_batch: tensors must be contiguous")
+    planes = [p.contiguous()
+              for p in node_planes(lc, rc, ec, variant, planes)]
+    if states % 4 == 0 and any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("plf_node_mxu_batch: lc/rc/ec must be 16-byte "
+                         "aligned")
+    I, _, n_pad = x1.shape
+    bf16 = x1.dtype == torch.bfloat16
+    lib = _lib(bf16)
+    x3 = torch.empty_like(x1)
+    sc = torch.empty((I, n_pad), dtype=torch.int32, device=x1.device)
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = lib.plf_node_mxu_batch_launch(
+            x1.data_ptr(), x2.data_ptr(), *(p.data_ptr() for p in planes),
+            x3.data_ptr(), sc.data_ptr(), int(n), n_pad, states, categories,
+            mode, int(bf16), I, stream)
+    if err != 0:
+        raise RuntimeError(f"plf_node_mxu_batch kernel launch failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    count_launch(plf_node_mxu_batch, x1.dtype)
+    return x3, sc
+
+
+plf_node_mxu_batch.launches = plf_node_mxu_batch.bf16_launches = 0

@@ -18,6 +18,14 @@ of its tensors: a CPU tensor takes the plain version
 ``plf_node.launches`` counts kernel launches, ``plf_node.bf16_launches``
 those of the bf16 storage form among them.
 
+:func:`plf_node_batch` gives kernel 1 an instance axis (the grid's second
+dimension, ``plf_node_batch_launch``): I independent node pairs, each
+with its own CLVs and constants, in one launch, each instance equal to
+:func:`plf_node` on it bit for bit.  It replaces the ``vmap`` of
+``plf_pallas_lane_major`` in ``plf_tpu/engine.py::PLFEngine.plf_batch``
+(``:147-228``); ``plf_node_batch.launches`` counts its launches (kernel
+1m's form is ``plf_mxu.plf_node_mxu_batch``).
+
 Kernel 9, :func:`plf_node_gen`, is the compute-only probe that replaces
 ``plf_pallas.py::_gen_kernel`` (``plf_pallas_gen``, ``:436``;
 ``csrc/plf_gen.cu``): it builds its CLVs on the card and chains PLF nodes
@@ -40,6 +48,7 @@ from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from . import layout as L
 
 __all__ = ["plf_node", "plf_node_torch", "plf_node_site_major",
+           "plf_node_batch", "plf_node_batch_torch", "check_batch",
            "node_plain", "stage", "count_launch", "plf_node_gen",
            "plf_node_gen_torch", "gen_flops", "gen_operators", "gen_plan",
            "SMEM_BLOCK_BYTES"]
@@ -143,6 +152,9 @@ def _lib(bf16: bool = False):
     lib.plf_node_launch.argtypes = [_c_void_p] * 7 + [
         _c_int, _c_int, _c_int, _c_int, _c_void_p]
     lib.plf_node_launch.restype = _c_int
+    lib.plf_node_batch_launch.argtypes = [_c_void_p] * 7 + [_c_int] * 5 + [
+        _c_void_p]
+    lib.plf_node_batch_launch.restype = _c_int
     lib.plf_error_string.argtypes = [_c_int]
     lib.plf_error_string.restype = ctypes.c_char_p
     return lib
@@ -224,6 +236,106 @@ def count_launch(wrapper, dtype) -> None:
 
 
 plf_node.launches = plf_node.bf16_launches = 0
+
+
+#: Most instances one batched launch takes (the grid's y extent).
+MAX_INSTANCES = 65535
+
+
+def check_batch(x1, x2, lc, rc, ec, n, states, categories, name):
+    """The checks of the batched node kernels: ``x1``/``x2`` ``(I, S*C,
+    n_pad)`` fp32 (or both bf16), ``lc``/``rc``/``ec`` ``(I, S*C, S)``
+    fp32, all on one device, ``0 <= n <= n_pad``."""
+    rows = states * categories
+    if x1.dim() != 3 or x1.shape[1] != rows or x2.shape != x1.shape:
+        raise ValueError(f"{name}: x1/x2 must both be (I, {rows}, n_pad), "
+                         f"got {tuple(x1.shape)} and {tuple(x2.shape)}")
+    I = x1.shape[0]
+    for k, t in (("lc", lc), ("rc", rc), ("ec", ec)):
+        if tuple(t.shape) != (I, rows, states) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {k} must be ({I}, {rows}, {states}) "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    if x1.dtype not in (torch.float32, torch.bfloat16) \
+            or x2.dtype != x1.dtype:
+        raise TypeError(f"{name}: x1 and x2 must both be float32 or both "
+                        f"bfloat16")
+    if any(t.device != x1.device for t in (x2, lc, rc, ec)):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    n_pad = x1.shape[-1]
+    if not 1 <= I <= MAX_INSTANCES or not 0 <= n <= n_pad or n_pad == 0 \
+            or n_pad >= 2 ** 31:
+        raise ValueError(f"{name}: bad I={I}, n={n} or n_pad={n_pad}")
+
+
+def plf_node_batch_torch(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
+                         categories: int = 4):
+    """Plain version of :func:`plf_node_batch` (same arguments and
+    results): :func:`plf_node_torch` on each instance."""
+    outs = [plf_node_torch(*t, n, states=states, categories=categories)
+            for t in zip(x1, x2, lc, rc, ec)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def plf_node_batch(x1, x2, lc, rc, ec, n: int, *, states: int = 4,
+                   categories: int = 4, variant: str = "vpu", planes=None):
+    """Kernel 1 (or 1m) with an instance axis: I independent PLF nodes in
+    one launch.
+
+    Args:
+      x1, x2: ``(I, S*C, n_pad)`` lane-major child CLVs, fp32 or both bf16.
+      lc, rc, ec: ``(I, S*C, S)`` fp32 lane constants of each instance.
+      n: valid sites of every instance.
+      variant, planes: as :func:`plf_node`; "vpu" at S = 4 runs kernel 1,
+        anything else kernel 1m (:func:`plf_mxu.plf_node_mxu_batch`), with
+        ``planes`` shaped as the stacks.
+
+    Returns:
+      ``(x3, scaler)``: ``(I, S*C, n_pad)`` in the storage type of ``x1``
+      and ``(I, n_pad)`` int32; instance ``i`` equals :func:`plf_node` on
+      it bit for bit.
+    """
+    from .plf_mxu import plf_node_mxu_batch, uses_mxu_kernels
+    if uses_mxu_kernels(variant, states):
+        return plf_node_mxu_batch(x1, x2, lc, rc, ec, n, states=states,
+                                  categories=categories, variant=variant,
+                                  planes=planes)
+    if planes is not None:
+        raise ValueError("plf_node_batch: planes are for the matrix-form "
+                         "kernel")
+    check_batch(x1, x2, lc, rc, ec, n, states, categories, "plf_node_batch")
+    if x1.device.type == "cpu":
+        return plf_node_batch_torch(x1, x2, lc, rc, ec, n, states=states,
+                                    categories=categories)
+    if x1.device.type != "cuda":
+        raise ValueError(f"plf_node_batch: no kernel for device {x1.device}")
+    if states != 4 or not 1 <= categories <= 8:
+        raise ValueError("the CUDA PLF kernel takes S = 4 and C in 1..8, "
+                         f"got S={states}, C={categories}")
+    ts = (x1, x2, lc, rc, ec)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("plf_node_batch: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (lc, rc, ec)):
+        raise ValueError("plf_node_batch: lc/rc/ec must be 16-byte aligned")
+    I, _, n_pad = x1.shape
+    bf16 = x1.dtype == torch.bfloat16
+    lib = _lib(bf16)
+    x3 = torch.empty_like(x1)
+    sc = torch.empty((I, n_pad), dtype=torch.int32, device=x1.device)
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = lib.plf_node_batch_launch(
+            x1.data_ptr(), x2.data_ptr(), lc.data_ptr(), rc.data_ptr(),
+            ec.data_ptr(), x3.data_ptr(), sc.data_ptr(), int(n), n_pad,
+            categories, int(bf16), I, stream)
+    if err != 0:
+        raise RuntimeError(f"plf_node_batch kernel launch failed: "
+                           f"{lib.plf_error_string(err).decode()}")
+    count_launch(plf_node_batch, x1.dtype)
+    return x3, sc
+
+
+plf_node_batch.launches = plf_node_batch.bf16_launches = 0
 
 
 def plf_node_site_major(x1, x2, left, right, ev, wgt, *, states: int = 4,

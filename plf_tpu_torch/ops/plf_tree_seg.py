@@ -101,7 +101,16 @@ the storage type (:func:`seg_mxu_site_bytes` counts fp32 boundaries), so
 an fp32 and a bf16 run cut a tree alike, as the JAX planner does.  Each
 wrapper's ``bf16_launches`` counts the launches of its bf16 form.
 
-Not ported yet (ROADMAP queue 1 item 2): the batched segmented scorer.
+The candidate axis (:func:`plf_tree_seg_batch`, the grid's second
+dimension of kernels 7 and 7m): a tree search scores a neighbourhood whose
+batch misses the fused kernel's arena, each candidate with its own
+program (:func:`stack_programs` pads them to one shape) and boundary
+buffer, all sharing the codes, the tip table and one operator table.  The
+boundary buffers of a whole batch would multiply by B, so the batch runs
+in chunks of candidates whose buffers fit :data:`SEG_BATCH_BBUF_BYTES`,
+one launch a chunk.  It replaces ``batched_seg_loglik_parts``
+(``plf_tree_seg.py:1376``, a ``lax.map`` of the forward over the
+candidates of ``stack_plans``).
 """
 
 from __future__ import annotations
@@ -118,8 +127,8 @@ from .plf_grad import GRAD_THREADS, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
 from .plf_node import SMEM_BLOCK_BYTES, count_launch
-from .plf_tree import (CARRIED, carry_program, root_reduce,
-                       tree_fused_threads, tree_mxu_fits)
+from .plf_tree import (CARRIED, LIK_FLOOR, LOG_MINLIK, carry_program,
+                       root_reduce, tree_fused_threads, tree_mxu_fits)
 from .plf_tree_grad import (acc_floats, tree_bwd_chunk_sites,
                             tree_bwd_mxu_blocks, tree_bwd_scratch_bytes)
 
@@ -128,6 +137,9 @@ __all__ = ["plan_segments", "SegPlan", "Segment", "segment_program",
            "plf_tree_seg_plan",
            "seg_bwd_smem_bytes", "seg_cap_ops", "seg_mxu_cap_ops",
            "seg_mxu_site_bytes", "plf_tree_seg", "plf_tree_seg_torch",
+           "stack_programs", "seg_batch_size", "SEG_BATCH_BBUF_BYTES",
+           "plf_tree_seg_batch", "plf_tree_seg_mxu_batch",
+           "plf_tree_seg_batch_torch", "batched_seg_loglik_parts",
            "plf_tree_seg_mxu", "plf_tree_seg_bwd", "plf_tree_seg_bwd_torch",
            "plf_tree_seg_bwd_mxu", "make_tree_diff_segmented", "SEG_SITES",
            "SEG_BLOCKS_PER_SM", "SEG_MXU_CAPS", "tree_seg_mxu_block",
@@ -654,20 +666,29 @@ def plf_tree_seg_bwd_torch(codes, prog, segs, lcs, rcs, ec, ttab, rr, glik,
 
 
 def _check(codes, prog, segs, lcs, rcs, ec, ttab, rr, states, categories,
-           variant):
+           variant, batch: bool = False):
+    """The checks of the segmented forward wrappers: ``prog`` ``(6, E)``
+    and ``segs`` ``(n_seg, 2)`` with the ``(E, S*C, S)`` operators of one
+    tree, or with ``batch`` ``(B, 6, E)`` and ``(B, n_seg, 2)`` with an
+    operator table of any length (:func:`plf_tree_seg_batch`)."""
     rows = states * categories
     if variant not in MODES:
         raise ValueError(f"unknown kernel variant {variant!r}")
     if codes.dim() != 2 or codes.dtype not in (torch.int32, torch.int8):
         raise TypeError("codes must be (n_leaves, n_pad) int32 or int8")
-    E = lcs.shape[0]
-    if tuple(prog.shape) != (6, E) or prog.dtype != torch.int32:
-        raise ValueError(f"prog must be (6, {E}) int32, got "
-                         f"{tuple(prog.shape)} {prog.dtype}")
-    if segs.dim() != 2 or segs.shape[1] != 2 or segs.dtype != torch.int32:
-        raise ValueError("segs must be (n_seg, 2) int32")
-    for name, t, shape in (("lcs", lcs, (E, rows, states)),
-                           ("rcs", rcs, (E, rows, states)),
+    P = lcs.shape[0]
+    lead = tuple(prog.shape[:1]) if batch else ()
+    E = prog.shape[-1] if batch else P
+    if tuple(prog.shape) != lead + (6, E) or prog.dtype != torch.int32 \
+            or (batch and prog.shape[0] < 1):
+        raise ValueError(f"prog must be {'(B, 6, E)' if batch else (6, E)} "
+                         f"int32, got {tuple(prog.shape)} {prog.dtype}")
+    if segs.dim() != 2 + batch or tuple(segs.shape[:-2]) != lead \
+            or segs.shape[-1] != 2 or segs.dtype != torch.int32:
+        raise ValueError(f"segs must be ({'B, ' if batch else ''}n_seg, 2) "
+                         f"int32")
+    for name, t, shape in (("lcs", lcs, (P, rows, states)),
+                           ("rcs", rcs, (P, rows, states)),
                            ("ec", ec, (rows, states)), ("rr", rr, (rows,))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"{name} must be {shape} float32, got "
@@ -721,8 +742,8 @@ def _lib(bf16: bool = False):
     lib = load_library(storage_library("plf_tree_seg", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_launch.argtypes = (
-        [vp, ci, vp, ci, vp, ci] + [vp] * 4 + [ci, vp, vp, vp, vp]
-        + [ci] * 6 + [vp])
+        [vp, ci, vp, ci, vp, ci] + [vp] * 4 + [ci, vp, vp, ci, vp, vp]
+        + [ci] * 7 + [vp])
     lib.plf_tree_seg_launch.restype = ci
     lib.plf_tree_seg_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ci)] * 3
     lib.plf_tree_seg_plan.restype = ci
@@ -811,7 +832,25 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
                          f"got C={categories}")
     prog, n_slots = _seg_program(program, prog, segs, lcs.shape[0],
                                  codes.device)
-    args = (codes, prog, segs, lcs, rcs, ec, ttab, rr)
+    rows, n_pad = states * categories, codes.shape[-1]
+    bbuf = torch.empty((1, n_boundaries, rows, n_pad), dtype=dtype,
+                       device=codes.device)
+    lik, sc = _launch_seg(codes, prog[None], segs[None], lcs, rcs, ec, ttab,
+                          rr, n, bbuf, n_slots, states, categories)
+    count_launch(plf_tree_seg, dtype)
+    return lik, sc, bbuf[0]
+
+
+def _launch_seg(codes, progs, segs, lcs, rcs, ec, ttab, rr, n, bbuf,
+                n_slots, states, categories, out=None):
+    """One kernel-7 launch over the ``(B, 6, E)`` programs ``progs`` and
+    ``(B, n_seg, 2)`` segment rows ``segs``, through ``bbuf`` ``(B,
+    n_bnd, S*C, n_pad)``: ``(B, n_pad)`` likelihoods and scaler counts
+    (into ``out``, a pair of such tensors, when given)."""
+    if not 1 <= categories <= 8:
+        raise ValueError(f"plf_tree_seg: the CUDA kernel takes C in 1..8, "
+                         f"got C={categories}")
+    args = (codes, progs, segs, lcs, rcs, ec, ttab, rr, bbuf)
     _on_card("plf_tree_seg", args, (lcs, rcs, ec))
     rows = states * categories
     n_codes = ttab.shape[1]
@@ -826,22 +865,22 @@ def plf_tree_seg(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
         raise ValueError(f"plf_tree_seg: bad n={n} for n_pad={n_pad}")
     dev = codes.device
-    lik = torch.empty((1, n_pad), dtype=torch.float32, device=dev)
-    sc = torch.empty((1, n_pad), dtype=torch.int32, device=dev)
-    bbuf = torch.empty((n_boundaries, rows, n_pad), dtype=dtype, device=dev)
-    lib = _lib(dtype == torch.bfloat16)
+    B = progs.shape[0]
+    lik, sc = out if out is not None else (
+        torch.empty((B, n_pad), dtype=torch.float32, device=dev),
+        torch.empty((B, n_pad), dtype=torch.int32, device=dev))
+    lib = _lib(bbuf.dtype == torch.bfloat16)
     with torch.cuda.device(dev):
         err = lib.plf_tree_seg_launch(
-            codes.data_ptr(), codes.element_size(), prog.data_ptr(),
-            prog.shape[1], segs.data_ptr(), segs.shape[0], lcs.data_ptr(),
+            codes.data_ptr(), codes.element_size(), progs.data_ptr(),
+            progs.shape[2], segs.data_ptr(), segs.shape[1], lcs.data_ptr(),
             rcs.data_ptr(), ec.data_ptr(), ttab.data_ptr(), n_codes,
-            rr.data_ptr(), bbuf.data_ptr(), lik.data_ptr(), sc.data_ptr(),
-            n_slots, int(n), n_pad, categories, threads,
-            int(dtype == torch.bfloat16),
+            rr.data_ptr(), bbuf.data_ptr(), bbuf.shape[1], lik.data_ptr(),
+            sc.data_ptr(), n_slots, int(n), n_pad, categories, threads,
+            int(bbuf.dtype == torch.bfloat16), B,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "plf_tree_seg")
-    count_launch(plf_tree_seg, dtype)
-    return lik, sc, bbuf
+    return lik, sc
 
 
 plf_tree_seg.launches = plf_tree_seg.bf16_launches = 0
@@ -885,8 +924,8 @@ def _lib_mxu(bf16: bool = False):
     lib = load_library(storage_library("plf_tree_seg_mxu", bf16))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.plf_tree_seg_mxu_launch.argtypes = (
-        [vp, ci, vp, ci, vp, ci] + [vp] * 7 + [ci, vp, vp, vp, vp]
-        + [ci] * 7 + [vp])
+        [vp, ci, vp, ci, vp, ci] + [vp] * 7 + [ci, vp, vp, ci, vp, vp]
+        + [ci] * 8 + [vp])
     lib.plf_tree_seg_mxu_launch.restype = ci
     lib.plf_tree_seg_mxu_block.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 2
     lib.plf_tree_seg_mxu_block.restype = ci
@@ -919,6 +958,20 @@ def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     if codes.device.type != "cuda":
         raise ValueError(f"plf_tree_seg_mxu: no kernel for device "
                          f"{codes.device}")
+    rows, n_pad = states * categories, codes.shape[-1]
+    bbuf = torch.empty((1, n_boundaries, rows, n_pad), dtype=dtype,
+                       device=codes.device)
+    lik, sc = _launch_seg_mxu(codes, prog[None], segs[None], lcs, rcs, ec,
+                              ttab, rr, n, bbuf, n_slots, states, categories,
+                              variant, planes)
+    count_launch(plf_tree_seg_mxu, dtype)
+    return lik, sc, bbuf[0]
+
+
+def _launch_seg_mxu(codes, progs, segs, lcs, rcs, ec, ttab, rr, n, bbuf,
+                    n_slots, states, categories, variant, planes, out=None):
+    """One kernel-7m launch: :func:`_launch_seg` in the arithmetic of
+    ``variant``, ``planes`` as :func:`.plf_mxu.node_planes` takes them."""
     rows = states * categories
     n_codes = ttab.shape[1]
     if not tree_mxu_fits(n_slots, rows, n_codes):
@@ -929,24 +982,26 @@ def plf_tree_seg_mxu(codes, prog, segs, lcs, rcs, ec, ttab, rr, n: int, *,
     if not 0 <= n <= n_pad or n_pad == 0 or n_pad >= 2 ** 31:
         raise ValueError(f"plf_tree_seg_mxu: bad n={n} for n_pad={n_pad}")
     pl = [p.contiguous() for p in node_planes(lcs, rcs, ec, variant, planes)]
-    _on_card("plf_tree_seg_mxu", args, pl if states % 4 == 0 else ())
+    _on_card("plf_tree_seg_mxu", (codes, progs, segs, ttab, rr, bbuf),
+             pl if states % 4 == 0 else ())
     dev = codes.device
-    lik = torch.empty((1, n_pad), dtype=torch.float32, device=dev)
-    sc = torch.empty((1, n_pad), dtype=torch.int32, device=dev)
-    bbuf = torch.empty((n_boundaries, rows, n_pad), dtype=dtype, device=dev)
-    lib = _lib_mxu(dtype == torch.bfloat16)
+    B = progs.shape[0]
+    lik, sc = out if out is not None else (
+        torch.empty((B, n_pad), dtype=torch.float32, device=dev),
+        torch.empty((B, n_pad), dtype=torch.int32, device=dev))
+    bf16 = bbuf.dtype == torch.bfloat16
+    lib = _lib_mxu(bf16)
     with torch.cuda.device(dev):
         err = lib.plf_tree_seg_mxu_launch(
-            codes.data_ptr(), codes.element_size(), prog.data_ptr(),
-            prog.shape[1], segs.data_ptr(), segs.shape[0],
+            codes.data_ptr(), codes.element_size(), progs.data_ptr(),
+            progs.shape[2], segs.data_ptr(), segs.shape[1],
             *(p.data_ptr() for p in pl), ttab.data_ptr(), n_codes,
-            rr.data_ptr(), bbuf.data_ptr(), lik.data_ptr(), sc.data_ptr(),
-            n_slots, int(n), n_pad, states, categories, MODES[variant],
-            int(dtype == torch.bfloat16),
+            rr.data_ptr(), bbuf.data_ptr(), bbuf.shape[1], lik.data_ptr(),
+            sc.data_ptr(), n_slots, int(n), n_pad, states, categories,
+            MODES[variant], int(bf16), B,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "plf_tree_seg_mxu")
-    count_launch(plf_tree_seg_mxu, dtype)
-    return lik, sc, bbuf
+    return lik, sc
 
 
 plf_tree_seg_mxu.launches = plf_tree_seg_mxu.bf16_launches = 0
@@ -994,6 +1049,178 @@ def plf_tree_seg_mxu_occupancy(code_dtype: torch.dtype, states: int,
         raise RuntimeError(f"plf_tree_seg_mxu occupancy query failed: "
                            f"{lib.plf_error_string(err).decode()}")
     return blocks.value
+
+
+# ------------------------------------------------- the candidate axis --
+
+#: Bytes of boundary buffer one batched segmented launch may hold.  A batch
+#: runs in chunks of candidates whose boundary CLVs fit this cap, one launch
+#: a chunk over one reused buffer: a 256-taxon DNA NNI round at 16,384
+#: sites (509 candidates) keeps 56 boundaries of 16 rows a candidate,
+#: 58.7 MB, 30 GB for the whole round (chip_smoke.py, phase axes: 29
+#: launches of 18).  Sizing the buffer by the blocks resident on the card
+#: instead is later work (ROADMAP queue 2).
+SEG_BATCH_BBUF_BYTES = 1 << 30
+
+
+def stack_programs(programs):
+    """The port's counterpart of ``plf_tpu/ops/plf_tree_seg.py::
+    stack_plans`` (``:1289``): the candidates' segment programs padded to
+    one batch shape.
+
+    ``programs``: ``(prog, segs, n_slots, n_boundaries)`` per candidate,
+    ``prog`` ``(6, E)`` (:func:`carry_segment_program` for kernel 7,
+    :func:`segment_program` with ``reuse_slots=True`` for kernel 7m; the
+    same E for every candidate), ``segs`` ``(n_seg, 2)``.  The programs
+    are self-contained (operands name tip ids, boundary ids and arena
+    slots of their own), so nothing is remapped: ``segs`` is padded to the
+    batch's most segments with rows ``(E, -1)`` past the candidate's last
+    (kernel 7 never reaches them, kernel 7m stops at the first: it has no
+    ops), the arena to the batch's most slots
+    and the boundary buffer to its most boundaries.  Returns ``(progs (B,
+    6, E), segs (B, n_seg_max, 2), n_slots, n_boundaries)``, int32 NumPy
+    arrays and the batch's largest arena and boundary count."""
+    E = programs[0][0].shape[1]
+    if any(p[0].shape != (6, E) for p in programs):
+        raise ValueError("stack_programs needs programs of one op count")
+    n_seg = max(len(p[1]) for p in programs)
+    progs = np.stack([np.asarray(p[0], np.int32) for p in programs])
+    segs = np.empty((len(programs), n_seg, 2), np.int32)
+    segs[:] = (E, -1)
+    for b, p in enumerate(programs):
+        segs[b, :len(p[1])] = p[1]
+    return (progs, segs, max(int(p[2]) for p in programs),
+            max(int(p[3]) for p in programs))
+
+
+def seg_batch_size(batch: int, n_boundaries: int, rows: int, n_pad: int,
+                   dtype: torch.dtype = torch.float32,
+                   bbuf_bytes: int = SEG_BATCH_BBUF_BYTES) -> int:
+    """Candidates per launch of :func:`plf_tree_seg_batch`: as many as
+    have their boundary buffers within ``bbuf_bytes`` (at least one, at
+    most the batch and the grid's 65,535)."""
+    per = n_boundaries * rows * n_pad * torch.finfo(dtype).bits // 8
+    fit = batch if per == 0 else max(1, bbuf_bytes // per)
+    return min(batch, fit, 65535)
+
+
+def plf_tree_seg_batch_torch(codes, progs, segs, lcs, rcs, ec, ttab, rr,
+                             n: int, *, n_boundaries: int, n_slots: int,
+                             states: int = 4, categories: int = 4,
+                             variant: str = "vpu", planes=None,
+                             dtype: torch.dtype = torch.float32):
+    """Plain version of :func:`plf_tree_seg_batch` (same arguments and
+    results): :func:`plf_tree_seg_torch` on each candidate's program."""
+    outs = [plf_tree_seg_torch(codes, progs[b], segs[b], lcs, rcs, ec, ttab,
+                               rr, n, n_boundaries=n_boundaries,
+                               n_slots=n_slots, states=states,
+                               categories=categories, variant=variant,
+                               planes=planes, dtype=dtype)
+            for b in range(progs.shape[0])]
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def plf_tree_seg_batch(codes, progs, segs, lcs, rcs, ec, ttab, rr, n: int,
+                       *, n_boundaries: int, n_slots: int, states: int = 4,
+                       categories: int = 4, variant: str = "vpu",
+                       planes=None, dtype: torch.dtype = torch.float32,
+                       bbuf_bytes: int = SEG_BATCH_BBUF_BYTES):
+    """Kernels 7 and 7m with a candidate axis: many trees over one
+    alignment, cut into segments, in one launch per chunk of candidates.
+
+    Args:
+      codes, ec, ttab, rr, n: as :func:`plf_tree_seg`, shared by every
+        candidate.
+      progs, segs, n_slots, n_boundaries: :func:`stack_programs` of the
+        candidates' programs (kernel 7: carried programs; kernel 7m:
+        :func:`segment_program` with ``reuse_slots=True``), on the device
+        of ``codes``; row 5 of each program (the edge) indexes the
+        operator table.
+      lcs, rcs: ``(P, S*C, S)`` fp32 operator table; planes: kernel 7m's
+        planes of it (split here when None).
+      variant: "vpu" at S = 4 runs kernel 7, anything else kernel 7m.
+      dtype: the boundary storage, float32 or bfloat16.
+      bbuf_bytes: the cap on the boundary buffer (:func:`seg_batch_size`
+        candidates a launch, one buffer reused by every launch).
+
+    Returns:
+      ``(site_lik, scaler_counts)``: ``(B, n_pad)`` fp32 and int32; row
+      ``b`` equals :func:`plf_tree_seg` on candidate ``b`` bit for bit.
+      ``plf_tree_seg_batch.launches`` (``plf_tree_seg_mxu_batch.launches``
+      for kernel 7m) counts the launches, one a chunk.
+    """
+    _check(codes, progs, segs, lcs, rcs, ec, ttab, rr, states, categories,
+           variant, batch=True)
+    _check_storage(dtype)
+    mxu = uses_mxu_kernels(variant, states)
+    if planes is not None and not mxu:
+        raise ValueError("plf_tree_seg_batch: planes are for the "
+                         "matrix-form kernel")
+    kw = dict(n_boundaries=n_boundaries, n_slots=n_slots, states=states,
+              categories=categories, variant=variant, planes=planes,
+              dtype=dtype)
+    if codes.device.type == "cpu":
+        return plf_tree_seg_batch_torch(codes, progs, segs, lcs, rcs, ec,
+                                        ttab, rr, n, **kw)
+    if codes.device.type != "cuda":
+        raise ValueError(f"plf_tree_seg_batch: no kernel for device "
+                         f"{codes.device}")
+    rows, n_pad = states * categories, codes.shape[-1]
+    B = progs.shape[0]
+    per = seg_batch_size(B, n_boundaries, rows, n_pad, dtype, bbuf_bytes)
+    dev = codes.device
+    bbuf = torch.empty((per, n_boundaries, rows, n_pad), dtype=dtype,
+                       device=dev)
+    lik = torch.empty((B, n_pad), dtype=torch.float32, device=dev)
+    sc = torch.empty((B, n_pad), dtype=torch.int32, device=dev)
+    if mxu:
+        planes = [p.contiguous()
+                  for p in node_planes(lcs, rcs, ec, variant, planes)]
+    for b0 in range(0, B, per):
+        b1 = min(B, b0 + per)
+        a = (codes, progs[b0:b1], segs[b0:b1], lcs, rcs, ec, ttab, rr, n,
+             bbuf[:b1 - b0], n_slots, states, categories)
+        if mxu:
+            _launch_seg_mxu(*a, variant, planes, out=(lik[b0:b1],
+                                                      sc[b0:b1]))
+            count_launch(plf_tree_seg_mxu_batch, dtype)
+        else:
+            _launch_seg(*a, out=(lik[b0:b1], sc[b0:b1]))
+            count_launch(plf_tree_seg_batch, dtype)
+    return lik, sc
+
+
+plf_tree_seg_batch.launches = plf_tree_seg_batch.bf16_launches = 0
+
+
+def plf_tree_seg_mxu_batch(*args, **kw):
+    """Kernel 7m with a candidate axis: :func:`plf_tree_seg_batch` on a
+    matrix-form variant (its launches are counted here)."""
+    return plf_tree_seg_batch(*args, **kw)
+
+
+plf_tree_seg_mxu_batch.launches = plf_tree_seg_mxu_batch.bf16_launches = 0
+
+
+def batched_seg_loglik_parts(codes, progs, segs, lcs, rcs, ec, ttab, rr,
+                             wpad, n: int, *, n_parts: int = 64, **kw):
+    """Score a batch of candidates with :func:`plf_tree_seg_batch` and
+    reduce each candidate's sites to ``(B, n_parts)`` fp32 partial sums of
+    the weighted per-site log-likelihood, rescale counts folded in (the
+    JAX package's epilogue, ``plf_tpu/ops/plf_tree_seg.py:1398-1406``);
+    sum them in float64 on the host.  Counterpart of
+    ``plf_tpu/ops/plf_tree_seg.py::batched_seg_loglik_parts`` (``:1376``);
+    ``wpad`` is the ``(n_pad,)`` fp32 site weights, ``kw`` the keywords of
+    :func:`plf_tree_seg_batch`."""
+    B, n_pad = progs.shape[0], codes.shape[-1]
+    if n_parts < 1 or n_pad % n_parts:
+        raise ValueError(f"n_parts {n_parts} does not divide {n_pad} sites")
+    lik, sc = plf_tree_seg_batch(codes, progs, segs, lcs, rcs, ec, ttab, rr,
+                                 n, **kw)
+    site = (torch.log(torch.clamp_min(lik, LIK_FLOOR))
+            + sc.to(torch.float32) * LOG_MINLIK) * wpad
+    return site.reshape(B, n_parts, n_pad // n_parts).sum(dim=-1)
 
 
 @functools.cache

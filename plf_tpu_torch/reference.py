@@ -34,6 +34,7 @@ __all__ = [
     "TWO_TO_THE_32",
     "MIN_LIKELIHOOD",
     "plf_reference",
+    "plf_reference_scalar",
 ]
 
 
@@ -102,3 +103,43 @@ def plf_reference(x1, x2, left, right, ev, wgt=None, states: int = 4,
     scaler_increment = int(np.sum(scaler_vector.astype(np.int64) * wgt))
     return x3, scaler_vector, scaler_increment
 
+
+def plf_reference_scalar(x1, x2, left, right, ev, wgt=None, states: int = 4,
+                         categories: int = 4):
+    """Pure-scalar triple-loop PLF (slow; oracle for the vectorised oracle).
+
+    Literal transcription of the accumulation structure of the C reference
+    (``app/src/plf.cpp:19-64``) in Python floats-on-np.float32; used only in
+    tests to certify :func:`plf_reference` on small inputs.
+    """
+    S, C = int(states), int(categories)
+    x1 = _as_f32("x1", x1).reshape(-1, C, S)
+    x2 = _as_f32("x2", x2).reshape(-1, C, S)
+    left = _as_f32("left", left, (C, S, S))
+    right = _as_f32("right", right, (C, S, S))
+    ev = _as_f32("ev", ev, (S, S))
+    n = x1.shape[0]
+    if wgt is None:
+        wgt = np.ones((n,), dtype=np.int32)
+
+    x3 = np.zeros((n, C, S), dtype=np.float32)
+    scaler_vector = np.zeros((n,), dtype=np.uint8)
+    add_scale = 0
+    for i in range(n):
+        for c in range(C):
+            pk = np.zeros((S,), dtype=np.float32)
+            for k in range(S):
+                u1 = np.float32(0.0)
+                u2 = np.float32(0.0)
+                for a in range(S):
+                    u1 += x1[i, c, a] * left[c, k, a]
+                    u2 += x2[i, c, a] * right[c, k, a]
+                pk[k] = u1 * u2
+            for k in range(S):
+                for a in range(S):
+                    x3[i, c, a] += pk[k] * ev[k, a]
+        if np.all(np.abs(x3[i]) < MIN_LIKELIHOOD):
+            x3[i] *= TWO_TO_THE_32
+            scaler_vector[i] = 1
+            add_scale += int(wgt[i])
+    return x3, scaler_vector, add_scale

@@ -211,5 +211,7 @@ def test_batch_rejects_mixed_alignments():
                        device="cpu")
     with pytest.raises(ValueError, match="same-shape"):
         TP.batch_log_likelihood([pms[0], small])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.batch_log_likelihood_segmented(pms)
+    with pytest.raises(ValueError, match="identical alignment"):
+        TP.batch_log_likelihood_segmented([pms[0], other])
+    with pytest.raises(ValueError, match="same-shape"):
+        TP.batch_log_likelihood_segmented([pms[0], small])

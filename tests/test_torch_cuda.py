@@ -2048,3 +2048,187 @@ def test_site_rates_launches_one_node_kernel_a_node(cuda, states):
                                            device="cpu"))
     np.testing.assert_array_equal(post, post_c)
     np.testing.assert_array_equal(mean, mean_c)
+
+
+# ------------------------------------------------------ the three axes --
+
+
+@pytest.mark.parametrize("S,C,n,n_pad", [(4, 4, 5000 - 7, 5120),
+                                         (4, 5, 301, 384)] + NODE_MXU_EDGES)
+@pytest.mark.parametrize("variant", ["vpu"] + MXU_VARIANTS)
+def test_node_batch_equals_single_launches_and_plain(cuda, S, C, n, n_pad,
+                                                     variant):
+    """Kernels 1 and 1m with an instance axis (``plf_node_batch``): three
+    instances in one launch, each equal to a single launch on it and to
+    the plain version bit for bit (x3 and flags), at kernel 1's shapes
+    and kernel 1m's edge shapes (``NODE_MXU_EDGES``)."""
+    if S == 4 and variant != "vpu" and C != 4:
+        pytest.skip("the MXU forms at S = 4 are covered at C = 4")
+    cases = [_underflow_case_s(n, S, C, 40 + i) for i in range(3)]
+    lane = lambda x: np.pad(L.to_lane_major(x, S, C),
+                            ((0, 0), (0, n_pad - n)))
+    x1 = torch.as_tensor(np.stack([lane(c[0]) for c in cases]), device=cuda)
+    x2 = torch.as_tensor(np.stack([lane(c[1]) for c in cases]), device=cuda)
+    lc, rc, ec = (torch.as_tensor(np.stack([f(c) for c in cases]),
+                                  device=cuda) for f in (
+        lambda c: L.branch_to_lane_constants(c[2], S, C),
+        lambda c: L.branch_to_lane_constants(c[3], S, C),
+        lambda c: L.ev_to_lane_constants(c[4], S, C)))
+    kw = dict(states=S, categories=C, variant=variant)
+    mxu = uses_mxu_kernels(variant, S)
+    from plf_tpu_torch.ops import plf_mxu as M, plf_node as NN
+    counter = M.plf_node_mxu_batch if mxu else NN.plf_node_batch
+    before = counter.launches
+    x3, sc = NN.plf_node_batch(x1, x2, lc, rc, ec, n, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    x3p, scp = NN.plf_node_batch_torch(x1, x2, lc, rc, ec, n, states=S,
+                                       categories=C) if not mxu else \
+        M.plf_node_mxu_batch_torch(x1, x2, lc, rc, ec, n, **kw)
+    for i in range(3):
+        one, one_sc = plf_node(x1[i], x2[i], lc[i], rc[i], ec[i], n, **kw)
+        assert torch.equal(x3[i], one) and torch.equal(sc[i], one_sc[0])
+    assert torch.equal(x3, x3p) and torch.equal(sc, scp)
+    assert int(sc.sum()) > 0 and not sc[:, n:].any()
+
+
+def test_plf_batch_is_one_launch(cuda):
+    """``PLFEngine.plf_batch`` on the card: one launch of kernel 1 (1m at
+    S = 20), each instance equal to ``plf`` on it; fp32 under a bf16
+    config."""
+    from plf_tpu_torch.ops import plf_mxu as M, plf_node as NN
+    for S, counter in ((4, NN.plf_node_batch), (20, M.plf_node_mxu_batch)):
+        cases = [_underflow_case_s(999, S, 4, 50 + i) for i in range(3)]
+        args = [np.stack([c[k] for c in cases]) for k in range(5)]
+        eng = PLFEngine(PLFConfig(states=S, dtype="bfloat16"), device=cuda)
+        before, single = counter.launches, (NN.plf_node.launches,
+                                            M.plf_node_mxu.launches)
+        out = eng.plf_batch(*args)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert (NN.plf_node.launches, M.plf_node_mxu.launches) == single
+        assert out.x3.dtype == torch.float32
+        f32 = PLFEngine(PLFConfig(states=S), device=cuda)
+        for i in range(3):
+            one = f32.plf(*(a[i] for a in args))
+            assert torch.equal(out.x3[i], one.x3)
+            assert int(out.scaler_increment[i]) == int(one.scaler_increment)
+
+
+def _seg_batch_models(cuda, S, variant, dtype, n_leaves, n_sites, k=6):
+    model = {4: lambda: hky85(2.0), 20: lambda: empirical_protein("lg"),
+             61: lambda: codon_gy94(2.0, 0.5)}[S]()
+    codes = {4: 14, 20: 23, 61: 61}[S]
+    tips = np.random.default_rng(61).integers(-1, codes,
+                                              size=(n_leaves, n_sites))
+    cfg = PLFConfig(states=S, kernel_variant=variant, dtype=dtype)
+    trees = [random_tree(n_leaves, seed=s) for s in range(k)]
+    pm0 = PhyloModel(trees[0], model, tips, alpha=0.5, config=cfg,
+                     device=cuda)
+    return [pm0] + [PhyloModel(t, model, tips, alpha=0.5, config=cfg,
+                               share_device_from=pm0, device=cuda)
+                    for t in trees[1:]]
+
+
+def _seg_batch_args(pms):
+    progs, segs, lcs, rcs, planes, n_slots, n_bnd = \
+        TP.segmented_batch_inputs(pms)
+    pm0 = pms[0]
+    cfg = pm0.config
+    args = (pm0.codes, progs, segs, lcs, rcs, pm0.ec, pm0.fused_tip_table,
+            pm0.root_rows[0], pm0.n_sites)
+    kw = dict(n_boundaries=n_bnd, n_slots=n_slots, states=cfg.states,
+              categories=cfg.categories, variant=cfg.resolved_kernel_variant,
+              planes=planes, dtype=getattr(torch, cfg.dtype))
+    return args, kw
+
+
+@pytest.mark.parametrize("S,variant", [(4, "vpu"), (20, "mxu_3x"),
+                                       (20, "mxu"), (61, "mxu")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seg_batch_equals_single_launches_and_plain(cuda, S, variant, dtype,
+                                                    monkeypatch):
+    """Kernels 7 and 7m with a candidate axis: random trees over one
+    alignment (different segment counts; a cap of 3 ops a segment),
+    batched under a boundary-buffer cap of two candidates, so the batch
+    runs in chunks (one launch each); every row equals the single-tree
+    launch on the candidate and the plain batch bit for bit, and with
+    fp32 boundaries the fused kernel (2 or 2m)."""
+    if S == 61 and dtype == "bfloat16":
+        pytest.skip("S = 61 runs in fp32 storage here")
+    monkeypatch.setattr(SG, "seg_cap_ops", lambda *a, **k: 3)
+    monkeypatch.setattr(SG, "seg_mxu_cap_ops", lambda *a, **k: 3)
+    n_leaves, n_sites = {4: (24, 3000), 20: (12, 700), 61: (8, 300)}[S]
+    pms = _seg_batch_models(cuda, S, variant, dtype, n_leaves, n_sites)
+    args, kw = _seg_batch_args(pms)
+    rows, n_pad = pms[0].config.rows, pms[0].n_pad
+    cap = 2 * kw["n_boundaries"] * rows * n_pad * (2 if dtype ==
+                                                   "bfloat16" else 4)
+    per = SG.seg_batch_size(len(pms), kw["n_boundaries"], rows, n_pad,
+                            kw["dtype"], cap)
+    assert per == 2
+    mxu = uses_mxu_kernels(variant, S)
+    counter = SG.plf_tree_seg_mxu_batch if mxu else SG.plf_tree_seg_batch
+    before = counter.launches
+    lik, sc = SG.plf_tree_seg_batch(*args, bbuf_bytes=cap, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + -(-len(pms) // per)
+    lp, sp = SG.plf_tree_seg_batch_torch(*args, **kw)
+    assert torch.equal(lik, lp) and torch.equal(sc, sp)
+    whole, whole_sc = SG.plf_tree_seg_batch(*args, **kw)
+    assert torch.equal(lik, whole) and torch.equal(sc, whole_sc)
+    for b, pm in enumerate(pms):
+        plan, prog, segs, slots = pm._segmented_inputs()
+        one, one_sc, _ = SG.plf_tree_seg(
+            pm.codes, prog, segs, pm.lcs, pm.rcs, pm.ec, pm.fused_tip_table,
+            pm.root_rows[0], pm.n_sites, n_boundaries=plan.n_boundaries,
+            n_slots=slots, states=S, categories=pm.config.categories,
+            variant=variant, planes=pm._planes(), dtype=kw["dtype"],
+            program=pm.segmented_program)
+        assert torch.equal(lik[b], one[0]) and torch.equal(sc[b], one_sc[0])
+        if dtype == "float32" and pm.can_fuse():
+            f, f_sc = plf_tree(
+                pm.codes, pm.sched, pm.lcs, pm.rcs, pm.ec,
+                pm.fused_tip_table, pm.root_rows[0], pm.n_sites,
+                n_slots=pm.n_slots, root_slot=pm.root_slot, states=S,
+                categories=pm.config.categories, variant=variant,
+                planes=pm._planes(),
+                program=None if mxu else pm.tree_program)
+            assert torch.equal(lik[b], f[0]) and torch.equal(sc[b], f_sc[0])
+    lls = TP.batch_log_likelihood_segmented(pms)
+    own = [pm.log_likelihood(method="segmented").log_likelihood
+           for pm in pms]
+    np.testing.assert_allclose(lls, own, rtol=1e-6)
+
+
+def test_one_rank_mesh_on_the_card(cuda):
+    """A one-rank ``SiteMesh`` on the card (no process group): the
+    sharded likelihood equals the unsharded one site for site, and a
+    "tree" and a "segmented" mesh step equal the unsharded steps bit for
+    bit; ``plf_sharded`` equals kernel 1 on the whole array."""
+    from plf_tpu_torch.parallel import ShardedPLF, make_mesh
+    mesh = make_mesh(device=cuda)
+    assert mesh.size == 1 and mesh.device.type == "cuda"
+    pm = _model(cuda, n_leaves=40, n_sites=5000)
+    got, want = pm.log_likelihood_sharded(mesh), pm.log_likelihood()
+    np.testing.assert_array_equal(got.site_log_likelihood,
+                                  want.site_log_likelihood)
+    assert got.scaler_total == want.scaler_total
+    for backend in ("tree", "segmented"):
+        grads = []
+        for m in (None, mesh):
+            fn, t0 = tree_loglik_fn(pm, backend=backend, mesh=m)
+            t = torch.tensor(t0, device=cuda, requires_grad=True)
+            fn(t).backward()
+            grads.append(t.grad)
+        assert torch.equal(grads[0], grads[1])
+    x1, x2, left, right, ev = _underflow_case(3000, 4, 12)
+    sp = ShardedPLF(mesh, block_sites=128)
+    w = np.ones(3000, np.int32)
+    x3, sc, inc = sp(sp.prepare(x1, 3000), sp.prepare(x2, 3000),
+                     *sp.constants(left, right, ev),
+                     sp.prepare_weights(w, 3000), 3000)
+    x3_ref, sv, inc_ref = plf_reference(x1, x2, left, right, ev)
+    np.testing.assert_array_equal(
+        L.from_lane_major(x3.cpu().numpy(), n=3000), x3_ref)
+    assert int(inc) == inc_ref > 0

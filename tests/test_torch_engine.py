@@ -236,6 +236,8 @@ def test_port_never_imports_jax():
             "plf_tpu_torch.models.support, plf_tpu_torch.models.ancestral, "
             "plf_tpu_torch.models.partition, plf_tpu_torch.io.streams, "
             "plf_tpu_torch.io.fixtures, plf_tpu_torch.utils.profiling\n"
+            "import plf_tpu_torch.parallel, plf_tpu_torch.parallel.sharding, "
+            "plf_tpu_torch.parallel.distributed\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax', "
             "'plf_tpu') or m.startswith(('jax.', 'optax.', 'plf_tpu.'))]\n"
             "assert not bad, bad\n"

@@ -125,9 +125,30 @@ def test_optimize_follows_optax():
 
 
 def test_sharding_is_not_ported():
+    """Site sharding is ported (``plf_tpu_torch.parallel``): on a one-rank
+    mesh (no process group) the sharded partitioned ll equals the
+    unsharded one site for site, and the sharded joint objective (the
+    "tree" backend on the shard) equals the unsharded "tree" objective,
+    value and gradients, bit for bit; a mesh step on another backend is
+    refused.  Several ranks: tests/test_torch_parallel.py."""
+    from plf_tpu_torch.models import optimize as TO
+    from plf_tpu_torch.parallel import make_mesh
     _, pt = _pair()
-    for call in (pt.log_likelihood_sharded,
-                 lambda: pt.loglik_fn(mesh=object()),
-                 lambda: pt.optimize(steps=1, mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            call()
+    mesh = make_mesh(device="cpu")
+    res_m, res_s = pt.log_likelihood_sharded(mesh=mesh), pt.log_likelihood()
+    assert res_m.log_likelihood == res_s.log_likelihood
+    for a, b in zip(res_m.per_partition, res_s.per_partition):
+        np.testing.assert_array_equal(a.site_log_likelihood,
+                                      b.site_log_likelihood)
+        assert a.scaler_total == b.scaler_total
+    fn_m, t0, _ = pt.loglik_fn(mesh=mesh)
+    pm = pt.models[0]
+    fn_t, _ = TO.tree_loglik_fn(pm, backend="tree")
+    fn_1, _ = TO.tree_loglik_fn(pm, backend="tree", mesh=mesh)
+    ts = [torch.tensor(t0, requires_grad=True) for _ in range(2)]
+    for fn, t in zip((fn_t, fn_1), ts):
+        fn(t).backward()
+    assert torch.equal(ts[0].grad, ts[1].grad)
+    assert torch.isfinite(fn_m(torch.as_tensor(t0), torch.zeros(2)))
+    with pytest.raises(ValueError, match="mesh-sharded"):
+        TO.tree_loglik_fn(pm, backend="torch", mesh=mesh)

@@ -245,14 +245,17 @@ def test_keep_root_clv_takes_per_node(spies):
 
 
 def test_unported_paths_raise():
-    """The sharded path raises; bf16 CLV storage now runs, and on the
+    """The sharded path runs (on a one-rank mesh it equals
+    ``log_likelihood()`` site for site); bf16 CLV storage now runs, and on the
     fused and per-node paths, which ignore it, equals the fp32 model site
     for site; the MXU variants run on the fused and per-node paths, which
     agree, and on the segmented path, which equals the fused one site for
     site."""
     pt = _port_of(_jax_model("gamma"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.log_likelihood_sharded()
+    sharded, plain = pt.log_likelihood_sharded(), pt.log_likelihood()
+    assert sharded.log_likelihood == plain.log_likelihood
+    np.testing.assert_array_equal(sharded.site_log_likelihood,
+                                  plain.site_log_likelihood)
     with pytest.raises(ValueError):
         pt.log_likelihood(method="bogus")
     pm = _jax_model("gamma")
