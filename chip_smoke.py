@@ -97,6 +97,13 @@ own (NCCL if it takes two ranks on one card, else gloo) on the DNA and
 protein models and ``plf_sharded`` at 2^24 sites, and the whole-tree
 golden oracle == kernel 2 on 2^16 sites.
 
+The last entry points (phase ``graft``, after ``sharded``):
+``__graft_entry_torch__.py``'s ``entry()`` (kernel 1 == golden and
+plain), its ``dryrun_multichip`` on one rank a card and on two gloo ranks
+sharing the card (the JAX twin's ten checks, the ranks agreeing), and the
+four ``examples/torch_*.py`` at their default sizes, each in a process of
+its own, checked on what they print.
+
 A profile phase breaks one ``log_likelihood()`` into its steps, traces the
 fused and the per-node evaluation with ``torch.profiler`` (device time,
 idle share, the top kernels) and times kernel 2 at the occupancy its
@@ -1925,6 +1932,180 @@ class Captured:
     def __exit__(self, *exc):
         import plf_tpu_torch.models as M
         M.model_select, M.run_inference = self._real
+
+
+#: The port's examples (``examples/<name>.py``), run as a user runs them,
+#: each in a process of its own at its default size on the card.
+GRAFT_EXAMPLES = ("torch_quickstart", "torch_model_selection",
+                  "torch_full_inference", "torch_codon_dnds")
+#: The wrappers a rank of ``dryrun_multichip`` launches.
+DRYRUN_KERNELS = ("plf_node", "plf_node_batch", "plf_tree", "plf_tree_bwd",
+                  "plf_tree_mxu", "plf_tree_seg", "plf_tree_seg_bwd")
+
+#: One example (argument: its path) run as ``__main__``, then the kernel
+#: launches of its process, by wrapper, as the last line.
+EXAMPLE_SCRIPT = """
+import json, runpy, sys
+from plf_tpu_torch.ops import launch_counts
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print(json.dumps(launch_counts()), flush=True)
+"""
+
+#: ``dryrun_multichip(2, backend="gloo")`` (two ranks sharing the card) in
+#: a process of its own: its lines, then its values as one JSON line.
+GLOO_DRYRUN_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import __graft_entry_torch__ as g
+print(json.dumps(g.dryrun_multichip(2, backend="gloo")), flush=True)
+"""
+
+
+def _example_checks(name, text):
+    """What each example's output must show; returns the line to print."""
+    if name == "torch_quickstart":
+        ll = float(re.search(r"^log-likelihood = (\S+)", text, re.M).group(1))
+        m = re.search(r"^branch-length optimisation: (\S+) -> (\S+)", text,
+                      re.M)
+        ll0, ll1 = float(m.group(1)), float(m.group(2))
+        check(np.isfinite(ll) and ll1 > ll0, f"quickstart: ll {ll}, "
+              f"optimisation {ll0} -> {ll1}")
+        pats = re.search(r"^site patterns: .*$", text, re.M).group(0)
+        return f"{pats}; ll {ll:.3f}, lengths {ll0:.3f} -> {ll1:.3f}"
+    if name == "torch_model_selection":
+        m = re.search(r"^selected by AICc: (\S+) \(alpha=(\S+)\)", text, re.M)
+        best = m.group(1)
+        check(best.split("+")[0] in ("HKY", "GTR") and "+G" in best,
+              f"model selection chose {best} (simulated under HKY+G)")
+        return f"selected {best} (alpha {float(m.group(2)):.3f}; the truth " \
+               f"HKY+G, alpha 0.6)"
+    if name == "torch_full_inference":
+        newick = text.split("SH-aLRT annotated tree:\n")[1].splitlines()[0]
+        tree = parse_newick(newick)
+        rf = re.search(r"^RF distance to true tree: (\d+)", text, re.M)
+        ll = re.search(r"^inferred ll = .*$", text, re.M).group(0)
+        check(tree.n_leaves == 12 and rf is not None,
+              f"full inference: {tree.n_leaves} taxa, rf {rf}")
+        return f"{ll}; RF distance {rf.group(1)}; the newick parses back " \
+               f"({tree.n_leaves} taxa)"
+    m = re.search(r"^fitted: kappa=(\S+) omega=(\S+)", text, re.M)
+    omega = float(m.group(2))
+    check(omega < 1, f"codon example: omega {omega} (simulated at 0.2)")
+    return f"kappa {float(m.group(1)):.3f}, omega {omega:.4f} (simulated " \
+           f"4 / 0.2)"
+
+
+def graft_phase(dev):
+    """``__graft_entry_torch__.py`` and the port's examples on the card:
+
+    * ``entry()``'s ``fn``: kernel 1 on 2,048 sites, == the golden model
+      and == kernel 1's plain version bit for bit, one launch;
+    * ``dryrun_multichip(cards)``: the ten checks of the JAX twin on one
+      rank per card (one rank, in this process, on a one-card machine),
+      launches counted;
+    * ``dryrun_multichip(2, backend="gloo")``: two ranks sharing the card,
+      every check held, the ranks agreeing; against the one-rank values
+      (lls within rel 1e-6, scaler counts exact);
+    * the four examples at their default sizes, each in a process of its
+      own as a user runs it: quickstart's ll finite and raised by the
+      length optimisation, model selection choosing HKY or GTR with +G
+      (the truth: HKY+G, kappa 6), the full inference's newick parsing
+      back with its RF distance printed, the codon fit's omega below 1
+      (the truth: 0.2).
+    The processes start together; this process runs ``entry()`` and the
+    one-rank dry run meanwhile."""
+    import os
+    import __graft_entry_torch__ as graft
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        procs["gloo"] = subprocess.Popen(
+            [sys.executable, "-c", GLOO_DRYRUN_SCRIPT, root],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in GRAFT_EXAMPLES:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_SCRIPT,
+                 os.path.join(root, "examples", f"{name}.py")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        _reset_counts()
+        fn, args = graft.entry()
+        x3, sc = fn(*args)
+        torch.cuda.synchronize()
+        counts = _counts()
+        check(counts["plf_node"] == 1 and sum(counts.values()) == 1,
+              f"entry() launched {counts}")
+        x1, x2, left, right, ev = graft._example_case(2048)
+        x3_ref, sv_ref, _ = plf_reference(x1, x2, left, right, ev)
+        x3p, scp = plf_node_torch(*args)
+        check(np.array_equal(L.from_lane_major(x3.cpu().numpy(), n=2048),
+                             x3_ref)
+              and np.array_equal(sc[0].cpu().numpy(), sv_ref.astype(np.int32)),
+              "entry(): != golden model")
+        check(torch.equal(x3, x3p) and torch.equal(sc, scp),
+              "entry(): != kernel 1's plain version")
+        phase("graft", f"entry(): kernel 1 on {tuple(x3.shape)}, launched "
+              f"once, == golden model and == plain bit for bit "
+              f"({int(sc.sum())} rescaled sites)")
+
+        cards = torch.cuda.device_count()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            one = graft.dryrun_multichip(cards)
+        for line in buf.getvalue().splitlines():
+            phase("graft", line)
+        _launched(one["launches"], DRYRUN_KERNELS,
+                  f"dryrun_multichip({cards})")
+        phase("graft", f"dryrun_multichip({cards}) launches: "
+              f"{one['launches']}")
+
+        outs = {}
+        for name, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            check(p.returncode == 0, f"{name} exited {p.returncode}:\n"
+                  f"{out[-2000:]}\n{err[-3000:]}")
+            outs[name] = out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+
+    lines = outs["gloo"].strip().splitlines()
+    two = json.loads(lines[-1])
+    for line in lines[:-1]:
+        phase("graft", line)
+    for name in ("tree", "int8", "protein", "codon"):
+        check(two[name]["scaler_total"] == one[name]["scaler_total"]
+              and abs(two[name]["ll"] / one[name]["ll"] - 1) < 1e-6,
+              f"gloo {name}: {two[name]} vs one rank {one[name]}")
+    check(two["plf"]["scaler_inc"] == one["plf"]["scaler_inc"]
+          and two["plf_batch"] == one["plf_batch"],
+          "gloo plf / plf_batch differ from one rank")
+    _launched(two["launches"], DRYRUN_KERNELS,
+              "dryrun_multichip(2, gloo), rank 0")
+    phase("graft", f"dryrun_multichip(2, backend='gloo'): both ranks "
+          f"agree, every check held, == one rank (lls rel 1e-6, scaler "
+          f"counts exact); rank 0 launches: {two['launches']}")
+    total = {}
+    for name in GRAFT_EXAMPLES:
+        text = outs[name]
+        counts = json.loads(text.strip().splitlines()[-1])
+        launched = {k: v for k, v in counts.items() if v}
+        check(launched, f"{name} launched no kernel")
+        _merge(total, launched)
+        phase("graft", f"examples/{name}.py: {_example_checks(name, text)}; "
+              f"launches {launched}")
+    phase("graft", f"examples' launches: {total}; the phase's processes "
+          f"took {wall:.1f} s wall, started together")
+    return dict(one=one, two=two, examples=total)
 
 
 def _selection_table(text, label):
@@ -4332,6 +4513,7 @@ def main():
     analyses_phase(dev)
     ax = axes_phase(dev)
     sharded_phase(dev, tree, tips, pm, models)
+    graft_phase(dev)
     k7m = kernel7m_phase(models, codon, (tree, tips), dev)
     k8m = kernel8m_phase(models, codon, dev)
     launches.update(protein_segmented_phase(models, dev))

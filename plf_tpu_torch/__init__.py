@@ -11,7 +11,7 @@ for the CPU; on a CPU tensor every kernel wrapper runs its plain PyTorch
 version instead.  This package never imports JAX or ``plf_tpu``.
 """
 
-from .config import PLFConfig, Backend
+from .config import PLFConfig, Backend, DNA, PROTEIN
 from .reference import plf_reference, MIN_LIKELIHOOD, TWO_TO_THE_32
 from .engine import PLFEngine, PLFResult, plf
 

@@ -71,17 +71,8 @@ def make_data(n, states, categories, seed=7):
 def _launches() -> str:
     """The kernel launches this process made, by wrapper (none on the
     CPU, where the plain versions run)."""
-    from .ops import plf_grad, plf_tree, plf_tree_grad, plf_tree_seg
-    from .ops.plf_mxu import plf_node_mxu
-    from .ops.plf_node import plf_node, plf_node_gen
-    wrappers = (plf_node, plf_node_mxu, plf_node_gen, plf_tree.plf_tree,
-                plf_tree.plf_tree_mxu, plf_tree.plf_tree_batch,
-                plf_tree.plf_tree_mxu_batch, plf_grad.plf_node_bwd,
-                plf_grad.plf_node_bwd_mxu, plf_tree_grad.plf_tree_bwd,
-                plf_tree_grad.plf_tree_bwd_mxu, plf_tree_seg.plf_tree_seg,
-                plf_tree_seg.plf_tree_seg_mxu, plf_tree_seg.plf_tree_seg_bwd,
-                plf_tree_seg.plf_tree_seg_bwd_mxu)
-    counts = [f"{f.__name__} {f.launches}" for f in wrappers if f.launches]
+    from .ops import launch_counts
+    counts = [f"{k} {v}" for k, v in launch_counts().items() if v]
     return ", ".join(counts) or "none (plain versions)"
 
 

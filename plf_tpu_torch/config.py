@@ -139,3 +139,7 @@ class PLFConfig:
         st = "DNA" if self.states == 4 else f"{self.states}state"
         return (f"plftorch_{st}_window_1inEV_{self.backend.value}"
                 f"_blk{self.block_sites}")
+
+
+DNA = PLFConfig(states=4)
+PROTEIN = PLFConfig(states=20, kernel_variant="auto")

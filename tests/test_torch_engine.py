@@ -1,6 +1,7 @@
 """The port's PLFEngine and config against the JAX package's, the kernel
 build, and the guards: no JAX in the port, no CPU run of chip_smoke.py."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -16,8 +17,10 @@ from test_torch_batch import _one_torch_thread  # noqa: E402,F401
 
 from plf_tpu.config import Backend as JBackend  # noqa: E402
 from plf_tpu.config import PLFConfig as JCfg  # noqa: E402
+from plf_tpu.config import DNA as JDNA, PROTEIN as JPROTEIN  # noqa: E402
 from plf_tpu.engine import PLFEngine as JEngine  # noqa: E402
 from plf_tpu.reference import plf_reference  # noqa: E402
+from plf_tpu_torch import DNA, PROTEIN  # noqa: E402
 from plf_tpu_torch.config import Backend, PLFConfig  # noqa: E402
 from plf_tpu_torch.engine import PLFEngine  # noqa: E402
 from plf_tpu_torch.ops import _build  # noqa: E402
@@ -158,6 +161,18 @@ def test_config_matches_jax():
     assert cfg.to_name() == ref.to_name().replace("plftpu", "plftorch") \
         .replace("_pallas_", "_kernel_").replace("_inst1_", "_")
     assert cfg.rows == ref.rows == cfg.elements_per_site == 16
+    # the presets, in every field both configs have (the backends by name)
+    for mine, theirs in ((DNA, JDNA), (PROTEIN, JPROTEIN)):
+        shared = ({f.name for f in dataclasses.fields(mine)}
+                  & {f.name for f in dataclasses.fields(theirs)})
+        assert shared >= {"states", "categories", "block_sites", "backend",
+                          "dtype", "tip_dtype", "kernel_variant"}
+        for name in shared - {"backend"}:
+            assert getattr(mine, name) == getattr(theirs, name), name
+        assert (mine.backend, theirs.backend) == (Backend.KERNEL,
+                                                   JBackend.PALLAS)
+        assert mine.resolved_kernel_variant \
+            == theirs.resolved_kernel_variant
 
 
 # ------------------------------------------------------------------- build --
@@ -238,6 +253,10 @@ def test_port_never_imports_jax():
             "plf_tpu_torch.io.fixtures, plf_tpu_torch.utils.profiling\n"
             "import plf_tpu_torch.parallel, plf_tpu_torch.parallel.sharding, "
             "plf_tpu_torch.parallel.distributed\n"
+            "import runpy, __graft_entry_torch__\n"
+            "for name in ('quickstart', 'model_selection', "
+            "'full_inference', 'codon_dnds'):\n"
+            "    runpy.run_path(f'examples/torch_{name}.py')\n"
             "bad = [m for m in sys.modules if m in ('jax', 'optax', "
             "'plf_tpu') or m.startswith(('jax.', 'optax.', 'plf_tpu.'))]\n"
             "assert not bad, bad\n"
