@@ -24,6 +24,7 @@ This file imports ``torch``, ``numpy`` and ``plf_tpu_torch`` only.
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -337,14 +338,17 @@ def _tail(path, n=3000):
 
 
 def _start_ranks(n_devices, device, backend, tmp, timeout):
-    """Every rank's JSON line; raises if a rank exits non-zero or runs
-    past ``timeout`` seconds (the others are then stopped)."""
+    """Every rank's JSON line.  Once a rank exits non-zero the others are
+    stopped, and this raises naming the lowest rank that exited non-zero
+    by itself (ranks stopped here do not count), every such rank with its
+    exit code, and the end of the named rank's stderr.  A run past
+    ``timeout`` seconds stops every rank and names the lowest."""
     if device.type == "cuda":
         cards = torch.cuda.device_count()
         devs = [f"cuda:{r % cards}" for r in range(n_devices)]
     else:
         devs = ["cpu"] * n_devices
-    procs, logs = [], []
+    procs, logs, stopped = [], [], set()
     try:
         for r in range(n_devices):
             o, e = (open(os.path.join(tmp, f"rank{r}.{s}"), "w")
@@ -358,35 +362,42 @@ def _start_ranks(n_devices, device, backend, tmp, timeout):
         late = False
         while True:
             codes = [p.poll() for p in procs]
-            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if failed or all(c == 0 for c in codes):
+            if any(c not in (None, 0) for c in codes) or all(
+                    c == 0 for c in codes):
                 break
             if time.monotonic() > deadline:
-                failed, late = [r for r, c in enumerate(codes)
-                                if c is None], True
+                late = True
                 break
             time.sleep(0.1)
     finally:
-        for p in procs:
+        for r, p in enumerate(procs):
             if p.poll() is None:
                 p.kill()
-            p.wait()
+                if p.wait() == -signal.SIGKILL:   # not an exit of its own
+                    stopped.add(r)
         for o, e in logs:
             o.close()
             e.close()
-    if failed:
-        r = failed[0]
-        how = (f"ran past {timeout} s" if late
-               else f"exited {procs[r].returncode}")
-        raise RuntimeError(
-            f"dryrun_multichip({n_devices}): rank {r} of {n_devices} {how} "
-            f"({backend}, {devs[r]}); its stderr ends:\n"
-            f"{_tail(os.path.join(tmp, f'rank{r}.err'))}")
-    out = []
-    for r in range(n_devices):
-        with open(os.path.join(tmp, f"rank{r}.out")) as f:
-            out.append(json.loads(f.read().strip().splitlines()[-1]))
-    return out
+    if late:
+        named = min(r for r, c in enumerate(codes) if c is None)
+        how = f"ran past {timeout} s"
+    else:
+        failed = [r for r, p in enumerate(procs)
+                  if p.returncode != 0 and r not in stopped]
+        if not failed:
+            out = []
+            for r in range(n_devices):
+                with open(os.path.join(tmp, f"rank{r}.out")) as f:
+                    out.append(json.loads(f.read().strip().splitlines()[-1]))
+            return out
+        named = failed[0]
+        how = (f"exited {procs[named].returncode}; ranks that exited "
+               f"non-zero by themselves: " + ", ".join(
+                   f"{r} (exit {procs[r].returncode})" for r in failed))
+    raise RuntimeError(
+        f"dryrun_multichip({n_devices}): rank {named} of {n_devices} {how} "
+        f"({backend}, {devs[named]}); its stderr ends:\n"
+        f"{_tail(os.path.join(tmp, f'rank{named}.err'))}")
 
 
 def _report(n, v, backend):
@@ -435,7 +446,9 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None,
     starts, unless the caller names ``backend="gloo"``: then the ranks
     share the cards (rank r on card r modulo the cards).  On "cpu" the
     ranks join over gloo.  One rank runs in this process with no group.
-    A rank that fails raises, with the end of its stderr.
+    Once a rank exits non-zero the others are stopped and this raises,
+    naming the lowest rank that exited non-zero by itself, with the end
+    of its stderr.
 
     Prints the JAX twin's lines and returns rank 0's values keyed by
     check ("plf", "tree", "train", "protein", "int8", "plf_batch",
@@ -446,12 +459,9 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None,
     if n_devices < 1:
         raise ValueError(f"dryrun_multichip: {n_devices} ranks")
     if dev.type == "cuda" and backend != "gloo":
-        cards = torch.cuda.device_count()
-        if n_devices > cards:
-            raise ValueError(
-                f"dryrun_multichip: {n_devices} ranks asked for on 'cuda', "
-                f"but this machine has {cards} card(s); NCCL takes one card "
-                f"a rank (backend='gloo' shares the cards)")
+        from plf_tpu_torch.devices import check_nccl_cards
+        check_nccl_cards(n_devices, torch.cuda.device_count(),
+                         "dryrun_multichip")
     if dev.type == "cuda":
         from plf_tpu_torch.ops._build import build_libraries, storage_library
         build_libraries(list(DRYRUN_LIBRARIES) + [

@@ -94,8 +94,10 @@ launch, fp32 rows == the batched fused kernel, lls within 1e-6 of
 ``log_likelihood(method="segmented")``; site sharding: a one-rank mesh
 == the unsharded paths, two ranks on the one card in processes of their
 own (NCCL if it takes two ranks on one card, else gloo) on the DNA and
-protein models and ``plf_sharded`` at 2^24 sites, and the whole-tree
-golden oracle == kernel 2 on 2^16 sites.
+protein models and ``plf_sharded`` at 2^24 sites, README.md's multi-card
+snippet under ``torchrun`` on NCCL (one rank == the unsharded ll and
+gradient, on cuda:0; one rank more than the cards refused before any
+group), and the whole-tree golden oracle == kernel 2 on 2^16 sites.
 
 The last entry points (phase ``graft``, after ``sharded``):
 ``__graft_entry_torch__.py``'s ``entry()`` (kernel 1 == golden and
@@ -2846,6 +2848,115 @@ torch.distributed.barrier()
 torch.distributed.destroy_process_group()
 """
 
+#: README.md's multi-card snippet as a user's script under torchrun
+#: (argument: data directory): ``initialize_distributed()``,
+#: ``make_mesh()``, the 160 x 2^20 DNA model built alike on every rank
+#: with the default device, ``log_likelihood_sharded`` and one
+#: ``tree_loglik_fn(mesh=)`` step, then one all-reduce on the group; it
+#: prints one JSON line.
+TORCHRUN_SCRIPT = """
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from plf_tpu_torch.models import (PhyloModel, hky85, random_tree,
+                                  tree_loglik_fn)
+from plf_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                    process_summary)
+torch.backends.cuda.matmul.allow_tf32 = False
+initialize_distributed()            # under torchrun (MASTER_ADDR, RANK, ...)
+mesh = make_mesh()                  # one rank a process, one card a rank
+d = np.load(sys.argv[1] + "/tips.npz")
+meta = json.load(open(sys.argv[1] + "/meta.json"))
+pm = PhyloModel(random_tree(meta["taxa"], seed=1), hky85(2.0), d["dna"],
+                alpha=0.5)
+res = pm.log_likelihood_sharded(mesh)       # the same ll on every rank
+fn, t0 = tree_loglik_fn(pm, mesh=mesh)      # gradients summed over ranks
+t = torch.tensor(t0, device=pm.device, requires_grad=True)
+v = fn(t)
+v.backward()
+one = torch.ones(1, device=mesh.device)
+dist.all_reduce(one)
+torch.cuda.synchronize()
+print(json.dumps(dict(
+    summary=process_summary(), backend=str(dist.get_backend()),
+    devices=[str(pm.device), str(mesh.device),
+             f"cuda:{torch.cuda.current_device()}"],
+    ll=res.log_likelihood, scaler_total=res.scaler_total,
+    value=float(v.detach()), grad=t.grad.cpu().tolist(), engine=fn.engine,
+    all_reduce=float(one))), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _torchrun(script, ranks, data):
+    """``python -m torch.distributed.run --standalone`` of ``script`` over
+    ``ranks`` processes on this machine, started now (the package from
+    this checkout)."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={ranks}", script, data],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _stop(procs):
+    """End every process of ``procs`` still running: SIGTERM first, which
+    torchrun passes on to its ranks, then SIGKILL."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def torchrun_step(runs, want, steps):
+    """The README's snippet under torchrun on NCCL: one rank == the
+    unsharded ll (rel 1e-6, scaler totals exact) and gradient (within
+    SEG_GRAD_RTOL of scale), model, mesh and current card all cuda:0; one
+    rank more than the cards refused by ``initialize_distributed``'s
+    ValueError within seconds, before any group (no NCCL "Duplicate GPU
+    detected")."""
+    (one, t_one), (more, t_more) = runs
+    cards = torch.cuda.device_count()
+    o2, e2 = more.communicate(timeout=300)     # the refusal ends first
+    secs_more = time.perf_counter() - t_more
+    o, e = one.communicate(timeout=300)
+    secs_one = time.perf_counter() - t_one
+    check(one.returncode == 0, f"torchrun, 1 rank, exited "
+          f"{one.returncode}:\n{e[-3000:]}")
+    r = json.loads([ln for ln in o.splitlines() if ln.startswith("{")][-1])
+    check(r["devices"] == ["cuda:0"] * 3 and r["backend"] == "nccl"
+          and r["all_reduce"] == 1.0, f"torchrun, 1 rank: {r['devices']}, "
+          f"{r['backend']}, all_reduce {r['all_reduce']}")
+    rel = abs(r["ll"] / want.log_likelihood - 1)
+    check(rel < 1e-6 and r["scaler_total"] == want.scaler_total,
+          f"torchrun, 1 rank: ll {r['ll']} vs {want.log_likelihood} (rel "
+          f"{rel}), scalers {r['scaler_total']} vs {want.scaler_total}")
+    g = steps[r["engine"]][0][1].cpu().numpy()
+    err = float(np.abs(np.asarray(r["grad"]) - g).max() / np.abs(g).max())
+    check(err <= SEG_GRAD_RTOL, f"torchrun, 1 rank: {r['engine']} gradient "
+          f"{err} of scale")
+    text = o2 + e2
+    refusal = (f"{cards + 1} ranks asked for on 'cuda', but this machine "
+               f"has {cards} card(s)")
+    check(more.returncode != 0 and "ValueError" in text and refusal in text
+          and "Duplicate GPU detected" not in text and secs_more < 60,
+          f"torchrun, {cards + 1} ranks on {cards} card(s): exited "
+          f"{more.returncode} after {secs_more:.1f} s:\n{text[-3000:]}")
+    phase("sharded", f"torchrun --nproc_per_node=1 of README's snippet "
+          f"({r['summary']}): model, mesh and current card cuda:0, "
+          f"ll {r['ll']:.3f} (rel {rel:.1e} to log_likelihood()), "
+          f"{r['scaler_total']} rescales exact, {r['engine']} step gradient "
+          f"within {err:.1e} of scale, {secs_one:.1f} s wall with the "
+          f"process start; --nproc_per_node={cards + 1}: refused, exit "
+          f"{more.returncode} after {secs_more:.1f} s: {refusal}")
+
+
 #: Two ranks of NCCL on one card: one all-reduce (argument: store file,
 #: rank).  NCCL usually refuses two ranks on one device.
 NCCL_PROBE = """
@@ -2900,13 +3011,18 @@ def sharded_phase(dev, tree, tips, pm, models):
       (SEG_MXU_GRAD_RTOL for the protein model's matrix form), every rank
       the same; ``plf_sharded`` at 2^24 sites == ``PLFEngine.plf`` on
       each rank's shard, bit for bit, the increment exact;
+    * README.md's multi-card snippet under ``torchrun`` on NCCL
+      (:func:`torchrun_step`): one rank == the unsharded ll and gradient,
+      all on cuda:0; one rank more than the cards refused before any
+      group;
     * ``tree_golden_for_model`` on the first 2^16 sites of the DNA model
       == kernel 2 bit for bit."""
     from plf_tpu_torch.parallel import make_mesh
     from plf_tpu_torch.runtime.native import (golden_oracle,
                                               tree_golden_for_model)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as started:
         probe = [subprocess.Popen(
             [sys.executable, "-c", NCCL_PROBE, f"{tmp}/nccl", str(r)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2915,6 +3031,11 @@ def sharded_phase(dev, tree, tips, pm, models):
         with open(f"{tmp}/meta.json", "w") as f:
             json.dump(dict(taxa=N_TAXA, prot_taxa=PROT_TAXA,
                            node_sites=SHARD_NODE_SITES), f)
+        with open(f"{tmp}/fit.py", "w") as f:
+            f.write(TORCHRUN_SCRIPT)
+        runs = [(_torchrun(f"{tmp}/fit.py", k, tmp), time.perf_counter())
+                for k in (1, torch.cuda.device_count() + 1)]
+        started.callback(_stop, probe + [p for p, _ in runs])
         mesh = make_mesh(device=dev)
         check(mesh.size == 1 and mesh.group is None, f"one-rank mesh {mesh}")
         want = pm.log_likelihood()
@@ -2939,6 +3060,7 @@ def sharded_phase(dev, tree, tips, pm, models):
               f"'tree' and 'segmented' mesh steps == unsharded (gradient "
               f"{steps['tree'][1]:.1e} and {steps['segmented'][1]:.1e} of "
               f"scale)")
+        torchrun_step(runs, want, steps)
         nccl = []
         for p in probe:
             try:

@@ -285,10 +285,13 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
     ranks in the backward, so every rank holds the same value and the
     same gradient.  "auto" takes "tree" when the fused arena fits, else
     "segmented" (the JAX rule under a mesh); any other backend with a
-    mesh raises ValueError.
+    mesh, or a mesh on another device than ``pm``'s, raises ValueError.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if mesh is not None:
+        from ..parallel.sharding import check_mesh_device
+        check_mesh_device(pm.device, mesh, "tree_loglik_fn")
     variant = pm.config.resolved_kernel_variant
     if variant == "mxu_bf16":
         # 1-pass bf16 rounds near-underflow site likelihoods negative

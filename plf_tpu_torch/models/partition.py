@@ -85,6 +85,14 @@ class PartitionedModel:
             log_likelihood=float(sum(r.log_likelihood for r in results)),
             per_partition=results)
 
+    def _check_mesh(self, mesh, who: str) -> None:
+        """Every partition's model on ``mesh``'s device (ValueError
+        otherwise), checked before any partition computes."""
+        if mesh is not None:
+            from ..parallel.sharding import check_mesh_device
+            for pm in self.models:
+                check_mesh_device(pm.device, mesh, who)
+
     def log_likelihood_sharded(self, mesh=None) -> PartitionedResult:
         """Partitioned likelihood with every partition's site axis sharded
         over the ranks of ``mesh`` (``parallel.SiteMesh``): each partition
@@ -92,6 +100,7 @@ class PartitionedModel:
         partials each), and the totals sum on the host, the same on every
         rank.  Each per-partition result's site arrays are this rank's
         shard."""
+        self._check_mesh(mesh, "PartitionedModel.log_likelihood_sharded")
         results = [pm.log_likelihood_sharded(mesh=mesh)
                    for pm in self.models]
         return PartitionedResult(
@@ -116,6 +125,7 @@ class PartitionedModel:
         """
         from .optimize import tree_loglik_fn
 
+        self._check_mesh(mesh, "PartitionedModel.loglik_fn")
         fns = []
         t0 = None
         for pm in self.models:

@@ -68,6 +68,7 @@ import torch
 from torch import nn
 
 from ..config import Backend, PLFConfig
+from ..devices import resolve_device
 from ..io.alignment import AMBIGUITY, map_tip_codes, tip_expansion_table
 from ..ops import layout as L
 from ..ops.plf_mxu import operator_planes, round_tip_table, uses_mxu_kernels
@@ -200,11 +201,9 @@ class PhyloModel(nn.Module):
         S, C = cfg.states, cfg.categories
         self.n_pad = L.sites_padding(self.n_sites, cfg.block_sites)
         self.schedule = tree.schedule()
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            # "cuda" is the current card: resolved, so that a model and
-            # its share_device_from donor compare equal
-            device = torch.device("cuda", torch.cuda.current_device())
+        # "cuda" is resolved to its card (in a run, the rank's own), so
+        # that a model, its share_device_from donor and a mesh compare equal
+        device = resolve_device(device)
 
         donor = share_device_from
         if donor is not None and (
@@ -610,11 +609,13 @@ class PhyloModel(nn.Module):
         ``log_likelihood`` and ``scaler_total``; its
         ``site_log_likelihood`` and ``scaler_sites`` are THIS rank's shard
         only (its observed sites, in order from its first).  With one rank
-        the result equals :meth:`log_likelihood`'s, site for site."""
-        from ..parallel.sharding import make_mesh
+        the result equals :meth:`log_likelihood`'s, site for site.  A mesh
+        on another device than the model's raises ValueError."""
+        from ..parallel.sharding import check_mesh_device, make_mesh
         self._kernel_path("sharded")
         cfg = self.config
         mesh = make_mesh(device=self.device) if mesh is None else mesh
+        check_mesh_device(self.device, mesh, "log_likelihood_sharded")
         codes, wgt, lo, n_local = self.site_shard(mesh)
         kw = dict(states=cfg.states, categories=cfg.categories,
                   variant=cfg.resolved_kernel_variant, planes=self._planes())

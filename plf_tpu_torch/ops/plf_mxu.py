@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from ..devices import resolve_device
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
 from .plf_grad import op_grad, transpose_lane_constants
 from .plf_node import _check, _valid, check_batch, count_launch, stage
@@ -288,10 +289,8 @@ def node_mxu_plan(states: int, categories: int, variant: str = "mxu_3x",
     per block (plf_mxu.cuh's job shape on that tile: 320 at S = 20, C = 4;
     416 at S = 61) and resident blocks per SM.  The grid is one block per
     tile.  Builds the kernel on first use and needs a CUDA device."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return _plan(dev, states, categories, _mode(variant), bool(bf16))
+    return _plan(resolve_device(device), states, categories, _mode(variant),
+                 bool(bf16))
 
 
 def plf_node_mxu(x1, x2, lc, rc, ec, n: int, *, states: int = 20,

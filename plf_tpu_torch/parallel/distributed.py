@@ -20,6 +20,7 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
+from ..devices import rank_card
 from .sharding import SiteMesh, make_mesh
 
 __all__ = ["initialize_distributed", "global_site_mesh",
@@ -40,6 +41,12 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     (False), as does ``num_processes <= 1``.  ``backend``: "nccl" when the
     ranks compute on cards (``device``), "gloo" on the CPU, unless named.
     Already initialised: True, nothing done.
+
+    On "cuda" the rank's card (``devices.rank_card``: ``LOCAL_RANK``, else
+    the rank; a ``device`` with an index names it) becomes the current
+    card before the group starts, and NCCL is bound to it.  Under NCCL
+    more ranks on this machine than cards raise ValueError before any
+    group starts; gloo ranks share the cards.
     """
     if num_processes is not None and num_processes <= 1:
         return False
@@ -53,13 +60,22 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         url = coordinator_address
     else:
         url = f"tcp://{coordinator_address}"
+    dev = torch.device(device)
     if backend is None:
-        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        backend = "nccl" if dev.type == "cuda" else "gloo"
     kw = {}
     if num_processes is not None:
         kw["world_size"] = int(num_processes)
     if process_id is not None:
         kw["rank"] = int(process_id)
+    if dev.type == "cuda":
+        # the rank's card is pinned before the group starts, so that
+        # "cuda" everywhere after (models, meshes, NCCL) is that card
+        card = dev if dev.index is not None else rank_card(
+            kw.get("rank", int(os.environ.get("RANK", 0))), backend)
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            kw["device_id"] = card
     dist.init_process_group(backend, init_method=url, **kw)
     return True
 

@@ -28,19 +28,19 @@ A gloo group carries tensors that live on a card through host copies
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..devices import resolve_device
 from ..ops import layout as L
 from ..ops.plf_node import plf_node
 
-__all__ = ["SiteMesh", "make_mesh", "padded_sites", "shard_span",
-           "shard_sites", "plf_sharded", "ShardedPLF", "all_reduce_sum",
-           "replicated"]
+__all__ = ["SiteMesh", "make_mesh", "check_mesh_device", "padded_sites",
+           "shard_span", "shard_sites", "plf_sharded", "ShardedPLF",
+           "all_reduce_sum", "replicated"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,24 +80,16 @@ class SiteMesh:
         return t
 
 
-def _local_device(device, rank: int) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        local = int(os.environ.get("LOCAL_RANK", max(rank, 0)))
-        dev = torch.device("cuda", local % torch.cuda.device_count())
-    return dev
-
-
 def make_mesh(n_devices: Optional[int] = None, axis: str = "sites",
               device: Union[str, torch.device] = "cuda",
               group=None) -> SiteMesh:
     """1-D site mesh over the ranks of ``group`` (default: the world
     group of an initialised ``torch.distributed``; no group at all
     otherwise, one rank).  ``n_devices``, where given, must be that many
-    ranks.  ``device``: where this rank computes; "cuda" is the card of
-    its local rank (``LOCAL_RANK``, else its rank, modulo the cards).  A
-    process outside ``group`` gets rank -1 and size 0, which
-    ``validate_site_workload`` refuses."""
+    ranks.  ``device``: where this rank computes; "cuda" is its card
+    (``devices.resolve_device``: in a run the rank's card, else the
+    current card).  A process outside ``group`` gets rank -1 and size 0,
+    which ``validate_site_workload`` refuses."""
     if dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD if group is None else group
         rank = dist.get_rank(group)
@@ -112,7 +104,18 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "sites",
                          f"process group has {size} rank(s); one process "
                          f"runs one rank")
     return SiteMesh(group if size > 1 else None, size, rank,
-                    _local_device(device, rank), axis)
+                    resolve_device(device), axis)
+
+
+def check_mesh_device(device, mesh: SiteMesh, who: str) -> None:
+    """ValueError unless a model on ``device`` computes where ``mesh``
+    does: a model on one card and a mesh on another would compute on
+    the one and reduce on the other."""
+    if torch.device(device) != mesh.device:
+        raise ValueError(
+            f"{who}: the model is on {device} but the mesh computes on "
+            f"{mesh.device}; build both on one card "
+            f"(make_mesh(device=model.device))")
 
 
 def padded_sites(mesh: SiteMesh, n: int, block_sites: int) -> int:

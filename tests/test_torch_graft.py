@@ -22,7 +22,9 @@ boundary storage is held to the JAX twin's class, within 5e-3 of the
 fp32 log-likelihood."""
 
 import functools
+import re
 import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -301,17 +303,34 @@ def test_dryrun_refuses_more_ranks_than_cards(monkeypatch):
 
 @pytest.mark.parametrize("script,timeout,match", [
     ("import sys; sys.stderr.write('rank failed here'); sys.exit(3)", 60,
-     "rank 0 of 2 exited 3"),
+     r"rank [01] of 2 exited 3; ranks that exited non-zero by themselves: "),
+    # the order forced: rank 0 (its rank is argv[2]) sleeps, rank 1 exits
+    # at once, so rank 0 is stopped and does not count
+    ("import sys, time; r = int(sys.argv[2]); "
+     "sys.stderr.write(f'rank {r} failed here'); "
+     "time.sleep(30 if r == 0 else 0); sys.exit(3)", 60,
+     r"rank [01] of 2 exited 3; ranks that exited non-zero by themselves: "
+     r"(0 \(exit 3\), )?1 \(exit 3\) "),
     ("import time; time.sleep(30)", 2, "ran past 2 s")])
 def test_dryrun_raises_on_a_failed_rank(monkeypatch, script, timeout,
                                         match):
     """A rank that exits non-zero, or runs past its limit, raises with the
-    end of its stderr; every rank is stopped."""
+    end of its stderr; every rank is stopped.  The rank named is the
+    lowest of those that exited non-zero by themselves, which the message
+    lists, whichever exited first."""
     monkeypatch.setattr(G, "RANK_SCRIPT", script)
+    t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=match) as e:
         G.dryrun_multichip(2, device="cpu", timeout=timeout)
+    assert time.monotonic() - t0 < 25
+    msg = str(e.value)
     if "exited" in match:
-        assert "rank failed here" in str(e.value)
+        named = int(re.search(r"rank (\d) of 2 exited", msg)[1])
+        listed = [int(r) for r in re.findall(r"(\d) \(exit 3\)", msg)]
+        assert named == min(listed)
+        assert "failed here" in msg
+        if "argv" in script:
+            assert f"rank {named} failed here" in msg
 
 
 def test_launch_counts_cover_every_wrapper():

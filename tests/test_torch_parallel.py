@@ -317,3 +317,148 @@ def test_padding_policy_and_helpers():
                                   x3_ref)
     assert int(inc) == inc_ref > 0
     P.validate_site_workload(mesh, N, BLOCK)
+
+
+class _FakeCards:
+    """``torch.cuda`` with ``n`` cards (``device_count``, ``set_device``,
+    ``current_device``) and a ``torch.distributed`` whose
+    ``init_process_group`` records its call and brings a group up of the
+    rank and backend it was given; ``calls`` is their order."""
+
+    def __init__(self, monkeypatch, n, env):
+        self.n, self.card, self.calls = n, 0, []
+        self.group = None
+        for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                  "LOCAL_WORLD_SIZE"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, str(v))
+        dist = torch.distributed
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: self.n)
+        monkeypatch.setattr(torch.cuda, "set_device", self.set_device)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: self.card)
+        monkeypatch.setattr(dist, "init_process_group", self.init)
+        monkeypatch.setattr(dist, "is_initialized",
+                            lambda: self.group is not None)
+        monkeypatch.setattr(dist, "get_rank",
+                            lambda group=None: self.group[0])
+        monkeypatch.setattr(dist, "get_world_size",
+                            lambda group=None: self.group[1])
+        monkeypatch.setattr(dist, "get_backend",
+                            lambda group=None: self.group[2])
+
+    def set_device(self, card):
+        self.card = torch.device(card).index if isinstance(
+            card, torch.device) else int(card)
+        self.calls.append(("set_device", self.card))
+
+    def init(self, backend, init_method=None, world_size=-1, rank=-1,
+             **kw):
+        self.calls.append(("init_process_group", backend, kw))
+        world = int(os.environ.get("WORLD_SIZE", world_size))
+        rank = int(os.environ.get("RANK", rank))
+        self.group = (rank, world, backend)
+
+
+def test_nccl_pins_local_rank_card_before_the_group(monkeypatch):
+    """Under torchrun on 4 cards, LOCAL_RANK=2 on NCCL: card 2 is the
+    current card before the group starts and NCCL is bound to it; after,
+    "cuda" is card 2 for the mesh, a model and kernel 1m's plan."""
+    from plf_tpu_torch.devices import resolve_device
+    from plf_tpu_torch.models import phylo
+    from plf_tpu_torch.ops import plf_mxu
+    fake = _FakeCards(monkeypatch, 4, dict(
+        MASTER_ADDR="localhost", MASTER_PORT=29500, RANK=2, WORLD_SIZE=4,
+        LOCAL_RANK=2, LOCAL_WORLD_SIZE=4))
+    assert P.initialize_distributed()
+    card = torch.device("cuda", 2)
+    assert fake.calls == [("set_device", 2), ("init_process_group", "nccl",
+                                              dict(device_id=card))]
+    assert resolve_device("cuda") == card
+    mesh = P.make_mesh()
+    assert (mesh.device, mesh.rank, mesh.size) == (card, 2, 4)
+
+    class Resolved(Exception):
+        pass
+
+    def stop(device):
+        raise Resolved(phylo_resolve(device))
+    phylo_resolve = phylo.resolve_device
+    monkeypatch.setattr(phylo, "resolve_device", stop)
+    with pytest.raises(Resolved) as e:
+        PhyloModel(random_tree(4, seed=1), hky85(2.0), W.tips(4, 4, 1),
+                   device="cuda")
+    assert e.value.args[0] == card
+    plans = []
+    monkeypatch.setattr(plf_mxu, "_plan", lambda dev, *a: plans.append(dev))
+    plf_mxu.node_mxu_plan(20, 4)
+    assert plans == [card]
+
+
+@pytest.mark.parametrize("env", [dict(LOCAL_RANK=4),
+                                 dict(LOCAL_RANK=1, LOCAL_WORLD_SIZE=5)])
+def test_nccl_refuses_a_rank_past_the_cards(monkeypatch, env):
+    """On 4 cards, NCCL with LOCAL_RANK=4 (or 5 ranks on the machine):
+    ValueError naming the ranks and the cards, and no group starts."""
+    fake = _FakeCards(monkeypatch, 4, dict(
+        MASTER_ADDR="localhost", MASTER_PORT=29500, RANK=env["LOCAL_RANK"],
+        WORLD_SIZE=5, **env))
+    with pytest.raises(ValueError, match=r"5 ranks asked for on 'cuda', "
+                       r"but this machine has 4 card\(s\); NCCL takes one "
+                       r"card a rank"):
+        P.initialize_distributed()
+    assert fake.calls == [] and fake.group is None
+
+
+def test_gloo_ranks_share_the_card(monkeypatch):
+    """Gloo on 1 card, rank 1 of 2 (no LOCAL_RANK): card 0 (rank modulo
+    the cards), and no NCCL binding."""
+    fake = _FakeCards(monkeypatch, 1, {})
+    assert P.initialize_distributed("localhost:1", 2, 1, backend="gloo")
+    assert fake.calls == [("set_device", 0),
+                          ("init_process_group", "gloo", {})]
+    assert P.make_mesh().device == torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("group", [False, True])
+def test_no_card_is_a_runtime_error(monkeypatch, group):
+    """No card at all: "cuda" raises RuntimeError, with or without a
+    group up (no ZeroDivisionError from a modulo of the cards)."""
+    fake = _FakeCards(monkeypatch, 0, {})
+    if group:
+        fake.group = (1, 2, "gloo")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        P.make_mesh(device="cuda")
+    if not group:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            P.initialize_distributed("localhost:1", 2, 1, backend="gloo")
+    assert fake.calls == []
+
+
+def test_model_and_mesh_on_other_devices_refused(monkeypatch):
+    """A CPU model with a mesh on cuda:1: ValueError from
+    ``log_likelihood_sharded``, ``tree_loglik_fn(mesh=)`` and the
+    partitioned model's sharded paths, before any shard is cut."""
+    from plf_tpu_torch.models import Partition, PartitionedModel, jc69
+    mesh = P.SiteMesh(None, 1, 0, torch.device("cuda", 1))
+    tips = W.tips(W.DNA_TAXA, 4, 82)
+    tree = random_tree(W.DNA_TAXA, seed=81)
+    pm = PhyloModel(tree, hky85(2.0), tips, alpha=0.5,
+                    config=PLFConfig(block_sites=BLOCK), device="cpu")
+    parts = PartitionedModel(tree, [
+        Partition("a", np.arange(0, N, 2), hky85(2.0), alpha=0.5),
+        Partition("b", np.arange(1, N, 2), jc69())], tips,
+        config=PLFConfig(block_sites=BLOCK), device="cpu")
+
+    def no_shard(mesh):
+        raise AssertionError("a shard was cut")
+    for m in [pm] + parts.models:
+        monkeypatch.setattr(m, "site_shard", no_shard)
+    match = r"model is on cpu but the mesh computes on cuda:1"
+    for call in (lambda: pm.log_likelihood_sharded(mesh),
+                 lambda: tree_loglik_fn(pm, mesh=mesh),
+                 lambda: parts.log_likelihood_sharded(mesh),
+                 lambda: parts.loglik_fn(mesh=mesh),
+                 lambda: parts.optimize(steps=1, mesh=mesh)):
+        with pytest.raises(ValueError, match=match):
+            call()
