@@ -77,9 +77,11 @@ def entry(device="cuda"):
     """``(fn, example_args)``: kernel 1 on 2,048 DNA sites padded to 512,
     S = 4, C = 4; ``fn(*example_args)`` returns ``(x3, scaler)``, the
     ``(16, 2048)`` parent and ``(1, 2048)`` int32 rescale flags."""
+    from plf_tpu_torch.devices import resolve_device
     from plf_tpu_torch.ops import layout as L
     from plf_tpu_torch.ops.plf_node import plf_node
 
+    device = resolve_device(device)  # RuntimeError with no card
     states, categories, block = 4, 4, 512
     n = 2048
     x1, x2, left, right, ev = _example_case(n)
@@ -458,11 +460,12 @@ def dryrun_multichip(n_devices: int, device="cuda", backend=None,
     dev = torch.device(device)
     if n_devices < 1:
         raise ValueError(f"dryrun_multichip: {n_devices} ranks")
-    if dev.type == "cuda" and backend != "gloo":
-        from plf_tpu_torch.devices import check_nccl_cards
-        check_nccl_cards(n_devices, torch.cuda.device_count(),
-                         "dryrun_multichip")
     if dev.type == "cuda":
+        from plf_tpu_torch.devices import card_count, check_nccl_cards
+        if backend != "gloo":
+            check_nccl_cards(n_devices, torch.cuda.device_count(),
+                             "dryrun_multichip")
+        card_count()                 # RuntimeError with no card
         from plf_tpu_torch.ops._build import build_libraries, storage_library
         build_libraries(list(DRYRUN_LIBRARIES) + [
             storage_library(k, True)

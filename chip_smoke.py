@@ -91,13 +91,17 @@ of 256 DNA taxa x 16,384 sites (kernel 7, fp32 and bf16 boundaries) and of
 64 protein taxa x 4,096 ("mxu_3x", kernel 7m), one launch a chunk of
 candidates under the boundary-buffer cap, every row == the single-tree
 launch, fp32 rows == the batched fused kernel, lls within 1e-6 of
-``log_likelihood(method="segmented")``; site sharding: a one-rank mesh
-== the unsharded paths, two ranks on the one card in processes of their
-own (NCCL if it takes two ranks on one card, else gloo) on the DNA and
-protein models and ``plf_sharded`` at 2^24 sites, README.md's multi-card
-snippet under ``torchrun`` on NCCL (one rank == the unsharded ll and
-gradient, on cuda:0; one rank more than the cards refused before any
-group), and the whole-tree golden oracle == kernel 2 on 2^16 sites.
+``log_likelihood(method="segmented")``; site sharding: README.md's
+second route (``initialize_distributed("localhost:<port>", 2, r)``, no
+torchrun environment) under NCCL, both ranks refused on the one card
+within 30 s, a one-rank mesh == the unsharded paths, two ranks on the
+one card in processes of their own joined by that route (NCCL if it
+takes two ranks on one card, else gloo; rank 0 names "cuda:0", rank 1
+passes "cuda", and every entry point resolves both to the card) on the
+DNA and protein models and ``plf_sharded`` at 2^24 sites, README.md's
+multi-card snippet under ``torchrun`` on NCCL (one rank == the unsharded
+ll and gradient, on cuda:0; one rank more than the cards refused before
+any group), and the whole-tree golden oracle == kernel 2 on 2^16 sites.
 
 The last entry points (phase ``graft``, after ``sharded``):
 ``__graft_entry_torch__.py``'s ``entry()`` (kernel 1 == golden and
@@ -2771,14 +2775,19 @@ def axes_phase(dev):
     return out
 
 
-#: One rank of the sharded phase (arguments: rank, world, store file,
-#: backend, data directory, device).  It loads the libraries this script
-#: built, rebuilds the DNA and protein models from the tips saved there,
-#: and prints one JSON line.
+#: One rank of the sharded phase, started as README's second route: no
+#: torchrun environment, ``initialize_distributed("localhost:<port>",
+#: num_processes=world, process_id=rank)`` (arguments: rank, world,
+#: coordinator address, backend, data directory, device: "cuda:0" names
+#: the card, "cuda" leaves it to the rule).  It loads the libraries this
+#: script built, rebuilds the DNA and protein models from the tips saved
+#: there on that device, and prints one JSON line with what "cuda"
+#: resolved to for each entry point.
 SHARD_SCRIPT = """
 import json, sys, time
 import numpy as np, torch
 from plf_tpu_torch import PLFEngine
+from plf_tpu_torch.devices import resolve_device
 from plf_tpu_torch.models import PhyloModel, empirical_protein, hky85
 from plf_tpu_torch.models import random_tree, tree_loglik_fn
 from plf_tpu_torch.ops import layout as L
@@ -2786,12 +2795,12 @@ from plf_tpu_torch.parallel import (ShardedPLF, global_site_mesh,
                                     initialize_distributed, process_summary,
                                     shard_sites, validate_site_workload)
 from plf_tpu_torch.parallel.sharding import shard_span
-rank, world, store, backend, data, dev = (
+rank, world, address, backend, data, dev = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
     sys.argv[5], sys.argv[6])
 torch.backends.cuda.matmul.allow_tf32 = False
-initialize_distributed(f"file://{store}", world, rank, backend=backend,
-                       device=dev)
+initialize_distributed(address, num_processes=world, process_id=rank,
+                       backend=backend, device=dev)
 mesh = global_site_mesh(device=dev)
 out = dict(rank=rank, summary=process_summary(), backend=mesh.backend)
 d = np.load(data + "/tips.npz")
@@ -2801,6 +2810,9 @@ dna = PhyloModel(random_tree(meta["taxa"], seed=1), hky85(2.0), d["dna"],
 prot = PhyloModel(random_tree(meta["prot_taxa"], seed=1),
                   empirical_protein("lg"), d["prot"], alpha=0.5, device=dev)
 validate_site_workload(mesh, dna.n_sites, dna.config.block_sites)
+out["devices"] = dict(resolve_device=str(resolve_device("cuda")),
+                      make_mesh=str(mesh.device), PhyloModel=str(dna.device),
+                      PLFEngine=str(PLFEngine().device))
 sync = torch.cuda.synchronize if mesh.device.type == "cuda" else lambda: None
 for name, pm in (("dna", dna), ("protein", prot)):
     sync()
@@ -2971,12 +2983,94 @@ dist.destroy_process_group()
 """
 
 
-def _ranks(script, argv_of, timeout):
+#: README's second route under NCCL (arguments: coordinator address,
+#: rank): ``initialize_distributed("localhost:<port>", num_processes=2,
+#: process_id=rank)``, no torchrun environment and no card named; with a
+#: card a rank, one all-reduce on the card it pinned.
+CALLER_NCCL = """
+import json, sys, torch, torch.distributed as dist
+from plf_tpu_torch.devices import resolve_device
+from plf_tpu_torch.parallel import initialize_distributed, make_mesh
+initialize_distributed(sys.argv[1], num_processes=2,
+                       process_id=int(sys.argv[2]))
+one = torch.ones(1, device="cuda")
+dist.all_reduce(one)
+torch.cuda.synchronize()
+print(json.dumps(dict(devices=[str(resolve_device("cuda")),
+                               str(make_mesh().device)],
+                      all_reduce=float(one))), flush=True)
+dist.destroy_process_group()
+"""
+#: Seconds within which both ranks of :data:`CALLER_NCCL` must end.
+CALLER_SECONDS = 30
+
+
+def _free_address():
+    """``localhost:<port>`` of a port free now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"localhost:{s.getsockname()[1]}"
+
+
+def _caller_env():
+    """This process's environment without torchrun's variables."""
+    import os
+    return {k: v for k, v in os.environ.items()
+            if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                         "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+
+
+def caller_nccl_pair(procs, t0):
+    """README's second route under NCCL, two ranks started by this script
+    at ``t0``: on fewer than two cards both exit 1 with
+    ``initialize_distributed``'s ValueError before any group, within
+    CALLER_SECONDS (no rank left waiting at the rendezvous, no NCCL
+    "Duplicate GPU detected"); on two cards or more each pins its own
+    card and the all-reduce gives 2."""
+    cards = torch.cuda.device_count()
+    res = []
+    for p in procs:
+        left = max(1.0, CALLER_SECONDS - (time.perf_counter() - t0))
+        try:
+            o, e = p.communicate(timeout=left)
+            res.append((p.returncode, o, e))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            o, e = p.communicate()
+            res.append((None, o, e + "\n(still running: killed)"))
+    secs = time.perf_counter() - t0
+    if cards >= 2:
+        for r, (rc, o, e) in enumerate(res):
+            got = json.loads(o.strip().splitlines()[-1]) if rc == 0 else {}
+            check(got.get("devices") == [f"cuda:{r}"] * 2
+                  and got.get("all_reduce") == 2.0,
+                  f"caller-started NCCL rank {r}: exit {rc}, {got}\n"
+                  f"{e[-3000:]}")
+        why = "each rank on its own card, all_reduce 2"
+    else:
+        for r, (rc, o, e) in enumerate(res):
+            refusal = (f"ValueError: rank {r} (card {r}): 2 ranks asked for "
+                       f"on 'cuda', but this machine has {cards} card(s)")
+            check(rc == 1 and refusal in e and not o.strip()
+                  and "Duplicate GPU detected" not in e,
+                  f"caller-started NCCL rank {r}: exit {rc}, wanted the "
+                  f"refusal:\n{(o + e)[-3000:]}")
+        why = (f"both ranks refused, exit 1: 2 ranks asked for on 'cuda', "
+               f"but this machine has {cards} card(s)")
+    check(secs < CALLER_SECONDS, f"caller-started NCCL pair took {secs:.1f} s")
+    phase("sharded", f"README's second route under NCCL, "
+          f"initialize_distributed('localhost:<port>', num_processes=2, "
+          f"process_id=r), no torchrun environment: {why}, both ended "
+          f"{secs:.1f} s after the start")
+
+
+def _ranks(script, argv_of, timeout, env=None):
     """Run two ranks of ``script`` at once; ``[(returncode, stdout,
     stderr)]``, every process stopped by the end."""
     procs = [subprocess.Popen([sys.executable, "-c", script, *argv_of(r)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(2)]
+                              text=True, env=env) for r in range(2)]
     res = []
     try:
         for p in procs:
@@ -3015,12 +3109,25 @@ def sharded_phase(dev, tree, tips, pm, models):
       (:func:`torchrun_step`): one rank == the unsharded ll and gradient,
       all on cuda:0; one rank more than the cards refused before any
       group;
+    * README.md's second route, ranks started here with no torchrun
+      environment: under NCCL (:func:`caller_nccl_pair`) two ranks on
+      the one card both refused within CALLER_SECONDS; the two ranks
+      above join through it too (``localhost:<port>``), rank 0 naming
+      "cuda:0" and rank 1 passing "cuda", and on every rank
+      ``resolve_device``, ``make_mesh``, the models and ``PLFEngine()``
+      are all on the card;
     * ``tree_golden_for_model`` on the first 2^16 sites of the DNA model
       == kernel 2 bit for bit."""
     from plf_tpu_torch.parallel import make_mesh
     from plf_tpu_torch.runtime.native import (golden_oracle,
                                               tree_golden_for_model)
     out = {}
+    t0 = time.perf_counter()
+    address = _free_address()
+    caller_nccl_pair([subprocess.Popen(
+        [sys.executable, "-c", CALLER_NCCL, address, str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_caller_env()) for r in range(2)], t0)
     with tempfile.TemporaryDirectory() as tmp, \
             contextlib.ExitStack() as started:
         probe = [subprocess.Popen(
@@ -3082,13 +3189,25 @@ def sharded_phase(dev, tree, tips, pm, models):
         why = "" if backend == "nccl" else " (NCCL refused: " + " / ".join(
             reason(e)[:200] for _, e in nccl) + ")"
         phase("sharded", f"two ranks on one card: backend {backend}{why}")
+        # NCCL counts the cards of a rank that names none
+        devs = [str(dev), str(dev) if backend == "nccl" else "cuda"]
+        address = _free_address()
         t0 = time.perf_counter()
-        ranks = _ranks(SHARD_SCRIPT, lambda r: [str(r), "2", f"{tmp}/store",
-                                                backend, tmp, str(dev)], 600)
+        ranks = _ranks(SHARD_SCRIPT, lambda r: [str(r), "2", address,
+                                                backend, tmp, devs[r]], 600,
+                       env=_caller_env())
         wall = time.perf_counter() - t0
         for r, (rc, o, e) in enumerate(ranks):
             check(rc == 0, f"sharded rank {r} exited {rc}:\n{e[-3000:]}")
         res = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in ranks]
+    for r, got in enumerate(res):
+        check(set(got["devices"].values()) == {str(dev)},
+              f"2 ranks, rank {r} given {devs[r]!r}: {got['devices']}")
+    phase("sharded", f"2 ranks started as README's second route "
+          f"(initialize_distributed('localhost:<port>', num_processes=2, "
+          f"process_id=r), backend {backend}), rank 0 given {devs[0]!r} and "
+          f"rank 1 {devs[1]!r}: resolve_device('cuda'), make_mesh(), the "
+          f"models and PLFEngine() all on {dev} on both ranks")
     prot = models["mxu_3x"]
     ref = dict(dna=want, protein=prot.log_likelihood())
     for name in ("dna", "protein"):

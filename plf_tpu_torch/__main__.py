@@ -149,8 +149,11 @@ def infer_main(argv):
                          "(their plain versions)")
     args = ap.parse_args(argv)
 
+    from .devices import resolve_device
     from .models import empirical_protein, hky85, jc69, run_inference
     from .models.substitution import BUILTIN_PROTEIN_MODELS
+
+    args.device = resolve_device(args.device)   # RuntimeError with no card
 
     with open(args.alignment) as f:
         text = f.read()
@@ -325,6 +328,7 @@ def main(argv=None):
     import torch
 
     from .config import PLFConfig
+    from .devices import resolve_device
     from .engine import PLFEngine
     from .runtime.executor import StreamingExecutor
     from .utils.timing import format_timing_table, write_csv
@@ -335,10 +339,7 @@ def main(argv=None):
         instances = args.instances
     if args.block:
         cfg = dataclasses.replace(cfg, block_sites=args.block)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run the "
-                           "plain versions of the kernels")
+    device = resolve_device(args.device)    # RuntimeError with no card
 
     eng = PLFEngine(cfg, device=device)
     log(eng.describe(args.sites, args.calls, instances))

@@ -1,24 +1,36 @@
 """Which card a process computes on: one rule for every "cuda" without an
 index.
 
-In a multi-process run (a ``torch.distributed`` group that is up, or that
-``parallel.initialize_distributed`` is setting up) each rank computes on
-its own card: ``LOCAL_RANK`` where ``torchrun`` set it, else its rank.
-NCCL takes one card a rank, so a rank whose card the machine does not have
-is refused (ValueError); gloo ranks share the cards (card = that index
-modulo the cards).  Outside such a run "cuda" is the current card.  With
-no card at all, "cuda" raises RuntimeError.
+Outside a multi-process run "cuda" is the current card.  In a run that
+``parallel.initialize_distributed`` started, it is the card that call made
+current and bound NCCL to (:func:`pin_card`).  In a group the caller
+started with ``torch.distributed.init_process_group`` itself, it is
+``LOCAL_RANK`` where ``torchrun`` set it, else the current card (the
+caller's own ``set_device``).  A rank's card is its index among the ranks
+on its own machine (:func:`rank_card`); NCCL takes one card a rank, so
+more NCCL ranks on a machine than it has cards are refused (ValueError),
+while gloo ranks share the cards (card = that index modulo the cards).
+With no card at all, "cuda" raises RuntimeError.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Union
+import socket
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["card_count", "check_nccl_cards", "rank_card", "resolve_device"]
+__all__ = ["card_count", "check_nccl_cards", "host_ranks", "pin_card",
+           "rank_card", "resolve_device"]
+
+#: ``(world group, card)`` of the run ``initialize_distributed`` started
+_pinned: Optional[Tuple[object, torch.device]] = None
+
+_HOST_KEY = "plf_tpu_torch/host/"
+_READ_KEY = "plf_tpu_torch/read/"
 
 
 def card_count() -> int:
@@ -26,7 +38,8 @@ def card_count() -> int:
     n = torch.cuda.device_count()
     if n == 0:
         raise RuntimeError("device 'cuda' asked for, but no CUDA card is "
-                           "visible to this process; pass device='cpu'")
+                           "visible to this process; pass device='cpu' "
+                           "(--device cpu on the command line)")
     return n
 
 
@@ -40,31 +53,80 @@ def check_nccl_cards(ranks: int, cards: int, who: str) -> None:
             f"(backend='gloo' shares the cards)")
 
 
-def rank_card(rank: int, backend: str) -> torch.device:
-    """The card of ``rank``: index ``LOCAL_RANK`` if set, else ``rank``.
-    Under NCCL every rank of this machine needs a card of its own:
-    ValueError when ``LOCAL_WORLD_SIZE`` (or this index + 1) exceeds the
-    cards, so that every rank refuses alike.  Under any other backend the
-    ranks share the cards: the index modulo the cards."""
+def host_ranks(store, rank: int, world: int) -> Tuple[int, int]:
+    """``(index of rank among the ranks on its machine, ranks on its
+    machine)``, from the rendezvous ``store`` before any group starts.
+
+    Every rank posts its host name and card count and reads all of them,
+    so every rank sees one table and refuses alike: ValueError where
+    another machine has more ranks than cards (this machine's own count
+    is :func:`rank_card`'s to check).  Rank 0 leaves only once every rank
+    has read, since it may hold a TCP store's server."""
+    me = socket.gethostname()
+    store.set(f"{_HOST_KEY}{rank}",
+              json.dumps([me, torch.cuda.device_count()]))
+    table = [json.loads(store.get(f"{_HOST_KEY}{r}")) for r in range(world)]
+    store.set(f"{_READ_KEY}{rank}", "1")
+    if rank == 0:
+        store.wait([f"{_READ_KEY}{r}" for r in range(world)])
+    hosts = {}
+    for r, (host, cards) in enumerate(table):
+        hosts.setdefault(host, ([], cards))[0].append(r)
+    for host, (ranks, cards) in hosts.items():
+        if host != me and len(ranks) > cards:
+            raise ValueError(
+                f"rank {rank}: {len(ranks)} ranks asked for on 'cuda' on "
+                f"machine {host!r}, but it has {cards} card(s); NCCL takes "
+                f"one card a rank (backend='gloo' shares the cards)")
+    mine = hosts[me][0]
+    return mine.index(rank), len(mine)
+
+
+def rank_card(rank: int, backend: str,
+              host: Optional[Tuple[int, int]] = None) -> torch.device:
+    """The card of ``rank``: its index among the ranks on this machine,
+    ``LOCAL_RANK`` where set, else ``host`` (:func:`host_ranks`), else the
+    rank.  Under NCCL every rank of this machine needs a card of its own:
+    ValueError when its ranks (``LOCAL_WORLD_SIZE``, ``host``'s count or
+    this index + 1) exceed the cards, so that every rank refuses alike.
+    Under any other backend the ranks share the cards: the index modulo
+    the cards."""
     n = card_count()
-    local = int(os.environ.get("LOCAL_RANK", rank))
-    if str(backend) == "nccl":
+    if "LOCAL_RANK" in os.environ:
+        local = int(os.environ["LOCAL_RANK"])
         here = max(local + 1, int(os.environ.get("LOCAL_WORLD_SIZE", 0)))
+    elif host is not None:
+        local, here = host
+    else:
+        local, here = rank, rank + 1
+    if str(backend) == "nccl":
         check_nccl_cards(here, n, f"rank {rank} (card {local})")
         return torch.device("cuda", local)
     return torch.device("cuda", local % n)
 
 
+def pin_card(card: torch.device, group=None) -> None:
+    """Record ``card`` as "cuda" for the run whose world group is
+    ``group`` (``initialize_distributed`` calls this once the group is
+    up); :func:`resolve_device` returns it while that group lasts."""
+    global _pinned
+    _pinned = (group, torch.device(card))
+
+
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
                    ) -> torch.device:
-    """``device`` with "cuda" resolved to a card index: in a run whose
-    process group is up the rank's card (:func:`rank_card`), else the
-    current card.  A CPU device or one with an index is returned as it
-    is."""
+    """``device`` with "cuda" resolved to a card index by the module's
+    rule: the card ``initialize_distributed`` pinned while its group is
+    up, else in a group ``LOCAL_RANK``'s card (:func:`rank_card`), else
+    the current card.  A CPU device or one with an index is returned as
+    it is."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or dev.index is not None:
         return dev
-    if dist.is_available() and dist.is_initialized():
-        return rank_card(dist.get_rank(), dist.get_backend())
     card_count()                     # RuntimeError with no card
+    if dist.is_available() and dist.is_initialized():
+        if _pinned is not None and _pinned[0] is dist.group.WORLD:
+            return _pinned[1]
+        if "LOCAL_RANK" in os.environ:
+            return rank_card(dist.get_rank(), dist.get_backend())
     return torch.device("cuda", torch.cuda.current_device())

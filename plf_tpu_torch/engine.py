@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .config import Backend, PLFConfig
+from .devices import resolve_device
 from .ops import layout as L
 from .ops.plf_node import plf_node_batch, plf_node_site_major
 from .ops.plf_torch import plf_torch
@@ -61,7 +62,7 @@ class PLFEngine:
     def __init__(self, config: Optional[PLFConfig] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.config = config or PLFConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def _t(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)

@@ -205,9 +205,11 @@ def bootstrap_nj_trees(codes, wgt=None, n_replicates: int = 100,
     the result to :func:`majority_rule_consensus` /
     :func:`annotate_support`.
     """
+    from ..devices import resolve_device
     from .bootstrap import bootstrap_weights
     from .distance import jc_distance_matrix, neighbor_joining
 
+    device = resolve_device(device)
     codes = np.asarray(codes)
     n = codes.shape[1]
     base = (np.ones((n,), np.int64) if wgt is None

@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..devices import resolve_device
 from .tree import Tree, TreeNode
 
 __all__ = ["pairwise_mismatch", "jc_distance_matrix", "neighbor_joining",
@@ -59,7 +60,7 @@ def pairwise_mismatch(codes, wgt=None, states: int = 4,
     ``Precision.HIGHEST``): here in fp32 with TF32 off for the call, or in
     float64 where the weighted total could pass 2^24.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     codes = torch.as_tensor(np.asarray(codes), dtype=torch.int32,
                             device=device)
     L, n = codes.shape

@@ -20,7 +20,7 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
-from ..devices import rank_card
+from ..devices import host_ranks, pin_card, rank_card
 from .sharding import SiteMesh, make_mesh
 
 __all__ = ["initialize_distributed", "global_site_mesh",
@@ -42,11 +42,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     ranks compute on cards (``device``), "gloo" on the CPU, unless named.
     Already initialised: True, nothing done.
 
-    On "cuda" the rank's card (``devices.rank_card``: ``LOCAL_RANK``, else
-    the rank; a ``device`` with an index names it) becomes the current
-    card before the group starts, and NCCL is bound to it.  Under NCCL
-    more ranks on this machine than cards raise ValueError before any
-    group starts; gloo ranks share the cards.
+    On "cuda" the rank's card (a ``device`` with an index names it; else
+    ``devices.rank_card``: ``LOCAL_RANK``, else under NCCL the rank's
+    index among the ranks on its own machine, which the ranks tell each
+    other through the rendezvous store before any group starts
+    (``devices.host_ranks``), else the rank) becomes the current card
+    before the group starts, and NCCL is bound to it; from then on
+    "cuda" is that card (``devices.pin_card``).  Under NCCL more ranks on
+    a machine than cards raise ValueError on every rank before any group
+    starts; gloo ranks share the cards.
     """
     if num_processes is not None and num_processes <= 1:
         return False
@@ -68,15 +72,29 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         kw["world_size"] = int(num_processes)
     if process_id is not None:
         kw["rank"] = int(process_id)
+    card = None
     if dev.type == "cuda":
-        # the rank's card is pinned before the group starts, so that
-        # "cuda" everywhere after (models, meshes, NCCL) is that card
-        card = dev if dev.index is not None else rank_card(
-            kw.get("rank", int(os.environ.get("RANK", 0))), backend)
+        # the rank's card is made current before the group starts and
+        # pinned after, so that "cuda" everywhere (models, meshes, NCCL)
+        # is that card
+        if dev.index is not None:
+            card = dev
+        elif backend == "nccl" and "LOCAL_RANK" not in os.environ:
+            # no torchrun: count this machine's ranks through the store,
+            # which then carries the group
+            store, rank, world = next(dist.rendezvous(
+                url, kw.get("rank", -1), kw.get("world_size", -1)))
+            card = rank_card(rank, backend, host_ranks(store, rank, world))
+            url, kw = None, dict(store=store, rank=rank, world_size=world)
+        else:
+            card = rank_card(
+                kw.get("rank", int(os.environ.get("RANK", 0))), backend)
         torch.cuda.set_device(card)
         if backend == "nccl":
             kw["device_id"] = card
     dist.init_process_group(backend, init_method=url, **kw)
+    if card is not None:
+        pin_card(card, dist.group.WORLD)
     return True
 
 

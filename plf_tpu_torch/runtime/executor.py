@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import PLFConfig
+from ..devices import resolve_device
 from ..ops import layout as L
 from ..ops.plf_node import plf_node
 from ..utils.timing import Timer, TimingData
@@ -87,7 +88,7 @@ class StreamingExecutor:
         # would only blur the attribution it exists to provide
         self.inflight = 1 if timing_mode == "fenced" else max(1, inflight)
         self.timing_mode = timing_mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.timing = TimingData()
         cuda = self.device.type == "cuda"
         self._cuda = cuda

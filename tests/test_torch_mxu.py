@@ -667,15 +667,18 @@ def test_training_guards(variant):
 def test_entry_points_default_to_the_card():
     """PhyloModel, PLFEngine and convert.phylo_model run on the card
     unless the caller asks for the CPU; without a card the default fails
-    at construction (torch's own error), never landing on the CPU."""
+    at construction (``devices.card_count``'s RuntimeError), never
+    landing on the CPU."""
     for fn in (PhyloModel.__init__, PLFEngine.__init__,
                convert.phylo_model):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    assert PLFEngine().device.type == "cuda"
     if torch.cuda.is_available():
+        assert PLFEngine().device.type == "cuda"
         pytest.skip("a CUDA device is present: the default would succeed")
+    with pytest.raises(RuntimeError, match="no CUDA card is visible"):
+        PLFEngine()
     pm = _jax_protein("mxu_3x", n_leaves=4, n_sites=128)
-    with pytest.raises((RuntimeError, AssertionError)):
+    with pytest.raises(RuntimeError, match="no CUDA card is visible"):
         PhyloModel(pm.tree, TS.empirical_protein("lg"), pm.tip_states,
                    alpha=0.5)
 

@@ -27,8 +27,11 @@ bit for bit."""
 import functools
 import json
 import os
+import re
+import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -50,7 +53,14 @@ from plf_tpu_torch import PLFConfig  # noqa: E402
 from plf_tpu_torch.models import (PhyloModel, empirical_protein,  # noqa: E402
                                   hky85, random_tree)
 from plf_tpu_torch.models.optimize import tree_loglik_fn  # noqa: E402
+import __graft_entry_torch__ as G  # noqa: E402
+from plf_tpu_torch import __main__ as cli  # noqa: E402
+from plf_tpu_torch import devices  # noqa: E402
 from plf_tpu_torch import parallel as P  # noqa: E402
+from plf_tpu_torch.engine import PLFEngine, plf  # noqa: E402
+from plf_tpu_torch.models import distance  # noqa: E402
+from plf_tpu_torch.models.consensus import bootstrap_nj_trees  # noqa: E402
+from plf_tpu_torch.runtime.executor import StreamingExecutor  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 WORLDS = (2, 3)
@@ -321,22 +331,33 @@ def test_padding_policy_and_helpers():
 
 class _FakeCards:
     """``torch.cuda`` with ``n`` cards (``device_count``, ``set_device``,
-    ``current_device``) and a ``torch.distributed`` whose
+    ``current_device``, ``Stream``) on a machine named ``host``, and a
+    ``torch.distributed`` whose ``rendezvous`` hands out ``store`` (an
+    in-memory store that :meth:`post` fills for the other ranks) and whose
     ``init_process_group`` records its call and brings a group up of the
-    rank and backend it was given; ``calls`` is their order."""
+    rank and backend it was given; ``calls`` is their order.  No card is
+    pinned by an earlier run."""
 
-    def __init__(self, monkeypatch, n, env):
+    def __init__(self, monkeypatch, n, env, host="a"):
         self.n, self.card, self.calls = n, 0, []
         self.group = None
+        self.store = torch.distributed.HashStore()
         for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "LOCAL_RANK",
                   "LOCAL_WORLD_SIZE"):
             monkeypatch.delenv(k, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, str(v))
         dist = torch.distributed
+        monkeypatch.setattr(devices, "_pinned", None, raising=False)
+        monkeypatch.setattr(socket, "gethostname", lambda: host)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: self.n)
         monkeypatch.setattr(torch.cuda, "set_device", self.set_device)
         monkeypatch.setattr(torch.cuda, "current_device", lambda: self.card)
+        monkeypatch.setattr(torch.cuda, "Stream",
+                            lambda device=None: ("stream", device))
+        monkeypatch.setattr(dist, "rendezvous", lambda url, rank=-1,
+                            world_size=-1, **kw: iter([(self.store, rank,
+                                                        world_size)]))
         monkeypatch.setattr(dist, "init_process_group", self.init)
         monkeypatch.setattr(dist, "is_initialized",
                             lambda: self.group is not None)
@@ -346,6 +367,16 @@ class _FakeCards:
                             lambda group=None: self.group[1])
         monkeypatch.setattr(dist, "get_backend",
                             lambda group=None: self.group[2])
+
+    def post(self, hosts, me):
+        """The other ranks' posts to the rendezvous store: rank r runs on
+        machine ``hosts[r]`` of this one's ``n`` cards, has read every
+        post, and ``me`` is this process's rank."""
+        for r, host in enumerate(hosts):
+            if r != me:
+                self.store.set(f"plf_tpu_torch/host/{r}",
+                               json.dumps([host, self.n]))
+                self.store.set(f"plf_tpu_torch/read/{r}", "1")
 
     def set_device(self, card):
         self.card = torch.device(card).index if isinstance(
@@ -462,3 +493,216 @@ def test_model_and_mesh_on_other_devices_refused(monkeypatch):
                  lambda: parts.optimize(steps=1, mesh=mesh)):
         with pytest.raises(ValueError, match=match):
             call()
+
+
+def _entry_point_devices(monkeypatch):
+    """What "cuda" resolves to for each entry point: ``resolve_device``,
+    ``make_mesh``, ``PhyloModel`` (stopped once it resolved),
+    ``PLFEngine``, ``StreamingExecutor`` and kernel 1m's plan."""
+    from plf_tpu_torch.models import phylo
+    from plf_tpu_torch.ops import plf_mxu
+
+    class Resolved(Exception):
+        pass
+
+    def stop(device):
+        raise Resolved(resolve(device))
+    resolve = phylo.resolve_device
+    monkeypatch.setattr(phylo, "resolve_device", stop)
+    with pytest.raises(Resolved) as e:
+        PhyloModel(random_tree(4, seed=1), hky85(2.0), W.tips(4, 4, 1))
+    plans = []
+    monkeypatch.setattr(plf_mxu, "_plan", lambda dev, *a: plans.append(dev))
+    plf_mxu.node_mxu_plan(20, 4)
+    return dict(resolve_device=devices.resolve_device("cuda"),
+                make_mesh=P.make_mesh().device, PhyloModel=e.value.args[0],
+                PLFEngine=PLFEngine().device,
+                StreamingExecutor=StreamingExecutor().device,
+                node_mxu_plan=plans[0])
+
+
+@pytest.mark.parametrize("rank,world,card,env", [
+    (0, 2, 3, {}), (5, 8, 1, {}),
+    (0, 2, 3, dict(LOCAL_RANK=0, LOCAL_WORLD_SIZE=2))])
+def test_named_card_is_cuda_after_the_group(monkeypatch, rank, world, card,
+                                            env):
+    """``initialize_distributed(..., device="cuda:<card>")`` on 4 cards:
+    that card is current before the group starts and NCCL is bound to
+    it; after, "cuda" is that card for every entry point, whatever the
+    rank, ``LOCAL_RANK`` or the count of ranks."""
+    fake = _FakeCards(monkeypatch, 4, env)
+    dev = torch.device("cuda", card)
+    assert P.initialize_distributed("localhost:1", world, rank,
+                                    device=f"cuda:{card}")
+    assert fake.calls == [("set_device", card), ("init_process_group",
+                                                 "nccl", dict(device_id=dev))]
+    assert fake.group == (rank, world, "nccl")
+    got = _entry_point_devices(monkeypatch)
+    assert got == dict.fromkeys(got, dev)
+
+
+@pytest.mark.parametrize("hosts,rank,card", [
+    ("aaaabbbb", 0, 0), ("aaaabbbb", 3, 3), ("aaaabbbb", 5, 1),
+    ("aaaabbbb", 7, 3), ("abababab", 5, 2), ("abababab", 6, 3)])
+def test_caller_started_rank_pins_its_own_machines_card(monkeypatch, hosts,
+                                                         rank, card):
+    """README's second route, ``initialize_distributed("host:port", 8,
+    rank)`` with no ``LOCAL_RANK``, on two machines of 4 cards (machine
+    ``hosts[r]`` runs rank r): the rank pins its index among its own
+    machine's ranks, binds NCCL to it and hands the group the rendezvous
+    store that carried the count; after, "cuda" is that card for every
+    entry point."""
+    fake = _FakeCards(monkeypatch, 4, {}, host=hosts[rank])
+    fake.post(hosts, rank)
+    dev = torch.device("cuda", card)
+    assert P.initialize_distributed("a:29500", 8, rank)
+    assert fake.calls == [("set_device", card), ("init_process_group", "nccl",
+                                                 dict(store=fake.store,
+                                                      device_id=dev))]
+    assert fake.group == (rank, 8, "nccl")
+    got = _entry_point_devices(monkeypatch)
+    assert got == dict.fromkeys(got, dev)
+
+
+@pytest.mark.parametrize("rank", range(9))
+def test_caller_started_nccl_refused_by_every_rank(monkeypatch, rank):
+    """Five NCCL ranks on machine "a" of 4 cards and four on "b", no
+    ``LOCAL_RANK``: every rank raises ValueError before any group starts,
+    those of "a" naming their own machine's count and those of "b"
+    naming machine "a", so that no rank waits for a refused one."""
+    hosts = "ababababa"
+    fake = _FakeCards(monkeypatch, 4, {}, host=hosts[rank])
+    fake.post(hosts, rank)
+    if hosts[rank] == "a":
+        match = (f"rank {rank} (card {rank // 2}): 5 ranks asked for on "
+                 f"'cuda', but this machine has 4 card(s)")
+    else:
+        match = (f"rank {rank}: 5 ranks asked for on 'cuda' on machine 'a', "
+                 f"but it has 4 card(s)")
+    with pytest.raises(ValueError, match=re.escape(match)):
+        P.initialize_distributed("a:29500", 9, rank)
+    assert fake.calls == [] and fake.group is None
+
+
+#: One caller-started rank on a machine of ``cards`` fake cards, with no
+#: torchrun environment: ``initialize_distributed(url, 2, rank)`` under
+#: NCCL, whose group (bound to the card it pinned) comes up over gloo on
+#: the CPU; it prints the cards pinned and bound, what "cuda" resolves to
+#: and one all-reduce (arguments: repo, url, rank, cards).
+CALLER_RANK = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch, torch.distributed as dist
+cards = int(sys.argv[4])
+torch.cuda.device_count = lambda: cards
+pinned = []
+torch.cuda.set_device = pinned.append
+init = dist.init_process_group
+def on_gloo(backend, device_id=None, **kw):
+    pinned.append(device_id)
+    init("gloo", **kw)
+dist.init_process_group = on_gloo
+from plf_tpu_torch.devices import resolve_device
+from plf_tpu_torch.parallel import initialize_distributed
+initialize_distributed(sys.argv[2], 2, int(sys.argv[3]))
+t = torch.ones(1)
+dist.all_reduce(t)
+print(json.dumps(dict(pinned=[str(d) for d in pinned],
+                      cuda=str(resolve_device("cuda")),
+                      all_reduce=float(t))))
+dist.destroy_process_group()
+"""
+PAIR_SECONDS = 30
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+@pytest.mark.parametrize("store", ["host:port", "file"])
+def test_caller_started_pair_counts_its_machines_cards(tmp_path, store,
+                                                         cards):
+    """Two caller-started NCCL ranks on one machine, each a process of its
+    own (README's second route, no ``LOCAL_RANK``), ending within 30 s
+    together.  On one card both exit with the ValueError before any group
+    starts, and neither waits at the rendezvous for the other; on two
+    cards rank r pins card r, NCCL is bound to it, and the group comes up
+    over the store that carried the count."""
+    if store == "file":
+        url = f"file://{tmp_path / 'store'}"
+    else:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            url = f"localhost:{s.getsockname()[1]}"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["OMP_NUM_THREADS"] = "1"
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CALLER_RANK, str(REPO), url, str(r),
+         str(cards)], cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=PAIR_SECONDS) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.monotonic() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if cards == 1:
+            want = (f"ValueError: rank {r} (card {r}): 2 ranks asked for on "
+                    f"'cuda', but this machine has 1 card(s)")
+            assert p.returncode == 1 and want in err, err[-3000:]
+            assert out == ""
+        else:
+            assert p.returncode == 0, err[-3000:]
+            assert json.loads(out) == dict(pinned=[f"cuda:{r}"] * 2,
+                                           cuda=f"cuda:{r}", all_reduce=2.0)
+    assert secs < PAIR_SECONDS
+
+
+def _fasta(tmp):
+    path = tmp / "aln.fasta"
+    path.write_text("".join(f">t{i}\nACGTACGTAC\n" for i in range(4)))
+    return str(path)
+
+
+_CODES = np.zeros((4, 10), np.int64)
+
+#: Every entry point that takes a ``device`` (default "cuda"), called as a
+#: user would: ``(fake, tmp) -> ...``.
+NO_CARD_CALLS = {
+    "PLFEngine": lambda f, t: PLFEngine(),
+    "engine.plf": lambda f, t: plf(*W.node_case()),
+    "StreamingExecutor": lambda f, t: StreamingExecutor(),
+    "pairwise_mismatch": lambda f, t: distance.pairwise_mismatch(_CODES),
+    "jc_distance_matrix": lambda f, t: distance.jc_distance_matrix(_CODES),
+    "nj_tree": lambda f, t: distance.nj_tree(_CODES),
+    "bootstrap_nj_trees": lambda f, t: bootstrap_nj_trees(_CODES,
+                                                          n_replicates=2),
+    "cli": lambda f, t: cli.main(["--sites", "1024", "--calls", "1"]),
+    "cli infer": lambda f, t: cli.main(["infer", _fasta(t)]),
+    "graft entry": lambda f, t: G.entry(),
+    "dryrun_multichip": lambda f, t: G.dryrun_multichip(2, backend="gloo"),
+    "PhyloModel": lambda f, t: PhyloModel(random_tree(4, seed=1), hky85(2.0),
+                                          W.tips(4, 4, 1)),
+    "make_mesh": lambda f, t: P.make_mesh(),
+    "initialize_distributed": lambda f, t: (
+        f.post("aa", 0), P.initialize_distributed("a:1", 2, 0)),
+}
+
+
+@pytest.mark.parametrize("name", list(NO_CARD_CALLS))
+def test_every_entry_point_refuses_without_a_card(monkeypatch, tmp_path,
+                                                  name):
+    """No card: each entry point raises the one RuntimeError of
+    ``devices.card_count`` when it is built (or, for a plain function,
+    called), naming ``device='cpu'`` and ``--device cpu``; none goes on
+    on the CPU.  A caller-started NCCL rank posts its count first, so
+    that the other ranks refuse too."""
+    fake = _FakeCards(monkeypatch, 0, {})
+    with pytest.raises(RuntimeError, match=re.escape(
+            "no CUDA card is visible to this process; pass device='cpu' "
+            "(--device cpu on the command line)")):
+        NO_CARD_CALLS[name](fake, tmp_path)
+    assert fake.calls == [] and fake.group is None
