@@ -1,0 +1,5 @@
+"""Share of the traced window in which no operation ran on the device."""
+
+
+def read(ctx):
+    return ctx.idle_pct()
