@@ -72,7 +72,10 @@ wherever the likelihood is differentiable.
 
 Every returned function carries ``.variant`` (the arithmetic of the
 kernels that run: "vpu" on the "kernel" backend) and ``.engine`` (the
-backend that runs).
+backend that runs).  A call is the span ``fn`` (``utils/profiling.py``)
+and its conversion of the inputs ``fn.inputs``; the kernel backends split
+the rest into ``fn.operators``, ``fn.kernel`` and ``fn.finalise``, and
+their backward is ``fn.backward``.
 
 :func:`fit_model` fits GTR exchangeabilities, frequencies and branch
 lengths (and, between epochs, the gamma shape) by Adam through the
@@ -97,6 +100,7 @@ from ..config import Backend
 from ..io.alignment import AMBIGUITY
 from ..ops.plf_tree_seg import make_tree_diff_segmented
 from ..reference import MIN_LIKELIHOOD, TWO_TO_THE_32
+from ..utils.profiling import span
 from .phylo import LIK_FLOOR, LOG_MINLIK, PhyloModel
 
 __all__ = ["tree_loglik_fn", "optimize_branch_lengths", "optimize_alpha",
@@ -305,34 +309,43 @@ def tree_loglik_fn(pm: PhyloModel, with_rates: bool = False,
             "of 'mxu') for training/fitting")
     S = pm.config.states
     matrix_form = uses_mxu_kernels(variant, S)
-    if backend == "auto" and mesh is not None:
-        backend = "tree" if pm.can_fuse() else "segmented"
-    elif backend == "auto":
-        backend = ("torch" if pm.config.backend is Backend.TORCH
-                   else _auto_backend(pm, matrix_form, variant == "vpu"))
-    if mesh is not None and backend not in ("tree", "segmented"):
-        raise ValueError(
-            "mesh-sharded gradients require backend='tree' or "
-            "'segmented' (the checkpointed whole-tree VJP is the "
-            "shard-local kernel)")
-    if backend == "kernel":
-        variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
-    if backend in ("tree", "segmented"):
-        core = _core_tree(pm, segmented=backend == "segmented", mesh=mesh)
-    else:
-        core = {"torch": _core_torch, "kernel": _core_kernel}[backend](pm)
-    dev = pm.device
-    rates = _f32(pm.rates, dev)
-    cw = _f32(pm.rate_weights, dev)
+    with span("fn.build"):
+        if backend == "auto" and mesh is not None:
+            backend = "tree" if pm.can_fuse() else "segmented"
+        elif backend == "auto":
+            backend = ("torch" if pm.config.backend is Backend.TORCH
+                       else _auto_backend(pm, matrix_form, variant == "vpu"))
+        if mesh is not None and backend not in ("tree", "segmented"):
+            raise ValueError(
+                "mesh-sharded gradients require backend='tree' or "
+                "'segmented' (the checkpointed whole-tree VJP is the "
+                "shard-local kernel)")
+        if backend == "kernel":
+            variant = "vpu"          # kernels 1 + 3, as JAX's "pallas" path
+        if backend in ("tree", "segmented"):
+            core = _core_tree(pm, segmented=backend == "segmented",
+                              mesh=mesh)
+        else:
+            core = {"torch": _core_torch,
+                    "kernel": _core_kernel}[backend](pm)
+        dev = pm.device
+        rates = _f32(pm.rates, dev)
+        cw = _f32(pm.rate_weights, dev)
     if with_weights:
-        def fn(t_vec, r_vec, w_vec):
-            return core(_f32(t_vec, dev), _f32(r_vec, dev), _f32(w_vec, dev))
+        def inputs(t_vec, r_vec, w_vec):
+            return _f32(t_vec, dev), _f32(r_vec, dev), _f32(w_vec, dev)
     elif with_rates:
-        def fn(t_vec, r_vec):
-            return core(_f32(t_vec, dev), _f32(r_vec, dev), cw)
+        def inputs(t_vec, r_vec):
+            return _f32(t_vec, dev), _f32(r_vec, dev), cw
     else:
-        def fn(t_vec):
-            return core(_f32(t_vec, dev), rates, cw)
+        def inputs(t_vec):
+            return _f32(t_vec, dev), rates, cw
+
+    def fn(*args):
+        with span("fn"):
+            with span("fn.inputs"):
+                args = inputs(*args)
+            return core(*args)
     fn.variant = variant
     fn.engine = backend
     t0 = np.array([pm.tree.nodes[i].length
@@ -443,18 +456,22 @@ def _core_kernel(pm):
     pdiff = make_plf_diff(S, C)
 
     def core(t_vec, r_vec, w_vec):
-        ops = _lane_constants(t_vec, r_vec, lam, u, S, C)  # by child node
-        clvs = {}
-        scaler_sites = torch.zeros(pm.n_pad, dtype=torch.int32,
-                                   device=pm.device)
-        for parent, l, r in schedule:
-            x1, x2 = [pm._expand_tip(ch) if ch < n_leaves else clvs.pop(ch)
-                      for ch in (l, r)]
-            x3, sc = pdiff(x1, x2, ops[l], ops[r], pm.ec, n)
-            clvs[parent] = x3
-            scaler_sites = scaler_sites + sc[0]
-        lik = root_reduce(_root_rows(pi_u, w_vec, S, C), clvs[root])
-        return _finalise(lik, scaler_sites, wpad, n, asc, d0, w_total)
+        with span("fn.operators"):
+            ops = _lane_constants(t_vec, r_vec, lam, u, S, C)  # by child
+            rr = _root_rows(pi_u, w_vec, S, C)
+        with span("fn.kernel"):
+            clvs = {}
+            scaler_sites = torch.zeros(pm.n_pad, dtype=torch.int32,
+                                       device=pm.device)
+            for parent, l, r in schedule:
+                x1, x2 = [pm._expand_tip(ch) if ch < n_leaves
+                          else clvs.pop(ch) for ch in (l, r)]
+                x3, sc = pdiff(x1, x2, ops[l], ops[r], pm.ec, n)
+                clvs[parent] = x3
+                scaler_sites = scaler_sites + sc[0]
+            lik = root_reduce(rr, clvs[root])
+        with span("fn.finalise"):
+            return _finalise(lik, scaler_sites, wpad, n, asc, d0, w_total)
     return core
 
 
@@ -507,22 +524,27 @@ def _core_tree(pm, segmented: bool = False, mesh=None):
         d0 = int(np.clip(d0 - lo, 0, n))   # this rank's first dummy site
 
     def core(t_vec, r_vec, w_vec):
-        ops = _lane_constants(t_vec[child.reshape(-1)], r_vec, lam, u, S, C)
-        rr = _root_rows(pi_u, w_vec, S, C)
-        if mesh is not None:
-            flat = replicated(torch.cat([ops.reshape(-1), rr]), mesh)
-            ops, rr = flat[:-rows].view(2 * E, rows, S), flat[-rows:]
-        lcs, rcs = ops.view(2, -1, S * C, S).unbind(0)
-        planes = None
-        if matrix_form:
-            # this step's lengths split once, the whole (2E, rows, S) stack
-            # at a time; the EV planes are the model's own
-            hi, lo_ = operator_planes(ops.detach(), variant)
-            planes = (hi[:E], lo_[:E], hi[E:], lo_[E:], pm.ec_planes[0],
-                      pm.ec_planes[1])
-        lik, sc = tdiff(codes, lcs.contiguous(), rcs.contiguous(), pm.ec,
-                        pm.fused_tip_table, rr, n, planes=planes)
-        return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total, mesh)
+        with span("fn.operators"):
+            ops = _lane_constants(t_vec[child.reshape(-1)], r_vec, lam, u,
+                                  S, C)
+            rr = _root_rows(pi_u, w_vec, S, C)
+            if mesh is not None:
+                flat = replicated(torch.cat([ops.reshape(-1), rr]), mesh)
+                ops, rr = flat[:-rows].view(2 * E, rows, S), flat[-rows:]
+            lcs, rcs = ops.view(2, -1, S * C, S).unbind(0)
+            planes = None
+            if matrix_form:
+                # this step's lengths split once, the whole (2E, rows, S)
+                # stack at a time; the EV planes are the model's own
+                hi, lo_ = operator_planes(ops.detach(), variant)
+                planes = (hi[:E], lo_[:E], hi[E:], lo_[E:], pm.ec_planes[0],
+                          pm.ec_planes[1])
+            lcs, rcs = lcs.contiguous(), rcs.contiguous()
+        with span("fn.kernel"):
+            lik, sc = tdiff(codes, lcs, rcs, pm.ec, pm.fused_tip_table, rr,
+                            n, planes=planes)
+        with span("fn.finalise"):
+            return _finalise(lik[0], sc[0], wpad, n, asc, d0, w_total, mesh)
     return core
 
 

@@ -85,6 +85,7 @@ from ..ops.plf_tree_seg import (batched_seg_loglik_parts,
 from .substitution import (SubstitutionModel, branch_matrices,
                            discrete_gamma_rates, gamma_invariant_rates)
 from .tree import Tree
+from ..utils.profiling import span
 
 __all__ = ["PhyloModel", "TreeLikelihoodResult", "batch_log_likelihood",
            "batch_log_likelihood_segmented", "batch_fits", "batch_inputs",
@@ -151,153 +152,177 @@ class PhyloModel(nn.Module):
             default fails here, at construction.
         """
         super().__init__()
-        self.tree = tree
-        self.model = model
-        cfg = config or PLFConfig(states=model.states, kernel_variant="auto")
-        if cfg.states != model.states:
-            cfg = dataclasses.replace(cfg, states=model.states)
-        self.tip_states = np.asarray(tip_states)
-        self.n_sites_obs = int(self.tip_states.shape[1])
-        self.wgt = (np.ones(self.n_sites_obs, np.int32) if wgt is None
-                    else np.asarray(wgt, np.int32))
-        if ascertainment not in (None, "lewis"):
-            raise ValueError(f"unknown ascertainment {ascertainment!r}")
-        self.ascertainment = ascertainment
-        if ascertainment == "lewis":
-            S_ = model.states
-            const = np.tile(np.arange(S_, dtype=self.tip_states.dtype),
-                            (self.tip_states.shape[0], 1))
-            self.tip_states = np.concatenate([self.tip_states, const],
-                                             axis=1)
-            self.wgt = np.concatenate([self.wgt, np.zeros(S_, np.int32)])
-        self.n_sites = int(self.tip_states.shape[1])
-        self.p_inv = p_inv
-        if rates is not None:
-            if alpha is not None or p_inv is not None:
-                raise ValueError("pass rates or alpha/p_inv, not both")
-            self.rates = np.asarray(rates, np.float64)
-            cfg = dataclasses.replace(cfg, categories=len(self.rates))
-        elif p_inv is not None:
-            if rate_weights is not None:
-                raise ValueError("pass either p_inv or rate_weights")
-            self.rates, rate_weights = gamma_invariant_rates(
-                alpha, p_inv, cfg.categories)
-            cfg = dataclasses.replace(cfg, categories=cfg.categories + 1)
-        elif alpha is None:
-            self.rates = np.ones(cfg.categories)
-        else:
-            self.rates = discrete_gamma_rates(alpha, cfg.categories)
-        if rate_weights is None:
-            self.rate_weights = np.full(cfg.categories, 1.0 / cfg.categories)
-        else:
-            self.rate_weights = np.asarray(rate_weights, np.float64)
-            if self.rate_weights.shape != (cfg.categories,):
+        with span("phylo.init"):
+            self.tree = tree
+            self.model = model
+            cfg = config or PLFConfig(states=model.states,
+                                      kernel_variant="auto")
+            if cfg.states != model.states:
+                cfg = dataclasses.replace(cfg, states=model.states)
+            self.tip_states = np.asarray(tip_states)
+            self.n_sites_obs = int(self.tip_states.shape[1])
+            self.wgt = (np.ones(self.n_sites_obs, np.int32) if wgt is None
+                        else np.asarray(wgt, np.int32))
+            if ascertainment not in (None, "lewis"):
+                raise ValueError(f"unknown ascertainment {ascertainment!r}")
+            self.ascertainment = ascertainment
+            if ascertainment == "lewis":
+                S_ = model.states
+                const = np.tile(np.arange(S_, dtype=self.tip_states.dtype),
+                                (self.tip_states.shape[0], 1))
+                self.tip_states = np.concatenate([self.tip_states, const],
+                                                 axis=1)
+                self.wgt = np.concatenate([self.wgt, np.zeros(S_, np.int32)])
+            self.n_sites = int(self.tip_states.shape[1])
+            self.p_inv = p_inv
+            if rates is not None:
+                if alpha is not None or p_inv is not None:
+                    raise ValueError("pass rates or alpha/p_inv, not both")
+                self.rates = np.asarray(rates, np.float64)
+                cfg = dataclasses.replace(cfg, categories=len(self.rates))
+            elif p_inv is not None:
+                if rate_weights is not None:
+                    raise ValueError("pass either p_inv or rate_weights")
+                self.rates, rate_weights = gamma_invariant_rates(
+                    alpha, p_inv, cfg.categories)
+                cfg = dataclasses.replace(cfg, categories=cfg.categories + 1)
+            elif alpha is None:
+                self.rates = np.ones(cfg.categories)
+            else:
+                self.rates = discrete_gamma_rates(alpha, cfg.categories)
+            if rate_weights is None:
+                self.rate_weights = np.full(cfg.categories,
+                                            1.0 / cfg.categories)
+            else:
+                self.rate_weights = np.asarray(rate_weights, np.float64)
+                if self.rate_weights.shape != (cfg.categories,):
+                    raise ValueError(
+                        f"rate_weights must have shape ({cfg.categories},)")
+                if abs(float(self.rate_weights.sum()) - 1.0) > 1e-6:
+                    raise ValueError("rate_weights must sum to 1")
+            self.config = cfg
+
+            S, C = cfg.states, cfg.categories
+            self.n_pad = L.sites_padding(self.n_sites, cfg.block_sites)
+            self.schedule = tree.schedule()
+            # "cuda" is resolved to its card (in a run, the rank's own), so
+            # that a model, its share_device_from donor and a mesh compare
+            # equal
+            device = resolve_device(device)
+
+            donor = share_device_from
+            if donor is not None and (
+                    donor.model is not model
+                    or not np.array_equal(donor.rates, self.rates)
+                    or donor.config != self.config):
                 raise ValueError(
-                    f"rate_weights must have shape ({cfg.categories},)")
-            if abs(float(self.rate_weights.sum()) - 1.0) > 1e-6:
-                raise ValueError("rate_weights must sum to 1")
-        self.config = cfg
+                    "share_device_from needs an identical model/rates/"
+                    "config (only topology/branch lengths may differ)")
+            # Encoded-operator cache keyed by branch length, shared with a
+            # donor: same-alignment candidates mostly share branch lengths.
+            self._branch_cache = {} if donor is None else donor._branch_cache
 
-        S, C = cfg.states, cfg.categories
-        self.n_pad = L.sites_padding(self.n_sites, cfg.block_sites)
-        self.schedule = tree.schedule()
-        # "cuda" is resolved to its card (in a run, the rank's own), so
-        # that a model, its share_device_from donor and a mesh compare equal
-        device = resolve_device(device)
+            def enc_cached(t):
+                key = float(t)
+                v = self._branch_cache.get(key)
+                if v is None:
+                    v = L.branch_to_lane_constants(
+                        branch_matrices(model, key, self.rates, C), S, C)
+                    self._branch_cache[key] = v
+                return v
 
-        donor = share_device_from
-        if donor is not None and (
-                donor.model is not model
-                or not np.array_equal(donor.rates, self.rates)
-                or donor.config != self.config):
-            raise ValueError(
-                "share_device_from needs an identical model/rates/"
-                "config (only topology/branch lengths may differ)")
-        # Encoded-operator cache keyed by branch length, shared with a
-        # donor: same-alignment candidates mostly share branch lengths.
-        self._branch_cache = {} if donor is None else donor._branch_cache
+            with span("phylo.operators"):
+                stacks = [(name, np.stack([enc_cached(entry[col])
+                                           for entry in self.schedule]))
+                          for name, col in (("lcs", 3), ("rcs", 4))]
+                rows = (np.repeat(model.root_vector, C)
+                        * np.tile(self.rate_weights, S))
 
-        def enc_cached(t):
-            key = float(t)
-            v = self._branch_cache.get(key)
-            if v is None:
-                v = L.branch_to_lane_constants(
-                    branch_matrices(model, key, self.rates, C), S, C)
-                self._branch_cache[key] = v
-            return v
+            if donor is not None:
+                same_aln = (donor.tip_states is self.tip_states
+                            or (donor.tip_states.shape
+                                == self.tip_states.shape
+                                and np.array_equal(donor.tip_states,
+                                                   self.tip_states)))
+                same_wgt = (donor.wgt is self.wgt
+                            or np.array_equal(donor.wgt, self.wgt))
+                if donor.n_pad != self.n_pad or not same_aln or not same_wgt:
+                    raise ValueError(
+                        "share_device_from needs an identical alignment and "
+                        "site weights (only topology/branch lengths may "
+                        "differ)")
+                if donor.codes.device != device:
+                    raise ValueError("share_device_from: donor lives on "
+                                     f"{donor.codes.device}, not {device}")
+            else:
+                with span("phylo.encode"):
+                    # Tip-table columns: states, gap (S, also the padding
+                    # code) and the IUPAC columns up to the largest code
+                    # observed.
+                    codes = map_tip_codes(self.tip_states, S)
+                    n_codes = max(S + 1, int(codes.max()) + 1)
+                    codes = L.pad_to_multiple(codes, self.n_pad, axis=-1)
+                    codes[:, self.n_sites:] = S
+                    # C order whatever the tip matrix's (a column selection
+                    # such as compress_patterns' is Fortran-ordered): the
+                    # kernels take contiguous codes
+                    codes = np.ascontiguousarray(
+                        codes, np.int8 if cfg.tip_dtype == "int8"
+                        else np.int32)
+                    wpad = L.pad_to_multiple(self.wgt.reshape(1, -1),
+                                             self.n_pad, axis=-1)[0]
 
-        for name, col in (("lcs", 3), ("rcs", 4)):   # (E, rows, S) stacks
-            self.register_buffer(name, torch.as_tensor(np.stack(
-                [enc_cached(entry[col]) for entry in self.schedule]),
-                device=device))
-        rows = np.repeat(model.root_vector, C) * np.tile(self.rate_weights, S)
-        self.register_buffer("root_rows", torch.as_tensor(
-            rows.astype(np.float32).reshape(1, -1), device=device))
+            with span("phylo.plan"):
+                sched = reorder_schedule(self.schedule, tree.n_leaves)
+                arrs, self.n_slots, self.root_slot = \
+                    compile_register_schedule(sched, tree.n_leaves)
+                self._sched_np = np.stack(arrs)
+                # kernel 2's program: operands of the op before from
+                # registers
+                self._carry_np, self.carry_slots = carry_program(arrs)
+                self._carry = None
+                self._seg_cache = self._seg_np = None
 
-        if donor is not None:
-            same_aln = (donor.tip_states is self.tip_states
-                        or (donor.tip_states.shape == self.tip_states.shape
-                            and np.array_equal(donor.tip_states,
-                                               self.tip_states)))
-            same_wgt = (donor.wgt is self.wgt
-                        or np.array_equal(donor.wgt, self.wgt))
-            if donor.n_pad != self.n_pad or not same_aln or not same_wgt:
-                raise ValueError(
-                    "share_device_from needs an identical alignment and "
-                    "site weights (only topology/branch lengths may differ)")
-            if donor.codes.device != device:
-                raise ValueError("share_device_from: donor lives on "
-                                 f"{donor.codes.device}, not {device}")
-            for name in ("codes", "wgt_pad", "ec", "tip_table",
-                         "fused_tip_table"):
-                self.register_buffer(name, getattr(donor, name))
-        else:
-            # Tip-table columns: states, gap (S, also the padding code) and
-            # the IUPAC columns up to the largest code observed.
-            codes = map_tip_codes(self.tip_states, S)
-            n_codes = max(S + 1, int(codes.max()) + 1)
-            codes = L.pad_to_multiple(codes, self.n_pad, axis=-1)
-            codes[:, self.n_sites:] = S
-            # C order whatever the tip matrix's (a column selection such
-            # as compress_patterns' is Fortran-ordered): the kernels take
-            # contiguous codes
-            codes = np.ascontiguousarray(
-                codes, np.int8 if cfg.tip_dtype == "int8" else np.int32)
-            self.register_buffer("codes", torch.as_tensor(codes,
-                                                          device=device))
-            wpad = L.pad_to_multiple(self.wgt.reshape(1, -1), self.n_pad,
-                                     axis=-1)[0]
-            self.register_buffer("wgt_pad", torch.as_tensor(wpad,
-                                                            device=device))
-            self.register_buffer("ec", torch.as_tensor(
-                L.ev_to_lane_constants(model.plf_ev, S, C), device=device))
-            tbl = tip_expansion_table(model.w, S)[:, :n_codes]
-            self.register_buffer("tip_table", torch.as_tensor(
-                np.repeat(tbl, C, axis=0).astype(np.float32),
-                device=device))
-            # The fused path's tips: the table as the variant's tip
-            # product rounds it (the same tensor for "vpu" and "mxu").
-            self.register_buffer("fused_tip_table", round_tip_table(
-                self.tip_table, cfg.resolved_kernel_variant).contiguous())
+            with span("phylo.upload"):
+                for name, stack in stacks:              # (E, rows, S)
+                    self.register_buffer(name, torch.as_tensor(
+                        stack, device=device))
+                self.register_buffer("root_rows", torch.as_tensor(
+                    rows.astype(np.float32).reshape(1, -1), device=device))
+                if donor is not None:
+                    for name in ("codes", "wgt_pad", "ec", "tip_table",
+                                 "fused_tip_table"):
+                        self.register_buffer(name, getattr(donor, name))
+                else:
+                    self.register_buffer("codes", torch.as_tensor(
+                        codes, device=device))
+                    self.register_buffer("wgt_pad", torch.as_tensor(
+                        wpad, device=device))
+                    self.register_buffer("ec", torch.as_tensor(
+                        L.ev_to_lane_constants(model.plf_ev, S, C),
+                        device=device))
+                    tbl = tip_expansion_table(model.w, S)[:, :n_codes]
+                    self.register_buffer("tip_table", torch.as_tensor(
+                        np.repeat(tbl, C, axis=0).astype(np.float32),
+                        device=device))
+                    # The fused path's tips: the table as the variant's tip
+                    # product rounds it (the same tensor for "vpu" and
+                    # "mxu").
+                    self.register_buffer("fused_tip_table", round_tip_table(
+                        self.tip_table,
+                        cfg.resolved_kernel_variant).contiguous())
+                self.register_buffer("sched", torch.as_tensor(
+                    self._sched_np, device=device))
 
-        # Kernels 1m, 2m and 7m take (hi, lo) operator planes: split once
-        # here.
-        mxu = uses_mxu_kernels(cfg.resolved_kernel_variant, S)
-        for name, k in (("lcs_planes", self.lcs), ("rcs_planes", self.rcs),
-                        ("ec_planes", self.ec)):
-            self.register_buffer(name, torch.stack(operator_planes(
-                k, cfg.resolved_kernel_variant)) if mxu else None)
-
-        sched = reorder_schedule(self.schedule, tree.n_leaves)
-        arrs, self.n_slots, self.root_slot = compile_register_schedule(
-            sched, tree.n_leaves)
-        self._sched_np = np.stack(arrs)
-        self.register_buffer("sched", torch.as_tensor(self._sched_np,
-                                                      device=device))
-        # kernel 2's program: operands of the op before from registers
-        self._carry_np, self.carry_slots = carry_program(arrs)
-        self._carry = None
-        self._seg_cache = self._seg_np = None
+            # Kernels 1m, 2m and 7m take (hi, lo) operator planes: split
+            # once here.
+            with span("phylo.operators"):
+                mxu = uses_mxu_kernels(cfg.resolved_kernel_variant, S)
+                for name, k in (("lcs_planes", self.lcs),
+                                ("rcs_planes", self.rcs),
+                                ("ec_planes", self.ec)):
+                    self.register_buffer(name, torch.stack(operator_planes(
+                        k, cfg.resolved_kernel_variant)) if mxu else None)
 
     @property
     def device(self) -> torch.device:
@@ -412,18 +437,19 @@ class PhyloModel(nn.Module):
     def _finalise_ll(self, lik_pad: np.ndarray, sc_sites, scaler_total: int
                      ) -> TreeLikelihoodResult:
         """Host-side fp64 log/sum + optional ascertainment correction."""
-        n_obs = self.n_sites_obs
-        lik_h = np.asarray(lik_pad, dtype=np.float64)
-        site_ll = np.log(np.maximum(lik_h[:n_obs], LIK_FLOOR))
-        if self.ascertainment == "lewis":
-            site_ll = site_ll - self._asc_log_one_minus_pconst(lik_h,
-                                                               sc_sites)
-        ll = float(np.sum(site_ll * self.wgt[:n_obs])
-                   + scaler_total * LOG_MINLIK)
-        return TreeLikelihoodResult(
-            log_likelihood=ll, site_log_likelihood=site_ll,
-            scaler_total=int(scaler_total), root_clv=None,
-            scaler_sites=np.asarray(sc_sites)[:n_obs].astype(np.int64))
+        with span("phylo.finalise_host"):
+            n_obs = self.n_sites_obs
+            lik_h = np.asarray(lik_pad, dtype=np.float64)
+            site_ll = np.log(np.maximum(lik_h[:n_obs], LIK_FLOOR))
+            if self.ascertainment == "lewis":
+                site_ll = site_ll - self._asc_log_one_minus_pconst(lik_h,
+                                                                   sc_sites)
+            ll = float(np.sum(site_ll * self.wgt[:n_obs])
+                       + scaler_total * LOG_MINLIK)
+            return TreeLikelihoodResult(
+                log_likelihood=ll, site_log_likelihood=site_ll,
+                scaler_total=int(scaler_total), root_clv=None,
+                scaler_sites=np.asarray(sc_sites)[:n_obs].astype(np.int64))
 
     # -- fused whole-tree kernel (kernel 2) ----------------------------------
 

@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 __all__ = ["SubstitutionModel", "jc69", "hky85", "gtr", "random_gtr",
            "AMINO_ACIDS", "parse_paml_matrix", "BUILTIN_PROTEIN_MODELS",
            "empirical_protein", "GENETIC_CODE", "SENSE_CODONS",
@@ -343,11 +345,12 @@ def encode_codon_alignment(dna_states: np.ndarray) -> np.ndarray:
 
 def discrete_gamma_rates(alpha: float, categories: int = 4) -> np.ndarray:
     """Mean-normalised discrete Gamma rates (median discretisation)."""
-    from scipy.stats import gamma as _gamma
-    c = categories
-    quantiles = (2 * np.arange(c) + 1) / (2.0 * c)
-    rates = _gamma.ppf(quantiles, a=alpha, scale=1.0 / alpha)
-    return (rates * c / rates.sum()).astype(np.float64)
+    with span("gamma.rates"):
+        from scipy.stats import gamma as _gamma
+        c = categories
+        quantiles = (2 * np.arange(c) + 1) / (2.0 * c)
+        rates = _gamma.ppf(quantiles, a=alpha, scale=1.0 / alpha)
+        return (rates * c / rates.sum()).astype(np.float64)
 
 
 def gamma_invariant_rates(alpha: Optional[float], p_inv: float,

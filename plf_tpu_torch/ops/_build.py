@@ -23,6 +23,7 @@ keeps them.  The kernels also spell the arithmetic with ``__fmul_rn`` /
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..utils.profiling import span
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_libraries",
            "load_library", "build_log", "storage_library"]
@@ -92,7 +95,8 @@ def build_libraries(names) -> None:
     """Build every library of ``names`` (``csrc/<name>.cu``, or its bf16
     storage form) that is missing or stale, one nvcc each, all started
     together; raise with nvcc's output if one fails (the others are
-    stopped).  Each build log records its own nvcc's seconds."""
+    stopped).  Each build log records its own nvcc's seconds; the wait
+    for the batch is the span ``ops.nvcc``."""
     jobs = []
     try:
         for name in names:
@@ -110,11 +114,12 @@ def build_libraries(names) -> None:
                                         stderr=subprocess.STDOUT)
             jobs.append(dict(name=name, so=so, tmp=tmp, out=out, cmd=cmd,
                              t0=time.perf_counter(), proc=proc, secs=None))
-        while any(j["secs"] is None for j in jobs):
-            for j in jobs:
-                if j["secs"] is None and j["proc"].poll() is not None:
-                    j["secs"] = time.perf_counter() - j["t0"]
-            time.sleep(0.05)
+        with span("ops.nvcc") if jobs else contextlib.nullcontext():
+            while any(j["secs"] is None for j in jobs):
+                for j in jobs:
+                    if j["secs"] is None and j["proc"].poll() is not None:
+                        j["secs"] = time.perf_counter() - j["t0"]
+                time.sleep(0.05)
         for j in jobs:
             text = j["out"].read_text()
             if j["proc"].returncode != 0:
@@ -134,6 +139,7 @@ def build_libraries(names) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build library ``name`` if its hash changed, then load it (once
-    per process: the callers cache the handle)."""
-    build_libraries([name])
-    return ctypes.CDLL(str(_library(name)))
+    per process: the callers cache the handle); the span ``ops.load``."""
+    with span("ops.load"):
+        build_libraries([name])
+        return ctypes.CDLL(str(_library(name)))

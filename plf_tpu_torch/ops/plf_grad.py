@@ -44,6 +44,7 @@ import functools
 import torch
 
 from ..reference import TWO_TO_THE_32
+from ..utils.profiling import span
 from .plf_node import SMEM_BLOCK_BYTES, _tile_rows, plf_node, stage
 
 __all__ = ["transpose_lane_constants", "op_grad", "plf_node_bwd",
@@ -334,13 +335,15 @@ class _PlfDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_sc):
-        x1, x2, lc, rc, ec, sc = ctx.saved_tensors
-        S, C = ctx.states, ctx.categories
-        lcT, rcT, ecT = (transpose_lane_constants(t, S, C)
-                         for t in (lc, rc, ec))
-        gx1, gx2, gl, gr, ge = plf_node_bwd(
-            x1, x2, g.contiguous(), sc, lc.contiguous(), rc.contiguous(),
-            lcT, rcT, ecT, ctx.n, states=S, categories=C)
+        with span("fn.backward"):
+            x1, x2, lc, rc, ec, sc = ctx.saved_tensors
+            S, C = ctx.states, ctx.categories
+            lcT, rcT, ecT = (transpose_lane_constants(t, S, C)
+                             for t in (lc, rc, ec))
+            gx1, gx2, gl, gr, ge = plf_node_bwd(
+                x1, x2, g.contiguous(), sc, lc.contiguous(),
+                rc.contiguous(), lcT, rcT, ecT, ctx.n, states=S,
+                categories=C)
         return gx1, gx2, gl, gr, ge, None, None, None
 
 

@@ -64,6 +64,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .plf_grad import GRAD_THREADS, op_grad, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
@@ -583,19 +584,20 @@ class _TreeDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glik, _g_sc):
-        codes, bsched, lcs, rcs, ec, ttab, rr = ctx.saved_tensors
-        S, C = ctx.states, ctx.categories
-        if uses_mxu_kernels(ctx.variant, S):
-            gl, gr, gec, grr = plf_tree_bwd_mxu(
-                codes, bsched, lcs, rcs, ec, ttab, rr, glik.contiguous(),
-                ctx.n, states=S, categories=C, variant=ctx.variant,
-                planes=ctx.planes)
-        else:
-            lcsT, rcsT, ecT = (transpose_lane_constants(t, S, C)
-                               for t in (lcs, rcs, ec))
-            gl, gr, gec, grr = plf_tree_bwd(
-                codes, bsched, lcs, rcs, lcsT, rcsT, ec, ecT, ttab, rr,
-                glik.contiguous(), ctx.n, states=S, categories=C)
+        with span("fn.backward"):
+            codes, bsched, lcs, rcs, ec, ttab, rr = ctx.saved_tensors
+            S, C = ctx.states, ctx.categories
+            if uses_mxu_kernels(ctx.variant, S):
+                gl, gr, gec, grr = plf_tree_bwd_mxu(
+                    codes, bsched, lcs, rcs, ec, ttab, rr,
+                    glik.contiguous(), ctx.n, states=S, categories=C,
+                    variant=ctx.variant, planes=ctx.planes)
+            else:
+                lcsT, rcsT, ecT = (transpose_lane_constants(t, S, C)
+                                   for t in (lcs, rcs, ec))
+                gl, gr, gec, grr = plf_tree_bwd(
+                    codes, bsched, lcs, rcs, lcsT, rcsT, ec, ecT, ttab, rr,
+                    glik.contiguous(), ctx.n, states=S, categories=C)
         return (None, gl, gr, gec, None, grr) + (None,) * 10
 
 

@@ -123,6 +123,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .plf_grad import GRAD_THREADS, transpose_lane_constants
 from .plf_mxu import (MODES, mxu_op_grad, mxu_stage, node_mxu_plain,
                       node_planes, transpose_planes, uses_mxu_kernels)
@@ -1542,12 +1543,14 @@ class _SegDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glik, _g_sc):
-        codes, prog, segs, lcs, rcs, ec, ttab, rr, bbuf = ctx.saved_tensors
-        gl, gr, gec, grr = plf_tree_seg_bwd(
-            codes, prog, segs, lcs, rcs, ec, ttab, rr, glik.contiguous(),
-            bbuf, ctx.n, seg_ops=ctx.seg_ops, states=ctx.states,
-            categories=ctx.categories, variant=ctx.variant,
-            planes=ctx.planes)
+        with span("fn.backward"):
+            codes, prog, segs, lcs, rcs, ec, ttab, rr, bbuf = \
+                ctx.saved_tensors
+            gl, gr, gec, grr = plf_tree_seg_bwd(
+                codes, prog, segs, lcs, rcs, ec, ttab, rr,
+                glik.contiguous(), bbuf, ctx.n, seg_ops=ctx.seg_ops,
+                states=ctx.states, categories=ctx.categories,
+                variant=ctx.variant, planes=ctx.planes)
         return (None, gl, gr, gec, None, grr) + (None,) * 10
 
 
